@@ -4,7 +4,8 @@
 // library per compilation, each at its first use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DBMT_ROUNDS=<R> -o <build>/lib...so gar_kernels.cu
-// R = 0 gives the sq_gram library; R in 1..kMaxRounds gives the
+// R = 0 gives the library of sq_gram and weighted_rows_mean; R in
+// 1..kMaxRounds gives the
 // selected_median_mean library for R stage-1 rounds (a caller builds only
 // the round counts it meets: the compile time grows steeply with the
 // count, whose network is unrolled into straight-line code). Each is bound through the plain C
@@ -53,12 +54,29 @@
 //   (rounds, d) stack never reaches device memory. Register arrays need
 //   compile-time indices, so the kernel is a template on ROUNDS, built for
 //   any of 1..kMaxRounds (62, every count n <= 64 rows can give), and the
-//   Batcher network is unrolled by template recursion.
+//   Batcher network is unrolled by template recursion (`batcher.cuh`).
+//
+// weighted_rows_mean: replaces
+// `byzantinemomentum_tpu/ops/pallas_gar.py::weighted_rows_mean`
+// (`_wmean_kernel`), Krum's selected-row average `w @ g` under
+// `_select_rows`' non-finite contract.
+//   Bound: bytes. At the headline shape it reads g once (131.1 MB) and
+//   writes r rows of d (5.2 MB for Krum's one row); r * n multiply-adds a
+//   coordinate.
+//   Design: stage 1 of selected_median_mean, shared with it
+//   (`stage_weights`, `select_rows_column`): thread j owns column j, with
+//   coalesced loads 8 rows ahead, the weights transposed in shared memory,
+//   one 64-bit mask per row of g for the rows of W that select it.
+//   Accumulators need compile-time indices, so a block computes a fixed
+//   group of 1 (Krum's w f32[n]) or 8 rows of W and gridDim.y walks the
+//   groups; rows past r weigh 0 and are not written.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "batcher.cuh"
 
 #ifndef BMT_ROUNDS
 #define BMT_ROUNDS 0
@@ -195,64 +213,121 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
 }
 #endif  // BMT_ROUNDS == 0
 
-// NaN-last compare-exchange (`pallas_sort.sort_values`):
-// swap = (b < a) | (isnan(a) & !isnan(b))
-__device__ __forceinline__ void cmp_swap(float& a, float& b) {
-  const bool swap = (b < a) || (isnan(a) && !isnan(b));
-  const float lo = swap ? b : a;
-  const float hi = swap ? a : b;
-  a = lo;
-  b = hi;
-}
-
-// Batcher odd-even mergesort, the exact schedule of
-// `pallas_sort._batcher_pairs(R)`:
-//   for p = 1, 2, 4, ... < R:
-//     for k = p, p/2, ..., 1:
-//       for j = k % p; j < R - k; j += 2k:
-//         for i = 0; i < min(k, R - j - k); ++i:
-//           if (i + j) / 2p == (i + j + k) / 2p: cmp_swap(v[i + j], v[i + j + k])
-// Each loop is a compile-time recursion, so every index is a constant and
-// `v` stays in registers (`#pragma unroll` over the same nest leaves some
-// R partly rolled, which puts `v` in local memory)
-template <int R, int P, int K, int J, int I>
-__device__ __forceinline__ void batcher_i(float (&v)[R]) {
-  if constexpr (I < K && I < R - J - K) {
-    if constexpr ((I + J) / (2 * P) == (I + J + K) / (2 * P)) {
-      cmp_swap(v[I + J], v[I + J + K]);
-    }
-    batcher_i<R, P, K, J, I + 1>(v);
-  }
-}
-
-template <int R, int P, int K, int J>
-__device__ __forceinline__ void batcher_j(float (&v)[R]) {
-  if constexpr (J < R - K) {
-    batcher_i<R, P, K, J, 0>(v);
-    batcher_j<R, P, K, J + 2 * K>(v);
-  }
-}
-
-template <int R, int P, int K>
-__device__ __forceinline__ void batcher_k(float (&v)[R]) {
-  if constexpr (K >= 1) {
-    batcher_j<R, P, K, K % P>(v);
-    batcher_k<R, P, K / 2>(v);
-  }
-}
-
-template <int R, int P>
-__device__ __forceinline__ void batcher_p(float (&v)[R]) {
-  if constexpr (P < R) {
-    batcher_k<R, P, P>(v);
-    batcher_p<R, 2 * P>(v);
-  }
-}
-
+// Stage 1 of Bulyan and the whole of `weighted_rows_mean`
+// (`pallas_gar._select_rows`), shared by both kernels below.
+//
+// stage_weights: rows [r0, r0 + R) of W (f32[r, n], row-major) go to
+// shared memory transposed and padded to whole float4s,
+// wt[i * R4 + q] = W[r0 + 4q .. r0 + 4q + 3, i] (0 past row r), so one
+// 16-byte (broadcast) read serves four rows; bit k of sel[i] is set when
+// row r0 + k selects row i of g (weight > 0). Every thread of the block
+// must call it.
 template <int R>
-__device__ __forceinline__ void batcher_sort(float (&v)[R]) {
-  batcher_p<R, 1>(v);
+__device__ __forceinline__ void stage_weights(const float* __restrict__ W,
+                                              int r, int r0, int n,
+                                              float4* wt,
+                                              unsigned long long* sel) {
+  static_assert(R <= 64, "one bit per row in a 64-bit mask");
+  constexpr int R4 = (R + 3) / 4;
+  float* wts = reinterpret_cast<float*>(wt);
+  for (int e = threadIdx.x; e < n * R4 * 4; e += blockDim.x) {
+    const int i = e / (R4 * 4);
+    const int k = e - i * R4 * 4;
+    wts[e] = k < R && r0 + k < r ? W[(r0 + k) * n + i] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    unsigned long long mask = 0;
+    for (int k = 0; k < R && r0 + k < r; ++k) {
+      if (W[(r0 + k) * n + i] > 0.0f) mask |= 1ull << k;
+    }
+    sel[i] = mask;
+  }
+  __syncthreads();
 }
+
+// select_rows_column: column j of the staged rows' `W @ g`, with
+// unselected non-finite values excluded from every sum; returns the mask
+// of the rows that select a non-finite value of the column (their entry
+// is NaN under the contract)
+template <int R4>
+__device__ __forceinline__ unsigned long long select_rows_column(
+    const float4* wt, const unsigned long long* sel,
+    const float* __restrict__ g, int n, long long d, long long j,
+    float (&acc)[R4 * 4]) {
+  unsigned long long bad = 0;
+#pragma unroll
+  for (int k = 0; k < R4 * 4; ++k) acc[k] = 0.0f;
+  for (int i0 = 0; i0 < n; i0 += kRowChunk) {
+    // A chunk of rows is loaded before any is used, so the loads'
+    // latencies overlap
+    float x[kRowChunk];
+#pragma unroll
+    for (int u = 0; u < kRowChunk; ++u) {
+      x[u] = i0 + u < n ? g[(i0 + u) * d + j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowChunk; ++u) {
+      const int i = i0 + u;
+      if (i >= n) break;
+      const float4* wi = wt + i * R4;
+      if (isfinite(x[u])) {
+#pragma unroll
+        for (int q = 0; q < R4; ++q) {
+          const float4 wq = wi[q];
+          acc[4 * q] = fmaf(wq.x, x[u], acc[4 * q]);
+          acc[4 * q + 1] = fmaf(wq.y, x[u], acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(wq.z, x[u], acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(wq.w, x[u], acc[4 * q + 3]);
+        }
+      } else {  // excluded from every sum; poisons the rows selecting it
+        bad |= sel[i];
+      }
+    }
+  }
+  return bad;
+}
+
+#if BMT_ROUNDS == 0
+// weighted_rows_mean: rows [RB * blockIdx.y, RB * blockIdx.y + RB) of
+// `W @ g` (f32[r, n] x f32[n, d] -> f32[r, d]); thread j owns column j
+template <int RB>
+__global__ void __launch_bounds__(kMeanThreads)
+weighted_rows_mean_kernel(const float* __restrict__ W,
+                          const float* __restrict__ g,
+                          float* __restrict__ out, int r, int n,
+                          long long d) {
+  constexpr int R4 = (RB + 3) / 4;
+  __shared__ float4 wt[kMaxRows * R4];
+  __shared__ unsigned long long sel[kMaxRows];
+  const int r0 = blockIdx.y * RB;
+  stage_weights<RB>(W, r, r0, n, wt, sel);
+  const int rows = r - r0 < RB ? r - r0 : RB;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += stride) {
+    float acc[R4 * 4];
+    const unsigned long long bad =
+        select_rows_column<R4>(wt, sel, g, n, d, j, acc);
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      if (k < rows) {
+        out[(r0 + k) * d + j] = (bad >> k) & 1ull ? nanf("") : acc[k];
+      }
+    }
+  }
+}
+
+template <int RB>
+cudaError_t launch_rows_mean(const float* W, const float* g, float* out,
+                             int r, int n, long long d, cudaStream_t stream) {
+  long long blocks = (d + kMeanThreads - 1) / kMeanThreads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  const dim3 grid((unsigned)blocks, (unsigned)((r + RB - 1) / RB));
+  weighted_rows_mean_kernel<RB>
+      <<<grid, kMeanThreads, 0, stream>>>(W, g, out, r, n, d);
+  return cudaGetLastError();
+}
+#endif  // BMT_ROUNDS == 0
 
 template <int R>
 __global__ void __launch_bounds__(kMeanThreads)
@@ -260,105 +335,31 @@ selected_median_mean_kernel(const float* __restrict__ W,
                             const float* __restrict__ g,
                             float* __restrict__ out, int n, long long d,
                             int m2) {
-  // W transposed and padded to whole float4s: wt[i][q] = W[4q..4q+3, i],
-  // so one 16-byte (broadcast) read serves four rounds; bit r of sel[i]
-  // is set when round r selects row i (W[r, i] > 0)
-  static_assert(R <= 64, "one bit per round in a 64-bit mask");
   constexpr int R4 = (R + 3) / 4;
   __shared__ float4 wt[kMaxRows * R4];
   __shared__ unsigned long long sel[kMaxRows];
-  float* wts = reinterpret_cast<float*>(wt);
-  for (int e = threadIdx.x; e < n * R4 * 4; e += blockDim.x) {
-    const int i = e / (R4 * 4);
-    const int r = e - i * R4 * 4;
-    wts[e] = r < R ? W[r * n + i] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    unsigned long long mask = 0;
-    for (int r = 0; r < R; ++r) {
-      if (W[r * n + i] > 0.0f) mask |= 1ull << r;
-    }
-    sel[i] = mask;
-  }
-  __syncthreads();
+  stage_weights<R>(W, R, 0, n, wt, sel);
 
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
-    // Stage 1 (`pallas_gar._select_rows`): W @ g with unselected
-    // non-finite rows excluded and a selected non-finite entry -> NaN
+    // Stage 1: the (R,) stack of column j; bit r of `bad`: round r
+    // selected a non-finite value
     float acc[R4 * 4];
-    unsigned long long bad = 0;  // bit r: round r selected a non-finite value
-#pragma unroll
-    for (int r = 0; r < R4 * 4; ++r) acc[r] = 0.0f;
-    for (int i0 = 0; i0 < n; i0 += kRowChunk) {
-      // A chunk of rows is loaded before any is used, so the loads'
-      // latencies overlap
-      float x[kRowChunk];
-#pragma unroll
-      for (int u = 0; u < kRowChunk; ++u) {
-        x[u] = i0 + u < n ? g[(i0 + u) * d + j] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kRowChunk; ++u) {
-        const int i = i0 + u;
-        if (i >= n) break;
-        const float4* wi = wt + i * R4;
-        if (isfinite(x[u])) {
-#pragma unroll
-          for (int q = 0; q < R4; ++q) {
-            const float4 wq = wi[q];
-            acc[4 * q] = fmaf(wq.x, x[u], acc[4 * q]);
-            acc[4 * q + 1] = fmaf(wq.y, x[u], acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(wq.z, x[u], acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(wq.w, x[u], acc[4 * q + 3]);
-          }
-        } else {  // excluded from every sum; poisons the rounds selecting it
-          bad |= sel[i];
-        }
-      }
-    }
+    const unsigned long long bad =
+        select_rows_column<R4>(wt, sel, g, n, d, j, acc);
     float rows[R], srt[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       rows[r] = (bad >> r) & 1ull ? nanf("") : acc[r];
       srt[r] = rows[r];
     }
-    // Stage 2: NaN-last lower median over the stack
-    batcher_sort<R>(srt);
+    // Stage 2: NaN-last lower median over the stack, then the mean of
+    // the m2 stack values closest to it
+    bmt::batcher_sort<R>(srt);
     const float med = srt[(R - 1) / 2];
-    if (m2 == 1) {
-      out[j] = med;  // `_common.averaged_median`'s m == 1 shortcut
-      continue;
-    }
-    // `pallas_sort.closest_mean_values`: the m2-th smallest deviation as
-    // threshold, everything strictly below it, then the ties at the
-    // threshold in index order (stable-argsort selection). Deviations are
-    // recomputed where they are read rather than kept: at 62 rounds a
-    // third register array would spill
-#pragma unroll
-    for (int r = 0; r < R; ++r) srt[r] = fabsf(rows[r] - med);
-    batcher_sort<R>(srt);
-    float thresh = srt[0];
-#pragma unroll
-    for (int r = 1; r < R; ++r) {
-      if (r == m2 - 1) thresh = srt[r];
-    }
-    float need = (float)m2;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      need -= fabsf(rows[r] - med) < thresh ? 1.0f : 0.0f;
-    }
-    float sum = 0.0f, cum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float dev = fabsf(rows[r] - med);
-      const bool eq = dev == thresh;
-      cum += eq ? 1.0f : 0.0f;
-      const bool take = dev < thresh || (eq && cum <= need);
-      sum += take ? rows[r] : 0.0f;
-    }
-    out[j] = isnan(thresh) ? nanf("") : sum / (float)m2;
+    // `_common.averaged_median`'s m == 1 shortcut
+    out[j] = m2 == 1 ? med : bmt::closest_mean_values<R>(rows, med, m2, srt);
   }
 }
 
@@ -394,6 +395,14 @@ int bmt_sq_gram(const float* g, float* partial, float* out, int n,
   const int grid = (pairs * 32 + threads - 1) / threads;
   gram_reduce_kernel<<<grid, threads, 0, s>>>(partial, out, n, blocks);
   return (int)cudaGetLastError();
+}
+
+// W f32[r, n] (1 <= r <= kMaxRows), g f32[n, d] -> out f32[r, d]
+int bmt_weighted_rows_mean(const float* W, const float* g, float* out, int r,
+                           int n, long long d, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(r == 1 ? launch_rows_mean<1>(W, g, out, r, n, d, s)
+                      : launch_rows_mean<8>(W, g, out, r, n, d, s));
 }
 #else
 int bmt_rounds() { return BMT_ROUNDS; }

@@ -9,18 +9,22 @@ Semantics are those of the JAX package:
   diagonal.
 * Selection ties resolve by stable sort order.
 
-The Gram behind `pairwise_distances` goes through `gar_kernels.sq_gram`:
-the CUDA kernel for a CUDA operand in `gar_kernels.supported`, the plain
-`g @ g.T` otherwise.
+Dispatch is the JAX package's (`byzantinemomentum_tpu/ops/_common.py`):
+the Gram behind `pairwise_distances` and `weighted_rows_mean` take the
+CUDA kernels of `gar_kernels` for a CUDA operand in
+`gar_kernels.supported`, `lower_median` and `closest_mean` those of
+`sort_kernels` for one in `sort_kernels.supported`; every other operand
+takes the plain version.
 """
 
 import torch
 
-from byzantinemomentum_tpu_torch.ops import gar_kernels
+from byzantinemomentum_tpu_torch.ops import gar_kernels, sort_kernels
 
 __all__ = ["sanitize_inf", "distances_from_sq_gram", "pairwise_distances",
-           "all_finite_from_dist", "weighted_rows_mean", "lower_median",
-           "closest_mean", "averaged_median"]
+           "all_finite_from_dist", "weighted_rows_mean",
+           "selection_influence", "lower_median", "closest_mean",
+           "averaged_median"]
 
 
 def sanitize_inf(x):
@@ -65,28 +69,36 @@ def weighted_rows_mean(w, gradients):
     non-finite semantics: unselected non-finite rows are excluded, a
     non-finite entry in a selected row gives NaN at exactly its
     coordinate. When every value is finite this is the plain product."""
+    if gar_kernels.supported(gradients):
+        return gar_kernels.weighted_rows_mean(w, gradients)
     return gar_kernels.select_rows(w, gradients)
+
+
+def selection_influence(selection_fn):
+    """The 'fraction of selected gradients that are Byzantine' influence
+    of a selection-based GAR: on the stacked matrix, a selected index at
+    or past `len(honests)` is a Byzantine row.
+    `selection_fn(gradients, f, **kwargs) -> i64[m]`."""
+    def influence(honests, byzantines, f, **kwargs):
+        gradients = torch.cat([honests, byzantines])
+        sel = selection_fn(gradients, f, **kwargs)
+        return torch.mean((sel >= honests.shape[0]).float())
+    return influence
 
 
 def lower_median(g):
     """Coordinate-wise lower median over axis 0, NaN last."""
-    n = g.shape[0]
-    return torch.sort(g, dim=0).values[(n - 1) // 2]
+    if sort_kernels.supported(g):
+        return sort_kernels.lower_median(g)
+    return sort_kernels.lower_median_plain(g)
 
 
 def closest_mean(g, c, m):
-    """Coordinate-wise mean of the `m` values closest to center `c`:
-    everything strictly below the m-th smallest deviation, then the ties
-    at it in index order (the stable-argsort selection). NaN deviations
-    sort last; fewer than m finite values gives NaN."""
-    dev = torch.abs(g - c[None, :])
-    thresh = torch.sort(dev, dim=0).values[m - 1]
-    lt = dev < thresh
-    eq = dev == thresh
-    need = m - lt.sum(dim=0)
-    take = lt | (eq & (torch.cumsum(eq.int(), dim=0) <= need))
-    out = torch.where(take, g, 0.0).sum(dim=0) / m
-    return torch.where(torch.isnan(thresh), torch.nan, out)
+    """Coordinate-wise mean of the `m` values closest to center `c`
+    (`sort_kernels.closest_mean_plain`'s rule)."""
+    if sort_kernels.supported(g) and c.dim() == 1 and c.dtype == g.dtype:
+        return sort_kernels.closest_mean(g, c, m)
+    return sort_kernels.closest_mean_plain(g, c, m)
 
 
 def averaged_median(g, m):

@@ -1,16 +1,14 @@
-"""The hand-written CUDA kernels of the Bulyan path and their plain
-PyTorch versions — the port's counterpart of
-`byzantinemomentum_tpu/ops/pallas_gar.py` (`sq_gram`,
-`selected_median_mean`) and of the parts of `ops/pallas_sort.py` they
-inline (`_batcher_pairs`, `sort_values`, `closest_mean_values`).
+"""The hand-written CUDA kernels of the distance- and selection-based
+GARs and their plain PyTorch versions — the port's counterpart of
+`byzantinemomentum_tpu/ops/pallas_gar.py` (`sq_gram`, `weighted_rows_mean`,
+`selected_median_mean`).
 
-Kernels live in `csrc/gar_kernels.cu` (CUDA C++ for `sm_90a`). They are
-compiled by `nvcc` at first use into `build/kernels/` at the root of the
-checkout and launched on `torch.cuda.current_stream()`. Each compilation
-is a shared library with a plain C interface, loaded with ctypes: one for
-`sq_gram`, and one for each stage-1 round count that `selected_median_mean`
-is called with (its sorting network is unrolled for that count, and a
-large count takes long to compile, so only the counts in use are built).
+Kernels live in `csrc/gar_kernels.cu` (CUDA C++ for `sm_90a`), built and
+bound as `ops/_cuda.py` describes: one library for `sq_gram` and
+`weighted_rows_mean`, and one for each stage-1 round count that
+`selected_median_mean` is called with (its sorting network is unrolled
+for that count, and a large count takes long to compile). They launch on
+`torch.cuda.current_stream()`.
 
 Dispatch. A wrapper given a CPU tensor runs the plain version. Given a
 CUDA tensor it checks it (f32, 2-D, contiguous, 1 <= n <= MAX_ROWS) and
@@ -20,44 +18,30 @@ outside `supported()` to their plain torch path, exactly where the JAX
 package routes operands outside `pallas_gar.supported` to its jnp path.
 
 `selected_median_mean` takes 1 <= rounds <= MAX_ROUNDS (62), every
-stage-1 round count that MAX_ROWS rows can give.
+stage-1 round count that MAX_ROWS rows can give; `weighted_rows_mean`
+takes 1 <= r <= MAX_ROWS rows of weights.
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`;
-`reset_launches()` zeroes them.
+`reset_launches()` zeroes every wrapper's count, `sort_kernels`' too.
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
-__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
-           "sq_gram_plain", "selected_median_mean",
-           "selected_median_mean_plain", "batcher_pairs", "sort_values",
-           "closest_mean_values", "select_rows", "reset_launches"]
+from byzantinemomentum_tpu_torch.ops import _cuda, sort_kernels
+from byzantinemomentum_tpu_torch.ops._cuda import (
+    MAX_ROWS, reset_launches, supported)
 
-MAX_ROWS = 64
+__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
+           "sq_gram_plain", "weighted_rows_mean", "select_rows",
+           "selected_median_mean", "selected_median_mean_plain",
+           "reset_launches"]
+
 MAX_ROUNDS = 62   # kMaxRounds in csrc/gar_kernels.cu
 GRAM_TILE = 128   # kTile in csrc/gar_kernels.cu: columns per staged slab
 GRAM_BLOCKS = 528  # pass-1 blocks of sq_gram, 4 per SM of a 132-SM H100
-
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "gar_kernels.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def supported(g):
-    """Whether the CUDA kernels apply to this operand: a CUDA f32 matrix
-    with 1 <= n <= MAX_ROWS rows (the JAX package's `pallas_gar.supported`
-    domain, on the card)."""
-    return (g.is_cuda and g.dtype == torch.float32 and g.dim() == 2
-            and 1 <= g.shape[0] <= MAX_ROWS and g.shape[1] >= 1)
 
 
 # --------------------------------------------------------------------------- #
@@ -65,33 +49,13 @@ def supported(g):
 
 def build(rounds=0):
     """Compile the library of `csrc/gar_kernels.cu` that holds `sq_gram`
-    (`rounds=0`) or `selected_median_mean` for `rounds` stage-1 rounds, if
-    it does not exist yet; returns `(library path, nvcc's output)`
-    (`-Xptxas -v` prints each kernel's registers, shared memory and
-    spills). The library name holds a digest of the source and the flags,
-    so an edited source is rebuilt."""
+    and `weighted_rows_mean` (`rounds=0`) or `selected_median_mean` for
+    `rounds` stage-1 rounds, if it does not exist yet; returns
+    `(library path, nvcc's output)`."""
     if not 0 <= rounds <= MAX_ROUNDS:
         raise ValueError(f"rounds = {rounds} outside 0..{MAX_ROUNDS}")
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgar_kernels-{digest}-r{rounds}.so"
-    log = lib.with_suffix(".log")
-    if lib.is_file():
-        return lib, log.read_text() if log.is_file() else ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.isfile(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, f"-DBMT_ROUNDS={rounds}", "-o", str(tmp),
-         str(SOURCE)], capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name} (rounds "
-                           f"{rounds}):\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent process never sees a torn file
-    return lib, proc.stdout + proc.stderr
+    return _cuda.compile_library("gar_kernels.cu", f"r{rounds}",
+                                 {"BMT_ROUNDS": rounds})
 
 
 @functools.cache
@@ -105,6 +69,9 @@ def _library(rounds=0):
             getattr(lib, name).restype = i32
         lib.bmt_sq_gram.argtypes = [ptr, ptr, ptr, i32, i64, i32, ptr]
         lib.bmt_sq_gram.restype = i32
+        lib.bmt_weighted_rows_mean.argtypes = [ptr, ptr, ptr, i32, i32, i64,
+                                               ptr]
+        lib.bmt_weighted_rows_mean.restype = i32
         if (lib.bmt_max_rounds(), lib.bmt_gram_tile()) != (MAX_ROUNDS,
                                                            GRAM_TILE):
             raise RuntimeError("csrc/gar_kernels.cu and ops/gar_kernels.py "
@@ -121,29 +88,6 @@ def _library(rounds=0):
     return lib
 
 
-def _check_cuda(name, g):
-    if not g.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {g.device}")
-    if g.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {g.dtype}")
-    if g.dim() != 2:
-        raise ValueError(f"{name}: expected a 2-D (n, d) matrix, got {tuple(g.shape)}")
-    if not g.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous matrix")
-    if not (1 <= g.shape[0] <= MAX_ROWS and g.shape[1] >= 1):
-        raise ValueError(f"{name}: expected 1 <= n <= {MAX_ROWS} rows and "
-                         f"d >= 1 columns, got {tuple(g.shape)}")
-
-
-def _raise_on(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 # --------------------------------------------------------------------------- #
 # sq_gram
 
@@ -153,98 +97,84 @@ def sq_gram_plain(g):
     return g @ g.T
 
 
+@_cuda.counted
 def sq_gram(g):
     """`g @ g.T` in one streamed read of `g` (kernel on a CUDA tensor, the
     plain version on a CPU one). Deterministic: the cross-block sum runs
     in a fixed order, with no atomics."""
     if g.device.type == "cpu":
         return sq_gram_plain(g)
-    _check_cuda("sq_gram", g)
+    _cuda.check_matrix("sq_gram", g)
     lib = _library()
     n, d = g.shape
     blocks = min(-(-d // GRAM_TILE), GRAM_BLOCKS)
     partial = torch.empty((blocks, n * (n + 1) // 2), dtype=torch.float32,
                           device=g.device)
     out = torch.empty((n, n), dtype=torch.float32, device=g.device)
-    _raise_on("sq_gram", lib.bmt_sq_gram(
+    _cuda.raise_on("sq_gram", lib.bmt_sq_gram(
         g.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, blocks,
-        _stream(g)))
+        _cuda.stream(g)))
     sq_gram.launches += 1
     return out
 
 
 # --------------------------------------------------------------------------- #
-# selected_median_mean
-
-def batcher_pairs(n):
-    """Batcher odd-even mergesort compare-exchange schedule for n rows
-    (the schedule of `pallas_sort._batcher_pairs`, which the CUDA kernel's
-    `batcher_sort` unrolls)."""
-    pairs = []
-    p = 1
-    while p < n:
-        k = p
-        while k >= 1:
-            for j in range(k % p, n - k, 2 * k):
-                for i in range(0, min(k, n - j - k)):
-                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
-                        pairs.append((i + j, i + j + k))
-            k //= 2
-        p *= 2
-    return tuple(pairs)
-
-
-def sort_values(rows):
-    """Run the Batcher network over a list of equal-shape rows, NaN last;
-    returns the sorted list."""
-    rows = list(rows)
-    for i, j in batcher_pairs(len(rows)):
-        a, b = rows[i], rows[j]
-        swap = (b < a) | (torch.isnan(a) & ~torch.isnan(b))
-        rows[i] = torch.where(swap, b, a)
-        rows[j] = torch.where(swap, a, b)
-    return rows
-
-
-def closest_mean_values(rows, c, m):
-    """Mean of the `m` row values closest to center `c`: everything
-    strictly below the m-th smallest deviation, then the ties at it in
-    index order (stable-argsort selection); NaN when the threshold is NaN
-    (fewer than m finite deviations)."""
-    devs = [torch.abs(r - c) for r in rows]
-    thresh = sort_values(devs)[m - 1]
-    need = m - sum((dev < thresh).float() for dev in devs)
-    acc = torch.zeros_like(thresh)
-    cum = torch.zeros_like(thresh)
-    for row, dev in zip(rows, devs):
-        eq = dev == thresh
-        cum = cum + eq.float()
-        take = (dev < thresh) | (eq & (cum <= need))
-        acc = acc + torch.where(take, row, torch.zeros_like(row))
-    return torch.where(torch.isnan(thresh), torch.nan, acc / m)
-
+# weighted_rows_mean
 
 def select_rows(W, g):
-    """`W @ g` with the non-finite contract of the selection averages:
-    unselected non-finite rows are excluded, and a non-finite entry in a
-    selected (w > 0) row gives NaN at exactly its coordinate."""
+    """`W @ g` (`W: f32[n] | f32[r, n]`) with the non-finite contract of
+    the selection averages: unselected non-finite rows are excluded, and a
+    non-finite entry in a selected (w > 0) row gives NaN at exactly its
+    coordinate. The plain version of `weighted_rows_mean`."""
     finite = torch.isfinite(g)
     out = W @ torch.where(finite, g, 0.0)
     bad = ((W > 0).float() @ (~finite).float()) > 0
     return torch.where(bad, torch.nan, out)
 
 
+@_cuda.counted
+def weighted_rows_mean(w, g):
+    """`select_rows(w, g)` in one streamed read of `g` (Krum's selected-row
+    average; `w: f32[n]` or `f32[r, n]`, 1 <= r <= MAX_ROWS). Kernel on a
+    CUDA tensor, the plain version on a CPU one."""
+    if g.device.type == "cpu":
+        return select_rows(w, g)
+    _cuda.check_matrix("weighted_rows_mean", g)
+    n, d = g.shape
+    W = w[None, :] if w.dim() == 1 else w
+    if (W.device != g.device or W.dtype != torch.float32 or W.dim() != 2
+            or W.shape[1] != n):
+        raise ValueError(f"weighted_rows_mean: w must be f32[{n}] or "
+                         f"f32[r, {n}] on {g.device}, got {w.dtype}"
+                         f"{tuple(w.shape)} on {w.device}")
+    r = W.shape[0]
+    if not 1 <= r <= MAX_ROWS:
+        raise ValueError(f"weighted_rows_mean: r = {r} rows of weights "
+                         f"outside 1..{MAX_ROWS}")
+    W = W.contiguous()
+    out = torch.empty((r, d), dtype=torch.float32, device=g.device)
+    _cuda.raise_on("weighted_rows_mean", _library().bmt_weighted_rows_mean(
+        W.data_ptr(), g.data_ptr(), out.data_ptr(), r, n, d,
+        _cuda.stream(g)))
+    weighted_rows_mean.launches += 1
+    return out[0] if w.dim() == 1 else out
+
+
+# --------------------------------------------------------------------------- #
+# selected_median_mean
+
 def selected_median_mean_plain(W, g, m2):
     """Bulyan stages 1 and 2: the (rounds, d) stack `select_rows(W, g)`,
-    its NaN-last lower median through the Batcher network, then the mean
-    of the m2 stack values closest to it (m2 == 1 returns the median)."""
-    rows = list(select_rows(W, g))
-    med = sort_values(rows)[(len(rows) - 1) // 2]
+    its NaN-last lower median, then the mean of the m2 stack values
+    closest to it (m2 == 1 returns the median)."""
+    stack = select_rows(W, g)
+    med = sort_kernels.lower_median_plain(stack)
     if m2 == 1:
         return med
-    return closest_mean_values(rows, med, m2)
+    return sort_kernels.closest_mean_plain(stack, med, m2)
 
 
+@_cuda.counted
 def selected_median_mean(W, g, m2):
     """Bulyan over Multi-Krum's d-space tail in one streamed read of `g`
     (`W: f32[rounds, n]` from `ops/bulyan.py::selection_weights`), without
@@ -252,7 +182,7 @@ def selected_median_mean(W, g, m2):
     the plain version on a CPU one."""
     if g.device.type == "cpu":
         return selected_median_mean_plain(W, g, m2)
-    _check_cuda("selected_median_mean", g)
+    _cuda.check_matrix("selected_median_mean", g)
     rounds, n = W.shape
     if W.device != g.device or W.dtype != torch.float32 or n != g.shape[0]:
         raise ValueError(f"selected_median_mean: W must be f32[rounds, "
@@ -265,19 +195,9 @@ def selected_median_mean(W, g, m2):
         raise ValueError(f"selected_median_mean: m2 = {m2} outside 1..{rounds}")
     W = W.contiguous()
     out = torch.empty((g.shape[1],), dtype=torch.float32, device=g.device)
-    _raise_on("selected_median_mean",
-              _library(rounds).bmt_selected_median_mean(
-                  W.data_ptr(), g.data_ptr(), out.data_ptr(), n, g.shape[1],
-                  m2, _stream(g)))
+    _cuda.raise_on("selected_median_mean",
+                   _library(rounds).bmt_selected_median_mean(
+                       W.data_ptr(), g.data_ptr(), out.data_ptr(), n,
+                       g.shape[1], m2, _cuda.stream(g)))
     selected_median_mean.launches += 1
     return out
-
-
-sq_gram.launches = 0
-selected_median_mean.launches = 0
-
-
-def reset_launches():
-    """Zero every wrapper's launch count."""
-    sq_gram.launches = 0
-    selected_median_mean.launches = 0

@@ -1,0 +1,88 @@
+"""Multi-Krum GAR (`byzantinemomentum_tpu/ops/krum.py`).
+
+Score of worker i = sum of its n-f-1 smallest distances to the other
+workers (plain Euclidean norms, non-finite -> +inf); the aggregate is the
+average of the m lowest-score gradients, default m = n-f-2, ties in
+stable-sort (index) order.
+
+The distance matrix comes from one Gram pass (`_common.pairwise_distances`,
+the `sq_gram` kernel on the card) and the selected-row average is a
+weight-vector product (`_common.weighted_rows_mean`, the
+`weighted_rows_mean` kernel on the card), so the rule reads the (n, d)
+matrix twice.
+"""
+
+import math
+
+import torch
+
+from byzantinemomentum_tpu_torch.ops import register
+from byzantinemomentum_tpu_torch.ops._common import (
+    pairwise_distances, selection_influence, weighted_rows_mean)
+
+__all__ = ["aggregate", "scores", "scores_from_dist", "selection",
+           "selection_weights"]
+
+
+def scores_from_dist(dist, f):
+    """Multi-Krum scores from the (n, n) distance matrix (+inf diagonal):
+    per row, the sum of the n-f-1 smallest distances (the diagonal sorts
+    last)."""
+    n = dist.shape[0]
+    return torch.sort(dist, dim=1).values[:, :n - f - 1].sum(dim=1)
+
+
+def scores(gradients, f):
+    """Multi-Krum scores, `f32[n, d] -> f32[n]`."""
+    return scores_from_dist(pairwise_distances(gradients), f)
+
+
+def selection_weights(dist, f, m=None):
+    """Averaging weights `f32[n]` from the (n, n) distance matrix: 1/m on
+    the m lowest-score rows (stable-tie order), 0 elsewhere."""
+    n = dist.shape[0]
+    if m is None:
+        m = n - f - 2
+    order = torch.argsort(scores_from_dist(dist, f), stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=dist.device))
+    return torch.where(ranks < m, 1.0 / m, 0.0)
+
+
+def selection(gradients, f, m=None, **kwargs):
+    """Indices of the m selected (lowest-score) gradients, in stable-sort
+    order."""
+    if m is None:
+        m = gradients.shape[0] - f - 2
+    return torch.argsort(scores(gradients, f), stable=True)[:m]
+
+
+def aggregate(gradients, f, m=None, **kwargs):
+    """Multi-Krum: the mean of the m selected rows, as a weight-vector
+    product with `_common.weighted_rows_mean`'s non-finite contract."""
+    w = selection_weights(pairwise_distances(gradients), f, m)
+    return weighted_rows_mean(w, gradients)
+
+
+def check(gradients, f, m=None, **kwargs):
+    n = gradients.shape[0]
+    if n < 1:
+        return f"Expected at least one gradient to aggregate, got {n}"
+    if not isinstance(f, int) or f < 1 or n < 2 * f + 3:
+        return f"Invalid number of Byzantine gradients to tolerate, got f = {f!r}, expected 1 <= f <= {(n - 3) // 2}"
+    if m is not None and (not isinstance(m, int) or m < 1 or m > n - f - 2):
+        return f"Invalid number of selected gradients, got m = {m!r}, expected 1 <= m <= {n - f - 2}"
+
+
+def upper_bound(n, f, d):
+    """Variance-norm ratio bound (reference `aggregators/krum.py:115-124`)."""
+    return 1 / math.sqrt(2 * (n - f + f * (n + f * (n - f - 2) - 2) / (n - 2 * f - 2)))
+
+
+# Fraction of selected gradients that are Byzantine (reference
+# `aggregators/krum.py:126-150`)
+influence = selection_influence(selection)
+
+
+register("krum", aggregate, check, upper_bound=upper_bound,
+         influence=influence)

@@ -6,26 +6,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. Environment: the card's name and power limit (`nvidia-smi`), torch and
    CUDA versions, the TF32 flags as the engine pins them.
 2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/gar_kernels.cu`
-   from this checkout into the kernel libraries the run needs.
-3. Kernels against their plain PyTorch versions on the card, at the
-   headline shape f32[25, 1,310,922] (W from the port's Bulyan selection)
-   and at a ragged d with NaN rows, a selected NaN and deviation ties;
-   the fused CUDA Bulyan against the CPU one on a small input. Timings are
-   medians of CUDA-event times; `bound_ms` is the larger of the bytes the
-   function must move over the card's memory rate and its f32 operations
-   over the card's f32 (non-tensor-core) peak.
-4. The headline cell through the port's driver: CIFAR-10 (synthetic
-   fallback), empire-cnn, n=25, f=5, 5 real Byzantine workers, Bulyan
-   against `empire factor:1.1`, batch 50, momentum 0.99 at update, clip 5,
-   nb-for-study 1. Each kernel's launch count must rise by at least the
-   number of steps, and the study CSV must be finite in "Defense gradient
-   norm" under the JAX package's header.
-5. Where a headline step's time goes: per-phase CUDA-event times, the
-   busiest kernels and the device's busy share (`torch.profiler`).
+   and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
+   the run needs (one per round count, and one per (kernel, n) for the
+   sorting kernels), all side by side; prints their registers and spills.
+3. Kernels against their plain PyTorch versions on the card: the six
+   kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at f=5,
+   Krum's weights at f=11, the trimmed mean at f=5 and 11, the closest
+   mean with m = n - f about the median and the trimmed mean), on a
+   ragged d with NaN rows, +-inf and ties, and at n = 2 and 64; each GAR
+   of the port on the card against the same GAR on the CPU at a small
+   size. Timings are medians of CUDA-event times; `bound_ms` is the
+   larger of the bytes the function must move over the card's memory
+   rate and its f32 operations over the card's f32 (non-tensor-core)
+   peak, counting 2 operations per compare-exchange of a sorting network.
+4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
+   empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
+   nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
+   Bulyan against `empire factor:1.1`, 10 steps), the `krum_f11` cell
+   (f=11, 11 real, Krum against `empire factor:1.1`, 10 steps), then 3
+   steps each of Median, Trimmed mean, Phocas, MeaMed and Aksel at f=11,
+   11 real, against `little factor:1.5 negative:true`. Launch counts are
+   zeroed before each run and read after it: each kernel of the run's
+   GAR must rise by at least its step count. Each study CSV must carry
+   the JAX package's header and a finite "Defense gradient norm".
+5. Where a step's time goes, for the headline and the `krum_f11` cells:
+   per-phase CUDA-event times, the busiest kernels and the device's busy
+   share (`torch.profiler`).
 
-The line before the last is the `{"kernels": [...]}` record; the last line
-is `{"ok": true, "device": {...}}`. Needs one card; exits non-zero without
-one.
+The line before the last is the `{"kernels": [...]}` record (launches
+summed over the runs of phase 4); the last line is `{"ok": true,
+"device": {...}}`. Needs one card; exits non-zero without one.
 """
 
 import json
@@ -48,9 +58,12 @@ from torch.profiler import ProfilerActivity, profile
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.engine.step import pin_f32
-from byzantinemomentum_tpu_torch.ops import _common, bulyan, gar_kernels, gars
+from byzantinemomentum_tpu_torch.ops import (
+    _common, _cuda, bulyan, gar_kernels, gars, krum, sort_kernels)
 
-STEPS = 10
+STEPS = 10        # steps of the headline and krum_f11 cells
+GAR_STEPS = 3     # steps of each coordinate-wise GAR run
+SORT_SIZES = (2, 25, 64)  # row counts the sorting kernels meet below
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # tests/test_torch_ops.py's tolerances
 # Published H100 peaks (NVIDIA data sheets): memory bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -121,162 +134,274 @@ def environment():
 
 
 def build():
-    """Phase 2: the `sq_gram` library and the `selected_median_mean` ones
-    for the round counts this script meets (13 at n=25, f=5; 5 at n=11,
-    f=2), compiled side by side."""
+    """Phase 2: the `sq_gram`/`weighted_rows_mean` library, the
+    `selected_median_mean` ones for the round counts this script meets
+    (13 at n=25, f=5; 5 at n=11, f=2) and the sorting kernels at the row
+    counts it meets, compiled side by side."""
+    jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13)]
+    jobs += [(sort_kernels.build, kernel, n)
+             for kernel in sort_kernels.KERNELS for n in SORT_SIZES]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:
-        built = list(pool.map(gar_kernels.build, (0, 5, 13)))
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = list(pool.map(lambda job: job[0](*job[1:]), jobs))
     log(f"build {time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(path.name for path, _ in built)}")
-    out = "".join(text for _, text in built)
-    registers = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
-    spills = re.findall(r"(\d+) bytes spill stores", out)
-    log(f"ptxas: {len(registers)} kernels, at most {max(registers, default=0)} "
-        f"registers, {sum(int(x) > 0 for x in spills)} with spill stores")
+    for path, text in built:
+        kernels = re.findall(
+            r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) "
+            r"bytes spill stores.*?Used (\d+) registers", text, re.S)
+        # A mangled name holds the kernel's as <length><name> before its
+        # template (I...) or parameter (E...) list
+        log(f"  ptxas {path.name}: " + ", ".join(
+            f"{(re.findall(r'[0-9]([a-z_]+_kernel)(?=[EI])', name) or [name])[-1]} "
+            f"{regs} registers, {spill} bytes spilled"
+            for name, spill, regs in kernels))
 
 
 def kernels_vs_plain(smi):
     """Phase 3; returns the per-kernel records without launch counts."""
     dev = torch.device("cuda")
     n, f, d = 25, 5, 1310922
+    f11 = 11
     gen = torch.Generator(device=dev).manual_seed(0)
     g = torch.randn((n, d), generator=gen, device=dev)
-    W = bulyan.selection_weights(_common.pairwise_distances(g), f)
+    dist = _common.pairwise_distances(g)
+    W = bulyan.selection_weights(dist, f)
+    w = krum.selection_weights(dist, f11)
     rounds = W.shape[0]
     m2 = rounds - 2 * f
-    log(f"headline operand f32{list(g.shape)}: rounds {rounds}, m2 {m2}")
+    log(f"headline operand f32{list(g.shape)}: rounds {rounds}, m2 {m2}; "
+        f"Krum at f={f11} selects {int((w > 0).sum())} rows")
+    errs = dict.fromkeys(("sq_gram", "selected_median_mean",
+                          "weighted_rows_mean", *sort_kernels.KERNELS), 0.0)
+
+    def check(name, label, got, want, atol=TOL_ATOL):
+        errs[name] = max(errs[name], compare(f"{name} {label}", got, want, atol))
 
     def gram_atol(plain):
         diag = torch.diagonal(plain)
         return TOL_RTOL * float(diag[torch.isfinite(diag)].max())
 
-    plain_gram = gar_kernels.sq_gram_plain(g)
-    err_gram = compare("sq_gram", gar_kernels.sq_gram(g), plain_gram,
-                       atol=gram_atol(plain_gram))
-    err_smm = max(compare(f"selected_median_mean m2={m}",
-                          gar_kernels.selected_median_mean(W, g, m),
-                          gar_kernels.selected_median_mean_plain(W, g, m))
-                  for m in (1, m2))
+    def check_sort_kernels(label, h, fs):
+        nh = h.shape[0]
+        check("lower_median", label, sort_kernels.lower_median(h),
+              sort_kernels.lower_median_plain(h))
+        for fh in fs:
+            check("trimmed_mean", f"{label} f={fh}",
+                  sort_kernels.trimmed_mean(h, fh),
+                  sort_kernels.trimmed_mean_plain(h, fh))
+            for centre_name, centre in (
+                    ("median", sort_kernels.lower_median_plain(h)),
+                    ("trmean", sort_kernels.trimmed_mean_plain(h, fh))):
+                check("closest_mean", f"{label} m={nh - fh} about the "
+                      f"{centre_name}", sort_kernels.closest_mean(h, centre, nh - fh),
+                      sort_kernels.closest_mean_plain(h, centre, nh - fh))
 
-    # Ragged d: NaN rows, a selected NaN, half-integer values (ties)
+    plain_gram = gar_kernels.sq_gram_plain(g)
+    check("sq_gram", "headline", gar_kernels.sq_gram(g), plain_gram,
+          atol=gram_atol(plain_gram))
+    for m in (1, m2):
+        check("selected_median_mean", f"headline m2={m}",
+              gar_kernels.selected_median_mean(W, g, m),
+              gar_kernels.selected_median_mean_plain(W, g, m))
+    for label, weights in (("Krum f=11", w), ("Bulyan W", W)):
+        check("weighted_rows_mean", f"headline {label}",
+              gar_kernels.weighted_rows_mean(weights, g),
+              gar_kernels.select_rows(weights, g))
+    check_sort_kernels("headline", g, (f, f11))
+
+    # Ragged d: NaN rows, +-inf, a selected NaN, half-integer values (ties)
     rng = np.random.default_rng(1)
-    h = np.round(rng.standard_normal((n, 100_003)) * 2.0).astype(np.float32) / 2.0
-    h[22, rng.integers(0, h.shape[1], 50)] = np.nan
-    h[3, rng.integers(0, h.shape[1], 50)] = np.nan
-    h = torch.from_numpy(h).to(dev)
+
+    def ragged(rows):
+        h = np.round(rng.standard_normal((rows, 100_003)) * 2.0).astype(np.float32) / 2.0
+        h[rows - 1, rng.integers(0, h.shape[1], 50)] = np.nan
+        h[min(3, rows - 1), rng.integers(0, h.shape[1], 50)] = np.nan
+        h[0, rng.integers(0, h.shape[1], 20)] = np.inf
+        h[rows // 2, rng.integers(0, h.shape[1], 20)] = -np.inf
+        return torch.from_numpy(h).to(dev)
+
+    h = ragged(n)
     Wr = bulyan.selection_weights(_common.pairwise_distances(h), f)
-    Wr[0, 22] = Wr[0][Wr[0] > 0][0]  # round 0 also selects a NaN row
+    Wr[0, n - 1] = Wr[0][Wr[0] > 0][0]  # round 0 also selects a NaN row
     plain_h = gar_kernels.sq_gram_plain(h)
-    err_gram = max(err_gram, compare("sq_gram ragged", gar_kernels.sq_gram(h),
-                                     plain_h, atol=gram_atol(plain_h)))
+    check("sq_gram", "ragged", gar_kernels.sq_gram(h), plain_h,
+          atol=gram_atol(plain_h))
     for m in (1, 2, 3, rounds):
-        err_smm = max(err_smm, compare(
-            f"selected_median_mean ragged m2={m}",
-            gar_kernels.selected_median_mean(Wr, h, m),
-            gar_kernels.selected_median_mean_plain(Wr, h, m)))
+        check("selected_median_mean", f"ragged m2={m}",
+              gar_kernels.selected_median_mean(Wr, h, m),
+              gar_kernels.selected_median_mean_plain(Wr, h, m))
     # With m2 = rounds every stack value is taken: the NaN must come out
     if not bool(gar_kernels.selected_median_mean(Wr, h, rounds).isnan().any()):
         raise SystemExit("ragged case: the selected NaN reached no output")
+    wr = (Wr[0] > 0).float() / float((Wr[0] > 0).sum())
+    for label, weights in (("w", wr), ("W", Wr)):
+        out = gar_kernels.weighted_rows_mean(weights, h)
+        check("weighted_rows_mean", f"ragged {label}", out,
+              gar_kernels.select_rows(weights, h))
+        if not bool(out.isnan().any()):
+            raise SystemExit("ragged case: weighted_rows_mean lost the selected NaN")
+    check_sort_kernels("ragged", h, (f, f11))
 
-    # The whole GAR: fused CUDA path against the CPU plain path
+    # The row counts at the ends of the kernels' domain
+    for rows, fs in ((2, (0,)), (64, (7, 31))):
+        h = ragged(rows)
+        check_sort_kernels(f"n={rows}", h, fs)
+        W_rows = torch.from_numpy(
+            (rng.random((rows, rows)) < 0.5).astype(np.float32) / rows).to(dev)
+        W_rows[:, rows - 1] = 1.0 / rows  # every row selects the NaN row
+        for label, weights in (("w", W_rows[0]), ("W", W_rows)):
+            check("weighted_rows_mean", f"n={rows} {label}",
+                  gar_kernels.weighted_rows_mean(weights, h),
+                  gar_kernels.select_rows(weights, h))
+
+    # Each GAR: the CUDA path against the CPU plain path
     small = torch.from_numpy(rng.standard_normal((11, 5001)).astype(np.float32))
     compare("bulyan cuda vs cpu", gars["bulyan"](small.to(dev), f=2),
             gars["bulyan"](small, f=2))
-    log(f"kernels agree with their plain versions: sq_gram max abs err "
-        f"{err_gram:.3e}, selected_median_mean {err_smm:.3e}")
+    small = torch.from_numpy(rng.standard_normal((25, 20_001)).astype(np.float32))
+    small[14:] = small[:14].mean(dim=0) - 1.5 * small[:14].std(dim=0)
+    small[2, :7] = torch.nan
+    for name, kwargs in (("krum", {}), ("median", {}), ("trmean", {}),
+                         ("phocas", {}), ("meamed", {}), ("aksel", {}),
+                         ("aksel", {"mode": "n-f"})):
+        compare(f"{name} cuda vs cpu", gars[name](small.to(dev), f=f11, **kwargs),
+                gars[name](small, f=f11, **kwargs))
+    log("kernels agree with their plain versions: " + ", ".join(
+        f"{name} max abs err {err:.3e}" for name, err in errs.items()))
 
     bandwidth, flops32 = card_peaks(smi)
     fbytes = 4
-    gram_bytes = (n * d + n * n) * fbytes
-    gram_ops = 2 * (n * (n + 1) // 2) * d
-    smm_bytes = (n * d + rounds * n + d) * fbytes
-    smm_ops = 2 * rounds * n * d
+    exchanges = len(sort_kernels.batcher_pairs(n))
+    median = sort_kernels.lower_median_plain(g)
+    # (name, kernel, plain, library call, bytes, f32 operations)
+    work = (
+        ("sq_gram", lambda: gar_kernels.sq_gram(g),
+         lambda: gar_kernels.sq_gram_plain(g), lambda: torch.matmul(g, g.T),
+         (n * d + n * n) * fbytes, 2 * (n * (n + 1) // 2) * d),
+        ("selected_median_mean",
+         lambda: gar_kernels.selected_median_mean(W, g, m2),
+         lambda: gar_kernels.selected_median_mean_plain(W, g, m2), None,
+         (n * d + rounds * n + d) * fbytes, 2 * rounds * n * d),
+        ("weighted_rows_mean", lambda: gar_kernels.weighted_rows_mean(w, g),
+         lambda: gar_kernels.select_rows(w, g), lambda: torch.matmul(w, g),
+         (n * d + n + d) * fbytes, 2 * n * d),
+        ("lower_median", lambda: sort_kernels.lower_median(g),
+         lambda: sort_kernels.lower_median_plain(g),
+         lambda: torch.sort(g, dim=0),
+         (n * d + d) * fbytes, 2 * exchanges * d),
+        ("trimmed_mean", lambda: sort_kernels.trimmed_mean(g, f11),
+         lambda: sort_kernels.trimmed_mean_plain(g, f11),
+         lambda: torch.sort(g, dim=0),
+         (n * d + d) * fbytes, (2 * exchanges + n - 2 * f11 + 1) * d),
+        # Deviations: a subtract and an absolute value per value
+        ("closest_mean", lambda: sort_kernels.closest_mean(g, median, n - f11),
+         lambda: sort_kernels.closest_mean_plain(g, median, n - f11), None,
+         (n * d + 2 * d) * fbytes, (2 * exchanges + 2 * n) * d))
+    sources = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
+               "weighted_rows_mean": "gar_kernels.cu"}
+    replaces = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
+                "weighted_rows_mean": "pallas_gar.py:210",
+                "lower_median": "pallas_sort.py:200",
+                "trimmed_mean": "pallas_sort.py:215",
+                "closest_mean": "pallas_sort.py:252"}
     records = []
-    for name, fn, plain, library, nbytes, ops in (
-            ("sq_gram", lambda: gar_kernels.sq_gram(g),
-             lambda: gar_kernels.sq_gram_plain(g),
-             lambda: torch.matmul(g, g.T), gram_bytes, gram_ops),
-            ("selected_median_mean",
-             lambda: gar_kernels.selected_median_mean(W, g, m2),
-             lambda: gar_kernels.selected_median_mean_plain(W, g, m2),
-             None, smm_bytes, smm_ops)):
+    for name, fn, plain, library, nbytes, ops in work:
         t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
         records.append({
             "name": name, "route": "cuda",
-            "source": "byzantinemomentum_tpu_torch/csrc/gar_kernels.cu",
-            "replaces": ("byzantinemomentum_tpu/ops/pallas_gar.py:135"
-                         if name == "sq_gram" else
-                         "byzantinemomentum_tpu/ops/pallas_gar.py:237"),
-            "launches": None,
-            "max_abs_err": err_gram if name == "sq_gram" else err_smm,
+            "source": "byzantinemomentum_tpu_torch/csrc/"
+                      + sources.get(name, "sort_kernels.cu"),
+            "replaces": "byzantinemomentum_tpu/ops/" + replaces[name],
+            "launches": None, "max_abs_err": errs[name],
             "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(library) if library else None})
         log(f"  {name}: {records[-1]['ms']:.4f} ms, plain "
             f"{records[-1]['plain_ms']:.4f} ms, bound "
-            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}), "
+            f"library {records[-1]['library_ms']}")
     return records
 
 
-def headline_argv(steps, resdir):
-    """The driver's command line for the headline cell."""
+# (name, GAR, f, attack and its arguments, steps, kernels the GAR launches)
+EMPIRE = ("empire", ("factor:1.1",))
+LITTLE = ("little", ("factor:1.5", "negative:true"))
+CELLS = (
+    ("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean")),
+    ("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean")),
+    ("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",)),
+    ("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",)),
+    ("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean")),
+    ("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean")),
+    ("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",)),
+)
+WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
+    gar_kernels.sq_gram, gar_kernels.selected_median_mean,
+    gar_kernels.weighted_rows_mean, sort_kernels.lower_median,
+    sort_kernels.trimmed_mean, sort_kernels.closest_mean)}
+
+
+def cell_argv(cell, steps, resdir):
+    """The driver's command line for a cell of `CELLS`."""
+    _, gar, f, (attack, attack_args), _, _ = cell
     return ["--device", "cuda", "--seed", "1", "--nb-steps", str(steps),
             "--dataset", "cifar10", "--model", "empire-cnn",
-            "--nb-workers", "25", "--nb-decl-byz", "5", "--nb-real-byz", "5",
-            "--gar", "bulyan", "--attack", "empire", "--attack-args",
-            "factor:1.1", "--batch-size", "50", "--batch-size-test", "100",
-            "--batch-size-test-reps", "5", "--evaluation-delta", str(steps),
-            "--momentum", "0.99", "--momentum-at", "update",
-            "--gradient-clip", "5", "--learning-rate", "0.01",
-            "--nb-for-study", "1", "--nb-for-study-past", "1",
-            "--result-directory", resdir]
+            "--nb-workers", "25", "--nb-decl-byz", str(f),
+            "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
+            "--attack-args", *attack_args, "--batch-size", "50",
+            "--batch-size-test", "100", "--batch-size-test-reps", "5",
+            "--evaluation-delta", str(steps), "--momentum", "0.99",
+            "--momentum-at", "update", "--gradient-clip", "5",
+            "--learning-rate", "0.01", "--nb-for-study", "1",
+            "--nb-for-study-past", "1", "--result-directory", resdir]
 
 
-def headline_cell(smi):
-    """Phase 4; returns the launch counts of the run."""
+def drive(cell, smi):
+    """Phase 4, one run; returns its launch counts."""
+    name, _, _, _, steps, kernels = cell
     with tempfile.TemporaryDirectory() as tmp:
-        argv = headline_argv(STEPS, tmp)
-        gar_kernels.reset_launches()
+        argv = cell_argv(cell, steps, tmp)
+        _cuda.reset_launches()
         summary = driver.run(argv)
         torch.cuda.synchronize()
-        launches = {"sq_gram": gar_kernels.sq_gram.launches,
-                    "selected_median_mean":
-                        gar_kernels.selected_median_mean.launches}
+        launches = {kernel: wrapper.launches for kernel, wrapper in WRAPPERS.items()}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
     header = lines[0]
     if header != "# " + "\t".join(STUDY_COLUMNS):
-        raise SystemExit("study header differs from STUDY_COLUMNS")
+        raise SystemExit(f"{name}: study header differs from STUDY_COLUMNS")
     rows = [line.split("\t") for line in lines[1:]]
-    if len(rows) != STEPS:
-        raise SystemExit(f"study has {len(rows)} rows, expected {STEPS}")
+    if len(rows) != steps:
+        raise SystemExit(f"{name}: study has {len(rows)} rows, expected {steps}")
     col = STUDY_COLUMNS.index("Defense gradient norm")
     norms = np.array([float(row[col]) for row in rows])
     if not np.all(np.isfinite(norms)):
-        raise SystemExit(f"non-finite defense gradient norm: {norms}")
-    for name, count in launches.items():
-        if count < STEPS:
-            raise SystemExit(f"{name} launched {count} times in {STEPS} "
-                             f"steps: the main path bypassed it")
+        raise SystemExit(f"{name}: non-finite defense gradient norm: {norms}")
+    for kernel in kernels:
+        if launches[kernel] < steps:
+            raise SystemExit(f"{name}: {kernel} launched {launches[kernel]} "
+                             f"times in {steps} steps: the path bypassed it")
     rate = summary["steps_per_s"]
     if rate is None or not math.isfinite(rate):
-        raise SystemExit("no throughput measured")
-    log(f"headline cell: {STEPS} steps, {rate:.4f} steps/s after the first "
-        f"step, launches {launches}, defense norms {norms[0]:.4e} .. "
-        f"{norms[-1]:.4e} on {smi}")
+        raise SystemExit(f"{name}: no throughput measured")
+    ratio = rows[-1][STUDY_COLUMNS.index("Attack acceptation ratio")]
+    log(f"{name} cell: {steps} steps, {rate:.4f} steps/s after the first "
+        f"step, launches { {k: v for k, v in launches.items() if v} }, "
+        f"defense norms {norms[0]:.4e} .. {norms[-1]:.4e}, acceptation "
+        f"ratio {ratio} on {smi}")
     return launches
 
 
-def step_profile(smi, steps=3):
-    """Phase 5: where the device time of a headline step goes, over
-    `steps` warm steps with host batch sampling included, as in the
-    driver. CUDA events between the engine's three phases give each
-    phase's time on the device's clock; `torch.profiler` gives the
-    busiest kernels and the device's busy share of the wall time."""
+def step_profile(cell, smi, steps=3):
+    """Phase 5: where the device time of a cell's step goes, over `steps`
+    warm steps with host batch sampling included, as in the driver. CUDA
+    events between the engine's three phases give each phase's time on
+    the device's clock; `torch.profiler` gives the busiest kernels and
+    the device's busy share of the wall time."""
     with tempfile.TemporaryDirectory() as tmp:
         args = driver._postprocess(driver.process_commandline(
-            headline_argv(steps, tmp)))
+            cell_argv(cell, steps, tmp)))
         device, engine, trainset, _ = driver._setup(args)
     state = engine.init()
     lr = args.learning_rate
@@ -322,8 +447,8 @@ def step_profile(smi, steps=3):
         return total / 1e3 / steps
 
     busy_ms = sum(device_ms(e) for e in kernels)
-    log(f"step profile over {steps} steps on {smi}: wall {wall_ms:.3f} "
-        f"ms/step, device busy {busy_ms:.3f} ms/step "
+    log(f"{cell[0]} step profile over {steps} steps on {smi}: wall "
+        f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
         f"({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(e.count for e in kernels) // steps} device ops/step")
     log("  device clock per phase (ms/step): " + ", ".join(
@@ -339,10 +464,14 @@ def main():
     smi = environment()
     build()
     records = kernels_vs_plain(smi)
-    launches = headline_cell(smi)
-    step_profile(smi)
+    totals = dict.fromkeys(WRAPPERS, 0)
+    for cell in CELLS:
+        for kernel, count in drive(cell, smi).items():
+            totals[kernel] += count
+    for cell in CELLS[:2]:
+        step_profile(cell, smi)
     for record in records:
-        record["launches"] = launches[record["name"]]
+        record["launches"] = totals[record["name"]]
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

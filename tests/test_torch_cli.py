@@ -52,9 +52,11 @@ def _driver(*argv, cwd):
         check=False)
 
 
-def test_driver_headline_cell_on_cpu(tmp_path):
+def _study_rows(tmp_path, argv):
+    """Run the driver on the CPU; check its `eval` and `study` headers
+    against the JAX driver's byte for byte and return the study rows."""
     resdir = tmp_path / "run"
-    proc = _driver("--device", "cpu", *HEADLINE, "--result-directory",
+    proc = _driver("--device", "cpu", *argv, "--result-directory",
                    str(resdir), cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr
     want = tmp_path / "want"
@@ -70,6 +72,11 @@ def test_driver_headline_cell_on_cpu(tmp_path):
         assert got.split(os.linesep)[0] == header
     rows = (resdir / "study").read_text().split(os.linesep)[1:]
     assert [int(row.split("\t")[0]) for row in rows] == [0, 1, 2]
+    return resdir, rows
+
+
+def test_driver_headline_cell_on_cpu(tmp_path):
+    resdir, rows = _study_rows(tmp_path, HEADLINE)
     for row in rows:
         fields = row.split("\t")
         assert len(fields) == len(STUDY_COLUMNS)
@@ -82,6 +89,32 @@ def test_driver_headline_cell_on_cpu(tmp_path):
     assert list(session.data.index) == [0, 1, 2, 3]
     assert np.all(np.isfinite(session.data["Defense gradient norm"].dropna()))
     assert session.json["gar"] == "bulyan" and session.json["device"] == "cpu"
+
+
+def test_driver_krum_on_cpu(tmp_path):
+    argv = [*HEADLINE, "--nb-decl-byz", "4", "--nb-real-byz", "4",
+            "--gar", "krum", "--gar-args", "m:5", "--attack", "little",
+            "--attack-args", "factor:1.5", "negative:true"]
+    resdir, rows = _study_rows(tmp_path, argv)
+    for row in rows:
+        fields = row.split("\t")
+        assert len(fields) == len(STUDY_COLUMNS)
+        values = np.array([float(v) for v in fields[2:-3] + fields[-1:]])
+        assert np.all(np.isfinite(values)), row
+        assert 0.0 <= float(fields[-1]) <= 1.0
+    session = study.Session(resdir)
+    assert session.json["gar"] == "krum" and session.json["gar_args"] == {"m": 5}
+
+
+def test_driver_refuses_gars_it_lacks_or_cannot_use(tmp_path):
+    proc = _driver("--device", "cpu", *HEADLINE, "--gar", "native-krum",
+                   cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "Unknown aggregation rule 'native-krum', expected one of:" in proc.stderr
+    proc = _driver("--device", "cpu", *HEADLINE, "--gar", "aksel",
+                   "--gar-args", "mode:bad", cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "Invalid operation mode 'bad'" in proc.stderr
 
 
 def test_driver_refuses_without_a_card_or_an_unported_flag(tmp_path):

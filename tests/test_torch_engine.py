@@ -1,8 +1,10 @@
 """Parity of the PyTorch port's training step with the JAX package's.
 
-One step at n=11, f=2 (2 real Byzantine workers, Bulyan against
-`empire(1.1)`), batch 4, 11 sampled gradients, clip 5, for every momentum
-placement with and without the Nesterov lookahead. Both packages start
+One step at n=11, f=2 (2 real Byzantine workers against `empire(1.1)`),
+batch 4, 11 sampled gradients, clip 5: Bulyan for every momentum
+placement with and without the Nesterov lookahead, and each of Krum,
+Median, Trimmed mean, Phocas, MeaMed and Aksel with momentum at the
+update. Both packages start
 from the same weights (`convert.params_from_jax`), the same momentum
 buffers and past ring, and the port gets the JAX dropout masks of each
 worker's key:
@@ -87,15 +89,24 @@ def test_compose_bn_updates_equals_sequential_fold():
     np.testing.assert_allclose(got.numpy(), r.numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("momentum_at", ("update", "server", "worker"))
-@pytest.mark.parametrize("nesterov", (False, True))
-def test_step_matches_jax(momentum_at, nesterov):
+STEP_CASES = ([("bulyan", momentum_at, nesterov)
+               for nesterov in (False, True)
+               for momentum_at in ("update", "server", "worker")]
+              + [(gar, "update", False) for gar in
+                 ("krum", "median", "trmean", "phocas", "meamed", "aksel")])
+
+
+@pytest.mark.parametrize(
+    "gar,momentum_at,nesterov", STEP_CASES,
+    ids=[f"{nesterov}-{momentum_at}" if gar == "bulyan" else f"{gar}-{momentum_at}"
+         for gar, momentum_at, nesterov in STEP_CASES])
+def test_step_matches_jax(gar, momentum_at, nesterov):
     jcfg = JaxConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     mdef = jax_models.build("empire-cnn")
     jengine = build_engine(
         cfg=jcfg, model_def=mdef, loss=jax_losses.Loss("nll"),
         criterion=jax_losses.Criterion("top-k"),
-        defenses=[(jax_ops.gars["bulyan"], 1.0, {})],
+        defenses=[(jax_ops.gars[gar], 1.0, {})],
         attack=jax_attacks.attacks["empire"], attack_kwargs={"factor": 1.1})
     key = jax.random.PRNGKey(3)
     params, net_state = mdef.init(key)
@@ -116,7 +127,7 @@ def test_step_matches_jax(momentum_at, nesterov):
     cfg = EngineConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     model = models.build("empire-cnn", device="cpu")
     engine = Engine(cfg, model, Loss("nll"), Criterion("top-k"),
-                    (gars["bulyan"], {}), attacks["empire"], {"factor": 1.1},
+                    (gars[gar], {}), attacks["empire"], {"factor": 1.1},
                     optim.build("sgd", weight_decay=cfg.weight_decay),
                     torch.Generator())
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
@@ -149,6 +160,8 @@ def test_step_matches_jax(momentum_at, nesterov):
     G_attack, grad_def, ratio = engine.phase_defense(_t(jG_honest))
     _close(G_attack, jG_attack)
     _close(grad_def, jdef)
+    # Krum and Aksel select rows, so they have an acceptation ratio
+    assert np.isfinite(ratio) == (gar in ("krum", "aksel")) == np.isfinite(float(jratio))
     net_t = {name: _t(v) for name, v in convert.flat_items(jax.tree.map(np.asarray, jnet))}
     new, metrics = engine.phase_update(
         state, _t(jG_sampled), _t(jloss), net_t, _t(jmw), _t(jG_honest),

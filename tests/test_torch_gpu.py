@@ -5,14 +5,16 @@ This file imports no JAX, so it also runs on a machine that has only
 PyTorch: `python -m pytest --noconftest -q tests/test_torch_gpu.py`.
 Tolerances are those of `tests/test_torch_ops.py`: NaN/inf positions
 exact, values within rtol 1e-5, atol 1e-6 (f32 sums in another order),
-Gram entries within 1e-5 of their largest diagonal entry.
+Gram entries within 1e-5 of their largest diagonal entry. Every launch
+of a kernel must add one to its wrapper's count.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from byzantinemomentum_tpu_torch.ops import _common, bulyan, gar_kernels, gars
+from byzantinemomentum_tpu_torch.ops import (
+    _common, bulyan, gar_kernels, gars, sort_kernels)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -24,14 +26,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _mat(n, d, seed, nan_rows=(), dup=False):
+def _mat(n, d, seed, nan_rows=(), dup=False, inf=False):
     rng = np.random.default_rng(seed)
     g = rng.standard_normal((n, d)).astype(np.float32)
     if dup:  # equal values across rows: ties in sorts and deviations
         g = np.round(g * 2.0).astype(np.float32) / 2.0
     for r in nan_rows:
         g[r, rng.integers(0, d, size=7)] = np.nan
+    if inf:
+        g[0, rng.integers(0, d, size=5)] = np.inf
+        g[n - 1, rng.integers(0, d, size=5)] = -np.inf
     return torch.from_numpy(g)
+
+
+def _launched(wrapper, fn):
+    """`fn()`, checking that it launched `wrapper`'s kernel once."""
+    before = wrapper.launches
+    out = fn()
+    assert wrapper.launches == before + 1
+    return out
 
 
 def _assert_values(got, want, atol=ATOL):
@@ -91,3 +104,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="rounds"):  # past MAX_ROUNDS
         gar_kernels.selected_median_mean(W.expand(gar_kernels.MAX_ROUNDS + 1, 5)
                                          .contiguous(), g, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rows", ((1, 0), (2, 0), (2, 2), (25, 0), (25, 13),
+                                    (64, 0), (64, 64)))
+def test_weighted_rows_mean_matches_plain(cuda, n, rows):
+    """Krum weights (rows == 0, w f32[n]) or a (rows, n) stack of random
+    selections; the first selection also takes the NaN row."""
+    g = _mat(n, 20_011, seed=5 * n, nan_rows=(n - 1,), inf=True).to(cuda)
+    rng = np.random.default_rng(n + rows)
+    W = np.zeros((max(rows, 1), n), np.float32)
+    for r in range(W.shape[0]):
+        picked = np.union1d(rng.permutation(n)[:int(rng.integers(1, n + 1))],
+                            [n - 1] if r == 0 else [])
+        W[r, picked.astype(int)] = np.float32(1.0) / len(picked)
+    w = torch.from_numpy(W[0] if rows == 0 else W).to(cuda)
+    got = _launched(gar_kernels.weighted_rows_mean,
+                    lambda: gar_kernels.weighted_rows_mean(w, g))
+    _assert_values(got, gar_kernels.select_rows(w, g))
+    assert bool((got if rows == 0 else got[0]).isnan().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 25, 64))
+@pytest.mark.parametrize("dup", (False, True))
+def test_lower_median_matches_plain(cuda, n, dup):
+    g = _mat(n, 20_011, seed=7 * n, nan_rows=(n - 1,), dup=dup, inf=True).to(cuda)
+    got = _launched(sort_kernels.lower_median, lambda: sort_kernels.lower_median(g))
+    assert torch.equal(got.nan_to_num(), sort_kernels.lower_median_plain(g).nan_to_num())
+    _assert_values(got, sort_kernels.lower_median_plain(g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f", ((1, 0), (2, 0), (25, 0), (25, 5), (25, 11),
+                                 (64, 7), (64, 31)))
+def test_trimmed_mean_matches_plain(cuda, n, f):
+    g = _mat(n, 20_011, seed=11 * n + f, nan_rows=(n - 1,), dup=True,
+             inf=True).to(cuda)
+    got = _launched(sort_kernels.trimmed_mean,
+                    lambda: sort_kernels.trimmed_mean(g, f))
+    _assert_values(got, sort_kernels.trimmed_mean_plain(g, f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", ((1, 1), (2, 1), (2, 2), (25, 1), (25, 14),
+                                 (25, 25), (64, 57), (64, 64)))
+@pytest.mark.parametrize("centre", ("median", "trmean"))
+def test_closest_mean_matches_plain(cuda, n, m, centre):
+    g = _mat(n, 20_011, seed=13 * n + m, nan_rows=(n - 1,), dup=True,
+             inf=True).to(cuda)
+    c = (sort_kernels.lower_median_plain(g) if centre == "median"
+         else sort_kernels.trimmed_mean_plain(g, (n - 1) // 4))
+    c[:9] = torch.nan
+    got = _launched(sort_kernels.closest_mean,
+                    lambda: sort_kernels.closest_mean(g, c, m))
+    _assert_values(got, sort_kernels.closest_mean_plain(g, c, m))
+    assert bool(got[:9].isnan().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kwargs", (("krum", {}), ("krum", {"m": 3}),
+                                         ("median", {}), ("trmean", {}),
+                                         ("phocas", {}), ("meamed", {}),
+                                         ("aksel", {"mode": "mid"}),
+                                         ("aksel", {"mode": "n-f"})))
+def test_gars_on_card_match_cpu(cuda, name, kwargs):
+    g = _mat(25, 30_001, seed=17, nan_rows=(3,))
+    g[14:] = g[:14].mean(dim=0) - 1.5 * g[:14].std(dim=0)  # 11 identical rows
+    # Which of the identical rows a selection takes may differ with the
+    # rounding of their distances; their mean and Byzantine share may not
+    _assert_values(gars[name](g.to(cuda), f=11, **kwargs), gars[name](g, f=11, **kwargs))
+    if gars[name].influence is not None:
+        assert float(gars[name].influence(g[:14].to(cuda), g[14:].to(cuda), f=11, **kwargs)) \
+            == float(gars[name].influence(g[:14], g[14:], f=11, **kwargs))
+
+
+@pytest.mark.gpu
+def test_sort_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = _mat(5, 100, seed=1).to(cuda)
+    c = torch.zeros(100, device=cuda)
+    for bad in (g.double(), g.half(), g.T, g[None], _mat(65, 10, seed=2).to(cuda)):
+        for call in (lambda: sort_kernels.lower_median(bad),
+                     lambda: sort_kernels.trimmed_mean(bad, 1),
+                     lambda: sort_kernels.closest_mean(bad, c, 1),
+                     lambda: gar_kernels.weighted_rows_mean(torch.ones(5, device=cuda), bad)):
+            with pytest.raises(ValueError):
+                call()
+    for f in (-1, 3, 1.0):
+        with pytest.raises(ValueError, match="f ="):
+            sort_kernels.trimmed_mean(g, f)
+    for m in (0, 6):
+        with pytest.raises(ValueError, match="m ="):
+            sort_kernels.closest_mean(g, c, m)
+    for bad_c in (c.double(), c[:50], c.cpu(), torch.zeros(200, device=cuda)[::2]):
+        with pytest.raises(ValueError, match="c must"):
+            sort_kernels.closest_mean(g, bad_c, 1)
+    for w in (torch.ones(4, device=cuda), torch.ones(5), torch.ones(5, device=cuda).double(),
+              torch.ones((65, 5), device=cuda), torch.ones((1, 1, 5), device=cuda)):
+        with pytest.raises(ValueError):
+            gar_kernels.weighted_rows_mean(w, g)
+    # Outside the kernels' domain the callers take the plain path on the card
+    half = g.half()
+    before = sort_kernels.lower_median.launches
+    assert torch.equal(_common.lower_median(half), sort_kernels.lower_median_plain(half))
+    assert sort_kernels.lower_median.launches == before

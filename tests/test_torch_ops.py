@@ -20,7 +20,7 @@ from byzantinemomentum_tpu.ops import gars as jax_gars
 from byzantinemomentum_tpu.ops import pallas_gar, pallas_sort
 from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.attacks import attacks
-from byzantinemomentum_tpu_torch.ops import _common, bulyan, gar_kernels, gars
+from byzantinemomentum_tpu_torch.ops import _common, bulyan, gar_kernels, gars, sort_kernels
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -56,8 +56,8 @@ def test_batcher_network_sorts_nan_last(n):
     rng = np.random.default_rng(n)
     g = np.round(rng.standard_normal((n, 40)), 1).astype(np.float32)
     g[rng.random((n, 40)) < 0.2] = np.nan
-    assert gar_kernels.batcher_pairs(n) == pallas_sort._batcher_pairs(n)
-    got = torch.stack(gar_kernels.sort_values(list(_t(g)))).numpy()
+    assert sort_kernels.batcher_pairs(n) == pallas_sort._batcher_pairs(n)
+    got = torch.stack(sort_kernels.sort_values(list(_t(g)))).numpy()
     np.testing.assert_array_equal(got, np.sort(g, axis=0))
 
 
