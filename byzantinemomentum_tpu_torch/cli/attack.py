@@ -5,13 +5,13 @@ Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
 JAX driver that the port does not have yet (checkpoints, meshes, fault
-plans, diagnostics, health, telemetry, dtypes, ...) are refused by the
-parser rather than ignored.
+plans, diagnostics, health, telemetry, ...) are refused by the parser
+rather than ignored.
 
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
-prefixed with the line separator), so `study.py` reads the port's result
-directories unchanged.
+prefixed with the line separator, values at the parameter dtype's
+precision), so `study.py` reads the port's result directories unchanged.
 """
 
 import argparse
@@ -32,12 +32,14 @@ from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import ops as ops_mod
 from byzantinemomentum_tpu_torch import optim, utils
 from byzantinemomentum_tpu_torch.engine import (
-    STUDY_COLUMNS, Engine, EngineConfig)
+    DTYPES, STUDY_COLUMNS, Engine, EngineConfig)
 
 __all__ = ["process_commandline", "sample_batches", "run", "main"]
 
-# The f32 study row format of the JAX driver
-FLOAT_FORMAT = "%.8e"
+# The study row format of the JAX driver, by parameter dtype (bf16 has an
+# f16-like significand width, so it shares "%.4e")
+FLOAT_FORMATS = {torch.float16: "%.4e", torch.bfloat16: "%.4e",
+                 torch.float32: "%.8e", torch.float64: "%.16e"}
 
 
 def process_commandline(argv=None):
@@ -50,6 +52,14 @@ def process_commandline(argv=None):
         help="Fixed seed for reproducibility, negative for random seed")
     add("--device", type=str, default="cuda",
         help="Device to run on: 'cuda' (default), 'cuda:<index>' or 'cpu'")
+    add("--dtype", type=str, default="float32",
+        help="Parameter/gradient dtype: float32, bfloat16, float16, float64 "
+             "(the reference Configuration's dtype, configuration.py:26-101)")
+    add("--compute-dtype", type=str, default=None,
+        help="Forward/backward compute dtype; default = --dtype. "
+             "'--dtype float32 --compute-dtype bfloat16' = mixed "
+             "precision (bf16 forward/backward, f32 master "
+             "weights/momentum/GAR)")
     add("--nb-steps", type=int, default=-1,
         help="Number of training steps, negative for no limit")
     add("--nb-workers", type=int, default=11, help="Total number of workers")
@@ -157,6 +167,9 @@ def _postprocess(args):
                     return lr
             return None
     args.compute_new_learning_rate = compute_new_learning_rate
+    for name in (args.dtype, args.compute_dtype):
+        if name is not None and name not in DTYPES:
+            utils.fatal_unavailable(sorted(set(DTYPES)), name, what="dtype")
     if args.momentum_at not in ("update", "server", "worker"):
         utils.fatal_unavailable(("update", "server", "worker"),
                                 args.momentum_at, what="momentum position")
@@ -219,16 +232,17 @@ def sample_batches(dataset, count, device):
             torch.from_numpy(np.stack([b[1] for b in batches])).to(device))
 
 
-def _study_row(metrics, steps, datapoints):
+def _study_row(metrics, steps, datapoints, float_format):
     """One study CSV row; the device values move to the host in one
-    transfer."""
+    transfer (widened to float64, which holds every dtype's value
+    exactly)."""
     values = [metrics[column] for column in STUDY_COLUMNS[2:]]
-    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    tensors = [v.double() for v in values if isinstance(v, torch.Tensor)]
     host = iter(torch.stack(tensors).tolist() if tensors else ())
     values = [next(host) if isinstance(v, torch.Tensor) else v
               for v in values]
     return ([steps, datapoints]
-            + [FLOAT_FORMAT % float(v) for v in values[:-1]]
+            + [float_format % float(v) for v in values[:-1]]
             + [float(values[-1])])
 
 
@@ -255,20 +269,24 @@ def _setup(args):
     if message is not None:
         utils.fatal(f"Attack {attack.name!r} cannot be used: {message}")
 
-    model = models_mod.build(args.model, device=device, **args.model_args)
-    model.reset(torch.Generator(device=device).manual_seed(seed))
-    trainset, testset = data_mod.make_datasets(
-        args.dataset, args.batch_size, args.batch_size_test,
-        no_transform=args.no_transform, seed=seed % 2**32)
-    loss = losses_mod.Loss(args.loss, **args.loss_args)
-    criterion = losses_mod.Criterion(args.criterion, **args.criterion_args)
     cfg = EngineConfig(
         nb_workers=args.nb_workers, nb_decl_byz=args.nb_decl_byz,
         nb_real_byz=args.nb_real_byz, nb_for_study=args.nb_for_study,
         nb_for_study_past=max(args.nb_for_study_past, 1),
         momentum=args.momentum, dampening=args.dampening,
         nesterov=args.momentum_nesterov, momentum_at=args.momentum_at,
-        weight_decay=args.weight_decay, gradient_clip=args.gradient_clip)
+        weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
+        dtype=args.dtype, compute_dtype=args.compute_dtype)
+    # Parameters are drawn in f32 and rounded to the parameter dtype, as
+    # the JAX package casts its f32 init
+    model = models_mod.build(args.model, device=device,
+                             dtype=cfg.torch_dtype, **args.model_args)
+    model.reset(torch.Generator(device=device).manual_seed(seed))
+    trainset, testset = data_mod.make_datasets(
+        args.dataset, args.batch_size, args.batch_size_test,
+        no_transform=args.no_transform, seed=seed % 2**32)
+    loss = losses_mod.Loss(args.loss, **args.loss_args)
+    criterion = losses_mod.Criterion(args.criterion, **args.criterion_args)
     optimizer = optim.build(args.optimizer, weight_decay=args.weight_decay,
                             **args.optimizer_args)
     engine = Engine(cfg, model, loss, criterion, (gar, args.gar_args), attack,
@@ -313,6 +331,7 @@ def run(argv=None):
         results = _open_results(args)
     state = engine.init()
     cfg = engine.cfg
+    float_format = FLOAT_FORMATS[cfg.torch_dtype]
     fd_eval = results.get("eval") if results else None
     fd_study = results.get("study") if results else None
 
@@ -322,7 +341,7 @@ def run(argv=None):
 
     def flush(pending):
         if pending is not None and fd_study is not None:
-            results.store(fd_study, *_study_row(*pending))
+            results.store(fd_study, *_study_row(*pending, float_format))
 
     pending = None          # the previous step's (metrics, step, points)
     clock = None            # (start, paused seconds) once step 1 is done

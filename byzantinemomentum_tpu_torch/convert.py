@@ -24,12 +24,16 @@ def flat_items(tree, prefix=""):
             yield name, value
 
 
-def params_from_jax(params_np, net_state_np, device="cpu"):
-    """Returns `(theta f32[d], state {"b1.mean": f32[C], ...})` on
-    `device`: theta in `ravel_pytree` order, state keyed by the port's
-    buffer names."""
-    theta = np.concatenate([np.asarray(leaf, np.float32).reshape(-1)
+def params_from_jax(params_np, net_state_np, device="cpu",
+                    dtype=torch.float32):
+    """Returns `(theta [d], state {"b1.mean": [C], ...})` on `device` in
+    `dtype`: theta in `ravel_pytree` order, state keyed by the port's
+    buffer names. Leaves of any float dtype (f32, bf16, f16, f64) are
+    carried across through float64, which holds each of them exactly,
+    and rounded once to `dtype`."""
+    theta = np.concatenate([np.asarray(leaf, np.float64).reshape(-1)
                             for _, leaf in flat_items(params_np)])
-    state = {name: torch.tensor(np.asarray(leaf, np.float32), device=device)
+    state = {name: torch.tensor(np.asarray(leaf, np.float64),
+                                device=device).to(dtype)
              for name, leaf in flat_items(net_state_np)}
-    return torch.tensor(theta, device=device), state
+    return torch.tensor(theta, device=device).to(dtype), state

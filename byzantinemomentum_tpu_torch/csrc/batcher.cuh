@@ -7,13 +7,61 @@
 // template on the array length and every loop is unrolled: the network by
 // template recursion, the selection by `#pragma unroll` over a constant
 // trip count.
+//
+// Element types. The JAX sorting kernels take f32, bf16 and f16 and do
+// their arithmetic in the storage type. Here every value is converted to
+// float when it is loaded (exact), compared as a float (exact), and the
+// result of every add, subtract and divide is rounded back to the storage
+// type (`Elem<T>::round`). f32 carries at least 2p + 2 significand bits
+// for bf16 (p = 8) and f16 (p = 11), so one f32 operation followed by one
+// rounding gives the native operation's result.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace bmt {
+
+// Loads (`load`), stores (`store`, round to nearest even) and the rounding
+// of a float result to the storage type T (`round`)
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return load(store(x));
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ __half store(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return load(store(x));
+  }
+};
 
 // NaN-last compare-exchange (`pallas_sort.sort_values`):
 // swap = (b < a) | (isnan(a) & !isnan(b))
@@ -81,13 +129,16 @@ __device__ __forceinline__ void batcher_sort(float (&v)[R]) {
 // (fewer than m finite deviations). The sum runs in index order, adding 0
 // for the rows not taken, as the JAX kernel does. `srt` is scratch.
 // Deviations are recomputed where they are read rather than kept: at 62
-// or 64 values a third register array would spill
-template <int R>
+// or 64 values a third register array would spill. The values and `c`
+// are those of a T array; each deviation, partial sum and the mean are
+// rounded to T (the counts are small integers, exact in every T).
+template <int R, typename T = float>
 __device__ __forceinline__ float closest_mean_values(const float (&rows)[R],
                                                      float c, int m,
                                                      float (&srt)[R]) {
+  using E = Elem<T>;
 #pragma unroll
-  for (int r = 0; r < R; ++r) srt[r] = fabsf(rows[r] - c);
+  for (int r = 0; r < R; ++r) srt[r] = E::round(fabsf(rows[r] - c));
   batcher_sort<R>(srt);
   float thresh = srt[0];
 #pragma unroll
@@ -97,18 +148,18 @@ __device__ __forceinline__ float closest_mean_values(const float (&rows)[R],
   float need = (float)m;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    need -= fabsf(rows[r] - c) < thresh ? 1.0f : 0.0f;
+    need -= E::round(fabsf(rows[r] - c)) < thresh ? 1.0f : 0.0f;
   }
   float sum = 0.0f, cum = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float dev = fabsf(rows[r] - c);
+    const float dev = E::round(fabsf(rows[r] - c));
     const bool eq = dev == thresh;
     cum += eq ? 1.0f : 0.0f;
     const bool take = dev < thresh || (eq && cum <= need);
-    sum += take ? rows[r] : 0.0f;
+    sum = E::round(sum + (take ? rows[r] : 0.0f));
   }
-  return isnan(thresh) ? nanf("") : sum / (float)m;
+  return isnan(thresh) ? nanf("") : E::round(sum / (float)m);
 }
 
 }  // namespace bmt

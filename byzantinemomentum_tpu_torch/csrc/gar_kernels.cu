@@ -4,7 +4,8 @@
 // library per compilation, each at its first use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DBMT_ROUNDS=<R> -o <build>/lib...so gar_kernels.cu
-// R = 0 gives the library of sq_gram and weighted_rows_mean; R in
+// R = 0 gives the library of sq_gram, weighted_rows_mean and
+// masked_rows_mean; R in
 // 1..kMaxRounds gives the
 // selected_median_mean library for R stage-1 rounds (a caller builds only
 // the round counts it meets: the compile time grows steeply with the
@@ -70,6 +71,23 @@
 //   Accumulators need compile-time indices, so a block computes a fixed
 //   group of 1 (Krum's w f32[n]) or 8 rows of W and gridDim.y walks the
 //   groups; rows past r weigh 0 and are not written.
+//
+// masked_rows_mean: replaces
+// `byzantinemomentum_tpu/ops/pallas_gar.py::masked_rows_mean`
+// (`_masked_mean_kernel`), Brute's subset mean
+// `sum(where(mask, g, 0)) / k` under Brute's non-finite contract, not
+// `select_rows_column`'s: a selected +inf stays +inf, a selected NaN or
+// inf - inf gives NaN, an excluded row is never read.
+//   Bound: bytes. It must read the k selected rows of g once and write one
+//   (d,) row: 78.6 MB for Brute's 14 of 25 rows at the headline shape;
+//   k adds a coordinate.
+//   Design: the TPU kernel reads the whole (n, tile) block and zeroes the
+//   excluded rows. Here each block first lists the selected rows in shared
+//   memory (n <= 64, one thread), so the excluded rows cost no bytes; then
+//   thread j owns column j and loads 8 selected rows ahead of their use
+//   (each row's loads coalesced). The sum runs over the selected rows in
+//   index order from +0: skipping an excluded row is the JAX kernel's add
+//   of +0, which changes no sum that starts at +0.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -327,6 +345,44 @@ cudaError_t launch_rows_mean(const float* W, const float* g, float* out,
       <<<grid, kMeanThreads, 0, stream>>>(W, g, out, r, n, d);
   return cudaGetLastError();
 }
+
+// masked_rows_mean: sum of the rows i of g (f32[n, d]) with mask[i] != 0,
+// in index order, divided by k; thread j owns column j
+__global__ void __launch_bounds__(kMeanThreads)
+masked_rows_mean_kernel(const unsigned char* __restrict__ mask,
+                        const float* __restrict__ g, float* __restrict__ out,
+                        int n, long long d, int k) {
+  __shared__ int rows[kMaxRows];
+  __shared__ int kept;
+  if (threadIdx.x == 0) {
+    int count = 0;
+    for (int i = 0; i < n; ++i) {
+      if (mask[i]) rows[count++] = i;
+    }
+    kept = count;
+  }
+  __syncthreads();
+  const int count = kept;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += stride) {
+    float acc = 0.0f;
+    for (int i0 = 0; i0 < count; i0 += kRowChunk) {
+      // A chunk of selected rows is loaded before any is used, so the
+      // loads' latencies overlap
+      float x[kRowChunk];
+#pragma unroll
+      for (int u = 0; u < kRowChunk; ++u) {
+        x[u] = i0 + u < count ? g[rows[i0 + u] * d + j] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowChunk; ++u) {
+        if (i0 + u < count) acc += x[u];
+      }
+    }
+    out[j] = acc / (float)k;
+  }
+}
 #endif  // BMT_ROUNDS == 0
 
 template <int R>
@@ -403,6 +459,18 @@ int bmt_weighted_rows_mean(const float* W, const float* g, float* out, int r,
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(r == 1 ? launch_rows_mean<1>(W, g, out, r, n, d, s)
                       : launch_rows_mean<8>(W, g, out, r, n, d, s));
+}
+
+// mask bool[n] (one byte each), g f32[n, d] (1 <= n <= kMaxRows) -> out
+// f32[d]; k >= 1
+int bmt_masked_rows_mean(const unsigned char* mask, const float* g,
+                         float* out, int n, long long d, int k,
+                         void* stream) {
+  long long blocks = (d + kMeanThreads - 1) / kMeanThreads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  masked_rows_mean_kernel<<<(unsigned)blocks, kMeanThreads, 0,
+                            (cudaStream_t)stream>>>(mask, g, out, n, d, k);
+  return (int)cudaGetLastError();
 }
 #else
 int bmt_rounds() { return BMT_ROUNDS; }

@@ -1,10 +1,21 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
-the fields of the training path ported so far: f32 throughout, one local
-step)."""
+the fields of the training path ported so far: one local step, a single
+GAR)."""
 
 import dataclasses
 
-__all__ = ["EngineConfig"]
+import torch
+
+__all__ = ["EngineConfig", "DTYPES"]
+
+# Accepted dtype spellings, the JAX package's, as torch dtypes (float64
+# needs no switch in torch)
+DTYPES = {
+    "float32": torch.float32, "f32": torch.float32, "fp32": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "float16": torch.float16, "f16": torch.float16, "fp16": torch.float16,
+    "float64": torch.float64, "f64": torch.float64, "fp64": torch.float64,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,10 +33,23 @@ class EngineConfig:
     momentum_at: str = "update"   # --momentum-at in {update, server, worker}
     weight_decay: float = 0.0     # --weight-decay
     gradient_clip: float = None   # --gradient-clip (per-sampled-grad L2 cap)
+    dtype: str = "float32"        # --dtype: parameter/state/gradient dtype
+    compute_dtype: str = None     # --compute-dtype: forward/backward dtype;
+    #                               None = same as `dtype` (bf16 with f32
+    #                               parameters is mixed precision: f32
+    #                               master weights, momentum and GAR space)
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):
             raise ValueError(f"Invalid momentum placement {self.momentum_at!r}")
+        if self.dtype not in DTYPES:
+            raise ValueError(
+                f"Invalid dtype {self.dtype!r}; expected one of "
+                f"{sorted(set(DTYPES))}")
+        if self.compute_dtype is not None and self.compute_dtype not in DTYPES:
+            raise ValueError(
+                f"Invalid compute dtype {self.compute_dtype!r}; expected one "
+                f"of {sorted(set(DTYPES))}")
         if self.nb_real_byz > self.nb_workers:
             raise ValueError(
                 f"More real Byzantine workers ({self.nb_real_byz}) than total "
@@ -44,3 +68,13 @@ class EngineConfig:
     @property
     def study(self):
         return self.nb_for_study > 0
+
+    @property
+    def torch_dtype(self):
+        """Parameter/state dtype as a torch dtype."""
+        return DTYPES[self.dtype]
+
+    @property
+    def torch_compute_dtype(self):
+        """Forward/backward compute dtype as a torch dtype."""
+        return DTYPES[self.compute_dtype or self.dtype]

@@ -9,6 +9,11 @@ Formula parity notes (those of the JAX package and its reference):
 * The composite curvature is `mu * sum_i mu^i <avg_t, past_i>` over the
   `appendleft`-ordered ring of past sampled averages.
 
+Dtypes are the JAX package's: every column is computed in the dtype of
+its operands (the parameter dtype; the average loss in the compute
+dtype), and the curvature's f32 momentum weights promote it to at least
+f32.
+
 Values stay on the device; the driver moves one step's row to the host in
 one transfer.
 """

@@ -1,7 +1,9 @@
 """Training state (`byzantinemomentum_tpu/engine/state.py`).
 
-Parameters live as ONE flat `f32[d]` vector; all momentum algebra, GARs
-and study metrics work on flat vectors. Counters are host integers: the
+Parameters live as ONE flat `[d]` vector in the parameter dtype
+(`cfg.dtype`); every other tensor of the state takes theta's dtype, so
+the momentum algebra, the GARs and the study stay in it, as in the JAX
+package. All of them work on flat vectors. Counters are host integers: the
 port runs eagerly, so nothing has to live on the device to be traced.
 A step returns a new `TrainState` and writes none of the old one's
 tensors.
@@ -17,14 +19,14 @@ __all__ = ["TrainState", "init_state"]
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
-    theta: torch.Tensor             # f32[d] flat parameters
+    theta: torch.Tensor             # [d] flat parameters
     net_state: dict                 # BatchNorm running stats, by buffer name
     opt_state: typing.Any           # optimizer state (empty for plain SGD)
-    momentum_server: torch.Tensor   # f32[d]
-    momentum_workers: torch.Tensor  # f32[h, d] (shape (0, d) unless 'worker')
-    origin: torch.Tensor            # f32[d] initial params (empty if no study)
-    past_grads: torch.Tensor        # f32[P, d] ring of past sampled averages
-    past_norms: torch.Tensor        # f32[P] their norms ('appendleft' order)
+    momentum_server: torch.Tensor   # [d]
+    momentum_workers: torch.Tensor  # [h, d] (shape (0, d) unless 'worker')
+    origin: torch.Tensor            # [d] initial params (empty if no study)
+    past_grads: torch.Tensor        # [P, d] ring of past sampled averages
+    past_norms: torch.Tensor        # [P] their norms ('appendleft' order)
     past_count: int                 # number of valid past entries
     steps: int                      # step counter
     datapoints: int                 # training point counter

@@ -12,9 +12,22 @@ of the reference's hot loop, in three phases as in the JAX package:
             attack acceptation ratio;
   update  — SGD with weight decay and the 24-column study metrics.
 
-Numerics are pinned to f32 here: TF32 is switched off for matmuls and for
-cuDNN convolutions (which default to it), because the GAR space is an f32
-contract (its distance orderings drive Bulyan's selection).
+Precision (`pin_precision`): TF32 is switched off for matmuls and for
+cuDNN convolutions (which default to it), because the f32 GAR space is an
+f32 contract (its distance orderings drive Bulyan's selection); and half
+matmuls accumulate in f32 (cuBLAS's reduced-precision bf16/f16
+reductions are switched off).
+
+Dtypes, as in the JAX package (`cfg.dtype`, `cfg.compute_dtype`): the
+parameters, state, gradients and so the GAR stack are in the parameter
+dtype; the forward and backward run in the compute dtype (inputs and
+parameters cast on entry, so a mixed-precision gradient comes back in the
+parameter dtype); the BatchNorm running-stat fold runs at
+`promote_types(dtype, float32)`; the learning rate is rounded to the
+parameter dtype; the attack rows and the aggregate are cast back to the
+honest rows' dtype. Python scalars (momentum, clip) enter half arithmetic
+as torch has them, at f32 before one rounding, where the JAX package
+rounds them to the half dtype first.
 
 Randomness: dropout masks come from the engine's `torch.Generator`. The
 JAX package draws them from its PRNG keys, so the two give different
@@ -32,13 +45,17 @@ from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
 from byzantinemomentum_tpu_torch.models import FlatParams
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
 
-__all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_f32"]
+__all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision"]
 
 
-def pin_f32():
-    """Switch TF32 off for CUDA matmuls and cuDNN convolutions."""
+def pin_precision():
+    """Switch TF32 off for CUDA matmuls and cuDNN convolutions, and the
+    reduced-precision reductions of bf16 and f16 matmuls (on by default
+    in PyTorch), so that half matmuls accumulate in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def clip_rows(G, clip):
@@ -60,17 +77,22 @@ def compose_bn_updates(net_state0, per_worker_states, count):
     the sequential result
       r_T = (1-m)^T r0 + m * sum_t (1-m)^(T-1-t) s_t,  T = count.
     `per_worker_states` maps each buffer name to its (count, ...) stack.
+    The inversion is precision-sensitive: it runs at
+    `promote_types(dtype, float32)` and the result is cast back to the
+    state's dtype.
     """
     m = BN_MOMENTUM
     out = {}
     for name, r0 in net_state0.items():
-        stack = per_worker_states[name]
-        weights = (torch.tensor(1.0 - m, dtype=torch.float32, device=r0.device)
-                   ** torch.arange(count - 1, -1, -1, dtype=torch.float32,
+        acc = torch.promote_types(r0.dtype, torch.float32)
+        stack = per_worker_states[name].to(acc)
+        weights = (torch.tensor(1.0 - m, dtype=acc, device=r0.device)
+                   ** torch.arange(count - 1, -1, -1, dtype=acc,
                                    device=r0.device))
-        s = (stack - (1.0 - m) * r0) / m  # per-worker batch stats
+        r0a = r0.to(acc)
+        s = (stack - (1.0 - m) * r0a) / m  # per-worker batch stats
         contrib = torch.tensordot(weights, s, dims=1)
-        out[name] = (1.0 - m) ** count * r0 + m * contrib
+        out[name] = ((1.0 - m) ** count * r0a + m * contrib).to(r0.dtype)
     return out
 
 
@@ -91,8 +113,10 @@ class Engine:
           optimizer: `optim.Optimizer` applying the final update.
           generator: `torch.Generator` on the model's device, for dropout.
         """
-        pin_f32()
+        pin_precision()
         self.cfg = cfg
+        self.dtype = cfg.torch_dtype
+        self.compute_dtype = cfg.torch_compute_dtype
         self.model = model
         self.flat = FlatParams(model)
         self.d = self.flat.d
@@ -107,11 +131,12 @@ class Engine:
 
     def init(self):
         """Fresh state: the model's parameters and BatchNorm buffers as
-        they stand (`model.reset(generator)` draws new ones)."""
+        they stand (`model.reset(generator)` draws new ones), in the
+        parameter dtype."""
         theta = self.flat.flatten(dict(self.model.named_parameters()))
-        net_state = {name: buf.detach().clone()
+        net_state = {name: buf.detach().to(self.dtype, copy=True)
                      for name, buf in self.model.named_buffers()}
-        theta = theta.detach().clone()
+        theta = theta.detach().to(self.dtype, copy=True)
         return init_state(self.cfg, theta, net_state,
                           opt_state=self.optimizer.init(theta))
 
@@ -125,14 +150,20 @@ class Engine:
         return tuple(torch.stack(m) for m in zip(*per_worker))
 
     def _worker_grads(self, theta_eff, theta_axis, net_state, xs, ys, masks):
-        """(losses f32[S], grads f32[S, d], {buffer: (S, ...)}) — every
-        worker's forward/backward from the same pre-step state."""
+        """(losses [S], grads [S, d], {buffer: (S, ...)}) — every worker's
+        forward/backward from the same pre-step state. Inputs and
+        parameters are cast to the compute dtype inside, so the gradients
+        come back in theta's dtype and the losses in the compute dtype;
+        the BatchNorm state stays in the parameter dtype."""
         model, flat, loss_fn = self.model, self.flat, self.loss
+        cdtype = self.compute_dtype
+        if xs.is_floating_point():
+            xs = xs.to(cdtype)
 
         def worker_loss(theta, x, y, mask):
             out, new_state = functional_call(
-                model, {**flat.unflatten(theta), **net_state}, (x,),
-                {"train": True, "masks": mask})
+                model, {**flat.unflatten(theta.to(cdtype)), **net_state},
+                (x,), {"train": True, "masks": mask})
             loss = loss_fn(out, y, theta)
             flat_state = {f"{layer}.{stat}": value
                           for layer, stats in new_state.items()
@@ -152,6 +183,7 @@ class Engine:
         cfg = self.cfg
         S, h = cfg.nb_sampled, cfg.nb_honests
         mu, damp = cfg.momentum, cfg.dampening
+        lr = self.round_lr(lr)
         if masks is None:
             masks = self.draw_masks(S, xs.shape[1])
         if cfg.nesterov and cfg.momentum_at == "worker":
@@ -193,10 +225,11 @@ class Engine:
         if cfg.nb_real_byz > 0:
             G_attack = self.attack.unchecked(
                 G_honest, f_decl=f, f_real=cfg.nb_real_byz, defense=defense,
-                **self.attack_kwargs)
+                **self.attack_kwargs).to(G_honest.dtype)
         else:
             G_attack = G_honest.new_zeros((0, self.d))
-        grad_defense = defense(torch.cat([G_honest, G_attack]), f)
+        grad_defense = defense(torch.cat([G_honest, G_attack]), f).to(
+            G_honest.dtype)
         if self.gar.influence is None:
             accept_ratio = math.nan
         else:
@@ -211,6 +244,7 @@ class Engine:
         """Model update and study metrics. Returns (new state, metrics)."""
         cfg = self.cfg
         mu, damp = cfg.momentum, cfg.dampening
+        lr = self.round_lr(lr)
         if cfg.momentum_at == "worker":
             new_ms = state.momentum_server
         elif cfg.momentum_at == "server":
@@ -240,6 +274,16 @@ class Engine:
             datapoints=state.datapoints + batch * cfg.nb_honests)
         return new_state, metrics
 
+    def round_lr(self, lr):
+        """The learning rate as the JAX package has it (an f32 scalar, or
+        f64 in a float64 run) rounded to the parameter dtype, as a Python
+        float; the momentum and update algebra then stays in that
+        dtype."""
+        lr = torch.tensor(lr, dtype=torch.float64)
+        if self.dtype != torch.float64:
+            lr = lr.to(torch.float32)
+        return float(lr.to(self.dtype))
+
     def train_step(self, state, xs, ys, lr, masks=None):
         """xs: f32[S, B, ...], ys: [S, B] on the engine's device; `masks`
         optionally gives the dropout keep-masks (else drawn here)."""
@@ -256,8 +300,12 @@ class Engine:
     @torch.no_grad()
     def eval_many(self, theta, net_state, xs, ys):
         """Summed `[#correct, #samples]` over `reps` stacked test batches
-        `xs: f32[reps, B, ...]`, in eval mode (running BN stats)."""
-        params = {**self.flat.unflatten(theta), **net_state}
+        `xs: [reps, B, ...]`, in eval mode (running BN stats, kept in the
+        parameter dtype), forward in the compute dtype."""
+        cdtype = self.compute_dtype
+        params = {**self.flat.unflatten(theta.to(cdtype)), **net_state}
+        if xs.is_floating_point():
+            xs = xs.to(cdtype)
         acc = torch.zeros(2, device=theta.device)
         for x, y in zip(xs, ys):
             out, _ = functional_call(self.model, params, (x,), {"train": False})

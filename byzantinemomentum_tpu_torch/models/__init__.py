@@ -26,18 +26,20 @@ models = {}
 
 
 def register(name, builder):
-    """Register a model builder `(device=..., **model_args) -> nn.Module`."""
+    """Register a model builder `(device=..., dtype=..., **model_args) ->
+    nn.Module`."""
     if name in models:
         utils.warning(f"Model {name!r} registered twice; keeping the last")
     models[name] = builder
     return builder
 
 
-def build(name, device, **model_args):
-    """Instantiate a model by registry name on `device`."""
+def build(name, device, dtype=None, **model_args):
+    """Instantiate a model by registry name on `device`, its parameters
+    and buffers in `dtype` (torch's default dtype if None)."""
     if name not in models:
         utils.fatal_unavailable(models, name, what="model name")
-    return models[name](device=device, **model_args)
+    return models[name](device=device, dtype=dtype, **model_args)
 
 
 class FlatParams:
@@ -53,11 +55,11 @@ class FlatParams:
         self.d = sum(self.sizes)
 
     def flatten(self, params):
-        """`{name: tensor}` (or a module's parameters) -> f32[d]."""
+        """`{name: tensor}` (or a module's parameters) -> [d]."""
         return torch.cat([params[name].reshape(-1) for name in self.names])
 
     def unflatten(self, theta):
-        """f32[d] -> `{name: view}`."""
+        """[d] -> `{name: view}` (in theta's dtype)."""
         chunks = torch.split(theta, self.sizes)
         return {name: chunk.view(shape) for name, chunk, shape
                 in zip(self.names, chunks, self.shapes)}

@@ -15,6 +15,12 @@ r <- (1-m) r + m s with momentum 0.1, eps 1e-5 and the unbiased batch
 variance. Functions return the new running state instead of writing it,
 so the honest phase can batch them over workers (`engine/step.py` folds
 the per-worker states sequentially).
+
+Dtypes, as in the JAX package: layers are built in the parameter dtype
+(`dtype=`); BatchNorm accumulates its statistics at
+`promote_types(x.dtype, float32)` and casts its output back to `x.dtype`
+and its running state back to the state's dtype; dropout and pooling
+stay in `x.dtype`.
 """
 
 import math
@@ -39,10 +45,11 @@ def _uniform(generator, shape, bound, device):
 class Conv(nn.Module):
     """3x3 'SAME' convolution with an HWIO kernel `w` and bias `b`."""
 
-    def __init__(self, cin, cout, k=3, device=None):
+    def __init__(self, cin, cout, k=3, device=None, dtype=None):
         super().__init__()
-        self.w = nn.Parameter(torch.empty((k, k, cin, cout), device=device))
-        self.b = nn.Parameter(torch.empty((cout,), device=device))
+        self.w = nn.Parameter(torch.empty((k, k, cin, cout), device=device,
+                                          dtype=dtype))
+        self.b = nn.Parameter(torch.empty((cout,), device=device, dtype=dtype))
 
     @torch.no_grad()
     def reset(self, generator):
@@ -59,10 +66,11 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """`x @ w + b` with a (din, dout) weight."""
 
-    def __init__(self, din, dout, device=None):
+    def __init__(self, din, dout, device=None, dtype=None):
         super().__init__()
-        self.w = nn.Parameter(torch.empty((din, dout), device=device))
-        self.b = nn.Parameter(torch.empty((dout,), device=device))
+        self.w = nn.Parameter(torch.empty((din, dout), device=device,
+                                          dtype=dtype))
+        self.b = nn.Parameter(torch.empty((dout,), device=device, dtype=dtype))
 
     @torch.no_grad()
     def reset(self, generator):
@@ -79,12 +87,13 @@ class BatchNorm(nn.Module):
     """BatchNorm over the channel axis 1 of an NCHW activation; parameters
     `gamma`, `beta`, running-stat buffers `mean`, `var`."""
 
-    def __init__(self, c, device=None):
+    def __init__(self, c, device=None, dtype=None):
         super().__init__()
-        self.gamma = nn.Parameter(torch.ones((c,), device=device))
-        self.beta = nn.Parameter(torch.zeros((c,), device=device))
-        self.register_buffer("mean", torch.zeros((c,), device=device))
-        self.register_buffer("var", torch.ones((c,), device=device))
+        like = {"device": device, "dtype": dtype}
+        self.gamma = nn.Parameter(torch.ones((c,), **like))
+        self.beta = nn.Parameter(torch.zeros((c,), **like))
+        self.register_buffer("mean", torch.zeros((c,), **like))
+        self.register_buffer("var", torch.ones((c,), **like))
 
     @torch.no_grad()
     def reset(self, generator=None):
@@ -95,26 +104,33 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train):
         """Returns `(out, new_state)` with `new_state = {"mean", "var"}`
-        folded from this batch in train mode, unchanged in eval mode."""
+        folded from this batch in train mode, unchanged in eval mode.
+        `out` has `x.dtype`, `new_state` the state's dtype."""
         shape = (1, -1, 1, 1)
         if not train:
+            # With f32 running stats under a half compute dtype the
+            # arithmetic promotes; the activation comes back in x.dtype
             inv = torch.rsqrt(self.var + BN_EPS)
             out = (x - self.mean.view(shape)) * (inv * self.gamma).view(shape)
-            return out + self.beta.view(shape), {"mean": self.mean,
-                                                 "var": self.var}
+            out = out + self.beta.view(shape)
+            return out.to(x.dtype), {"mean": self.mean, "var": self.var}
         dims = (0, 2, 3)
         count = x.numel() // x.shape[1]
-        mean = x.mean(dim=dims)
-        var = x.var(dim=dims, correction=0)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=dims)
+        var = xf.var(dim=dims, correction=0)
         inv = torch.rsqrt(var + BN_EPS)
         out = (x - mean.view(shape)) * (inv * self.gamma).view(shape)
-        out = out + self.beta.view(shape)
+        out = (out + self.beta.view(shape)).to(x.dtype)
         # The running stats are aux state: no gradient flows into them
         mean, var = mean.detach(), var.detach()
         unbiased = var * (count / max(count - 1, 1))
+        sdt = self.mean.dtype
         new_state = {
-            "mean": (1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean,
-            "var": (1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased,
+            "mean": ((1 - BN_MOMENTUM) * self.mean
+                     + BN_MOMENTUM * mean).to(sdt),
+            "var": ((1 - BN_MOMENTUM) * self.var
+                    + BN_MOMENTUM * unbiased).to(sdt),
         }
         return out, new_state
 

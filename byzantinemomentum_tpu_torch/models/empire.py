@@ -29,19 +29,20 @@ _RATE = 0.25
 class EmpireCNN(nn.Module):
     input_shape = (32, 32, 3)
 
-    def __init__(self, cifar100=False, device=None):
+    def __init__(self, cifar100=False, device=None, dtype=None):
         super().__init__()
         fc1_out = 256 if cifar100 else 128
-        self.c1 = Conv(3, 64, device=device)
-        self.b1 = BatchNorm(64, device=device)
-        self.c2 = Conv(64, 64, device=device)
-        self.b2 = BatchNorm(64, device=device)
-        self.c3 = Conv(64, 128, device=device)
-        self.b3 = BatchNorm(128, device=device)
-        self.c4 = Conv(128, 128, device=device)
-        self.b4 = BatchNorm(128, device=device)
-        self.f1 = Dense(8192, fc1_out, device=device)
-        self.f2 = Dense(fc1_out, 100 if cifar100 else 10, device=device)
+        like = {"device": device, "dtype": dtype}
+        self.c1 = Conv(3, 64, **like)
+        self.b1 = BatchNorm(64, **like)
+        self.c2 = Conv(64, 64, **like)
+        self.b2 = BatchNorm(64, **like)
+        self.c3 = Conv(64, 128, **like)
+        self.b3 = BatchNorm(128, **like)
+        self.c4 = Conv(128, 128, **like)
+        self.b4 = BatchNorm(128, **like)
+        self.f1 = Dense(8192, fc1_out, **like)
+        self.f2 = Dense(fc1_out, 100 if cifar100 else 10, **like)
 
     def reset(self, generator):
         """Fresh torch-default parameters and BN state from `generator`."""
@@ -60,7 +61,7 @@ class EmpireCNN(nn.Module):
                      for shape in self.mask_shapes(batch))
 
     def forward(self, x, train=False, masks=None):
-        """`x: f32[B, 32, 32, 3]` (NHWC) -> `(log-probabilities, new BN
+        """`x: [B, 32, 32, 3]` (NHWC) -> `(log-probabilities, new BN
         state {"b1": {"mean", "var"}, ...})`. Train mode needs the three
         dropout keep-masks (`draw_masks`)."""
         if train and masks is None:

@@ -1,8 +1,8 @@
 """Gradient aggregation rules (GARs) over the stacked gradient matrix.
 
-Every GAR is a function over `G: f32[n, d]` (one row per worker) with a
-Byzantine tolerance `f`, returning the aggregate `f32[d]` — the contract of
-`byzantinemomentum_tpu/ops/__init__.py`. Each registered GAR exposes
+Every GAR is a function over `G: [n, d]` (one row per worker, in the
+parameter dtype) with a Byzantine tolerance `f`, returning the aggregate
+`[d]` — the contract of `byzantinemomentum_tpu/ops/__init__.py`. Each registered GAR exposes
 `.checked`, `.unchecked`, `.check`, `.upper_bound` (the variance-norm
 ratio bound the study reads) and `.influence` (attack acceptation ratio,
 None where the rule has none). Modules in this directory self-register.

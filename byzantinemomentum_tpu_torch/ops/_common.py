@@ -12,9 +12,11 @@ Semantics are those of the JAX package:
 Dispatch is the JAX package's (`byzantinemomentum_tpu/ops/_common.py`):
 the Gram behind `pairwise_distances` and `weighted_rows_mean` take the
 CUDA kernels of `gar_kernels` for a CUDA operand in
-`gar_kernels.supported`, `lower_median` and `closest_mean` those of
-`sort_kernels` for one in `sort_kernels.supported`; every other operand
-takes the plain version.
+`gar_kernels.supported` (f32), `lower_median` and `closest_mean` those of
+`sort_kernels` for one in `sort_kernels.supported` (f32, bf16, f16);
+every other operand takes the plain version. So a half-precision Bulyan
+or Krum stack takes the plain Gram and row averages, and its median and
+closest mean the half sorting kernels, as in the JAX package.
 """
 
 import torch
@@ -48,8 +50,9 @@ def distances_from_sq_gram(gram, *, squared=False):
 
 
 def pairwise_distances(g, *, squared=False):
-    """All-pairs Euclidean distances over the rows of `g: f32[n, d]`
-    (the JAX package's method 'dot'), +inf on the diagonal."""
+    """All-pairs Euclidean distances over the rows of `g: [n, d]`, in
+    `g`'s dtype (the JAX package's method 'dot'), +inf on the
+    diagonal."""
     gram = (gar_kernels.sq_gram(g) if gar_kernels.supported(g)
             else gar_kernels.sq_gram_plain(g))
     return distances_from_sq_gram(gram, squared=squared)

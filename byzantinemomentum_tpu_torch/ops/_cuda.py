@@ -5,13 +5,19 @@ A kernel source of `csrc/` is compiled by `nvcc` for `sm_90a` at first
 use into a shared library with a plain C interface under `build/kernels/`
 at the root of the checkout, and loaded with ctypes. One source gives
 several libraries, one per set of `-D` values (a round count, a row
-count): a sorting network unrolled for a large count takes long to
+count, an element type): a sorting network unrolled for a large count takes long to
 compile, so a run builds only what it meets. A library's name holds a
 digest of its source, of the shared headers (`csrc/*.cuh`) and of the
 flags, so an edited source is rebuilt.
 
-Every kernel wrapper counts its launches in `<wrapper>.launches`
-(`counted`); `reset_launches()` zeroes all of them.
+Every kernel wrapper counts its launches in `<wrapper>.launches`, and
+per operand dtype in `<wrapper>.launches_by_dtype` (`counted`,
+`launched`); `reset_launches()` zeroes all of them.
+
+Domains: the kernels of `gar_kernels` take f32 only (the JAX package's
+`pallas_gar.supported`), those of `sort_kernels` f32, bf16 and f16
+(`pallas_sort.supported`), so `supported` and `check_matrix` take the
+dtypes a caller admits.
 """
 
 import ctypes
@@ -23,10 +29,15 @@ import subprocess
 
 import torch
 
-__all__ = ["MAX_ROWS", "supported", "compile_library", "check_matrix",
-           "raise_on", "stream", "counted", "reset_launches"]
+__all__ = ["MAX_ROWS", "F32", "DTYPE_NAMES", "supported", "compile_library",
+           "check_matrix", "raise_on", "stream", "counted", "launched",
+           "reset_launches"]
 
 MAX_ROWS = 64
+F32 = (torch.float32,)
+# Library-tag spelling of each element type a kernel is built for
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -36,12 +47,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _counted = []
 
 
-def supported(g):
-    """Whether the CUDA kernels apply to this operand: a CUDA f32 matrix
-    with 1 <= n <= MAX_ROWS rows (the JAX package's `pallas_gar.supported`
-    domain, on the card; `pallas_sort.supported` also admits bf16/f16,
-    for which the port's sorting kernels are not built yet)."""
-    return (g.is_cuda and g.dtype == torch.float32 and g.dim() == 2
+def supported(g, dtypes=F32):
+    """Whether the CUDA kernels apply to this operand: a CUDA matrix of
+    one of `dtypes` with 1 <= n <= MAX_ROWS rows (the JAX package's
+    `pallas_gar.supported` / `pallas_sort.supported` domains, on the
+    card)."""
+    return (g.is_cuda and g.dtype in dtypes and g.dim() == 2
             and 1 <= g.shape[0] <= MAX_ROWS and g.shape[1] >= 1)
 
 
@@ -75,13 +86,16 @@ def compile_library(source, tag, defines):
     return lib, proc.stdout + proc.stderr
 
 
-def check_matrix(name, g):
-    """Raise ValueError unless `g` is what every kernel takes: a CUDA f32
-    contiguous (n, d) matrix with 1 <= n <= MAX_ROWS and d >= 1."""
+def check_matrix(name, g, dtypes=F32):
+    """Raise ValueError unless `g` is what the kernel takes: a CUDA
+    contiguous (n, d) matrix of one of `dtypes` with 1 <= n <= MAX_ROWS
+    and d >= 1."""
     if not g.is_cuda:
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {g.device}")
-    if g.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {g.dtype}")
+    if g.dtype not in dtypes:
+        raise ValueError(f"{name}: expected "
+                         f"{' or '.join(str(dtype) for dtype in dtypes)}, "
+                         f"got {g.dtype}")
     if g.dim() != 2:
         raise ValueError(f"{name}: expected a 2-D (n, d) matrix, got {tuple(g.shape)}")
     if not g.is_contiguous():
@@ -103,14 +117,23 @@ def stream(t):
 
 
 def counted(wrapper):
-    """Give a kernel wrapper its `launches` count (the wrapper adds one
-    where it launches its kernel)."""
+    """Give a kernel wrapper its `launches` count and its
+    `launches_by_dtype` counts (the wrapper calls `launched` where it
+    launches its kernel)."""
     wrapper.launches = 0
+    wrapper.launches_by_dtype = {}
     _counted.append(wrapper)
     return wrapper
 
 
+def launched(wrapper, dtype):
+    """Count one launch of `wrapper`'s kernel on a `dtype` operand."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] = wrapper.launches_by_dtype.get(dtype, 0) + 1
+
+
 def reset_launches():
-    """Zero the launch count of every kernel wrapper."""
+    """Zero the launch counts of every kernel wrapper."""
     for wrapper in _counted:
         wrapper.launches = 0
+        wrapper.launches_by_dtype = {}

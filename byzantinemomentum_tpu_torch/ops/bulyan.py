@@ -53,7 +53,9 @@ def aggregate(gradients, f, m=None, **kwargs):
     the matrix after the Gram's); any other operand takes the plain
     `weighted_rows_mean` + `averaged_median`."""
     dist = pairwise_distances(gradients)
-    W = selection_weights(dist, f, m)
+    # The weights take the stack's dtype, as in the JAX package, so a
+    # half-precision stack is averaged and sorted in its own dtype
+    W = selection_weights(dist, f, m).to(gradients.dtype)
     m2 = W.shape[0] - 2 * f
     if gar_kernels.supported(gradients):
         return gar_kernels.selected_median_mean(W, gradients, m2)

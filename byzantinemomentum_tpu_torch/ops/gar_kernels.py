@@ -1,11 +1,12 @@
 """The hand-written CUDA kernels of the distance- and selection-based
 GARs and their plain PyTorch versions — the port's counterpart of
 `byzantinemomentum_tpu/ops/pallas_gar.py` (`sq_gram`, `weighted_rows_mean`,
-`selected_median_mean`).
+`masked_rows_mean`, `selected_median_mean`).
 
 Kernels live in `csrc/gar_kernels.cu` (CUDA C++ for `sm_90a`), built and
-bound as `ops/_cuda.py` describes: one library for `sq_gram` and
-`weighted_rows_mean`, and one for each stage-1 round count that
+bound as `ops/_cuda.py` describes: one library for `sq_gram`,
+`weighted_rows_mean` and `masked_rows_mean`, and one for each stage-1
+round count that
 `selected_median_mean` is called with (its sorting network is unrolled
 for that count, and a large count takes long to compile). They launch on
 `torch.cuda.current_stream()`.
@@ -19,10 +20,15 @@ package routes operands outside `pallas_gar.supported` to its jnp path.
 
 `selected_median_mean` takes 1 <= rounds <= MAX_ROUNDS (62), every
 stage-1 round count that MAX_ROWS rows can give; `weighted_rows_mean`
-takes 1 <= r <= MAX_ROWS rows of weights.
+takes 1 <= r <= MAX_ROWS rows of weights; `masked_rows_mean` a bool[n]
+mask and a divisor k >= 1.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`;
-`reset_launches()` zeroes every wrapper's count, `sort_kernels`' too.
+The kernels take f32 only, as the JAX package's `pallas_gar` does: a
+half-precision stack takes the plain path in the callers.
+
+Each wrapper counts its kernel launches in `<wrapper>.launches` (and
+per dtype, `ops/_cuda.py`); `reset_launches()` zeroes every wrapper's
+counts, `sort_kernels`' too.
 """
 
 import ctypes
@@ -36,6 +42,7 @@ from byzantinemomentum_tpu_torch.ops._cuda import (
 
 __all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
            "sq_gram_plain", "weighted_rows_mean", "select_rows",
+           "masked_rows_mean", "masked_rows_mean_plain",
            "selected_median_mean", "selected_median_mean_plain",
            "reset_launches"]
 
@@ -48,8 +55,9 @@ GRAM_BLOCKS = 528  # pass-1 blocks of sq_gram, 4 per SM of a 132-SM H100
 # Build and binding
 
 def build(rounds=0):
-    """Compile the library of `csrc/gar_kernels.cu` that holds `sq_gram`
-    and `weighted_rows_mean` (`rounds=0`) or `selected_median_mean` for
+    """Compile the library of `csrc/gar_kernels.cu` that holds `sq_gram`,
+    `weighted_rows_mean` and `masked_rows_mean` (`rounds=0`) or
+    `selected_median_mean` for
     `rounds` stage-1 rounds, if it does not exist yet; returns
     `(library path, nvcc's output)`."""
     if not 0 <= rounds <= MAX_ROUNDS:
@@ -72,6 +80,9 @@ def _library(rounds=0):
         lib.bmt_weighted_rows_mean.argtypes = [ptr, ptr, ptr, i32, i32, i64,
                                                ptr]
         lib.bmt_weighted_rows_mean.restype = i32
+        lib.bmt_masked_rows_mean.argtypes = [ptr, ptr, ptr, i32, i64, i32,
+                                             ptr]
+        lib.bmt_masked_rows_mean.restype = i32
         if (lib.bmt_max_rounds(), lib.bmt_gram_tile()) != (MAX_ROUNDS,
                                                            GRAM_TILE):
             raise RuntimeError("csrc/gar_kernels.cu and ops/gar_kernels.py "
@@ -114,7 +125,7 @@ def sq_gram(g):
     _cuda.raise_on("sq_gram", lib.bmt_sq_gram(
         g.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, blocks,
         _cuda.stream(g)))
-    sq_gram.launches += 1
+    _cuda.launched(sq_gram, g.dtype)
     return out
 
 
@@ -156,8 +167,42 @@ def weighted_rows_mean(w, g):
     _cuda.raise_on("weighted_rows_mean", _library().bmt_weighted_rows_mean(
         W.data_ptr(), g.data_ptr(), out.data_ptr(), r, n, d,
         _cuda.stream(g)))
-    weighted_rows_mean.launches += 1
+    _cuda.launched(weighted_rows_mean, g.dtype)
     return out[0] if w.dim() == 1 else out
+
+
+# --------------------------------------------------------------------------- #
+# masked_rows_mean
+
+def masked_rows_mean_plain(mask, g, k):
+    """Brute's subset mean `sum(where(mask, g, 0)) / k` (`mask: bool[n]`):
+    excluded rows count as 0, a selected non-finite value propagates
+    through the sum (a +inf stays +inf, NaN or inf - inf gives NaN)."""
+    return torch.where(mask[:, None], g, 0.0).sum(dim=0) / k
+
+
+@_cuda.counted
+def masked_rows_mean(mask, g, k):
+    """`masked_rows_mean_plain(mask, g, k)` reading only the selected rows
+    of `g` once (k >= 1). Kernel on a CUDA tensor, the plain version on a
+    CPU one."""
+    if g.device.type == "cpu":
+        return masked_rows_mean_plain(mask, g, k)
+    _cuda.check_matrix("masked_rows_mean", g)
+    n, d = g.shape
+    if (mask.device != g.device or mask.dtype != torch.bool
+            or mask.shape != (n,) or not mask.is_contiguous()):
+        raise ValueError(f"masked_rows_mean: mask must be a contiguous "
+                         f"bool[{n}] on {g.device}, got {mask.dtype}"
+                         f"{tuple(mask.shape)} on {mask.device}")
+    if not (isinstance(k, int) and k >= 1):
+        raise ValueError(f"masked_rows_mean: k = {k!r} must be an int >= 1")
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    _cuda.raise_on("masked_rows_mean", _library().bmt_masked_rows_mean(
+        mask.data_ptr(), g.data_ptr(), out.data_ptr(), n, d, k,
+        _cuda.stream(g)))
+    _cuda.launched(masked_rows_mean, g.dtype)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -199,5 +244,5 @@ def selected_median_mean(W, g, m2):
                    _library(rounds).bmt_selected_median_mean(
                        W.data_ptr(), g.data_ptr(), out.data_ptr(), n,
                        g.shape[1], m2, _cuda.stream(g)))
-    selected_median_mean.launches += 1
+    _cuda.launched(selected_median_mean, g.dtype)
     return out

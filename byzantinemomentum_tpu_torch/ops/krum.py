@@ -61,7 +61,7 @@ def aggregate(gradients, f, m=None, **kwargs):
     """Multi-Krum: the mean of the m selected rows, as a weight-vector
     product with `_common.weighted_rows_mean`'s non-finite contract."""
     w = selection_weights(pairwise_distances(gradients), f, m)
-    return weighted_rows_mean(w, gradients)
+    return weighted_rows_mean(w.to(gradients.dtype), gradients)
 
 
 def check(gradients, f, m=None, **kwargs):

@@ -1,26 +1,33 @@
 """The hand-written CUDA kernels of the coordinate-wise GARs and their
 plain PyTorch versions — the port's counterpart of
 `byzantinemomentum_tpu/ops/pallas_sort.py` (`lower_median`,
-`trimmed_mean`, `closest_mean`, and the Batcher schedule `_batcher_pairs`
-/ `sort_values` that the CUDA kernels unroll).
+`trimmed_mean`, `closest_mean`, `colsort`, and the Batcher schedule
+`_batcher_pairs` / `sort_values` that the CUDA kernels unroll).
 
 Kernels live in `csrc/sort_kernels.cu` (CUDA C++ for `sm_90a`), built and
-bound as `ops/_cuda.py` describes: one library per (kernel, row count n)
-that a run meets, since each sorting network is unrolled for its n. They
-launch on `torch.cuda.current_stream()`.
+bound as `ops/_cuda.py` describes: one library per (kernel, row count n,
+element type) that a run meets, since each sorting network is unrolled
+for its n. They launch on `torch.cuda.current_stream()`.
+
+Dtypes: f32, bf16 and f16, the JAX kernels' (`pallas_sort.supported`).
+Arithmetic is the storage type's, as in the JAX kernels: every add,
+subtract and divide rounds to `g.dtype`, and outputs have `g.dtype`. The
+plain versions repeat that arithmetic step for step (torch rounds each
+elementwise op on a half tensor to its dtype), and sum in the kernels'
+order; float64 stays outside the domain.
 
 Dispatch, as in `ops/gar_kernels.py`: a wrapper given a CPU tensor runs
-the plain version; given a CUDA tensor it checks it (f32, 2-D,
-contiguous, 1 <= n <= MAX_ROWS, the rank bound in range) and launches the
-kernel or raises. Callers (`ops/_common.py`, `ops/trmean.py`) route
-operands outside `supported()` to the plain version, as the JAX package
-routes operands outside `pallas_sort.supported` to its jnp path. The JAX
-kernels also take bf16/f16; these are built for f32 only, the engine's
-GAR space, so a half-precision operand takes the plain path.
+the plain version; given a CUDA tensor it checks it (one of `DTYPES`,
+2-D, contiguous, 1 <= n <= MAX_ROWS, the rank bound in range) and
+launches the kernel or raises. Callers (`ops/_common.py`, `ops/trmean.py`)
+route operands outside `supported()` to the plain version, as the JAX
+package routes operands outside `pallas_sort.supported` to its jnp path.
 
-Semantics are the JAX package's: NaN sorts last (`torch.sort` agrees),
-the median is the lower one, and `torch.median`/`torch.quantile`, which
-propagate NaN, are never used.
+Semantics are the JAX package's: NaN sorts last, the median is the
+lower one, and `torch.median`/`torch.quantile`, which propagate NaN, are
+never used. The plain versions sort through `sort_nan_last`, which hands
+`torch.sort` no NaN: on the card (torch 2.11, CUDA 12.8, H100) it placed
+a NaN first in some columns of a bf16 [64, 20011] operand.
 """
 
 import ctypes
@@ -29,55 +36,75 @@ import functools
 import torch
 
 from byzantinemomentum_tpu_torch.ops import _cuda
-from byzantinemomentum_tpu_torch.ops._cuda import (
-    MAX_ROWS, reset_launches, supported)
+from byzantinemomentum_tpu_torch.ops._cuda import MAX_ROWS, reset_launches
 
-__all__ = ["MAX_ROWS", "KERNELS", "supported", "build", "batcher_pairs",
-           "sort_values", "lower_median", "lower_median_plain",
-           "trimmed_mean", "trimmed_mean_plain", "closest_mean",
-           "closest_mean_plain", "reset_launches"]
+__all__ = ["MAX_ROWS", "KERNELS", "DTYPES", "supported", "build",
+           "batcher_pairs", "sort_values", "sort_nan_last", "lower_median",
+           "lower_median_plain", "trimmed_mean", "trimmed_mean_plain",
+           "closest_mean", "closest_mean_plain", "colsort", "colsort_plain",
+           "reset_launches"]
 
-# The kernels of csrc/sort_kernels.cu, in BMT_SORT_KERNEL order (1, 2, 3)
-KERNELS = ("lower_median", "trimmed_mean", "closest_mean")
+# The kernels of csrc/sort_kernels.cu, in BMT_SORT_KERNEL order (1..4)
+KERNELS = ("lower_median", "trimmed_mean", "closest_mean", "colsort")
+# Element types, in BMT_DTYPE order (1..3)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def supported(g):
+    """Whether the sorting kernels apply to this operand: a CUDA f32, bf16
+    or f16 matrix with 1 <= n <= MAX_ROWS rows."""
+    return _cuda.supported(g, DTYPES)
 
 
 # --------------------------------------------------------------------------- #
 # Build and binding
 
-def build(kernel, n):
+def build(kernel, n, dtype=torch.float32):
     """Compile the library of `csrc/sort_kernels.cu` that holds `kernel`
-    for `n` rows, if it does not exist yet; returns `(library path,
-    nvcc's output)`."""
+    for `n` rows of `dtype`, if it does not exist yet; returns `(library
+    path, nvcc's output)`."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown sort kernel {kernel!r}, expected one of {KERNELS}")
     if not 1 <= n <= MAX_ROWS:
         raise ValueError(f"n = {n} rows outside 1..{MAX_ROWS}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype} outside {DTYPES}")
     return _cuda.compile_library(
-        "sort_kernels.cu", f"{kernel}-n{n}",
-        {"BMT_SORT_KERNEL": KERNELS.index(kernel) + 1, "BMT_N": n})
+        "sort_kernels.cu", f"{kernel}-n{n}-{_cuda.DTYPE_NAMES[dtype]}",
+        {"BMT_SORT_KERNEL": KERNELS.index(kernel) + 1, "BMT_N": n,
+         "BMT_DTYPE": DTYPES.index(dtype) + 1})
 
 
 @functools.cache
-def _entry(kernel, n):
-    """The typed C entry `bmt_<kernel>` of the loaded `build(kernel, n)`."""
-    lib = ctypes.CDLL(str(build(kernel, n)[0]))
+def _entry(kernel, n, dtype):
+    """The typed C entry `bmt_<kernel>` of the loaded `build(kernel, n,
+    dtype)`."""
+    lib = ctypes.CDLL(str(build(kernel, n, dtype)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("bmt_sort_n", "bmt_sort_kernel"):
+    for name in ("bmt_sort_n", "bmt_sort_kernel", "bmt_sort_dtype"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
-    if (lib.bmt_sort_n(), lib.bmt_sort_kernel()) != (n, KERNELS.index(kernel) + 1):
+    if ((lib.bmt_sort_n(), lib.bmt_sort_kernel(), lib.bmt_sort_dtype())
+            != (n, KERNELS.index(kernel) + 1, DTYPES.index(dtype) + 1)):
         raise RuntimeError(f"library {lib._name} is not built for {kernel} "
-                           f"at n = {n}")
+                           f"at n = {n} in {dtype}")
     entry = getattr(lib, f"bmt_{kernel}")
     entry.argtypes = {"lower_median": [ptr, ptr, i64, ptr],
                       "trimmed_mean": [ptr, ptr, i64, i32, ptr],
-                      "closest_mean": [ptr, ptr, ptr, i64, i32, ptr]}[kernel]
+                      "closest_mean": [ptr, ptr, ptr, i64, i32, ptr],
+                      "colsort": [ptr, ptr, i64, ptr]}[kernel]
     entry.restype = i32
     return entry
 
 
-def _output(g):
-    return torch.empty((g.shape[1],), dtype=torch.float32, device=g.device)
+def _launch(wrapper, g, *args):
+    """Launch the entry of `wrapper`'s kernel for the row count and dtype
+    of the checked operand `g` on `args` (pointers and ints), raise on a
+    CUDA error, and count the launch."""
+    kernel = wrapper.__name__
+    _cuda.raise_on(kernel, _entry(kernel, g.shape[0], g.dtype)(
+        *args, _cuda.stream(g)))
+    _cuda.launched(wrapper, g.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -117,47 +144,90 @@ def sort_values(rows):
 # --------------------------------------------------------------------------- #
 # Plain versions
 
+def sort_nan_last(g):
+    """The columns of `g` sorted ascending, NaN last. NaN is sorted as +inf
+    and written back over each column's last places, so `torch.sort`
+    never compares a NaN."""
+    nan = torch.isnan(g)
+    srt = torch.sort(torch.where(nan, torch.inf, g), dim=0).values
+    rank = torch.arange(g.shape[0], device=g.device)[:, None]
+    return torch.where(rank >= g.shape[0] - nan.sum(dim=0), torch.nan, srt)
+
+
+def colsort_plain(g):
+    """Every column sorted ascending, NaN last."""
+    return sort_nan_last(g)
+
+
 def lower_median_plain(g):
     """Coordinate-wise lower median `sorted[(n - 1) // 2]`, NaN last."""
     n = g.shape[0]
-    return torch.sort(g, dim=0).values[(n - 1) // 2]
+    return sort_nan_last(g)[(n - 1) // 2]
+
+
+def _sum_rows(rows, start):
+    """`start + rows[0] + rows[1] + ...`, one rounded add at a time in
+    the dtype of the rows (the kernels' order)."""
+    acc = start
+    for row in rows:
+        acc = acc + row
+    return acc
 
 
 def trimmed_mean_plain(g, f):
-    """Coordinate-wise mean of sorted ranks [f, n - f), NaN last."""
+    """Coordinate-wise mean of sorted ranks [f, n - f), NaN last: summed
+    in ascending rank order from rank f, then divided by n - 2f."""
     n = g.shape[0]
-    return torch.sort(g, dim=0).values[f:n - f].sum(dim=0) / (n - 2 * f)
+    ranks = sort_nan_last(g)[f:n - f]
+    return _sum_rows(ranks[1:], ranks[0]) / (n - 2 * f)
 
 
 def closest_mean_plain(g, c, m):
     """Coordinate-wise mean of the `m` values closest to center `c`:
     everything strictly below the m-th smallest deviation, then the ties
-    at it in index order (the stable-argsort selection). NaN deviations
-    sort last; fewer than m finite values gives NaN."""
+    at it in index order (the stable-argsort selection), summed in index
+    order from 0. NaN deviations sort last; fewer than m finite values
+    gives NaN."""
     dev = torch.abs(g - c[None, :])
-    thresh = torch.sort(dev, dim=0).values[m - 1]
+    thresh = sort_nan_last(dev)[m - 1]
     lt = dev < thresh
     eq = dev == thresh
     need = m - lt.sum(dim=0)
     take = lt | (eq & (torch.cumsum(eq.int(), dim=0) <= need))
-    out = torch.where(take, g, 0.0).sum(dim=0) / m
+    kept = torch.where(take, g, 0.0)
+    out = _sum_rows(kept, torch.zeros_like(kept[0])) / m
     return torch.where(torch.isnan(thresh), torch.nan, out)
 
 
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 
+def _output(g, rows=None):
+    shape = (g.shape[1],) if rows is None else (rows, g.shape[1])
+    return torch.empty(shape, dtype=g.dtype, device=g.device)
+
+
+@_cuda.counted
+def colsort(g):
+    """`colsort_plain(g)` in one read and one write of `g` (kernel on a
+    CUDA tensor, the plain version on a CPU one)."""
+    if g.device.type == "cpu":
+        return colsort_plain(g)
+    _cuda.check_matrix("colsort", g, DTYPES)
+    out = _output(g, g.shape[0])
+    _launch(colsort, g, g.data_ptr(), out.data_ptr(), g.shape[1])
+    return out
+
+
 @_cuda.counted
 def lower_median(g):
-    """`lower_median_plain(g)` in one read of `g` and one f32[d] write
+    """`lower_median_plain(g)` in one read of `g` and one (d,) write
     (kernel on a CUDA tensor, the plain version on a CPU one)."""
     if g.device.type == "cpu":
         return lower_median_plain(g)
-    _cuda.check_matrix("lower_median", g)
+    _cuda.check_matrix("lower_median", g, DTYPES)
     out = _output(g)
-    _cuda.raise_on("lower_median", _entry("lower_median", g.shape[0])(
-        g.data_ptr(), out.data_ptr(), g.shape[1], _cuda.stream(g)))
-    lower_median.launches += 1
+    _launch(lower_median, g, g.data_ptr(), out.data_ptr(), g.shape[1])
     return out
 
 
@@ -167,35 +237,32 @@ def trimmed_mean(g, f):
     kernel on a CUDA tensor, the plain version on a CPU one."""
     if g.device.type == "cpu":
         return trimmed_mean_plain(g, f)
-    _cuda.check_matrix("trimmed_mean", g)
+    _cuda.check_matrix("trimmed_mean", g, DTYPES)
     n = g.shape[0]
     if not (isinstance(f, int) and 0 <= f and 2 * f < n):
         raise ValueError(f"trimmed_mean: f = {f!r} outside 0 <= f < {n}/2")
     out = _output(g)
-    _cuda.raise_on("trimmed_mean", _entry("trimmed_mean", n)(
-        g.data_ptr(), out.data_ptr(), g.shape[1], f, _cuda.stream(g)))
-    trimmed_mean.launches += 1
+    _launch(trimmed_mean, g, g.data_ptr(), out.data_ptr(), g.shape[1], f)
     return out
 
 
 @_cuda.counted
 def closest_mean(g, c, m):
-    """`closest_mean_plain(g, c, m)` in one read of `g` and `c`
-    (1 <= m <= n); kernel on a CUDA tensor, the plain version on a CPU
-    one."""
+    """`closest_mean_plain(g, c, m)` in one read of `g` and `c` (1 <= m <=
+    n, `c` of `g`'s dtype); kernel on a CUDA tensor, the plain version on
+    a CPU one."""
     if g.device.type == "cpu":
         return closest_mean_plain(g, c, m)
-    _cuda.check_matrix("closest_mean", g)
+    _cuda.check_matrix("closest_mean", g, DTYPES)
     n, d = g.shape
-    if (c.device != g.device or c.dtype != torch.float32 or c.dim() != 1
+    if (c.device != g.device or c.dtype != g.dtype or c.dim() != 1
             or c.shape[0] != d or not c.is_contiguous()):
-        raise ValueError(f"closest_mean: c must be a contiguous f32[{d}] on "
-                         f"{g.device}, got {c.dtype}{tuple(c.shape)} on "
-                         f"{c.device}")
+        raise ValueError(f"closest_mean: c must be a contiguous "
+                         f"{g.dtype}[{d}] on {g.device}, got "
+                         f"{c.dtype}{tuple(c.shape)} on {c.device}")
     if not (isinstance(m, int) and 1 <= m <= n):
         raise ValueError(f"closest_mean: m = {m!r} outside 1..{n}")
     out = _output(g)
-    _cuda.raise_on("closest_mean", _entry("closest_mean", n)(
-        g.data_ptr(), c.data_ptr(), out.data_ptr(), d, m, _cuda.stream(g)))
-    closest_mean.launches += 1
+    _launch(closest_mean, g, g.data_ptr(), c.data_ptr(), out.data_ptr(),
+            d, m)
     return out

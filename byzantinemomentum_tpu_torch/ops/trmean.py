@@ -8,6 +8,7 @@ All three are coordinate-wise rules over the stacked `(n, d)` matrix:
   closest values (`closest_mean` kernel);
 * meamed — median center (`lower_median` kernel), then the mean of the
   n-f closest.
+The kernels take f32, bf16 and f16 stacks (`sort_kernels.supported`).
 """
 
 from byzantinemomentum_tpu_torch.ops import register, sort_kernels

@@ -4,7 +4,8 @@ An optimizer is a pair of functions over the flat parameter vector,
 `init(theta) -> opt_state` and `update(grad, opt_state, theta, lr) ->
 (new_theta, new_opt_state)`. `sgd` is torch.optim.SGD with momentum 0
 (the Byzantine-momentum algebra lives in `engine/step.py`):
-theta <- theta - lr * (grad + weight_decay * theta).
+theta <- theta - lr * (grad + weight_decay * theta), in theta's dtype
+(the engine hands over a learning rate rounded to it).
 """
 
 from byzantinemomentum_tpu_torch import utils

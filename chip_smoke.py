@@ -4,38 +4,50 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. Environment: the card's name and power limit (`nvidia-smi`), torch and
-   CUDA versions, the TF32 flags as the engine pins them.
+   CUDA versions, the precision flags as the engine pins them.
 2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/gar_kernels.cu`
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
-   the run needs (one per round count, and one per (kernel, n) for the
-   sorting kernels), all side by side; prints their registers and spills.
-3. Kernels against their plain PyTorch versions on the card: the six
-   kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at f=5,
-   Krum's weights at f=11, the trimmed mean at f=5 and 11, the closest
-   mean with m = n - f about the median and the trimmed mean), on a
-   ragged d with NaN rows, +-inf and ties, and at n = 2 and 64; each GAR
-   of the port on the card against the same GAR on the CPU at a small
-   size. Timings are medians of CUDA-event times; `bound_ms` is the
-   larger of the bytes the function must move over the card's memory
-   rate and its f32 operations over the card's f32 (non-tensor-core)
-   peak, counting 2 operations per compare-exchange of a sorting network.
+   the run needs (one per round count, and one per (kernel, n, element
+   type) for the four sorting kernels, in f32, bf16 and f16), all side by
+   side; prints their registers and spills.
+3. Kernels against their plain PyTorch versions on the card: the seven
+   f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
+   f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
+   enumeration itself, the trimmed mean at f=5 and 11, the closest mean
+   with m = n - f about the median and the trimmed mean, the column
+   sort), on a ragged d with NaN rows, +-inf and ties (a selected +inf
+   must stay +inf in Brute's mean), and at n = 2 and 64; the bf16 and
+   f16 forms of the four sorting kernels on the same cases; each GAR of
+   the port on the card against the same GAR on the CPU at a small size,
+   Brute and CGE at n=11, f=4. Timings are medians of CUDA-event times;
+   `bound_ms` is the larger of the bytes the function must move over the
+   card's memory rate and its operations over the card's f32
+   (non-tensor-core) peak (the half forms compute in f32 too), counting
+   2 operations per compare-exchange of a sorting network.
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
    Bulyan against `empire factor:1.1`, 10 steps), the `krum_f11` cell
    (f=11, 11 real, Krum against `empire factor:1.1`, 10 steps), then 3
    steps each of Median, Trimmed mean, Phocas, MeaMed and Aksel at f=11,
-   11 real, against `little factor:1.5 negative:true`. Launch counts are
-   zeroed before each run and read after it: each kernel of the run's
-   GAR must rise by at least its step count. Each study CSV must carry
-   the JAX package's header and a finite "Defense gradient norm".
-5. Where a step's time goes, for the headline and the `krum_f11` cells:
-   per-phase CUDA-event times, the busiest kernels and the device's busy
-   share (`torch.profiler`).
+   11 real, against `little factor:1.5 negative:true`; the brute cell
+   (f=11, 11 real, against `empire factor:1.1`) and CGE (f=11, against
+   `little`); `--dtype bfloat16` runs of Median, Trimmed mean, Phocas
+   and MeaMed and `--dtype float16` runs of Phocas and MeaMed (f=11,
+   `little`);
+   and the headline cell at `--dtype float32 --compute-dtype bfloat16`
+   (3 steps each). Launch counts are zeroed before each run and read
+   after it: each kernel of the run's GAR must rise by at least its step
+   count in the run's dtype. Each study CSV must carry the JAX package's
+   header and a finite "Defense gradient norm".
+5. Where a step's time goes, for the headline, `krum_f11`, brute and
+   mixed-precision headline cells: per-phase CUDA-event times, the
+   busiest kernels and the device's busy share (`torch.profiler`).
 
-The line before the last is the `{"kernels": [...]}` record (launches
-summed over the runs of phase 4); the last line is `{"ok": true,
-"device": {...}}`. Needs one card; exits non-zero without one.
+The line before the last is the `{"kernels": [...]}` record (one record
+per kernel and element type, launches summed over the runs of phase 4);
+the last line is `{"ok": true, "device": {...}}`. Needs one card; exits
+non-zero without one.
 """
 
 import json
@@ -57,14 +69,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
-from byzantinemomentum_tpu_torch.engine.step import pin_f32
+from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.ops import (
-    _common, _cuda, bulyan, gar_kernels, gars, krum, sort_kernels)
+    _common, _cuda, brute, bulyan, gar_kernels, gars, krum, sort_kernels)
 
 STEPS = 10        # steps of the headline and krum_f11 cells
-GAR_STEPS = 3     # steps of each coordinate-wise GAR run
+GAR_STEPS = 3     # steps of each other run
 SORT_SIZES = (2, 25, 64)  # row counts the sorting kernels meet below
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # tests/test_torch_ops.py's tolerances
+# Two ulps of each half dtype: the sorting kernels' half forms round after
+# every operation, as their plain versions do (tests/test_torch_gpu.py)
+HALF_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+DTYPE_NAMES = _cuda.DTYPE_NAMES
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # Published H100 peaks (NVIDIA data sheets): memory bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
@@ -123,24 +140,29 @@ def environment():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    pin_f32()
+    pin_precision()
     log(smi)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
-    log(f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32} cudnn "
-        f"{torch.backends.cudnn.allow_tf32}")
+    matmul = torch.backends.cuda.matmul
+    log(f"tf32 matmul {matmul.allow_tf32} cudnn "
+        f"{torch.backends.cudnn.allow_tf32}; reduced-precision reductions "
+        f"bf16 {matmul.allow_bf16_reduced_precision_reduction} f16 "
+        f"{matmul.allow_fp16_reduced_precision_reduction}")
     return smi
 
 
 def build():
-    """Phase 2: the `sq_gram`/`weighted_rows_mean` library, the
-    `selected_median_mean` ones for the round counts this script meets
-    (13 at n=25, f=5; 5 at n=11, f=2) and the sorting kernels at the row
-    counts it meets, compiled side by side."""
+    """Phase 2: the `sq_gram`/`weighted_rows_mean`/`masked_rows_mean`
+    library, the `selected_median_mean` ones for the round counts this
+    script meets (13 at n=25, f=5; 5 at n=11, f=2) and the four sorting
+    kernels at the row counts and element types it meets, compiled side
+    by side."""
     jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13)]
-    jobs += [(sort_kernels.build, kernel, n)
-             for kernel in sort_kernels.KERNELS for n in SORT_SIZES]
+    jobs += [(sort_kernels.build, kernel, n, dtype)
+             for kernel in sort_kernels.KERNELS for n in SORT_SIZES
+             for dtype in sort_kernels.DTYPES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda job: job[0](*job[1:]), jobs))
@@ -168,34 +190,66 @@ def kernels_vs_plain(smi):
     dist = _common.pairwise_distances(g)
     W = bulyan.selection_weights(dist, f)
     w = krum.selection_weights(dist, f11)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    mask = brute.best_subset_mask_from_dist(dist, f11)
+    end.record()
+    end.synchronize()
+    k = n - f11
     rounds = W.shape[0]
     m2 = rounds - 2 * f
     log(f"headline operand f32{list(g.shape)}: rounds {rounds}, m2 {m2}; "
-        f"Krum at f={f11} selects {int((w > 0).sum())} rows")
+        f"Krum at f={f11} selects {int((w > 0).sum())} rows; Brute at "
+        f"f={f11} keeps {int(mask.sum())} rows (the enumeration of "
+        f"{math.comb(n, k)} subsets took {start.elapsed_time(end):.1f} ms)")
+    if int(mask.sum()) != k:
+        raise SystemExit(f"brute mask keeps {int(mask.sum())} rows, not {k}")
+    # One record per kernel and element type: f32 under the kernel's name,
+    # the half forms as `<kernel>_bf16` and `<kernel>_f16`
     errs = dict.fromkeys(("sq_gram", "selected_median_mean",
-                          "weighted_rows_mean", *sort_kernels.KERNELS), 0.0)
+                          "weighted_rows_mean", "masked_rows_mean",
+                          *sort_kernels.KERNELS), 0.0)
+    errs.update({f"{kernel}_{DTYPE_NAMES[dtype]}": 0.0
+                 for dtype in (BF16, F16) for kernel in sort_kernels.KERNELS})
 
-    def check(name, label, got, want, atol=TOL_ATOL):
-        errs[name] = max(errs[name], compare(f"{name} {label}", got, want, atol))
+    def record_name(kernel, dtype):
+        return kernel if dtype == F32 else f"{kernel}_{DTYPE_NAMES[dtype]}"
+
+    def check(name, label, got, want, atol=TOL_ATOL, dtype=F32):
+        rtol = HALF_RTOL.get(dtype, TOL_RTOL)
+        if got.dtype != want.dtype or got.dtype != dtype:
+            raise SystemExit(f"{name} {label}: dtype {got.dtype}, plain "
+                             f"{want.dtype}, expected {dtype}")
+        name = record_name(name, dtype)
+        errs[name] = max(errs[name], compare(f"{name} {label}", got, want,
+                                             atol, rtol))
 
     def gram_atol(plain):
         diag = torch.diagonal(plain)
         return TOL_RTOL * float(diag[torch.isfinite(diag)].max())
 
-    def check_sort_kernels(label, h, fs):
+    def check_sort_kernels(label, h, fs, dtypes=sort_kernels.DTYPES):
         nh = h.shape[0]
-        check("lower_median", label, sort_kernels.lower_median(h),
-              sort_kernels.lower_median_plain(h))
-        for fh in fs:
-            check("trimmed_mean", f"{label} f={fh}",
-                  sort_kernels.trimmed_mean(h, fh),
-                  sort_kernels.trimmed_mean_plain(h, fh))
-            for centre_name, centre in (
-                    ("median", sort_kernels.lower_median_plain(h)),
-                    ("trmean", sort_kernels.trimmed_mean_plain(h, fh))):
-                check("closest_mean", f"{label} m={nh - fh} about the "
-                      f"{centre_name}", sort_kernels.closest_mean(h, centre, nh - fh),
-                      sort_kernels.closest_mean_plain(h, centre, nh - fh))
+        for dtype in dtypes:
+            x = h.to(dtype)
+            tol = {"dtype": dtype, "atol": 0.0 if dtype != F32 else TOL_ATOL}
+            # The column sort and the median move values: exactly equal
+            check("colsort", label, sort_kernels.colsort(x),
+                  sort_kernels.colsort_plain(x), atol=0.0, dtype=dtype)
+            check("lower_median", label, sort_kernels.lower_median(x),
+                  sort_kernels.lower_median_plain(x), atol=0.0, dtype=dtype)
+            for fh in fs:
+                check("trimmed_mean", f"{label} f={fh}",
+                      sort_kernels.trimmed_mean(x, fh),
+                      sort_kernels.trimmed_mean_plain(x, fh), **tol)
+                for centre_name, centre in (
+                        ("median", sort_kernels.lower_median_plain(x)),
+                        ("trmean", sort_kernels.trimmed_mean_plain(x, fh))):
+                    check("closest_mean", f"{label} m={nh - fh} about the "
+                          f"{centre_name}",
+                          sort_kernels.closest_mean(x, centre, nh - fh),
+                          sort_kernels.closest_mean_plain(x, centre, nh - fh),
+                          **tol)
 
     plain_gram = gar_kernels.sq_gram_plain(g)
     check("sq_gram", "headline", gar_kernels.sq_gram(g), plain_gram,
@@ -208,13 +262,18 @@ def kernels_vs_plain(smi):
         check("weighted_rows_mean", f"headline {label}",
               gar_kernels.weighted_rows_mean(weights, g),
               gar_kernels.select_rows(weights, g))
+    check("masked_rows_mean", "headline Brute f=11",
+          gar_kernels.masked_rows_mean(mask, g, k),
+          gar_kernels.masked_rows_mean_plain(mask, g, k))
     check_sort_kernels("headline", g, (f, f11))
 
-    # Ragged d: NaN rows, +-inf, a selected NaN, half-integer values (ties)
+    # Ragged d: NaN rows, +-inf, a selected NaN, half-integer values (ties,
+    # +0 only)
     rng = np.random.default_rng(1)
 
     def ragged(rows):
         h = np.round(rng.standard_normal((rows, 100_003)) * 2.0).astype(np.float32) / 2.0
+        h += np.float32(0.0)
         h[rows - 1, rng.integers(0, h.shape[1], 50)] = np.nan
         h[min(3, rows - 1), rng.integers(0, h.shape[1], 50)] = np.nan
         h[0, rng.integers(0, h.shape[1], 20)] = np.inf
@@ -241,6 +300,16 @@ def kernels_vs_plain(smi):
               gar_kernels.select_rows(weights, h))
         if not bool(out.isnan().any()):
             raise SystemExit("ragged case: weighted_rows_mean lost the selected NaN")
+    # Brute's mean keeps row 0 (+inf entries) and drops the NaN rows: a
+    # selected +inf stays +inf, not NaN
+    keep = torch.zeros(n, dtype=torch.bool, device=dev)
+    keep[torch.arange(0, n - 1, 2, device=dev)] = True
+    keep[3] = False
+    out = gar_kernels.masked_rows_mean(keep, h, int(keep.sum()))
+    check("masked_rows_mean", "ragged", out,
+          gar_kernels.masked_rows_mean_plain(keep, h, int(keep.sum())))
+    if not bool(out.isposinf().any()):
+        raise SystemExit("ragged case: masked_rows_mean lost a selected +inf")
     check_sort_kernels("ragged", h, (f, f11))
 
     # The row counts at the ends of the kernels' domain
@@ -254,11 +323,22 @@ def kernels_vs_plain(smi):
             check("weighted_rows_mean", f"n={rows} {label}",
                   gar_kernels.weighted_rows_mean(weights, h),
                   gar_kernels.select_rows(weights, h))
+        check("masked_rows_mean", f"n={rows}",
+              gar_kernels.masked_rows_mean(W_rows[0] > 0, h, rows // 2),
+              gar_kernels.masked_rows_mean_plain(W_rows[0] > 0, h, rows // 2))
 
     # Each GAR: the CUDA path against the CPU plain path
     small = torch.from_numpy(rng.standard_normal((11, 5001)).astype(np.float32))
     compare("bulyan cuda vs cpu", gars["bulyan"](small.to(dev), f=2),
             gars["bulyan"](small, f=2))
+    small[7:] = small[:7].mean(dim=0) - 1.5 * small[:7].std(dim=0)
+    small[2, :7] = torch.nan
+    for name in ("brute", "cge"):
+        compare(f"{name} cuda vs cpu", gars[name](small.to(dev), f=4),
+                gars[name](small, f=4))
+        if (float(gars[name].influence(small[:7].to(dev), small[7:].to(dev), f=4))
+                != float(gars[name].influence(small[:7], small[7:], f=4))):
+            raise SystemExit(f"{name}: influence differs on the card")
     small = torch.from_numpy(rng.standard_normal((25, 20_001)).astype(np.float32))
     small[14:] = small[:14].mean(dim=0) - 1.5 * small[:14].std(dim=0)
     small[2, :7] = torch.nan
@@ -267,52 +347,78 @@ def kernels_vs_plain(smi):
                          ("aksel", {"mode": "n-f"})):
         compare(f"{name} cuda vs cpu", gars[name](small.to(dev), f=f11, **kwargs),
                 gars[name](small, f=f11, **kwargs))
+    for dtype in (BF16, F16):
+        half = small.to(dtype)
+        for name in ("median", "trmean", "phocas", "meamed"):
+            compare(f"{name} {DTYPE_NAMES[dtype]} cuda vs cpu",
+                    gars[name](half.to(dev), f=f11), gars[name](half, f=f11),
+                    atol=0.0, rtol=HALF_RTOL[dtype])
     log("kernels agree with their plain versions: " + ", ".join(
         f"{name} max abs err {err:.3e}" for name, err in errs.items()))
 
     bandwidth, flops32 = card_peaks(smi)
-    fbytes = 4
     exchanges = len(sort_kernels.batcher_pairs(n))
-    median = sort_kernels.lower_median_plain(g)
     # (name, kernel, plain, library call, bytes, f32 operations)
-    work = (
+    work = [
         ("sq_gram", lambda: gar_kernels.sq_gram(g),
          lambda: gar_kernels.sq_gram_plain(g), lambda: torch.matmul(g, g.T),
-         (n * d + n * n) * fbytes, 2 * (n * (n + 1) // 2) * d),
+         (n * d + n * n) * 4, 2 * (n * (n + 1) // 2) * d),
         ("selected_median_mean",
          lambda: gar_kernels.selected_median_mean(W, g, m2),
          lambda: gar_kernels.selected_median_mean_plain(W, g, m2), None,
-         (n * d + rounds * n + d) * fbytes, 2 * rounds * n * d),
+         (n * d + rounds * n + d) * 4, 2 * rounds * n * d),
         ("weighted_rows_mean", lambda: gar_kernels.weighted_rows_mean(w, g),
          lambda: gar_kernels.select_rows(w, g), lambda: torch.matmul(w, g),
-         (n * d + n + d) * fbytes, 2 * n * d),
-        ("lower_median", lambda: sort_kernels.lower_median(g),
-         lambda: sort_kernels.lower_median_plain(g),
-         lambda: torch.sort(g, dim=0),
-         (n * d + d) * fbytes, 2 * exchanges * d),
-        ("trimmed_mean", lambda: sort_kernels.trimmed_mean(g, f11),
-         lambda: sort_kernels.trimmed_mean_plain(g, f11),
-         lambda: torch.sort(g, dim=0),
-         (n * d + d) * fbytes, (2 * exchanges + n - 2 * f11 + 1) * d),
-        # Deviations: a subtract and an absolute value per value
-        ("closest_mean", lambda: sort_kernels.closest_mean(g, median, n - f11),
-         lambda: sort_kernels.closest_mean_plain(g, median, n - f11), None,
-         (n * d + 2 * d) * fbytes, (2 * exchanges + 2 * n) * d))
+         (n * d + n + d) * 4, 2 * n * d),
+        # The k selected rows are all it must read; k adds and a divide a
+        # coordinate. The library call is equivalent on finite input only
+        ("masked_rows_mean", lambda: gar_kernels.masked_rows_mean(mask, g, k),
+         lambda: gar_kernels.masked_rows_mean_plain(mask, g, k),
+         lambda: torch.matmul(mask.float(), g) / k,
+         (k * d + d) * 4 + n, (k + 1) * d)]
+    for dtype in sort_kernels.DTYPES:
+        x = g.to(dtype)
+        size = x.element_size()
+        median = sort_kernels.lower_median_plain(x)
+        work += [
+            (record_name("colsort", dtype), lambda x=x: sort_kernels.colsort(x),
+             lambda x=x: sort_kernels.colsort_plain(x),
+             lambda x=x: torch.sort(x, dim=0).values,
+             2 * n * d * size, 2 * exchanges * d),
+            (record_name("lower_median", dtype),
+             lambda x=x: sort_kernels.lower_median(x),
+             lambda x=x: sort_kernels.lower_median_plain(x),
+             lambda x=x: torch.sort(x, dim=0),
+             (n * d + d) * size, 2 * exchanges * d),
+            (record_name("trimmed_mean", dtype),
+             lambda x=x: sort_kernels.trimmed_mean(x, f11),
+             lambda x=x: sort_kernels.trimmed_mean_plain(x, f11),
+             lambda x=x: torch.sort(x, dim=0),
+             (n * d + d) * size, (2 * exchanges + n - 2 * f11 + 1) * d),
+            # Deviations: a subtract and an absolute value per value
+            (record_name("closest_mean", dtype),
+             lambda x=x, c=median: sort_kernels.closest_mean(x, c, n - f11),
+             lambda x=x, c=median: sort_kernels.closest_mean_plain(x, c, n - f11),
+             None, (n * d + 2 * d) * size, (2 * exchanges + 2 * n) * d)]
     sources = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
-               "weighted_rows_mean": "gar_kernels.cu"}
+               "weighted_rows_mean": "gar_kernels.cu",
+               "masked_rows_mean": "gar_kernels.cu"}
     replaces = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
                 "weighted_rows_mean": "pallas_gar.py:210",
+                "masked_rows_mean": "pallas_gar.py:258",
+                "colsort": "pallas_sort.py:189",
                 "lower_median": "pallas_sort.py:200",
                 "trimmed_mean": "pallas_sort.py:215",
                 "closest_mean": "pallas_sort.py:252"}
     records = []
     for name, fn, plain, library, nbytes, ops in work:
+        kernel = name.rsplit("_", 1)[0] if name.endswith(("_bf16", "_f16")) else name
         t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
         records.append({
             "name": name, "route": "cuda",
             "source": "byzantinemomentum_tpu_torch/csrc/"
-                      + sources.get(name, "sort_kernels.cu"),
-            "replaces": "byzantinemomentum_tpu/ops/" + replaces[name],
+                      + sources.get(kernel, "sort_kernels.cu"),
+            "replaces": "byzantinemomentum_tpu/ops/" + replaces[kernel],
             "launches": None, "max_abs_err": errs[name],
             "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
             "bound_ms": max(t_bytes, t_ops),
@@ -325,27 +431,46 @@ def kernels_vs_plain(smi):
     return records
 
 
-# (name, GAR, f, attack and its arguments, steps, kernels the GAR launches)
+# (name, GAR, f, attack and its arguments, steps, kernels the GAR launches,
+# dtype flags, the dtype those kernels must run in)
 EMPIRE = ("empire", ("factor:1.1",))
 LITTLE = ("little", ("factor:1.5", "negative:true"))
+BF16_RUN = ("--dtype", "bfloat16")
+F16_RUN = ("--dtype", "float16")
+MIXED_RUN = ("--dtype", "float32", "--compute-dtype", "bfloat16")
 CELLS = (
-    ("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean")),
-    ("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean")),
-    ("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",)),
-    ("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",)),
-    ("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean")),
-    ("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean")),
-    ("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",)),
+    ("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean"), (), F32),
+    ("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean"), (), F32),
+    ("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",), (), F32),
+    ("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",), (), F32),
+    ("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"), (), F32),
+    ("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"), (), F32),
+    ("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",), (), F32),
+    ("brute", "brute", 11, EMPIRE, GAR_STEPS, ("sq_gram", "masked_rows_mean"), (), F32),
+    ("cge", "cge", 11, LITTLE, GAR_STEPS, (), (), F32),
+    ("median_bf16", "median", 11, LITTLE, GAR_STEPS, ("lower_median",), BF16_RUN, BF16),
+    ("trmean_bf16", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",), BF16_RUN, BF16),
+    ("phocas_bf16", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"),
+     BF16_RUN, BF16),
+    ("meamed_bf16", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"),
+     BF16_RUN, BF16),
+    ("phocas_f16", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"),
+     F16_RUN, F16),
+    ("meamed_f16", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"),
+     F16_RUN, F16),
+    ("headline_mixed", "bulyan", 5, EMPIRE, GAR_STEPS,
+     ("sq_gram", "selected_median_mean"), MIXED_RUN, F32),
 )
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
-    gar_kernels.weighted_rows_mean, sort_kernels.lower_median,
+    gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
+    sort_kernels.colsort, sort_kernels.lower_median,
     sort_kernels.trimmed_mean, sort_kernels.closest_mean)}
 
 
 def cell_argv(cell, steps, resdir):
     """The driver's command line for a cell of `CELLS`."""
-    _, gar, f, (attack, attack_args), _, _ = cell
+    _, gar, f, (attack, attack_args), _, _, dtype_flags, _ = cell
     return ["--device", "cuda", "--seed", "1", "--nb-steps", str(steps),
             "--dataset", "cifar10", "--model", "empire-cnn",
             "--nb-workers", "25", "--nb-decl-byz", str(f),
@@ -355,18 +480,20 @@ def cell_argv(cell, steps, resdir):
             "--evaluation-delta", str(steps), "--momentum", "0.99",
             "--momentum-at", "update", "--gradient-clip", "5",
             "--learning-rate", "0.01", "--nb-for-study", "1",
-            "--nb-for-study-past", "1", "--result-directory", resdir]
+            "--nb-for-study-past", "1", *dtype_flags,
+            "--result-directory", resdir]
 
 
 def drive(cell, smi):
-    """Phase 4, one run; returns its launch counts."""
-    name, _, _, _, steps, kernels = cell
+    """Phase 4, one run; returns its launch counts by (kernel, dtype)."""
+    name, _, _, _, steps, kernels, _, dtype = cell
     with tempfile.TemporaryDirectory() as tmp:
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
         summary = driver.run(argv)
         torch.cuda.synchronize()
-        launches = {kernel: wrapper.launches for kernel, wrapper in WRAPPERS.items()}
+        launches = {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
+                    for dt, count in wrapper.launches_by_dtype.items()}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
     header = lines[0]
     if header != "# " + "\t".join(STUDY_COLUMNS):
@@ -379,17 +506,19 @@ def drive(cell, smi):
     if not np.all(np.isfinite(norms)):
         raise SystemExit(f"{name}: non-finite defense gradient norm: {norms}")
     for kernel in kernels:
-        if launches[kernel] < steps:
-            raise SystemExit(f"{name}: {kernel} launched {launches[kernel]} "
-                             f"times in {steps} steps: the path bypassed it")
+        count = launches.get((kernel, dtype), 0)
+        if count < steps:
+            raise SystemExit(f"{name}: {kernel} launched {count} times in "
+                             f"{dtype} in {steps} steps: the path bypassed it")
     rate = summary["steps_per_s"]
     if rate is None or not math.isfinite(rate):
         raise SystemExit(f"{name}: no throughput measured")
     ratio = rows[-1][STUDY_COLUMNS.index("Attack acceptation ratio")]
+    counts = {f"{kernel}[{DTYPE_NAMES[dt]}]": count
+              for (kernel, dt), count in launches.items()}
     log(f"{name} cell: {steps} steps, {rate:.4f} steps/s after the first "
-        f"step, launches { {k: v for k, v in launches.items() if v} }, "
-        f"defense norms {norms[0]:.4e} .. {norms[-1]:.4e}, acceptation "
-        f"ratio {ratio} on {smi}")
+        f"step, launches {counts}, defense norms {norms[0]:.4e} .. "
+        f"{norms[-1]:.4e}, acceptation ratio {ratio} on {smi}")
     return launches
 
 
@@ -464,14 +593,20 @@ def main():
     smi = environment()
     build()
     records = kernels_vs_plain(smi)
-    totals = dict.fromkeys(WRAPPERS, 0)
+    totals = {}
     for cell in CELLS:
-        for kernel, count in drive(cell, smi).items():
-            totals[kernel] += count
-    for cell in CELLS[:2]:
-        step_profile(cell, smi)
+        for key, count in drive(cell, smi).items():
+            totals[key] = totals.get(key, 0) + count
+    for cell in CELLS:
+        if cell[0] in ("headline", "krum_f11", "brute", "headline_mixed"):
+            step_profile(cell, smi)
     for record in records:
-        record["launches"] = totals[record["name"]]
+        kernel, dtype = record["name"], F32
+        for half in (BF16, F16):
+            suffix = "_" + DTYPE_NAMES[half]
+            if kernel.endswith(suffix):
+                kernel, dtype = kernel[:-len(suffix)], half
+        record["launches"] = totals.get((kernel, dtype), 0)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@
   nb-for-study 1) for 3 steps at n=11, f=2 on a small synthetic CIFAR-10
   with `--device cpu`; its `eval` and `study` files must carry the JAX
   driver's headers byte for byte (written here by the JAX driver's own
-  `_ResultFiles`), finite rows, and be readable by `study.Session`.
+  `_ResultFiles`), finite rows, and be readable by `study.Session`. So do
+  runs of Krum, Brute and CGE at f=4, and a `--dtype bfloat16` run, whose
+  rows carry the JAX driver's "%.4e" format.
 * Without `--device cpu` on a host with no card the driver must fail.
 * The synthetic CIFAR-10 and the sampler's batches are bit-identical to
   the JAX package's for one seed.
@@ -19,6 +21,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import study
@@ -104,6 +107,43 @@ def test_driver_krum_on_cpu(tmp_path):
         assert 0.0 <= float(fields[-1]) <= 1.0
     session = study.Session(resdir)
     assert session.json["gar"] == "krum" and session.json["gar_args"] == {"m": 5}
+
+
+@pytest.mark.parametrize("gar,attack_args", (
+    ("brute", ["--attack", "empire", "--attack-args", "factor:1.1"]),
+    ("cge", ["--attack", "little", "--attack-args", "factor:1.5", "negative:true"])))
+def test_driver_brute_and_cge_on_cpu(tmp_path, gar, attack_args):
+    argv = [*HEADLINE, "--nb-decl-byz", "4", "--nb-real-byz", "4",
+            "--gar", gar, *attack_args]
+    resdir, rows = _study_rows(tmp_path, argv)
+    for row in rows:
+        fields = row.split("\t")
+        assert len(fields) == len(STUDY_COLUMNS)
+        values = np.array([float(v) for v in fields[2:-3] + fields[-1:]])
+        assert np.all(np.isfinite(values)), row
+        assert 0.0 <= float(fields[-1]) <= 1.0
+    assert study.Session(resdir).json["gar"] == gar
+
+
+def test_driver_bf16_on_cpu(tmp_path):
+    """`--dtype bfloat16` (Median, f=2): the JAX driver's headers, every
+    value but the counters and the ratio in "%.4e", finite."""
+    argv = [*HEADLINE, "--gar", "median", "--dtype", "bfloat16"]
+    resdir, rows = _study_rows(tmp_path, argv)
+    for row in rows:
+        fields = row.split("\t")
+        assert len(fields) == len(STUDY_COLUMNS)
+        for field in fields[2:-1]:
+            assert re.fullmatch(r"-?\d\.\d{4}e[+-]\d\d|nan", field), field
+        values = np.array([float(v) for v in fields[2:-3]])
+        assert np.all(np.isfinite(values)), row
+    session = study.Session(resdir)
+    assert session.json["dtype"] == "bfloat16"
+    assert session.json["compute_dtype"] is None
+    proc = _driver("--device", "cpu", *HEADLINE, "--compute-dtype", "bf8",
+                   cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "Unknown dtype 'bf8', expected one of: 'bf16', 'bfloat16'" in proc.stderr
 
 
 def test_driver_refuses_gars_it_lacks_or_cannot_use(tmp_path):

@@ -3,8 +3,8 @@
 One step at n=11, f=2 (2 real Byzantine workers against `empire(1.1)`),
 batch 4, 11 sampled gradients, clip 5: Bulyan for every momentum
 placement with and without the Nesterov lookahead, and each of Krum,
-Median, Trimmed mean, Phocas, MeaMed and Aksel with momentum at the
-update. Both packages start
+Median, Trimmed mean, Phocas, MeaMed, Aksel, Brute and CGE with momentum
+at the update. Both packages start
 from the same weights (`convert.params_from_jax`), the same momentum
 buffers and past ring, and the port gets the JAX dropout masks of each
 worker's key:
@@ -93,7 +93,8 @@ STEP_CASES = ([("bulyan", momentum_at, nesterov)
                for nesterov in (False, True)
                for momentum_at in ("update", "server", "worker")]
               + [(gar, "update", False) for gar in
-                 ("krum", "median", "trmean", "phocas", "meamed", "aksel")])
+                 ("krum", "median", "trmean", "phocas", "meamed", "aksel",
+                  "brute", "cge")])
 
 
 @pytest.mark.parametrize(
@@ -160,8 +161,10 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     G_attack, grad_def, ratio = engine.phase_defense(_t(jG_honest))
     _close(G_attack, jG_attack)
     _close(grad_def, jdef)
-    # Krum and Aksel select rows, so they have an acceptation ratio
-    assert np.isfinite(ratio) == (gar in ("krum", "aksel")) == np.isfinite(float(jratio))
+    # Krum, Aksel, Brute and CGE select rows, so they have an acceptation
+    # ratio
+    assert np.isfinite(ratio) == (gar in ("krum", "aksel", "brute", "cge")) \
+        == np.isfinite(float(jratio))
     net_t = {name: _t(v) for name, v in convert.flat_items(jax.tree.map(np.asarray, jnet))}
     new, metrics = engine.phase_update(
         state, _t(jG_sampled), _t(jloss), net_t, _t(jmw), _t(jG_honest),

@@ -5,8 +5,11 @@ This file imports no JAX, so it also runs on a machine that has only
 PyTorch: `python -m pytest --noconftest -q tests/test_torch_gpu.py`.
 Tolerances are those of `tests/test_torch_ops.py`: NaN/inf positions
 exact, values within rtol 1e-5, atol 1e-6 (f32 sums in another order),
-Gram entries within 1e-5 of their largest diagonal entry. Every launch
-of a kernel must add one to its wrapper's count.
+Gram entries within 1e-5 of their largest diagonal entry. The half forms
+of the sorting kernels: `colsort` and `lower_median` exactly (they move
+values), `trimmed_mean` and `closest_mean` within 2 ulps of the dtype
+(rtol 2^-7 for bf16, 2^-10 for f16). Every launch of a kernel must add
+one to its wrapper's count, and to its count for the operand's dtype.
 """
 
 import numpy as np
@@ -39,11 +42,14 @@ def _mat(n, d, seed, nan_rows=(), dup=False, inf=False):
     return torch.from_numpy(g)
 
 
-def _launched(wrapper, fn):
-    """`fn()`, checking that it launched `wrapper`'s kernel once."""
+def _launched(wrapper, fn, dtype=torch.float32):
+    """`fn()`, checking that it launched `wrapper`'s kernel once, on a
+    `dtype` operand."""
     before = wrapper.launches
+    before_dtype = wrapper.launches_by_dtype.get(dtype, 0)
     out = fn()
     assert wrapper.launches == before + 1
+    assert wrapper.launches_by_dtype[dtype] == before_dtype + 1
     return out
 
 
@@ -184,13 +190,17 @@ def test_gars_on_card_match_cpu(cuda, name, kwargs):
 def test_sort_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     g = _mat(5, 100, seed=1).to(cuda)
     c = torch.zeros(100, device=cuda)
-    for bad in (g.double(), g.half(), g.T, g[None], _mat(65, 10, seed=2).to(cuda)):
+    for bad in (g.double(), g.T, g[None], _mat(65, 10, seed=2).to(cuda)):
         for call in (lambda: sort_kernels.lower_median(bad),
                      lambda: sort_kernels.trimmed_mean(bad, 1),
                      lambda: sort_kernels.closest_mean(bad, c, 1),
+                     lambda: sort_kernels.colsort(bad),
                      lambda: gar_kernels.weighted_rows_mean(torch.ones(5, device=cuda), bad)):
             with pytest.raises(ValueError):
                 call()
+    # The GAR kernels take f32 only
+    with pytest.raises(ValueError, match="float32"):
+        gar_kernels.weighted_rows_mean(torch.ones(5, device=cuda), g.half())
     for f in (-1, 3, 1.0):
         with pytest.raises(ValueError, match="f ="):
             sort_kernels.trimmed_mean(g, f)
@@ -205,7 +215,136 @@ def test_sort_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError):
             gar_kernels.weighted_rows_mean(w, g)
     # Outside the kernels' domain the callers take the plain path on the card
-    half = g.half()
+    wide = g.double()
     before = sort_kernels.lower_median.launches
-    assert torch.equal(_common.lower_median(half), sort_kernels.lower_median_plain(half))
+    assert torch.equal(_common.lower_median(wide), sort_kernels.lower_median_plain(wide))
     assert sort_kernels.lower_median.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 4 (masked_rows_mean), kernel 5 (colsort) and the half forms of 5-8
+
+HALF_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+SORT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _assert_exact(got, want):
+    assert got.dtype == want.dtype
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def _assert_ulps(got, want):
+    """Within 2 ulps of a half dtype; non-finite positions exact."""
+    assert got.dtype == want.dtype
+    rtol = HALF_TOL[got.dtype]
+    got, want = got.float().cpu(), want.float().cpu()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    finite = torch.isfinite(want)
+    torch.testing.assert_close(got[finite], want[finite], rtol=rtol, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 25, 64))
+def test_masked_rows_mean_matches_plain(cuda, n):
+    """Brute's n - f kept rows at f = (n - 1) // 2 (every row at n <= 2):
+    row 0 (+inf entries) always, the last row (NaN entries) never from
+    n = 3 on; a selected +inf stays +inf."""
+    g = _mat(n, 20_011, seed=19 * n, nan_rows=(n - 1,), inf=True)
+    rng = np.random.default_rng(n)
+    keep = np.ones(n, bool)
+    if n > 2:
+        keep[:] = False
+        keep[0] = True
+        keep[1 + rng.permutation(n - 2)[:n - (n - 1) // 2 - 1]] = True
+    mask = torch.from_numpy(keep).to(cuda)
+    g = g.to(cuda)
+    got = _launched(gar_kernels.masked_rows_mean,
+                    lambda: gar_kernels.masked_rows_mean(mask, g, int(mask.sum())))
+    want = gar_kernels.masked_rows_mean_plain(mask, g, int(mask.sum()))
+    _assert_values(got, want)
+    assert bool(got.isposinf().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 25, 64))
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_colsort_matches_plain(cuda, n, dtype):
+    g = _mat(n, 20_011, seed=23 * n, nan_rows=(n - 1,), dup=True, inf=True)
+    g = (g + 0.0).to(dtype).to(cuda)  # +0 only: the network and torch.sort
+    got = _launched(sort_kernels.colsort, lambda: sort_kernels.colsort(g), dtype)
+    _assert_exact(got, sort_kernels.colsort_plain(g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 25, 64))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_half_sort_kernels_match_plain(cuda, n, dtype):
+    g = _mat(n, 20_011, seed=29 * n, nan_rows=(n - 1,), dup=True, inf=True)
+    g = (g + 0.0).to(dtype).to(cuda)
+    med = _launched(sort_kernels.lower_median,
+                    lambda: sort_kernels.lower_median(g), dtype)
+    _assert_exact(med, sort_kernels.lower_median_plain(g))
+    for f in sorted({0, (n - 1) // 4, (n - 1) // 2}):
+        _assert_ulps(_launched(sort_kernels.trimmed_mean,
+                               lambda: sort_kernels.trimmed_mean(g, f), dtype),
+                     sort_kernels.trimmed_mean_plain(g, f))
+    c = sort_kernels.lower_median_plain(g)
+    c[:9] = torch.nan
+    for m in sorted({1, n - (n - 1) // 2, n}):
+        got = _launched(sort_kernels.closest_mean,
+                        lambda: sort_kernels.closest_mean(g, c, m), dtype)
+        _assert_ulps(got, sort_kernels.closest_mean_plain(g, c, m))
+        assert bool(got[:9].isnan().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("brute", "cge"))
+def test_brute_and_cge_on_card_match_cpu(cuda, name):
+    g = _mat(11, 30_001, seed=31, nan_rows=(3,))
+    g[7:] = g[:7].mean(dim=0) - 1.5 * g[:7].std(dim=0)  # 4 identical rows
+    _assert_values(gars[name](g.to(cuda), f=4), gars[name](g, f=4))
+    assert float(gars[name].influence(g[:7].to(cuda), g[7:].to(cuda), f=4)) \
+        == float(gars[name].influence(g[:7], g[7:], f=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_half_gars_on_card_match_cpu(cuda, dtype):
+    """Median, Trimmed mean, Phocas and MeaMed on a half stack reach the
+    half kernels, and agree with the same rule on the CPU."""
+    g = _mat(25, 30_001, seed=37, nan_rows=(3,)).to(dtype)
+    for name in ("median", "trmean", "phocas", "meamed"):
+        _assert_ulps(gars[name](g.to(cuda), f=11), gars[name](g, f=11))
+    assert sort_kernels.lower_median.launches_by_dtype[dtype] >= 2
+    assert sort_kernels.closest_mean.launches_by_dtype[dtype] >= 2
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = _mat(5, 100, seed=1).to(cuda)
+    mask = torch.tensor([True, False, True, True, False], device=cuda)
+    for call in (lambda: gar_kernels.sq_gram(g.bfloat16()),
+                 lambda: gar_kernels.masked_rows_mean(mask, g.bfloat16(), 3),
+                 lambda: gar_kernels.selected_median_mean(
+                     torch.full((1, 5), 0.2, device=cuda, dtype=torch.bfloat16),
+                     g.bfloat16(), 1)):
+        with pytest.raises(ValueError):
+            call()
+    for bad_mask in (mask[:4], mask.float(), mask.cpu(), torch.ones(10, dtype=torch.bool,
+                                                                     device=cuda)[::2]):
+        with pytest.raises(ValueError, match="mask must"):
+            gar_kernels.masked_rows_mean(bad_mask, g, 3)
+    for k in (0, -1, 3.0):
+        with pytest.raises(ValueError, match="k ="):
+            gar_kernels.masked_rows_mean(mask, g, k)
+    for dtype in (torch.bfloat16, torch.float16):
+        h = g.to(dtype)
+        with pytest.raises(ValueError, match="c must"):
+            sort_kernels.closest_mean(h, torch.zeros(100, device=cuda), 1)
+        for call in (lambda: sort_kernels.colsort(h.double()),
+                     lambda: sort_kernels.lower_median(h.double())):
+            with pytest.raises(ValueError, match="float32 or"):
+                call()
