@@ -23,20 +23,37 @@
 // (`_gram_kernel`), the streamed g @ g.T behind
 // `_common.pairwise_distances`.
 //   Bound: bytes. At the headline shape f32[25, 1,310,922] it must read
-//   131.1 MB once and writes 2.5 KB; the 426 M multiply-adds are far below
-//   the f32 FFMA peak.
+//   131.1 MB once and writes 2.5 KB: 0.039 ms at 3.35 TB/s; its 426 M
+//   multiply-adds take 0.013 ms at the f32 FFMA peak.
 //   Design: the TPU kernel carries the (n, n) sum across a sequential grid;
-//   GPU blocks run in no order, so this takes two passes. Pass 1: each
-//   block walks its own strided set of 128-column tiles, stages the (n, 128)
-//   slab in shared memory (the ragged last tile is masked to 0 and never
-//   read past d; each thread issues all its loads of a slab before it
-//   stores any, so their latencies overlap), and every thread accumulates
-//   up to 9 upper-triangle pairs in registers; the block writes its
-//   partial triangle to an
-//   f32[blocks, pairs] scratch. Pass 2: one warp per pair sums the partials
-//   in a fixed order (strided lanes, then a fixed shuffle tree) and mirrors
-//   the triangle. No atomics, so repeated runs give identical distances and
-//   identical selections.
+//   GPU blocks run in no order, so this takes two passes. Pass 1
+//   (`gram_tiled_kernel`): a persistent grid (as many blocks as fit on the
+//   card) walks the (n, tile)-column slabs of g. Each block double-buffers
+//   its slabs in shared memory (a ring of kGramStages = 2), filled by
+//   `cp.async` copies of 4, 8 or 16 bytes (the widest that the row pitch
+//   d * 4 and g's address allow), so the next slab is in flight while one
+//   is consumed; the ragged last slab is zero-filled past d by the copy
+//   itself. The Gram is register-tiled: the rows form ceil(n / B) blocks
+//   of B (rows past n are zero and never written), and each group of 8
+//   threads owns one pair (I, J) of row blocks of the upper triangle, over
+//   a slice of the slab's columns: a thread reads B + B float4s of shared
+//   memory per 4 columns and does 4 B^2 FMAs into B^2 registers. Each
+//   8-thread group reads 128 consecutive bytes of one row, one
+//   conflict-free phase of a 16-byte shared load. B weighs the FMAs
+//   against the shared reads (`ops/gar_kernels.py::gram_geometry`): B = 5
+//   at n = 25 (15 block pairs, no padding, 150 floats read and 375 FMAs a
+//   column, 71 registers), B = 8 at n = 64. At the end each pair's 8 lanes are summed by a fixed shuffle
+//   tree and the column slices in index order; the block writes its
+//   partial triangle to an f32[blocks, pairs] scratch. Pass 2
+//   (`gram_reduce_kernel`): one warp per pair sums the partials in a
+//   fixed order (strided lanes, then a fixed shuffle tree) and mirrors
+//   the triangle. No atomics, so repeated runs give identical distances
+//   and identical selections.
+//   Why not TMA: a tensor map needs a row pitch that is a multiple of
+//   16 bytes, and the headline's d * 4 = 5,243,688 B is not; its odd rows
+//   start 8 bytes off 16-byte alignment, which rules out
+//   `cp.async.bulk` too. Per-thread `cp.async` takes any 4-byte-aligned
+//   row.
 //
 // selected_median_mean: replaces
 // `byzantinemomentum_tpu/ops/pallas_gar.py::selected_median_mean`
@@ -62,15 +79,23 @@
 // (`_wmean_kernel`), Krum's selected-row average `w @ g` under
 // `_select_rows`' non-finite contract.
 //   Bound: bytes. At the headline shape it reads g once (131.1 MB) and
-//   writes r rows of d (5.2 MB for Krum's one row); r * n multiply-adds a
-//   coordinate.
-//   Design: stage 1 of selected_median_mean, shared with it
-//   (`stage_weights`, `select_rows_column`): thread j owns column j, with
-//   coalesced loads 8 rows ahead, the weights transposed in shared memory,
-//   one 64-bit mask per row of g for the rows of W that select it.
-//   Accumulators need compile-time indices, so a block computes a fixed
-//   group of 1 (Krum's w f32[n]) or 8 rows of W and gridDim.y walks the
-//   groups; rows past r weigh 0 and are not written.
+//   writes r rows of d (5.2 MB for Krum's one row): 0.041 ms; r * n
+//   multiply-adds a coordinate.
+//   Design (`rows_mean_kernel`): a persistent grid (as many blocks as fit
+//   on the card), each block staging W and the selection masks in shared
+//   memory once and then walking many column groups. A thread owns V
+//   consecutive columns (V = 4, 2 or 1: the widest vector that d and g's
+//   address allow; the headline's d = 2 mod 4 takes float2), loads a
+//   chunk of kChunkFloats / V rows before it uses any, and issues the
+//   next chunk's loads before it sums the current one. Small chunks keep
+//   the registers low and the SMs full of warps, which is what carries
+//   the bytes: loading all 25 rows of a group at once held one block per
+//   SM and was 20% slower (`tools/kernel_variants.py`). A block computes RB rows of W (1 for
+//   Krum's w f32[n], else 16 or 64, the first that holds r), so g is read
+//   once for any r <= 64; rows past r weigh 0 and are not written. Each
+//   column's sum is `select_rows_column`'s (Bulyan's stage 1): `fmaf` over
+//   rows 0..n-1 in index order from +0, non-finite values excluded, NaN
+//   where a row of W selects one.
 //
 // masked_rows_mean: replaces
 // `byzantinemomentum_tpu/ops/pallas_gar.py::masked_rows_mean`
@@ -103,19 +128,23 @@
 namespace {
 
 constexpr int kMaxRows = 64;              // MAX_ROWS of the JAX package
-constexpr int kTile = 128;                // columns per staged slab
-// Padded row stride: a multiple of 4 floats keeps every row 16-byte
-// aligned for float4 reads, and 132 = 4 (mod 32) puts the rows that 8
-// neighbouring threads read in 8 distinct bank groups
-constexpr int kLd = kTile + 4;
-constexpr int kGramThreads = 256;
-constexpr int kMaxPairs = kMaxRows * (kMaxRows + 1) / 2;           // 2080
-constexpr int kPairsPerThread =
-    (kMaxPairs + kGramThreads - 1) / kGramThreads;                 // 9
-constexpr int kLoadsPerThread = kMaxRows * kTile / kGramThreads;   // 32
 constexpr int kRowChunk = 8;              // g rows loaded ahead per thread
 constexpr int kMaxRounds = kMaxRows - 2;  // n - 2f - 2 with f >= 0
 constexpr int kMeanThreads = 256;
+// sq_gram (`ops/gar_kernels.py` holds the same numbers and checks them)
+#ifndef BMT_GRAM_STAGES
+#define BMT_GRAM_STAGES 2
+#endif
+constexpr int kGramStages = BMT_GRAM_STAGES;  // slabs in the cp.async ring
+constexpr int kGramMaxBlock = 8;          // largest row block B
+constexpr int kGramMaxThreads = 288;  // 36 block pairs of 8 threads
+// weighted_rows_mean: floats of g a thread loads per chunk of rows (the
+// `-D` overrides serve `tools/kernel_variants.py`)
+#ifndef BMT_CHUNK_FLOATS
+#define BMT_CHUNK_FLOATS 8
+#endif
+constexpr int kChunkFloats = BMT_CHUNK_FLOATS;
+static_assert(kGramStages >= 2, "a ring of at least two slabs");
 static_assert(0 <= BMT_ROUNDS && BMT_ROUNDS <= kMaxRounds,
               "BMT_ROUNDS outside 0..kMaxRounds");
 
@@ -132,78 +161,190 @@ __device__ __forceinline__ void pair_of(int p, int n, int* i, int* j) {
   *j = row + p;
 }
 
-__global__ void __launch_bounds__(kGramThreads)
-gram_partial_kernel(const float* __restrict__ g, float* __restrict__ partial,
-                    int n, long long d) {
-  __shared__ __align__(16) float slab[kMaxRows * kLd];
-  const int pairs = n * (n + 1) / 2;
-  const int tid = threadIdx.x;
-  // Register slots in use: pairs spread over the block's threads
-  const int used = (pairs + kGramThreads - 1) / kGramThreads;
+// Asynchronous copy of CW bytes from device to shared memory; the bytes
+// past `src_bytes` (0..CW) are zero-filled and not read
+template <int CW>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (CW == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(CW), "r"(src_bytes)
+                 : "memory");
+  }
+}
 
-  // Slab offsets of each pair's two rows (pairs past the end read row 0
-  // and are never written out)
-  int oi[kPairsPerThread], oj[kPairsPerThread];
-  float acc[kPairsPerThread];
-#pragma unroll
-  for (int k = 0; k < kPairsPerThread; ++k) {
-    const int p = tid + k * kGramThreads;
-    int i = 0, j = 0;
-    if (p < pairs) pair_of(p, n, &i, &j);
-    oi[k] = i * kLd;
-    oj[k] = j * kLd;
-    acc[k] = 0.0f;
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed copy groups of this thread are pending
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Columns [c0, c0 + tile) of rows 0..n-1 of g into the slab at dst (row
+// pitch `tile`), zero past d: this thread's copies, chunks q0, q0 +
+// per_row, ... of rows r0, r0 + row_step, ...
+template <int CW>
+__device__ __forceinline__ void issue_slab(const float* __restrict__ g,
+                                           float* dst, int n, long long d,
+                                           long long c0, int chunks, int q0,
+                                           int per_row, int r0, int row_step,
+                                           int tile) {
+  constexpr int kCopyFloats = CW / 4;
+  for (int q = q0; q < chunks; q += per_row) {
+    const long long c = c0 + (long long)q * kCopyFloats;
+    const long long left = d - c;
+    const int valid = left <= 0 ? 0 : left < kCopyFloats ? (int)left
+                                                         : kCopyFloats;
+    const float* src = valid ? g + c : g;
+    const long long src_step = valid ? d : 0;
+    for (int row = r0; row < n; row += row_step) {
+      copy_async<CW>(dst + row * tile + q * kCopyFloats, src + row * src_step,
+                     valid * 4);
+    }
+  }
+}
+
+// Pass 1 of sq_gram. Shared memory: kGramStages slabs of (nb * B, tile)
+// floats, row pitch `tile`; rows n..nb * B - 1 stay 0. Thread t is lane
+// t % 8 of unit t / 8; unit u < pairs * slices owns block pair u / slices
+// over column slice u % slices, i.e. the float4s s * 8 + lane + k *
+// slices * 8 of each slab row. `tile` is a multiple of 32 * slices.
+// (An explicit minimum of one block an SM: with the bound alone, ptxas
+// held some forms to fewer registers than they need and spilled.)
+template <int B, int CW>
+__global__ void __launch_bounds__(kGramMaxThreads, 1)
+gram_tiled_kernel(const float* __restrict__ g, float* __restrict__ partial,
+                  int n, long long d, int slices, int tile) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kCopyFloats = CW / 4;
+  const int nb = (n + B - 1) / B;
+  const int pairs = nb * (nb + 1) / 2;
+  const int stage_floats = nb * B * tile;
+  const int tid = threadIdx.x;
+  const int unit = tid >> 3, lane = tid & 7;
+  const bool active = unit < pairs * slices;
+  const int p = active ? unit / slices : 0;
+  const int s = unit - p * slices;
+  int bi, bj;
+  pair_of(p, nb, &bi, &bj);
+
+  const int pad_floats = (nb * B - n) * tile;
+  for (int e = tid; e < kGramStages * pad_floats; e += blockDim.x) {
+    const int st = e / pad_floats;
+    smem[st * stage_floats + n * tile + (e - st * pad_floats)] = 0.0f;
   }
 
-  const long long tiles = (d + kTile - 1) / kTile;
-  const int elems = n * kTile;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long c0 = t * kTile;
-    // All of this thread's loads of the slab are issued before the first
-    // is used, so their latencies overlap
-    float staged[kLoadsPerThread];
-#pragma unroll
-    for (int q = 0; q < kLoadsPerThread; ++q) {
-      const int e = tid + q * kGramThreads;
-      const int row = e / kTile;
-      const long long c = c0 + (e - row * kTile);
-      staged[q] = (e < elems && c < d) ? g[row * d + c] : 0.0f;
+  const long long tiles = (d + tile - 1) / tile;
+  // Copies: `per_row` threads share a slab row (chunks q0, q0 + per_row,
+  // ...), `row_step` rows are copied side by side (rows r0, r0 +
+  // row_step, ...); the divisions are done once here
+  const int chunks = tile / kCopyFloats;  // copies per slab row
+  const int per_row = chunks < (int)blockDim.x ? chunks : (int)blockDim.x;
+  const int row_step = blockDim.x / per_row;
+  const int q0 = tid % per_row;
+  const int r0 = tid < row_step * per_row ? tid / per_row : n;  // n: idle
+
+  // Every iteration commits one group (empty past the last slab), so the
+  // slab consumed at iteration k is always kGramStages - 1 groups back
+  for (int st = 0; st < kGramStages - 1; ++st) {
+    const long long t = blockIdx.x + (long long)st * gridDim.x;
+    if (t < tiles) {
+      issue_slab<CW>(g, smem + st * stage_floats, n, d, t * tile, chunks,
+                     q0, per_row, r0, row_step, tile);
     }
-    __syncthreads();  // the previous slab is fully consumed
+    copy_commit();
+  }
+  float acc[B][B];
 #pragma unroll
-    for (int q = 0; q < kLoadsPerThread; ++q) {
-      const int e = tid + q * kGramThreads;
-      const int row = e / kTile;
-      if (e < elems) slab[row * kLd + (e - row * kTile)] = staged[q];
+  for (int u = 0; u < B; ++u) {
+#pragma unroll
+    for (int v = 0; v < B; ++v) acc[u][v] = 0.0f;
+  }
+  const int t4 = tile / 4;
+  int k = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    // The stage refilled here was consumed at iteration k - 1, which
+    // ended with a barrier
+    const long long ahead = t + (long long)(kGramStages - 1) * gridDim.x;
+    if (ahead < tiles) {
+      issue_slab<CW>(g, smem + ((k + kGramStages - 1) % kGramStages) * stage_floats,
+                     n, d, ahead * tile, chunks, q0, per_row, r0, row_step,
+                     tile);
+    }
+    copy_commit();
+    copy_wait<kGramStages - 1>();
+    __syncthreads();
+    if (active) {
+      const float* X = smem + (k % kGramStages) * stage_floats;
+      const float4* rows_i = reinterpret_cast<const float4*>(X + bi * B * tile);
+      const float4* rows_j = reinterpret_cast<const float4*>(X + bj * B * tile);
+      for (int q = s * 8 + lane; q < t4; q += slices * 8) {
+        float4 a[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) a[u] = rows_i[u * t4 + q];
+#pragma unroll
+        for (int v = 0; v < B; ++v) {
+          const float4 y = rows_j[v * t4 + q];
+#pragma unroll
+          for (int u = 0; u < B; ++u) {
+            float z = acc[u][v];
+            z = fmaf(a[u].x, y.x, z);
+            z = fmaf(a[u].y, y.y, z);
+            z = fmaf(a[u].z, y.z, z);
+            z = fmaf(a[u].w, y.w, z);
+            acc[u][v] = z;
+          }
+        }
+      }
     }
     __syncthreads();
-    // The slot test sits outside the column loop: slots past `used` cost
-    // no instructions (predicated shared-memory reads inside the loop
-    // would still take issue slots)
+  }
+
+  // The unit's 8 lanes by a fixed shuffle tree (every lane ends with the
+  // same sum), then the column slices in index order through shared
+  // memory: red[(slice * pairs + pair) * B * B + u * B + v]
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kPairsPerThread; ++k) {
-      if (k < used) {  // uniform over the block: no divergence
-        const float4* a = reinterpret_cast<const float4*>(slab + oi[k]);
-        const float4* b = reinterpret_cast<const float4*>(slab + oj[k]);
-        float s = acc[k];
-#pragma unroll 8
-        for (int c = 0; c < kTile / 4; ++c) {
-          const float4 x = a[c], y = b[c];
-          s = fmaf(x.x, y.x, s);
-          s = fmaf(x.y, y.y, s);
-          s = fmaf(x.z, y.z, s);
-          s = fmaf(x.w, y.w, s);
-        }
-        acc[k] = s;
+  for (int u = 0; u < B; ++u) {
+#pragma unroll
+    for (int v = 0; v < B; ++v) {
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+        acc[u][v] += __shfl_xor_sync(0xffffffffu, acc[u][v], off);
       }
     }
   }
-
-  float* out = partial + (long long)blockIdx.x * pairs;
+  float* red = smem;
+  if (active && lane == 0) {
 #pragma unroll
-  for (int k = 0; k < kPairsPerThread; ++k) {
-    const int p = tid + k * kGramThreads;
-    if (p < pairs) out[p] = acc[k];
+    for (int u = 0; u < B; ++u) {
+#pragma unroll
+      for (int v = 0; v < B; ++v) {
+        red[(s * pairs + p) * B * B + u * B + v] = acc[u][v];
+      }
+    }
+  }
+  __syncthreads();
+  const int out_pairs = n * (n + 1) / 2;
+  float* out = partial + (long long)blockIdx.x * out_pairs;
+  for (int e = tid; e < out_pairs; e += blockDim.x) {
+    int i, j;
+    pair_of(e, n, &i, &j);
+    const int I = i / B, J = j / B;
+    const int bp = I * nb - I * (I - 1) / 2 + (J - I);
+    const int uv = (i - I * B) * B + (j - J * B);
+    float sum = 0.0f;
+    for (int q = 0; q < slices; ++q) sum += red[(q * pairs + bp) * B * B + uv];
+    out[e] = sum;
   }
 }
 
@@ -231,19 +372,17 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
 }
 #endif  // BMT_ROUNDS == 0
 
-// Stage 1 of Bulyan and the whole of `weighted_rows_mean`
-// (`pallas_gar._select_rows`), shared by both kernels below.
+// Stage 1 of Bulyan (`pallas_gar._select_rows`); `rows_mean_kernel`
+// computes each column of `weighted_rows_mean` with the same arithmetic.
 //
-// stage_weights: rows [r0, r0 + R) of W (f32[r, n], row-major) go to
-// shared memory transposed and padded to whole float4s,
-// wt[i * R4 + q] = W[r0 + 4q .. r0 + 4q + 3, i] (0 past row r), so one
-// 16-byte (broadcast) read serves four rows; bit k of sel[i] is set when
-// row r0 + k selects row i of g (weight > 0). Every thread of the block
-// must call it.
+// stage_weights: W (f32[R, n], row-major) goes to shared memory transposed
+// and padded to whole float4s, wt[i * R4 + q] = W[4q .. 4q + 3, i] (0 past
+// row R), so one 16-byte (broadcast) read serves four rows; bit k of
+// sel[i] is set when row k selects row i of g (weight > 0). Every thread
+// of the block must call it.
 template <int R>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ W,
-                                              int r, int r0, int n,
-                                              float4* wt,
+                                              int n, float4* wt,
                                               unsigned long long* sel) {
   static_assert(R <= 64, "one bit per row in a 64-bit mask");
   constexpr int R4 = (R + 3) / 4;
@@ -251,12 +390,12 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ W,
   for (int e = threadIdx.x; e < n * R4 * 4; e += blockDim.x) {
     const int i = e / (R4 * 4);
     const int k = e - i * R4 * 4;
-    wts[e] = k < R && r0 + k < r ? W[(r0 + k) * n + i] : 0.0f;
+    wts[e] = k < R ? W[k * n + i] : 0.0f;
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     unsigned long long mask = 0;
-    for (int k = 0; k < R && r0 + k < r; ++k) {
-      if (W[(r0 + k) * n + i] > 0.0f) mask |= 1ull << k;
+    for (int k = 0; k < R; ++k) {
+      if (W[k * n + i] > 0.0f) mask |= 1ull << k;
     }
     sel[i] = mask;
   }
@@ -306,44 +445,190 @@ __device__ __forceinline__ unsigned long long select_rows_column(
 }
 
 #if BMT_ROUNDS == 0
-// weighted_rows_mean: rows [RB * blockIdx.y, RB * blockIdx.y + RB) of
-// `W @ g` (f32[r, n] x f32[n, d] -> f32[r, d]); thread j owns column j
-template <int RB>
+// V consecutive floats at p (aligned to 4 V bytes)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// Rows [i0, i0 + C) of the V columns at `col` (0 past row n)
+template <int V, int C>
+__device__ __forceinline__ void load_rows(const float* col, long long d,
+                                          int i0, int n,
+                                          float (&x)[C][V]) {
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    if (i0 + u < n) {
+      load_vec<V>(col + (long long)(i0 + u) * d, x[u]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) x[u][v] = 0.0f;
+    }
+  }
+}
+
+// weighted_rows_mean: `W @ g` (f32[r, n] x f32[n, d] -> f32[r, d], r <= RB)
+// under `select_rows_column`'s contract; thread-owned groups of V columns
+// (V divides d), walked by a persistent grid
+template <int V, int RB>
 __global__ void __launch_bounds__(kMeanThreads)
-weighted_rows_mean_kernel(const float* __restrict__ W,
-                          const float* __restrict__ g,
-                          float* __restrict__ out, int r, int n,
-                          long long d) {
-  constexpr int R4 = (RB + 3) / 4;
-  __shared__ float4 wt[kMaxRows * R4];
-  __shared__ unsigned long long sel[kMaxRows];
-  const int r0 = blockIdx.y * RB;
-  stage_weights<RB>(W, r, r0, n, wt, sel);
-  const int rows = r - r0 < RB ? r - r0 : RB;
+rows_mean_kernel(const float* __restrict__ W, const float* __restrict__ g,
+                 float* __restrict__ out, int r, int n, long long d) {
+  constexpr int C = kChunkFloats / V;  // rows a chunk
+  static_assert(RB <= 64, "one bit per row of W in a 64-bit mask");
+  __shared__ float wt[kMaxRows * RB];  // wt[i * RB + k] = W[k, i], 0 past r
+  __shared__ unsigned long long sel[kMaxRows];  // bit k: W[k, i] > 0
+  for (int e = threadIdx.x; e < n * RB; e += blockDim.x) {
+    const int i = e / RB;
+    const int k = e - i * RB;
+    wt[e] = k < r ? W[k * n + i] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    unsigned long long mask = 0;
+    for (int k = 0; k < r; ++k) {
+      if (W[k * n + i] > 0.0f) mask |= 1ull << k;
+    }
+    sel[i] = mask;
+  }
+  __syncthreads();
+
+  const long long groups = d / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    float acc[R4 * 4];
-    const unsigned long long bad =
-        select_rows_column<R4>(wt, sel, g, n, d, j, acc);
+  for (long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       grp < groups; grp += stride) {
+    const float* col = g + grp * V;
+    float acc[RB][V];
+    unsigned long long bad[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      bad[v] = 0;
+#pragma unroll
+      for (int k = 0; k < RB; ++k) acc[k][v] = 0.0f;
+    }
+    float x[C][V], next[C][V];
+    load_rows<V, C>(col, d, 0, n, x);
+    for (int i0 = 0; i0 < n; i0 += C) {
+      // The next chunk is in flight while this one is summed
+      if (i0 + C < n) load_rows<V, C>(col, d, i0 + C, n, next);
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        const int i = i0 + u;
+        if (i < n) {
+          bool fin[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            fin[v] = isfinite(x[u][v]);
+            if (!fin[v]) bad[v] |= sel[i];  // poisons the rows selecting it
+          }
+#pragma unroll
+          for (int k = 0; k < RB; ++k) {
+            const float w = wt[i * RB + k];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              if (fin[v]) acc[k][v] = fmaf(w, x[u][v], acc[k][v]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[u][v] = next[u][v];
+      }
+    }
 #pragma unroll
     for (int k = 0; k < RB; ++k) {
-      if (k < rows) {
-        out[(r0 + k) * d + j] = (bad >> k) & 1ull ? nanf("") : acc[k];
+      if (k < r) {
+        float y[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          y[v] = (bad[v] >> k) & 1ull ? nanf("") : acc[k][v];
+        }
+        store_vec<V>(out + k * d + grp * V, y);
       }
     }
   }
 }
 
-template <int RB>
-cudaError_t launch_rows_mean(const float* W, const float* g, float* out,
-                             int r, int n, long long d, cudaStream_t stream) {
-  long long blocks = (d + kMeanThreads - 1) / kMeanThreads;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  const dim3 grid((unsigned)blocks, (unsigned)((r + RB - 1) / RB));
-  weighted_rows_mean_kernel<RB>
-      <<<grid, kMeanThreads, 0, stream>>>(W, g, out, r, n, d);
-  return cudaGetLastError();
+// The (V, RB) forms the wrapper picks (`ops/gar_kernels.py::
+// rows_mean_geometry`), nullptr for any other
+typedef void (*RowsMeanKernel)(const float*, const float*, float*, int, int,
+                               long long);
+RowsMeanKernel rows_mean_kernel_for(int width, int rb) {
+  if (rb == 1) {
+    switch (width) {
+      case 1: return rows_mean_kernel<1, 1>;
+      case 2: return rows_mean_kernel<2, 1>;
+      case 4: return rows_mean_kernel<4, 1>;
+    }
+  } else if (width == 1) {
+    switch (rb) {
+      case 16: return rows_mean_kernel<1, 16>;
+      case 64: return rows_mean_kernel<1, 64>;
+    }
+  }
+  return nullptr;
+}
+
+// The (B, CW) forms of `gram_tiled_kernel`, nullptr for any other
+typedef void (*GramKernel)(const float*, float*, int, long long, int, int);
+template <int CW>
+GramKernel gram_kernel_of_width(int b) {
+  switch (b) {
+    case 1: return gram_tiled_kernel<1, CW>;
+    case 2: return gram_tiled_kernel<2, CW>;
+    case 3: return gram_tiled_kernel<3, CW>;
+    case 4: return gram_tiled_kernel<4, CW>;
+    case 5: return gram_tiled_kernel<5, CW>;
+    case 6: return gram_tiled_kernel<6, CW>;
+    case 7: return gram_tiled_kernel<7, CW>;
+    case 8: return gram_tiled_kernel<8, CW>;
+  }
+  return nullptr;
+}
+static_assert(kGramMaxBlock == 8, "gram_kernel_of_width lists B = 1..8");
+
+GramKernel gram_kernel_for(int b, int copy) {
+  switch (copy) {
+    case 4: return gram_kernel_of_width<4>(b);
+    case 8: return gram_kernel_of_width<8>(b);
+    case 16: return gram_kernel_of_width<16>(b);
+  }
+  return nullptr;
+}
+
+// Blocks of `kernel` that fit on one SM, or -1
+int resident_blocks(const void* kernel, int threads, int smem) {
+  if (kernel == nullptr) return -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess) {
+    return -1;
+  }
+  int count = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, threads,
+                                                    smem) != cudaSuccess) {
+    return -1;
+  }
+  return count;
 }
 
 // masked_rows_mean: sum of the rows i of g (f32[n, d]) with mask[i] != 0,
@@ -394,7 +679,7 @@ selected_median_mean_kernel(const float* __restrict__ W,
   constexpr int R4 = (R + 3) / 4;
   __shared__ float4 wt[kMaxRows * R4];
   __shared__ unsigned long long sel[kMaxRows];
-  stage_weights<R>(W, R, 0, n, wt, sel);
+  stage_weights<R>(W, n, wt, sel);
 
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
@@ -436,29 +721,64 @@ extern "C" {
 #if BMT_ROUNDS == 0
 int bmt_max_rounds() { return kMaxRounds; }
 
-int bmt_gram_tile() { return kTile; }
+int bmt_gram_stages() { return kGramStages; }
+
+int bmt_gram_max_block() { return kGramMaxBlock; }
+
+int bmt_gram_max_threads() { return kGramMaxThreads; }
+
+// Blocks of pass 1 of sq_gram (row block b, copies of `copy` bytes) that
+// fit on one SM with `threads` threads and `smem` bytes of shared memory;
+// -1 for a form that does not exist or a failed query
+int bmt_sq_gram_resident(int b, int copy, int threads, int smem) {
+  return resident_blocks((const void*)gram_kernel_for(b, copy), threads, smem);
+}
 
 // g f32[n, d] (row-major) -> out f32[n, n]; partial is f32[blocks, pairs]
-// scratch with pairs = n (n + 1) / 2
+// scratch with pairs = n (n + 1) / 2. The geometry (b, copy, threads,
+// slices, tile, smem) is `ops/gar_kernels.py::gram_geometry`'s
 int bmt_sq_gram(const float* g, float* partial, float* out, int n,
-                long long d, int blocks, void* stream) {
+                long long d, int b, int copy, int blocks, int threads,
+                int slices, int tile, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  gram_partial_kernel<<<blocks, kGramThreads, 0, s>>>(g, partial, n, d);
-  cudaError_t err = cudaGetLastError();
+  const GramKernel kernel = gram_kernel_for(b, copy);
+  if (kernel == nullptr || threads > kGramMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err;
+  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
+    err = cudaFuncSetAttribute((const void*)kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, threads, smem, s>>>(g, partial, n, d, slices, tile);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int pairs = n * (n + 1) / 2;
-  const int threads = 256;  // 8 warps, one pair each
-  const int grid = (pairs * 32 + threads - 1) / threads;
-  gram_reduce_kernel<<<grid, threads, 0, s>>>(partial, out, n, blocks);
+  const int reduce_threads = 256;  // 8 warps, one pair each
+  const int grid = (pairs * 32 + reduce_threads - 1) / reduce_threads;
+  gram_reduce_kernel<<<grid, reduce_threads, 0, s>>>(partial, out, n, blocks);
   return (int)cudaGetLastError();
 }
 
-// W f32[r, n] (1 <= r <= kMaxRows), g f32[n, d] -> out f32[r, d]
+// Blocks of weighted_rows_mean's (width, rb) form that fit on one SM, or -1
+int bmt_rows_mean_resident(int width, int rb) {
+  return resident_blocks((const void*)rows_mean_kernel_for(width, rb),
+                         kMeanThreads, 0);
+}
+
+// W f32[r, n] (1 <= r <= rb), g f32[n, d] -> out f32[r, d]; width divides
+// d and g's address is aligned to 4 * width bytes
+// (`ops/gar_kernels.py::rows_mean_geometry`)
 int bmt_weighted_rows_mean(const float* W, const float* g, float* out, int r,
-                           int n, long long d, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(r == 1 ? launch_rows_mean<1>(W, g, out, r, n, d, s)
-                      : launch_rows_mean<8>(W, g, out, r, n, d, s));
+                           int n, long long d, int width, int rb, int blocks,
+                           void* stream) {
+  const RowsMeanKernel kernel = rows_mean_kernel_for(width, rb);
+  if (kernel == nullptr || r > rb) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kMeanThreads, 0, (cudaStream_t)stream>>>(W, g, out, r, n,
+                                                             d);
+  return (int)cudaGetLastError();
 }
 
 // mask bool[n] (one byte each), g f32[n, d] (1 <= n <= kMaxRows) -> out

@@ -112,8 +112,10 @@ def raise_on(name, err):
 
 
 def stream(t):
-    """The current CUDA stream of `t`'s device, as a ctypes pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The current CUDA stream of `t`'s device, as a ctypes pointer (the
+    raw handle, without building a `torch.cuda.Stream`: a kernel call's
+    host time is part of a step's)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def counted(wrapper):

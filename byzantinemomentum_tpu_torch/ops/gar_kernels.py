@@ -26,11 +26,20 @@ mask and a divisor k >= 1.
 The kernels take f32 only, as the JAX package's `pallas_gar` does: a
 half-precision stack takes the plain path in the callers.
 
+Launch geometry. `sq_gram` and `weighted_rows_mean` run a persistent
+grid: as many blocks as fit on the card's SMs at once (the library's
+occupancy query), capped by the work. Their per-call shape is chosen
+here, in plain Python that the CPU tests hold (`gram_geometry`,
+`rows_mean_geometry`): the width of each copy or load from `d` and the
+operand's address (a contiguous row slice may start off alignment), the
+Gram's row block from `n`.
+
 Each wrapper counts its kernel launches in `<wrapper>.launches` (and
 per dtype, `ops/_cuda.py`); `reset_launches()` zeroes every wrapper's
 counts, `sort_kernels`' too.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -40,15 +49,21 @@ from byzantinemomentum_tpu_torch.ops import _cuda, sort_kernels
 from byzantinemomentum_tpu_torch.ops._cuda import (
     MAX_ROWS, reset_launches, supported)
 
-__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
-           "sq_gram_plain", "weighted_rows_mean", "select_rows",
+__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "bind", "sq_gram",
+           "sq_gram_plain", "gram_geometry", "rows_mean_geometry",
+           "weighted_rows_mean", "select_rows",
            "masked_rows_mean", "masked_rows_mean_plain",
            "selected_median_mean", "selected_median_mean_plain",
            "reset_launches"]
 
 MAX_ROUNDS = 62   # kMaxRounds in csrc/gar_kernels.cu
-GRAM_TILE = 128   # kTile in csrc/gar_kernels.cu: columns per staged slab
-GRAM_BLOCKS = 528  # pass-1 blocks of sq_gram, 4 per SM of a 132-SM H100
+# sq_gram, as csrc/gar_kernels.cu has them (checked when the library loads)
+GRAM_STAGES = 2         # kGramStages: slabs in the cp.async ring
+GRAM_MAX_BLOCK = 8      # kGramMaxBlock: largest row block (B^2 registers)
+GRAM_MAX_THREADS = 288  # kGramMaxThreads
+GRAM_MIN_TILE = 128     # columns of a slab, at least
+SMEM_LIMIT = 232_448    # shared memory one block may use on an H100
+MEAN_THREADS = 256      # kMeanThreads
 
 
 # --------------------------------------------------------------------------- #
@@ -69,24 +84,38 @@ def build(rounds=0):
 @functools.cache
 def _library(rounds=0):
     """The loaded library of `build(rounds)`, its entries typed."""
-    lib = ctypes.CDLL(str(build(rounds)[0]))
+    return bind(build(rounds)[0], rounds)
+
+
+def bind(path, rounds=0, stages=GRAM_STAGES):
+    """Load the library at `path` (built for `rounds`, and for `stages`
+    Gram slabs where `rounds` is 0) and type its entries; raises if it
+    disagrees with this module's constants."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if rounds == 0:
-        for name in ("bmt_max_rounds", "bmt_gram_tile"):
+        limits = ("bmt_max_rounds", "bmt_gram_stages", "bmt_gram_max_block",
+                  "bmt_gram_max_threads")
+        for name in limits:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
-        lib.bmt_sq_gram.argtypes = [ptr, ptr, ptr, i32, i64, i32, ptr]
+        lib.bmt_sq_gram_resident.argtypes = [i32, i32, i32, i32]
+        lib.bmt_sq_gram_resident.restype = i32
+        lib.bmt_sq_gram.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, i32,
+                                    i32, i32, i32, i32, ptr]
         lib.bmt_sq_gram.restype = i32
+        lib.bmt_rows_mean_resident.argtypes = [i32, i32]
+        lib.bmt_rows_mean_resident.restype = i32
         lib.bmt_weighted_rows_mean.argtypes = [ptr, ptr, ptr, i32, i32, i64,
-                                               ptr]
+                                               i32, i32, i32, ptr]
         lib.bmt_weighted_rows_mean.restype = i32
         lib.bmt_masked_rows_mean.argtypes = [ptr, ptr, ptr, i32, i64, i32,
                                              ptr]
         lib.bmt_masked_rows_mean.restype = i32
-        if (lib.bmt_max_rounds(), lib.bmt_gram_tile()) != (MAX_ROUNDS,
-                                                           GRAM_TILE):
+        if tuple(getattr(lib, name)() for name in limits) != (
+                MAX_ROUNDS, stages, GRAM_MAX_BLOCK, GRAM_MAX_THREADS):
             raise RuntimeError("csrc/gar_kernels.cu and ops/gar_kernels.py "
-                               "disagree on MAX_ROUNDS or GRAM_TILE")
+                               "disagree on MAX_ROUNDS or the GRAM_ limits")
     else:
         lib.bmt_rounds.argtypes = []
         lib.bmt_rounds.restype = i32
@@ -108,6 +137,115 @@ def sq_gram_plain(g):
     return g @ g.T
 
 
+def vector_bytes(d, address):
+    """The widest access of 16, 8 or 4 bytes that every row of an f32
+    (n, d) matrix at `address` can take at column multiples of its
+    width: it must divide the row pitch d * 4 and the address."""
+    for width in (16, 8):
+        if (4 * d) % width == 0 and address % width == 0:
+            return width
+    return 4
+
+
+GramGeometry = collections.namedtuple(
+    "GramGeometry", "block pairs slices threads tile copy smem")
+
+
+def gram_geometry(n, d, address, *, block=None, tile=None,
+                  stages=GRAM_STAGES):
+    """The shape of `sq_gram`'s pass 1 for an f32[n, d] operand at
+    `address` (`block`, `tile` and `stages` override the choices below
+    for `tools/kernel_variants.py`, which builds other ring
+    depths).
+
+    block: the row block B. The rows form ceil(n / B) blocks, and a group
+      of 8 threads owns one of the `pairs` pairs of the upper triangle of
+      blocks, doing B^2 FMAs per 2B floats it reads from shared memory a
+      column. B minimizes pairs * (B^2 + 8 B), the FMAs plus the shared
+      reads counted at the SM's rate ratio (32 floats against 128 FMAs a
+      clock), among the B whose groups fit GRAM_MAX_THREADS: B = 5 at
+      n = 25 (no padding), B = 8 at n = 64. (`tools/kernel_variants.py`
+      at n = 25: B = 5, 71 registers and 3 blocks an SM, beat B = 7,
+      which reads 7% less shared memory but holds 156 registers and 2
+      blocks an SM.)
+    slices: column slices per pair, the largest power of two that keeps
+      pairs * slices <= 32 groups (256 threads).
+    threads: 8 per group, rounded up to whole warps.
+    tile: columns of a slab, a multiple of 32 * slices (each lane reads
+      whole float4s).
+    copy: bytes of each `cp.async` (`vector_bytes`).
+    smem: bytes of shared memory, the GRAM_STAGES slabs of the padded rows
+      or the cross-slice reduction, whichever is larger.
+    """
+    def count(b):
+        blocks = -(-n // b)
+        return blocks * (blocks + 1) // 2
+
+    if block is None:
+        block = min((b for b in range(1, GRAM_MAX_BLOCK + 1)
+                     if 8 * count(b) <= GRAM_MAX_THREADS),
+                    key=lambda b: (count(b) * (b * b + 8 * b), b))
+    pairs = count(block)
+    slices = 1
+    while pairs * slices * 2 <= 32:
+        slices *= 2
+    threads = -(-8 * pairs * slices // 32) * 32
+    if tile is None:
+        tile = max(GRAM_MIN_TILE, 32 * slices)
+    rows = -(-n // block) * block
+    smem = 4 * max(stages * rows * tile, slices * pairs * block * block)
+    return GramGeometry(block, pairs, slices, threads, tile,
+                        vector_bytes(d, address), smem)
+
+
+def rows_mean_geometry(r, d, address):
+    """`(width, row_block)` of `weighted_rows_mean` for r rows of weights
+    over an f32[n, d] operand at `address`: with one row (Krum's w) each
+    thread owns `width` = 4, 2 or 1 consecutive columns, the widest
+    vector load `vector_bytes` allows; with more, width 1 and a row block
+    of 16 or 64, the first that holds r, so `g` is read once."""
+    if r == 1:
+        return vector_bytes(d, address) // 4, 1
+    return 1, 16 if r <= 16 else 64
+
+
+def persistent_blocks(work, resident, sms):
+    """Blocks of a persistent grid: all that fit on the card at once
+    (`resident` a SM), but no more than the `work` items it walks."""
+    if resident < 1:
+        raise RuntimeError(f"kernel cannot be resident on an SM (query "
+                           f"returned {resident})")
+    return max(1, min(work, resident * sms))
+
+
+@functools.cache
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _gram_plan(device_index, n, d, alignment):
+    """`(geometry, blocks)` of `sq_gram` on f32[n, d] at an address of
+    this alignment (mod 16) on this device."""
+    geo = gram_geometry(n, d, alignment)
+    with torch.cuda.device(device_index):
+        resident = _library().bmt_sq_gram_resident(geo.block, geo.copy,
+                                                   geo.threads, geo.smem)
+    return geo, persistent_blocks(-(-d // geo.tile), resident,
+                                  _sm_count(device_index))
+
+
+@functools.lru_cache(maxsize=256)
+def _rows_mean_plan(device_index, r, d, alignment):
+    """`(width, row_block, blocks)` of `weighted_rows_mean`, as
+    `_gram_plan`."""
+    width, row_block = rows_mean_geometry(r, d, alignment)
+    with torch.cuda.device(device_index):
+        resident = _library().bmt_rows_mean_resident(width, row_block)
+    return width, row_block, persistent_blocks(
+        -(-d // (width * MEAN_THREADS)), resident, _sm_count(device_index))
+
+
 @_cuda.counted
 def sq_gram(g):
     """`g @ g.T` in one streamed read of `g` (kernel on a CUDA tensor, the
@@ -118,12 +256,14 @@ def sq_gram(g):
     _cuda.check_matrix("sq_gram", g)
     lib = _library()
     n, d = g.shape
-    blocks = min(-(-d // GRAM_TILE), GRAM_BLOCKS)
-    partial = torch.empty((blocks, n * (n + 1) // 2), dtype=torch.float32,
-                          device=g.device)
-    out = torch.empty((n, n), dtype=torch.float32, device=g.device)
+    geo, blocks = _gram_plan(g.device.index, n, d, g.data_ptr() % 16)
+    # One allocation: the (n, n) result, then the f32[blocks, pairs] partials
+    buf = torch.empty(n * n + blocks * n * (n + 1) // 2, dtype=torch.float32,
+                      device=g.device)
+    out = buf[:n * n].view(n, n)
     _cuda.raise_on("sq_gram", lib.bmt_sq_gram(
-        g.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, blocks,
+        g.data_ptr(), buf.data_ptr() + 4 * n * n, out.data_ptr(), n, d, geo.block,
+        geo.copy, blocks, geo.threads, geo.slices, geo.tile, geo.smem,
         _cuda.stream(g)))
     _cuda.launched(sq_gram, g.dtype)
     return out
@@ -152,23 +292,27 @@ def weighted_rows_mean(w, g):
         return select_rows(w, g)
     _cuda.check_matrix("weighted_rows_mean", g)
     n, d = g.shape
-    W = w[None, :] if w.dim() == 1 else w
-    if (W.device != g.device or W.dtype != torch.float32 or W.dim() != 2
-            or W.shape[1] != n):
+    # A contiguous f32[n] is the one row of an f32[1, n]
+    shape = w.shape
+    if (w.device != g.device or w.dtype != torch.float32
+            or len(shape) not in (1, 2) or shape[-1] != n):
         raise ValueError(f"weighted_rows_mean: w must be f32[{n}] or "
                          f"f32[r, {n}] on {g.device}, got {w.dtype}"
-                         f"{tuple(w.shape)} on {w.device}")
-    r = W.shape[0]
+                         f"{tuple(shape)} on {w.device}")
+    r = shape[0] if len(shape) == 2 else 1
     if not 1 <= r <= MAX_ROWS:
         raise ValueError(f"weighted_rows_mean: r = {r} rows of weights "
                          f"outside 1..{MAX_ROWS}")
-    W = W.contiguous()
-    out = torch.empty((r, d), dtype=torch.float32, device=g.device)
+    w = w.contiguous()
+    out = torch.empty((r, d) if len(shape) == 2 else (d,), dtype=torch.float32,
+                      device=g.device)
+    width, row_block, blocks = _rows_mean_plan(g.device.index, r, d,
+                                               g.data_ptr() % 16)
     _cuda.raise_on("weighted_rows_mean", _library().bmt_weighted_rows_mean(
-        W.data_ptr(), g.data_ptr(), out.data_ptr(), r, n, d,
-        _cuda.stream(g)))
+        w.data_ptr(), g.data_ptr(), out.data_ptr(), r, n, d, width,
+        row_block, blocks, _cuda.stream(g)))
     _cuda.launched(weighted_rows_mean, g.dtype)
-    return out[0] if w.dim() == 1 else out
+    return out
 
 
 # --------------------------------------------------------------------------- #

@@ -19,7 +19,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    must stay +inf in Brute's mean), and at n = 2 and 64; the bf16 and
    f16 forms of the four sorting kernels on the same cases; each GAR of
    the port on the card against the same GAR on the CPU at a small size,
-   Brute and CGE at n=11, f=4. Timings are medians of CUDA-event times;
+   Brute and CGE at n=11, f=4. Bulyan's W, Krum's w and Brute's mask
+   from `sq_gram` must equal those from `sq_gram_plain`. Timings are
+   per call, medians over 5 CUDA-event timings of 20 calls queued back
+   to back (the host's time to issue a call hides behind the device's
+   work); for `sq_gram` and `weighted_rows_mean` also of one call on an
+   idle stream, as all of them were timed before, beside the achieved
+   GB/s and their recorded times before the redesign;
    `bound_ms` is the larger of the bytes the function must move over the
    card's memory rate and its operations over the card's f32
    (non-tensor-core) peak (the half forms compute in f32 too), counting
@@ -86,6 +92,9 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # outside the tensor cores
 PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
          "sxm": (3.35e12, 67e12)}
+# Phase-3 times of sq_gram and weighted_rows_mean before their redesign
+# (one call each, PERF.md's kernel table), printed beside this run's
+BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888}
 
 
 def log(*args):
@@ -100,8 +109,28 @@ def card_peaks(name):
     return PEAKS["sxm"]
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of `fn()` in milliseconds."""
+def cuda_ms(fn, launches=20, reps=5):
+    """Median over `reps` of the CUDA-event time of `launches` calls of
+    `fn()` queued back to back, per call: the device's time, where the
+    host issues a call faster than the device runs it."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def cuda_ms_one_call(fn, reps=20, warmup=3):
+    """Median CUDA-event time of one call of `fn()` on an idle stream (the
+    host's time to issue the call lies inside the interval)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -172,12 +201,21 @@ def build():
         kernels = re.findall(
             r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) "
             r"bytes spill stores.*?Used (\d+) registers", text, re.S)
-        # A mangled name holds the kernel's as <length><name> before its
-        # template (I...) or parameter (E...) list
         log(f"  ptxas {path.name}: " + ", ".join(
-            f"{(re.findall(r'[0-9]([a-z_]+_kernel)(?=[EI])', name) or [name])[-1]} "
-            f"{regs} registers, {spill} bytes spilled"
+            f"{kernel_name(name)} {regs} registers, {spill} bytes spilled"
             for name, spill, regs in kernels))
+
+
+def kernel_name(mangled):
+    """`name<args>` of a mangled kernel: the name is <length><name> before
+    its template (I...E, integer arguments as Li<value>E) or parameter
+    (E...) list."""
+    match = re.search(r"[0-9]([a-z_]+_kernel)(?=[EI])(I(?:Li-?[0-9]+E)+E)?",
+                      mangled)
+    if not match:
+        return mangled
+    args = re.findall(r"Li(-?[0-9]+)E", match.group(2) or "")
+    return match.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def kernels_vs_plain(smi):
@@ -204,6 +242,17 @@ def kernels_vs_plain(smi):
         f"{math.comb(n, k)} subsets took {start.elapsed_time(end):.1f} ms)")
     if int(mask.sum()) != k:
         raise SystemExit(f"brute mask keeps {int(mask.sum())} rows, not {k}")
+    # The selections from the kernel's Gram must be those of the plain one
+    plain_dist = _common.distances_from_sq_gram(gar_kernels.sq_gram_plain(g))
+    for label, got, want in (
+            ("Bulyan's W", W, bulyan.selection_weights(plain_dist, f)),
+            ("Krum's w", w, krum.selection_weights(plain_dist, f11)),
+            ("Brute's mask", mask, brute.best_subset_mask_from_dist(plain_dist, f11))):
+        if not torch.equal(got, want):
+            raise SystemExit(f"{label} from sq_gram differs from the one "
+                             f"from sq_gram_plain")
+    log("Bulyan's W, Krum's w and Brute's mask from sq_gram equal those "
+        "from sq_gram_plain at the headline operand")
     # One record per kernel and element type: f32 under the kernel's name,
     # the half forms as `<kernel>_bf16` and `<kernel>_f16`
     errs = dict.fromkeys(("sq_gram", "selected_median_mean",
@@ -428,6 +477,13 @@ def kernels_vs_plain(smi):
             f"{records[-1]['plain_ms']:.4f} ms, bound "
             f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}), "
             f"library {records[-1]['library_ms']}")
+        if name in BEFORE_REDESIGN_MS:
+            log(f"    {name}: {nbytes / records[-1]['ms'] / 1e6:.1f} GB/s "
+                f"achieved ({nbytes} bytes); one call "
+                f"{cuda_ms_one_call(fn):.4f} ms (library "
+                f"{cuda_ms_one_call(library):.4f}); before the redesign one "
+                f"call took {BEFORE_REDESIGN_MS[name]} ms (NVIDIA H100 80GB "
+                f"HBM3, 700.00 W)")
     return records
 
 

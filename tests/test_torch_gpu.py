@@ -348,3 +348,96 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                      lambda: sort_kernels.lower_median(h.double())):
             with pytest.raises(ValueError, match="float32 or"):
                 call()
+
+
+# --------------------------------------------------------------------------- #
+# The redesigned sq_gram and weighted_rows_mean: every vector width (d mod
+# 4), operands that start off alignment, the headline d, repeat calls
+
+WIDTH_DS = (20_012, 20_013, 20_014, 20_015)  # d = 0, 1, 2, 3 (mod 4)
+OFFSETS = (0, 1, 2)  # f32 elements past an aligned allocation
+
+
+def _shifted(g, floats):
+    """A contiguous copy of `g` whose first element lies `floats` f32
+    past the start of its allocation (4 or 8 bytes off 16-byte
+    alignment)."""
+    n, d = g.shape
+    view = torch.empty(n * d + floats, device=g.device)[floats:].view(n, d)
+    view.copy_(g)
+    return view
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+def _check_gram(g):
+    got = _launched(gar_kernels.sq_gram, lambda: gar_kernels.sq_gram(g))
+    want = gar_kernels.sq_gram_plain(g)
+    diag = torch.diagonal(want)
+    _assert_values(got, want, atol=RTOL * float(diag[torch.isfinite(diag)].max()))
+    assert torch.equal(_bits(got), _bits(gar_kernels.sq_gram(g)))
+
+
+def _check_rows_mean(W, g):
+    got = _launched(gar_kernels.weighted_rows_mean,
+                    lambda: gar_kernels.weighted_rows_mean(W, g))
+    _assert_values(got, gar_kernels.select_rows(W, g))
+    assert torch.equal(_bits(got), _bits(gar_kernels.weighted_rows_mean(W, g)))
+    return got
+
+
+def _selections(n, rows, seed):
+    """`rows` random selections of n rows (1/count weights), the first
+    also taking the last row; a 1-D Krum-style w when rows == 1."""
+    rng = np.random.default_rng(seed)
+    W = np.zeros((rows, n), np.float32)
+    for r in range(rows):
+        picked = np.union1d(rng.permutation(n)[:int(rng.integers(1, n + 1))],
+                            [n - 1] if r == 0 else [])
+        W[r, picked.astype(int)] = np.float32(1.0) / len(picked)
+    return torch.from_numpy(W[0] if rows == 1 else W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 5, 25, 33, 64))
+@pytest.mark.parametrize("d", WIDTH_DS)
+def test_sq_gram_every_width_and_offset(cuda, n, d):
+    g = _mat(n, d, seed=41 * n + d, nan_rows=(n - 1,) if n > 2 else (),
+             inf=n > 2).to(cuda)
+    for offset in OFFSETS:
+        _check_gram(_shifted(g, offset))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 2, 5, 25, 33, 64))
+@pytest.mark.parametrize("rows", (1, 8, 15, 64))
+def test_weighted_rows_mean_every_width_and_offset(cuda, n, rows):
+    """Every r in 1..64 reads g once; the first row of W selects the NaN
+    row, whose NaN must reach exactly its columns."""
+    W = _selections(n, rows, seed=43 * n + rows).to(cuda)
+    for d in WIDTH_DS:
+        g = _mat(n, d, seed=47 * n + d, nan_rows=(n - 1,), inf=True).to(cuda)
+        for offset in OFFSETS:
+            got = _check_rows_mean(W, _shifted(g, offset))
+            assert bool((got if rows == 1 else got[0]).isnan().any())
+
+
+@pytest.mark.gpu
+def test_redesigned_kernels_at_the_headline_shape(cuda):
+    """f32[25, 1,310,922] (d = 2 mod 4: 8-byte vectors), as allocated, 4
+    bytes off alignment, and as the row slice big[1:] of a 26-row
+    matrix (8 bytes off 16-byte alignment)."""
+    n, d = 25, 1_310_922
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn((n + 1, d), generator=gen, device=cuda)
+    big[n, :100] = torch.nan
+    big[1, 7] = torch.inf
+    w = _selections(n, 1, seed=5).to(cuda)
+    W = _selections(n, 15, seed=7).to(cuda)
+    for g in (big[:n].contiguous(), _shifted(big[:n], 1), big[1:]):
+        assert g.is_contiguous()
+        _check_gram(g)
+        for weights in (w, W):
+            _check_rows_mean(weights, g)

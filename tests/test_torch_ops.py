@@ -162,3 +162,76 @@ def test_identical_attacks_match_jax(name, kwargs):
     _assert_values(got, want)
     with pytest.raises(utils.UserException, match="line search"):
         attacks[name](_t(g), 2, 3, defense=gars["average"].unchecked, factor=-4)
+
+
+# --------------------------------------------------------------------------- #
+# Launch geometry of the redesigned sq_gram and weighted_rows_mean kernels
+# (plain Python: the kernels themselves run only on a card)
+
+HEADLINE_D = 1_310_922
+# (d, address) for each residue of d mod 4 and of the address mod 16; 256
+# is where torch places a fresh allocation, the rest are row slices
+WIDTH_PATHS = [(HEADLINE_D - 2 + dm, 256 + off) for dm in range(4)
+               for off in (0, 4, 8, 12)]
+
+
+@pytest.mark.parametrize("d,address", WIDTH_PATHS)
+def test_vector_bytes_is_the_widest_aligned_access(d, address):
+    width = gar_kernels.vector_bytes(d, address)
+    assert width in (4, 8, 16)
+    # Every row i starts at address + 4 i d: aligned to the width for all i
+    assert all((address + 4 * i * d) % width == 0 for i in range(8))
+    wider = [w for w in (8, 16) if w > width]
+    assert all((4 * d) % w or address % w for w in wider)
+    r1 = gar_kernels.rows_mean_geometry(1, d, address)
+    assert r1 == (width // 4, 1)
+    assert gar_kernels.gram_geometry(25, d, address).copy == width
+
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_gram_geometry_covers_every_pair(n):
+    geo = gar_kernels.gram_geometry(n, HEADLINE_D, 256)
+    b = geo.block
+    nb = -(-n // b)
+    assert 1 <= b <= gar_kernels.GRAM_MAX_BLOCK
+    assert geo.pairs == nb * (nb + 1) // 2 <= 36
+    # Threads: 8 per (pair, slice) unit, whole warps, within the limit
+    units = geo.pairs * geo.slices
+    assert units <= 32 or geo.slices == 1
+    assert geo.threads % 32 == 0 and units * 8 <= geo.threads < units * 8 + 32
+    assert geo.threads <= gar_kernels.GRAM_MAX_THREADS
+    # Lanes s * 8 + l + k * slices * 8 cover a slab row's float4s once
+    assert geo.tile % (32 * geo.slices) == 0 and geo.tile >= gar_kernels.GRAM_MIN_TILE
+    seen = sorted(s * 8 + lane + k * geo.slices * 8 for s in range(geo.slices)
+                  for lane in range(8) for k in range(geo.tile // (32 * geo.slices)))
+    assert seen == list(range(geo.tile // 4))
+    # Every entry i <= j < n lies in exactly one block pair I <= J
+    owners = {(i // b, j // b) for i in range(n) for j in range(i, n)}
+    assert owners == {(I, J) for I in range(nb) for J in range(I, nb)}
+    # Shared memory: the ring of padded slabs and the slice reduction
+    assert geo.smem >= 4 * gar_kernels.GRAM_STAGES * nb * b * geo.tile
+    assert geo.smem >= 4 * geo.slices * geo.pairs * b * b
+    assert geo.smem <= gar_kernels.SMEM_LIMIT
+    # No other block that fits costs less a column: FMAs + 8 x shared reads
+    def cost(c):
+        pairs = -(-n // c) * (-(-n // c) + 1) // 2
+        return pairs * (c * c + 8 * c) if 8 * pairs <= gar_kernels.GRAM_MAX_THREADS else None
+    assert cost(b) == min(x for x in map(cost, range(1, 9)) if x is not None)
+    # The block the design names: no padding at n = 25, B = 8 at n = 64
+    assert {25: 5, 64: 8}.get(n, b) == b
+
+
+@pytest.mark.parametrize("r", (1, 2, 8, 15, 16, 17, 33, 64))
+def test_rows_mean_geometry_reads_g_once(r):
+    for d, address in WIDTH_PATHS:
+        width, row_block = gar_kernels.rows_mean_geometry(r, d, address)
+        assert r <= row_block <= 64  # one block holds every row of W
+        assert d % width == 0 and address % (4 * width) == 0
+        assert width == 1 or r == 1
+
+
+def test_persistent_blocks():
+    assert gar_kernels.persistent_blocks(10_242, 3, 132) == 396
+    assert gar_kernels.persistent_blocks(5, 3, 132) == 5
+    with pytest.raises(RuntimeError, match="resident"):
+        gar_kernels.persistent_blocks(5, 0, 132)
