@@ -42,9 +42,11 @@
 //   conflict-free phase of a 16-byte shared load. B weighs the FMAs
 //   against the shared reads (`ops/gar_kernels.py::gram_geometry`): B = 5
 //   at n = 25 (15 block pairs, no padding, 150 floats read and 375 FMAs a
-//   column, 71 registers), B = 8 at n = 64. At the end each pair's 8 lanes are summed by a fixed shuffle
-//   tree and the column slices in index order; the block writes its
-//   partial triangle to an f32[blocks, pairs] scratch. Pass 2
+//   column), B = 8 at n = 64. At the end each pair's 8 lanes are summed
+//   by a fixed shuffle tree and the column slices in index order; the
+//   block writes its partial triangle to an f32[blocks, pairs] scratch.
+//   Shared memory past 48 KB (2 slabs of 64 rows at n = 64) is admitted
+//   once per plan by the occupancy query (`resident_blocks`). Pass 2
 //   (`gram_reduce_kernel`): one warp per pair sums the partials in a
 //   fixed order (strided lanes, then a fixed shuffle tree) and mirrors
 //   the triangle. No atomics, so repeated runs give identical distances
@@ -90,9 +92,9 @@
 //   next chunk's loads before it sums the current one. Small chunks keep
 //   the registers low and the SMs full of warps, which is what carries
 //   the bytes: loading all 25 rows of a group at once held one block per
-//   SM and was 20% slower (`tools/kernel_variants.py`). A block computes RB rows of W (1 for
-//   Krum's w f32[n], else 16 or 64, the first that holds r), so g is read
-//   once for any r <= 64; rows past r weigh 0 and are not written. Each
+//   SM and was slower (PERF.md). A block computes RB rows of W
+//   (1 for Krum's w f32[n], else 64), so g is read once for any r <= 64;
+//   rows past r weigh 0 and are not written. Each
 //   column's sum is `select_rows_column`'s (Bulyan's stage 1): `fmaf` over
 //   rows 0..n-1 in index order from +0, non-finite values excluded, NaN
 //   where a row of W selects one.
@@ -132,19 +134,11 @@ constexpr int kRowChunk = 8;              // g rows loaded ahead per thread
 constexpr int kMaxRounds = kMaxRows - 2;  // n - 2f - 2 with f >= 0
 constexpr int kMeanThreads = 256;
 // sq_gram (`ops/gar_kernels.py` holds the same numbers and checks them)
-#ifndef BMT_GRAM_STAGES
-#define BMT_GRAM_STAGES 2
-#endif
-constexpr int kGramStages = BMT_GRAM_STAGES;  // slabs in the cp.async ring
-constexpr int kGramMaxBlock = 8;          // largest row block B
+constexpr int kGramStages = 2;        // slabs in the cp.async ring
+constexpr int kGramMaxBlock = 8;      // largest row block B
 constexpr int kGramMaxThreads = 288;  // 36 block pairs of 8 threads
-// weighted_rows_mean: floats of g a thread loads per chunk of rows (the
-// `-D` overrides serve `tools/kernel_variants.py`)
-#ifndef BMT_CHUNK_FLOATS
-#define BMT_CHUNK_FLOATS 8
-#endif
-constexpr int kChunkFloats = BMT_CHUNK_FLOATS;
-static_assert(kGramStages >= 2, "a ring of at least two slabs");
+// weighted_rows_mean: floats of g a thread loads per chunk of rows
+constexpr int kChunkFloats = 8;
 static_assert(0 <= BMT_ROUNDS && BMT_ROUNDS <= kMaxRounds,
               "BMT_ROUNDS outside 0..kMaxRounds");
 
@@ -375,26 +369,25 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
 // Stage 1 of Bulyan (`pallas_gar._select_rows`); `rows_mean_kernel`
 // computes each column of `weighted_rows_mean` with the same arithmetic.
 //
-// stage_weights: W (f32[R, n], row-major) goes to shared memory transposed
-// and padded to whole float4s, wt[i * R4 + q] = W[4q .. 4q + 3, i] (0 past
-// row R), so one 16-byte (broadcast) read serves four rows; bit k of
-// sel[i] is set when row k selects row i of g (weight > 0). Every thread
-// of the block must call it.
-template <int R>
+// stage_weights: W (f32[r, n], row-major) goes to shared memory transposed
+// and padded to P floats a row of g, wt[i * P + k] = W[k, i] (0 past row
+// r), so row i's weights are P consecutive floats (with P a multiple of 4,
+// one 16-byte broadcast read serves four rows of W); bit k of sel[i] is
+// set when row k selects row i of g (weight > 0). Every thread of the
+// block must call it.
+template <int P>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ W,
-                                              int n, float4* wt,
+                                              int r, int n, float* wt,
                                               unsigned long long* sel) {
-  static_assert(R <= 64, "one bit per row in a 64-bit mask");
-  constexpr int R4 = (R + 3) / 4;
-  float* wts = reinterpret_cast<float*>(wt);
-  for (int e = threadIdx.x; e < n * R4 * 4; e += blockDim.x) {
-    const int i = e / (R4 * 4);
-    const int k = e - i * R4 * 4;
-    wts[e] = k < R ? W[k * n + i] : 0.0f;
+  static_assert(P <= 64, "one bit per row of W in a 64-bit mask");
+  for (int e = threadIdx.x; e < n * P; e += blockDim.x) {
+    const int i = e / P;
+    const int k = e - i * P;
+    wt[e] = k < r ? W[k * n + i] : 0.0f;
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     unsigned long long mask = 0;
-    for (int k = 0; k < R; ++k) {
+    for (int k = 0; k < r; ++k) {
       if (W[k * n + i] > 0.0f) mask |= 1ull << k;
     }
     sel[i] = mask;
@@ -494,22 +487,9 @@ __global__ void __launch_bounds__(kMeanThreads)
 rows_mean_kernel(const float* __restrict__ W, const float* __restrict__ g,
                  float* __restrict__ out, int r, int n, long long d) {
   constexpr int C = kChunkFloats / V;  // rows a chunk
-  static_assert(RB <= 64, "one bit per row of W in a 64-bit mask");
   __shared__ float wt[kMaxRows * RB];  // wt[i * RB + k] = W[k, i], 0 past r
   __shared__ unsigned long long sel[kMaxRows];  // bit k: W[k, i] > 0
-  for (int e = threadIdx.x; e < n * RB; e += blockDim.x) {
-    const int i = e / RB;
-    const int k = e - i * RB;
-    wt[e] = k < r ? W[k * n + i] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    unsigned long long mask = 0;
-    for (int k = 0; k < r; ++k) {
-      if (W[k * n + i] > 0.0f) mask |= 1ull << k;
-    }
-    sel[i] = mask;
-  }
-  __syncthreads();
+  stage_weights<RB>(W, r, n, wt, sel);
 
   const long long groups = d / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -580,11 +560,8 @@ RowsMeanKernel rows_mean_kernel_for(int width, int rb) {
       case 2: return rows_mean_kernel<2, 1>;
       case 4: return rows_mean_kernel<4, 1>;
     }
-  } else if (width == 1) {
-    switch (rb) {
-      case 16: return rows_mean_kernel<1, 16>;
-      case 64: return rows_mean_kernel<1, 64>;
-    }
+  } else if (width == 1 && rb == kMaxRows) {
+    return rows_mean_kernel<1, kMaxRows>;
   }
   return nullptr;
 }
@@ -616,10 +593,17 @@ GramKernel gram_kernel_for(int b, int copy) {
   return nullptr;
 }
 
-// Blocks of `kernel` that fit on one SM, or -1
+// Blocks of `kernel` that fit on one SM with `smem` bytes of dynamic
+// shared memory, or -1. It also lets the kernel launch with `smem` bytes
+// on the current device (the default limit is 48 KB): the limit is only
+// raised, so every plan queried before still launches, and a launch needs
+// no attribute call of its own.
 int resident_blocks(const void* kernel, int threads, int smem) {
   if (kernel == nullptr) return -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  if (smem > attr.maxDynamicSharedSizeBytes &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess) {
     return -1;
   }
@@ -679,7 +663,7 @@ selected_median_mean_kernel(const float* __restrict__ W,
   constexpr int R4 = (R + 3) / 4;
   __shared__ float4 wt[kMaxRows * R4];
   __shared__ unsigned long long sel[kMaxRows];
-  stage_weights<R>(W, n, wt, sel);
+  stage_weights<R4 * 4>(W, R, n, reinterpret_cast<float*>(wt), sel);
 
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
@@ -736,7 +720,9 @@ int bmt_sq_gram_resident(int b, int copy, int threads, int smem) {
 
 // g f32[n, d] (row-major) -> out f32[n, n]; partial is f32[blocks, pairs]
 // scratch with pairs = n (n + 1) / 2. The geometry (b, copy, threads,
-// slices, tile, smem) is `ops/gar_kernels.py::gram_geometry`'s
+// slices, tile, smem) is `ops/gar_kernels.py::gram_geometry`'s, and
+// `bmt_sq_gram_resident` has been asked about it on this device (which
+// admits its shared memory)
 int bmt_sq_gram(const float* g, float* partial, float* out, int n,
                 long long d, int b, int copy, int blocks, int threads,
                 int slices, int tile, int smem, void* stream) {
@@ -745,15 +731,8 @@ int bmt_sq_gram(const float* g, float* partial, float* out, int n,
   if (kernel == nullptr || threads > kGramMaxThreads) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err;
-  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
-    err = cudaFuncSetAttribute((const void*)kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   kernel<<<blocks, threads, smem, s>>>(g, partial, n, d, slices, tile);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int pairs = n * (n + 1) / 2;
   const int reduce_threads = 256;  // 8 warps, one pair each

@@ -49,7 +49,7 @@ from byzantinemomentum_tpu_torch.ops import _cuda, sort_kernels
 from byzantinemomentum_tpu_torch.ops._cuda import (
     MAX_ROWS, reset_launches, supported)
 
-__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "bind", "sq_gram",
+__all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
            "sq_gram_plain", "gram_geometry", "rows_mean_geometry",
            "weighted_rows_mean", "select_rows",
            "masked_rows_mean", "masked_rows_mean_plain",
@@ -83,15 +83,9 @@ def build(rounds=0):
 
 @functools.cache
 def _library(rounds=0):
-    """The loaded library of `build(rounds)`, its entries typed."""
-    return bind(build(rounds)[0], rounds)
-
-
-def bind(path, rounds=0, stages=GRAM_STAGES):
-    """Load the library at `path` (built for `rounds`, and for `stages`
-    Gram slabs where `rounds` is 0) and type its entries; raises if it
-    disagrees with this module's constants."""
-    lib = ctypes.CDLL(str(path))
+    """The loaded library of `build(rounds)`, its entries typed; raises if
+    it disagrees with this module's constants."""
+    lib = ctypes.CDLL(str(build(rounds)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if rounds == 0:
         limits = ("bmt_max_rounds", "bmt_gram_stages", "bmt_gram_max_block",
@@ -113,7 +107,7 @@ def bind(path, rounds=0, stages=GRAM_STAGES):
                                              ptr]
         lib.bmt_masked_rows_mean.restype = i32
         if tuple(getattr(lib, name)() for name in limits) != (
-                MAX_ROUNDS, stages, GRAM_MAX_BLOCK, GRAM_MAX_THREADS):
+                MAX_ROUNDS, GRAM_STAGES, GRAM_MAX_BLOCK, GRAM_MAX_THREADS):
             raise RuntimeError("csrc/gar_kernels.cu and ops/gar_kernels.py "
                                "disagree on MAX_ROUNDS or the GRAM_ limits")
     else:
@@ -151,12 +145,9 @@ GramGeometry = collections.namedtuple(
     "GramGeometry", "block pairs slices threads tile copy smem")
 
 
-def gram_geometry(n, d, address, *, block=None, tile=None,
-                  stages=GRAM_STAGES):
+def gram_geometry(n, d, address):
     """The shape of `sq_gram`'s pass 1 for an f32[n, d] operand at
-    `address` (`block`, `tile` and `stages` override the choices below
-    for `tools/kernel_variants.py`, which builds other ring
-    depths).
+    `address`.
 
     block: the row block B. The rows form ceil(n / B) blocks, and a group
       of 8 threads owns one of the `pairs` pairs of the upper triangle of
@@ -164,10 +155,8 @@ def gram_geometry(n, d, address, *, block=None, tile=None,
       column. B minimizes pairs * (B^2 + 8 B), the FMAs plus the shared
       reads counted at the SM's rate ratio (32 floats against 128 FMAs a
       clock), among the B whose groups fit GRAM_MAX_THREADS: B = 5 at
-      n = 25 (no padding), B = 8 at n = 64. (`tools/kernel_variants.py`
-      at n = 25: B = 5, 71 registers and 3 blocks an SM, beat B = 7,
-      which reads 7% less shared memory but holds 156 registers and 2
-      blocks an SM.)
+      n = 25 (no padding), B = 8 at n = 64. (At n = 25, B = 7 reads 7%
+      fewer floats of shared memory a column but does 31% more FMAs.)
     slices: column slices per pair, the largest power of two that keeps
       pairs * slices <= 32 groups (256 threads).
     threads: 8 per group, rounded up to whole warps.
@@ -181,19 +170,17 @@ def gram_geometry(n, d, address, *, block=None, tile=None,
         blocks = -(-n // b)
         return blocks * (blocks + 1) // 2
 
-    if block is None:
-        block = min((b for b in range(1, GRAM_MAX_BLOCK + 1)
-                     if 8 * count(b) <= GRAM_MAX_THREADS),
-                    key=lambda b: (count(b) * (b * b + 8 * b), b))
+    block = min((b for b in range(1, GRAM_MAX_BLOCK + 1)
+                 if 8 * count(b) <= GRAM_MAX_THREADS),
+                key=lambda b: (count(b) * (b * b + 8 * b), b))
     pairs = count(block)
     slices = 1
     while pairs * slices * 2 <= 32:
         slices *= 2
     threads = -(-8 * pairs * slices // 32) * 32
-    if tile is None:
-        tile = max(GRAM_MIN_TILE, 32 * slices)
+    tile = max(GRAM_MIN_TILE, 32 * slices)
     rows = -(-n // block) * block
-    smem = 4 * max(stages * rows * tile, slices * pairs * block * block)
+    smem = 4 * max(GRAM_STAGES * rows * tile, slices * pairs * block * block)
     return GramGeometry(block, pairs, slices, threads, tile,
                         vector_bytes(d, address), smem)
 
@@ -203,10 +190,10 @@ def rows_mean_geometry(r, d, address):
     over an f32[n, d] operand at `address`: with one row (Krum's w) each
     thread owns `width` = 4, 2 or 1 consecutive columns, the widest
     vector load `vector_bytes` allows; with more, width 1 and a row block
-    of 16 or 64, the first that holds r, so `g` is read once."""
+    of MAX_ROWS, so `g` is read once."""
     if r == 1:
         return vector_bytes(d, address) // 4, 1
-    return 1, 16 if r <= 16 else 64
+    return 1, MAX_ROWS
 
 
 def persistent_blocks(work, resident, sms):
@@ -226,7 +213,8 @@ def _sm_count(device_index):
 @functools.lru_cache(maxsize=256)
 def _gram_plan(device_index, n, d, alignment):
     """`(geometry, blocks)` of `sq_gram` on f32[n, d] at an address of
-    this alignment (mod 16) on this device."""
+    this alignment (mod 16) on this device. The library's occupancy query
+    also admits the plan's shared memory on the device, once."""
     geo = gram_geometry(n, d, alignment)
     with torch.cuda.device(device_index):
         resident = _library().bmt_sq_gram_resident(geo.block, geo.copy,

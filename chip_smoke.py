@@ -20,12 +20,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    f16 forms of the four sorting kernels on the same cases; each GAR of
    the port on the card against the same GAR on the CPU at a small size,
    Brute and CGE at n=11, f=4. Bulyan's W, Krum's w and Brute's mask
-   from `sq_gram` must equal those from `sq_gram_plain`. Timings are
-   per call, medians over 5 CUDA-event timings of 20 calls queued back
-   to back (the host's time to issue a call hides behind the device's
-   work); for `sq_gram` and `weighted_rows_mean` also of one call on an
-   idle stream, as all of them were timed before, beside the achieved
-   GB/s and their recorded times before the redesign;
+   from `sq_gram` must equal those from `sq_gram_plain`. `ms`,
+   `plain_ms` and `library_ms` are medians of 20 CUDA-event times of one
+   call on an idle stream (the host's time to issue the call lies inside
+   the interval); `queued_ms` and `library_queued_ms` are per call,
+   medians over 5 CUDA-event times of 20 calls queued back to back (the
+   host's time hides behind the device's work). For `sq_gram` and
+   `weighted_rows_mean` it also prints the achieved GB/s, the host's
+   time per call of the wrapper and of the library call, and their
+   one-call times before their redesign;
    `bound_ms` is the larger of the bytes the function must move over the
    card's memory rate and its operations over the card's f32
    (non-tensor-core) peak (the half forms compute in f32 too), counting
@@ -109,7 +112,25 @@ def card_peaks(name):
     return PEAKS["sxm"]
 
 
-def cuda_ms(fn, launches=20, reps=5):
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median CUDA-event time of one call of `fn()` on an idle stream, in
+    milliseconds (the host's time to issue the call lies inside the
+    interval)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, launches=20, reps=5):
     """Median over `reps` of the CUDA-event time of `launches` calls of
     `fn()` queued back to back, per call: the device's time, where the
     host issues a call faster than the device runs it."""
@@ -128,21 +149,18 @@ def cuda_ms(fn, launches=20, reps=5):
     return statistics.median(times)
 
 
-def cuda_ms_one_call(fn, reps=20, warmup=3):
-    """Median CUDA-event time of one call of `fn()` on an idle stream (the
-    host's time to issue the call lies inside the interval)."""
-    for _ in range(warmup):
+def host_us(fn, calls=200):
+    """The host's time per call of `fn()` in microseconds, over `calls`
+    calls with no synchronization inside the window."""
+    for _ in range(5):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def compare(name, got, want, atol=TOL_ATOL, rtol=TOL_RTOL):
@@ -472,18 +490,21 @@ def kernels_vs_plain(smi):
             "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": cuda_ms(library) if library else None})
-        log(f"  {name}: {records[-1]['ms']:.4f} ms, plain "
-            f"{records[-1]['plain_ms']:.4f} ms, bound "
-            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}), "
-            f"library {records[-1]['library_ms']}")
+            "library_ms": cuda_ms(library) if library else None,
+            "queued_ms": queued_ms(fn),
+            "library_queued_ms": queued_ms(library) if library else None})
+        rec = records[-1]
+        log(f"  {name}: {rec['ms']:.4f} ms ({rec['queued_ms']:.4f} queued), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), library {rec['library_ms']} "
+            f"({rec['library_queued_ms']} queued)")
         if name in BEFORE_REDESIGN_MS:
-            log(f"    {name}: {nbytes / records[-1]['ms'] / 1e6:.1f} GB/s "
-                f"achieved ({nbytes} bytes); one call "
-                f"{cuda_ms_one_call(fn):.4f} ms (library "
-                f"{cuda_ms_one_call(library):.4f}); before the redesign one "
-                f"call took {BEFORE_REDESIGN_MS[name]} ms (NVIDIA H100 80GB "
-                f"HBM3, 700.00 W)")
+            log(f"    {name}: {nbytes / rec['ms'] / 1e6:.1f} GB/s achieved one "
+                f"call, {nbytes / rec['queued_ms'] / 1e6:.1f} queued "
+                f"({nbytes} bytes); host time per call {host_us(fn):.2f} us "
+                f"(library {host_us(library):.2f} us); before the redesign "
+                f"one call took {BEFORE_REDESIGN_MS[name]} ms (NVIDIA H100 "
+                f"80GB HBM3, 700.00 W)")
     return records
 
 

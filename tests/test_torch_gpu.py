@@ -425,6 +425,15 @@ def test_weighted_rows_mean_every_width_and_offset(cuda, n, rows):
 
 
 @pytest.mark.gpu
+def test_sq_gram_after_a_plan_with_less_shared_memory(cuda):
+    """n = 64 and n = 50 take the same kernel form (B = 8) with 64 KB and
+    56 KB of shared memory: querying the second plan must not take from
+    the first the shared memory it launches with."""
+    for n in (64, 50, 64):
+        _check_gram(_mat(n, 20_014, seed=n, nan_rows=(1,), inf=True).to(cuda))
+
+
+@pytest.mark.gpu
 def test_redesigned_kernels_at_the_headline_shape(cuda):
     """f32[25, 1,310,922] (d = 2 mod 4: 8-byte vectors), as allocated, 4
     bytes off alignment, and as the row slice big[1:] of a 26-row

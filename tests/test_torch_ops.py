@@ -225,7 +225,9 @@ def test_gram_geometry_covers_every_pair(n):
 def test_rows_mean_geometry_reads_g_once(r):
     for d, address in WIDTH_PATHS:
         width, row_block = gar_kernels.rows_mean_geometry(r, d, address)
-        assert r <= row_block <= 64  # one block holds every row of W
+        # One block holds every row of W: one form for Krum's w, one for
+        # any other r
+        assert row_block == (1 if r == 1 else gar_kernels.MAX_ROWS) >= r
         assert d % width == 0 and address % (4 * width) == 0
         assert width == 1 or r == 1
 
