@@ -1,27 +1,50 @@
-// The NaN-last sorting network and the closest-mean selection over a
+// The NaN-last sorting networks and the closest-mean selection over a
 // register array, shared by gar_kernels.cu and sort_kernels.cu (the
 // port's counterpart of `byzantinemomentum_tpu/ops/pallas_sort.py`'s
 // `_batcher_pairs`, `sort_values` and `closest_mean_values`).
 //
 // Register arrays need compile-time indices, so every function here is a
-// template on the array length and every loop is unrolled: the network by
-// template recursion, the selection by `#pragma unroll` over a constant
-// trip count.
+// template on the array length and every loop is unrolled: the float
+// network by template recursion, the keyed network by a fold over a
+// schedule computed at compile time, the selection by `#pragma unroll`
+// over a constant trip count.
+//
+// Two networks. `batcher_sort` (float values, NaN tested in every
+// compare-exchange: two compares, an `isnan` pair and two selects) serves
+// lower_median, trimmed_mean and colsort. The keyed network serves
+// closest_mean and selected_median_mean: each value becomes a uint32 key
+// whose unsigned order is the NaN-last float order (`value_key`,
+// `deviation_key`), so a compare-exchange is one `umin` and one `umax`;
+// and the schedule is Batcher's pruned to the comparators on which the
+// wanted output rank depends (`selection_schedule`): rank 13 of 25 keeps
+// 90 two-sided and 24 one-sided comparators, 204 min/max instructions
+// against 280 for the whole keyed network and about 840 for the float one.
+// The kernels are bound by bytes on paper but were bound by instruction
+// issue in practice (their half forms, half the bytes, took the same
+// time), which is what the keys and the pruning cut.
+//
+// Signed zero: keys order -0 below +0, where the float network leaves
+// equal values as they come. A rank read off the keyed network may
+// therefore be -0 where the float network gives +0, or the reverse; the
+// value is equal. Deviations hold no -0 (|x - c| >= +0), so a deviation
+// key equals another exactly when the two floats are equal.
 //
 // Element types. The JAX sorting kernels take f32, bf16 and f16 and do
 // their arithmetic in the storage type. Here every value is converted to
-// float when it is loaded (exact), compared as a float (exact), and the
-// result of every add, subtract and divide is rounded back to the storage
-// type (`Elem<T>::round`). f32 carries at least 2p + 2 significand bits
-// for bf16 (p = 8) and f16 (p = 11), so one f32 operation followed by one
-// rounding gives the native operation's result.
-
+// float when it is loaded (exact), compared as a float or a key (exact),
+// and the result of every add, subtract and divide is rounded back to the
+// storage type (`Elem<T>::round`). f32 carries at least 2p + 2 significand
+// bits for bf16 (p = 8) and f16 (p = 11), so one f32 operation followed by
+// one rounding gives the native operation's result.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <utility>
 
 namespace bmt {
 
@@ -122,44 +145,177 @@ __device__ __forceinline__ void batcher_sort(float (&v)[R]) {
   batcher_p<R, 1>(v);
 }
 
-// `pallas_sort.closest_mean_values`: the mean of the m (1 <= m <= R)
-// values of `rows` closest to `c`. The m-th smallest deviation is the
-// threshold; everything strictly below it is taken, then the ties at it in
-// index order (stable-argsort selection); NaN where the threshold is NaN
-// (fewer than m finite deviations). The sum runs in index order, adding 0
-// for the rows not taken, as the JAX kernel does. `srt` is scratch.
-// Deviations are recomputed where they are read rather than kept: at 62
-// or 64 values a third register array would spill. The values and `c`
-// are those of a T array; each deviation, partial sum and the mean are
+// ---------------------------------------------------------------------------
+// The keyed selection network
+
+// The key of a value of either sign: the usual sign flip (negative values
+// all bits, the others the sign bit), after every NaN is mapped to one key
+// above +inf's. Unsigned order is then the NaN-last float order, with -0
+// one key below +0. `key_value` inverts it (the NaN key gives a NaN).
+__device__ __forceinline__ uint32_t value_key(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return isnan(x) ? 0xffffffffu
+                  : b ^ ((uint32_t)((int32_t)b >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// The key of a deviation |x - c|: its bits. A deviation is +0 or more, or
+// a NaN, so 0 <= finite < +inf (kInfKey) < every NaN in unsigned order
+constexpr uint32_t kInfKey = 0x7f800000u;
+
+__device__ __forceinline__ uint32_t deviation_key(float dev) {
+  return __float_as_uint(dev);
+}
+
+// Batcher's schedule pruned to the comparators on which one output rank
+// depends (`ops/sort_kernels.py::selection_pairs` computes the same).
+// Working backwards from the output wire, a comparator that touches a
+// live wire is kept and makes both its wires live; one whose two outputs
+// are live exchanges (kBoth), one with only its low output live computes
+// the min alone (kMin), only its high output the max alone (kMax). Rank
+// -1 keeps every comparator: a full sort. Each comparator is coded as
+// lo | hi << 8 | kind << 16, in network order.
+constexpr int kMaxNetworkRows = 64;
+constexpr int kMaxComparators = 543;  // Batcher's network of 64 rows
+enum : int { kBoth = 0, kMin = 1, kMax = 2 };
+
+struct Schedule {
+  int count;
+  int code[kMaxComparators];
+};
+
+constexpr Schedule selection_schedule(int n, int rank) {
+  Schedule all{}, out{};
+  for (int p = 1; p < n; p *= 2) {
+    for (int k = p; k >= 1; k /= 2) {
+      for (int j = k % p; j < n - k; j += 2 * k) {
+        for (int i = 0; i < k && i < n - j - k; ++i) {
+          if ((i + j) / (2 * p) == (i + j + k) / (2 * p)) {
+            all.code[all.count++] = (i + j) | (i + j + k) << 8;
+          }
+        }
+      }
+    }
+  }
+  bool live[kMaxNetworkRows] = {};
+  for (int w = 0; w < n; ++w) live[w] = rank < 0 || w == rank;
+  int kind[kMaxComparators] = {};
+  for (int t = all.count - 1; t >= 0; --t) {
+    const int lo = all.code[t] & 0xff, hi = all.code[t] >> 8;
+    kind[t] = live[lo] && live[hi] ? kBoth : live[lo] ? kMin
+              : live[hi]           ? kMax : -1;
+    if (kind[t] >= 0) live[lo] = live[hi] = true;
+  }
+  for (int t = 0; t < all.count; ++t) {
+    if (kind[t] >= 0) out.code[out.count++] = all.code[t] | kind[t] << 16;
+  }
+  return out;
+}
+
+template <int N, int Rank>
+struct Selection {
+  static_assert(1 <= N && N <= kMaxNetworkRows && -1 <= Rank && Rank < N,
+                "selection outside the network");
+  static constexpr Schedule schedule = selection_schedule(N, Rank);
+};
+
+// Scalar constants, so that device code reads no array of the host's
+template <int N, int Rank>
+inline constexpr int kComparators = Selection<N, Rank>::schedule.count;
+template <int N, int Rank, int T>
+inline constexpr int kComparator = Selection<N, Rank>::schedule.code[T];
+
+template <int Code, int N>
+__device__ __forceinline__ void key_exchange(uint32_t (&v)[N]) {
+  constexpr int lo = Code & 0xff, hi = (Code >> 8) & 0xff, kind = Code >> 16;
+  if constexpr (kind == kBoth) {
+    const uint32_t a = v[lo], b = v[hi];
+    v[lo] = min(a, b);
+    v[hi] = max(a, b);
+  } else if constexpr (kind == kMin) {
+    v[lo] = min(v[lo], v[hi]);
+  } else {
+    v[hi] = max(v[lo], v[hi]);
+  }
+}
+
+template <int N, int Rank, int... T>
+__device__ __forceinline__ void key_network(uint32_t (&v)[N],
+                                            std::integer_sequence<int, T...>) {
+  (key_exchange<kComparator<N, Rank, T>>(v), ...);
+}
+
+// v[Rank] becomes the key of rank Rank of v (the other wires are left
+// partly ordered); with Rank = -1, v is sorted
+template <int N, int Rank = -1>
+__device__ __forceinline__ void key_select(uint32_t (&v)[N]) {
+  key_network<N, Rank>(
+      v, std::make_integer_sequence<int, kComparators<N, Rank>>{});
+}
+
+// Deviation keys kept in registers up to this many rows; above it a
+// second array of n would spill, and each deviation is recomputed where
+// it is read
+constexpr int kKeepDeviations = 32;
+
+// Deviation r: kept (Keep), or recomputed from the values
+template <bool Keep, typename T, int N>
+__device__ __forceinline__ uint32_t deviation_at(
+    const uint32_t (&kept)[Keep ? N : 1], const float (&rows)[N], float c,
+    int r) {
+  if constexpr (Keep) {
+    return kept[r];
+  } else {
+    return deviation_key(Elem<T>::round(fabsf(rows[r] - c)));
+  }
+}
+
+// `pallas_sort.closest_mean_values` for a compile-time M (1 <= M <= N):
+// the mean of the M values of `rows` closest to `c`. The M-th smallest
+// deviation is the threshold (the keyed network pruned to rank M - 1);
+// everything strictly below it is taken, then the ties at it in index
+// order (stable-argsort selection); NaN where the threshold is NaN (fewer
+// than M finite deviations). The sum runs over the taken rows in index
+// order from +0, as the JAX kernel's add of 0 for the others does (a sum
+// from +0 is never -0, so adding +0 changes no bit of it). Each deviation
+// is computed once, as a key, for N <= kKeepDeviations. The values and
+// `c` are those of a T array; each deviation, partial sum and the mean are
 // rounded to T (the counts are small integers, exact in every T).
-template <int R, typename T = float>
-__device__ __forceinline__ float closest_mean_values(const float (&rows)[R],
-                                                     float c, int m,
-                                                     float (&srt)[R]) {
+template <int N, int M, typename T>
+__device__ __forceinline__ float closest_mean_keyed(const float (&rows)[N],
+                                                    float c) {
+  static_assert(1 <= M && M <= N, "M outside 1..N");
   using E = Elem<T>;
+  constexpr bool kKeep = N <= kKeepDeviations;
+  uint32_t srt[N];
+  uint32_t kept[kKeep ? N : 1];
 #pragma unroll
-  for (int r = 0; r < R; ++r) srt[r] = E::round(fabsf(rows[r] - c));
-  batcher_sort<R>(srt);
-  float thresh = srt[0];
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    if (r == m - 1) thresh = srt[r];
+  for (int r = 0; r < N; ++r) {
+    srt[r] = deviation_key(E::round(fabsf(rows[r] - c)));
+    if constexpr (kKeep) kept[r] = srt[r];
   }
-  float need = (float)m;
+  key_select<N, M - 1>(srt);
+  const uint32_t thresh = srt[M - 1];
+  int below = 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    need -= E::round(fabsf(rows[r] - c)) < thresh ? 1.0f : 0.0f;
+  for (int r = 0; r < N; ++r) {
+    const uint32_t dev = deviation_at<kKeep, T>(kept, rows, c, r);
+    below += dev < thresh ? 1 : 0;
   }
-  float sum = 0.0f, cum = 0.0f;
+  const int need = M - below;
+  float sum = 0.0f;
+  int cum = 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float dev = E::round(fabsf(rows[r] - c));
+  for (int r = 0; r < N; ++r) {
+    const uint32_t dev = deviation_at<kKeep, T>(kept, rows, c, r);
     const bool eq = dev == thresh;
-    cum += eq ? 1.0f : 0.0f;
-    const bool take = dev < thresh || (eq && cum <= need);
-    sum = E::round(sum + (take ? rows[r] : 0.0f));
+    cum += eq ? 1 : 0;
+    if (dev < thresh || (eq && cum <= need)) sum = E::round(sum + rows[r]);
   }
-  return isnan(thresh) ? nanf("") : E::round(sum / (float)m);
+  return thresh > kInfKey ? nanf("") : E::round(sum / (float)M);
 }
 
 }  // namespace bmt

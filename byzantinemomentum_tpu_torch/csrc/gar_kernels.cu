@@ -61,20 +61,35 @@
 // `byzantinemomentum_tpu/ops/pallas_gar.py::selected_median_mean`
 // (`_bulyan_tail_kernel`, with `_select_rows`, `pallas_sort.sort_values` and
 // `pallas_sort.closest_mean_values` inlined).
-//   Bound: bytes. It reads g once (131.1 MB at the headline shape) and
-//   writes one (d,) row (5.2 MB); the work per coordinate is
-//   rounds * n multiply-adds plus two sorting networks over `rounds`
-//   values.
-//   Design: thread j owns coordinate j, so a warp's loads of g[i, j0:j0+32]
-//   are coalesced, and it loads 8 rows ahead of their use to keep enough
-//   bytes in flight; W (rounds x n) sits in shared memory, beside one
-//   64-bit mask per row of the rounds that select it. The (rounds,)
-//   stage-1 stack, its non-finite flags (one bit each), the Batcher
-//   network and the closest-mean selection stay in registers: the
-//   (rounds, d) stack never reaches device memory. Register arrays need
-//   compile-time indices, so the kernel is a template on ROUNDS, built for
-//   any of 1..kMaxRounds (62, every count n <= 64 rows can give), and the
-//   Batcher network is unrolled by template recursion (`batcher.cuh`).
+//   Bound: bytes. It reads g once and writes one (d,) row: 136.3 MB at
+//   the headline shape f32[25, 1,310,922], 0.0407 ms at 3.35 TB/s. The
+//   work per coordinate is rounds * n multiply-adds plus the selection
+//   over `rounds` values. The first form of this kernel ran at 3x that
+//   bound on instruction issue: 16 padded rounds of FMAs, two NaN-tested
+//   float networks over the stack and each deviation computed three
+//   times were more instructions a column than the card issues in the
+//   bytes' time.
+//   Design (`selected_median_mean_kernel`): stage 1 is
+//   `rows_mean_kernel`'s machinery, a persistent grid (blocks from the
+//   occupancy query) staging W and the selection masks once a block, V = 2
+//   consecutive columns a thread (float2; V = 1 where d or g's address
+//   rule it out, or past kMedianPairRounds rounds, where the registers
+//   would not hold two stacks), chunks of rows with the next in flight,
+//   and FMAs for the R rounds only (W is padded to a multiple of 4 in
+//   shared memory, for 16-byte reads, not in the FMAs). Stage 2
+//   (`median_closest_mean`) sorts the stack once with the keyed network
+//   of `batcher.cuh` (one umin and one umax a comparator, no NaN test),
+//   reads the median off it, and finds the closest-mean threshold by a
+//   walk of m2 - 1 steps out from the median over the sorted stack,
+//   instead of a second network; a column whose median is +-inf takes
+//   the keyed network over its deviations instead (the walk's argument
+//   fails there). The (rounds,) stack, its non-finite flags (one bit
+//   each) and the keys stay in registers: the (rounds, d) stack never
+//   reaches device memory. Register arrays need compile-time indices, so
+//   the kernel is a template on ROUNDS, built for any of 1..kMaxRounds
+//   (62, every count n <= 64 rows can give). With m2 == 1 the result is
+//   the median, which may be -0 where the JAX kernel gives +0 or the
+//   reverse (keys order -0 below +0): an equal value.
 //
 // weighted_rows_mean: replaces
 // `byzantinemomentum_tpu/ops/pallas_gar.py::weighted_rows_mean`
@@ -95,15 +110,15 @@
 //   SM and was slower (PERF.md). A block computes RB rows of W
 //   (1 for Krum's w f32[n], else 64), so g is read once for any r <= 64;
 //   rows past r weigh 0 and are not written. Each
-//   column's sum is `select_rows_column`'s (Bulyan's stage 1): `fmaf` over
-//   rows 0..n-1 in index order from +0, non-finite values excluded, NaN
-//   where a row of W selects one.
+//   column's sum is Bulyan's stage 1 (`pallas_gar._select_rows`): `fmaf`
+//   over rows 0..n-1 in index order from +0, non-finite values excluded,
+//   NaN where a row of W selects one.
 //
 // masked_rows_mean: replaces
 // `byzantinemomentum_tpu/ops/pallas_gar.py::masked_rows_mean`
 // (`_masked_mean_kernel`), Brute's subset mean
 // `sum(where(mask, g, 0)) / k` under Brute's non-finite contract, not
-// `select_rows_column`'s: a selected +inf stays +inf, a selected NaN or
+// `_select_rows`': a selected +inf stays +inf, a selected NaN or
 // inf - inf gives NaN, an excluded row is never read.
 //   Bound: bytes. It must read the k selected rows of g once and write one
 //   (d,) row: 78.6 MB for Brute's 14 of 25 rows at the headline shape;
@@ -130,7 +145,7 @@
 namespace {
 
 constexpr int kMaxRows = 64;              // MAX_ROWS of the JAX package
-constexpr int kRowChunk = 8;              // g rows loaded ahead per thread
+constexpr int kRowChunk = 8;  // masked_rows_mean: rows loaded ahead a thread
 constexpr int kMaxRounds = kMaxRows - 2;  // n - 2f - 2 with f >= 0
 constexpr int kMeanThreads = 256;
 // sq_gram (`ops/gar_kernels.py` holds the same numbers and checks them)
@@ -366,8 +381,8 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
 }
 #endif  // BMT_ROUNDS == 0
 
-// Stage 1 of Bulyan (`pallas_gar._select_rows`); `rows_mean_kernel`
-// computes each column of `weighted_rows_mean` with the same arithmetic.
+// Stage 1 of Bulyan (`pallas_gar._select_rows`), shared by
+// `rows_mean_kernel` and `selected_median_mean_kernel`.
 //
 // stage_weights: W (f32[r, n], row-major) goes to shared memory transposed
 // and padded to P floats a row of g, wt[i * P + k] = W[k, i] (0 past row
@@ -395,49 +410,6 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ W,
   __syncthreads();
 }
 
-// select_rows_column: column j of the staged rows' `W @ g`, with
-// unselected non-finite values excluded from every sum; returns the mask
-// of the rows that select a non-finite value of the column (their entry
-// is NaN under the contract)
-template <int R4>
-__device__ __forceinline__ unsigned long long select_rows_column(
-    const float4* wt, const unsigned long long* sel,
-    const float* __restrict__ g, int n, long long d, long long j,
-    float (&acc)[R4 * 4]) {
-  unsigned long long bad = 0;
-#pragma unroll
-  for (int k = 0; k < R4 * 4; ++k) acc[k] = 0.0f;
-  for (int i0 = 0; i0 < n; i0 += kRowChunk) {
-    // A chunk of rows is loaded before any is used, so the loads'
-    // latencies overlap
-    float x[kRowChunk];
-#pragma unroll
-    for (int u = 0; u < kRowChunk; ++u) {
-      x[u] = i0 + u < n ? g[(i0 + u) * d + j] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kRowChunk; ++u) {
-      const int i = i0 + u;
-      if (i >= n) break;
-      const float4* wi = wt + i * R4;
-      if (isfinite(x[u])) {
-#pragma unroll
-        for (int q = 0; q < R4; ++q) {
-          const float4 wq = wi[q];
-          acc[4 * q] = fmaf(wq.x, x[u], acc[4 * q]);
-          acc[4 * q + 1] = fmaf(wq.y, x[u], acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(wq.z, x[u], acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(wq.w, x[u], acc[4 * q + 3]);
-        }
-      } else {  // excluded from every sum; poisons the rows selecting it
-        bad |= sel[i];
-      }
-    }
-  }
-  return bad;
-}
-
-#if BMT_ROUNDS == 0
 // V consecutive floats at p (aligned to 4 V bytes)
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
@@ -479,8 +451,9 @@ __device__ __forceinline__ void load_rows(const float* col, long long d,
   }
 }
 
+#if BMT_ROUNDS == 0
 // weighted_rows_mean: `W @ g` (f32[r, n] x f32[n, d] -> f32[r, d], r <= RB)
-// under `select_rows_column`'s contract; thread-owned groups of V columns
+// under `_select_rows`' contract; thread-owned groups of V columns
 // (V divides d), walked by a persistent grid
 template <int V, int RB>
 __global__ void __launch_bounds__(kMeanThreads)
@@ -593,28 +566,6 @@ GramKernel gram_kernel_for(int b, int copy) {
   return nullptr;
 }
 
-// Blocks of `kernel` that fit on one SM with `smem` bytes of dynamic
-// shared memory, or -1. It also lets the kernel launch with `smem` bytes
-// on the current device (the default limit is 48 KB): the limit is only
-// raised, so every plan queried before still launches, and a launch needs
-// no attribute call of its own.
-int resident_blocks(const void* kernel, int threads, int smem) {
-  if (kernel == nullptr) return -1;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
-  if (smem > attr.maxDynamicSharedSizeBytes &&
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess) {
-    return -1;
-  }
-  int count = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, threads,
-                                                    smem) != cudaSuccess) {
-    return -1;
-  }
-  return count;
-}
-
 // masked_rows_mean: sum of the rows i of g (f32[n, d]) with mask[i] != 0,
 // in index order, divided by k; thread j owns column j
 __global__ void __launch_bounds__(kMeanThreads)
@@ -654,49 +605,238 @@ masked_rows_mean_kernel(const unsigned char* __restrict__ mask,
 }
 #endif  // BMT_ROUNDS == 0
 
+// Blocks of `kernel` that fit on one SM with `smem` bytes of dynamic
+// shared memory, or -1. It also lets the kernel launch with `smem` bytes
+// on the current device (the default limit is 48 KB): the limit is only
+// raised, so every plan queried before still launches, and a launch needs
+// no attribute call of its own.
+int resident_blocks(const void* kernel, int threads, int smem) {
+  if (kernel == nullptr) return -1;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  if (smem > attr.maxDynamicSharedSizeBytes &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess) {
+    return -1;
+  }
+  int count = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, threads,
+                                                    smem) != cudaSuccess) {
+    return -1;
+  }
+  return count;
+}
+
+#if BMT_ROUNDS > 0
+// Stage 2 of Bulyan for one column (`pallas_gar._bulyan_tail_kernel`,
+// with `pallas_sort.sort_values` and `closest_mean_values`): the mean of
+// the m2 values of the (R,) stack `rows` closest to its NaN-last lower
+// median. The stack is sorted once as keys (`bmt::value_key`). Around a
+// finite median the deviations fall going towards it in sorted order and
+// rise going away (rounding is monotone; NaNs sort last, with deviations
+// above every other), so the m2 closest values form a window of the
+// sorted stack around the median, and the m2-th smallest deviation, the
+// threshold, is the last one a walk of m2 - 1 steps takes: each step takes
+// the smaller of the next deviation on the left and on the right. Around
+// a median of +-inf the argument fails (the values equal
+// to it have a NaN deviation, inf - inf): such a column sorts its
+// deviation keys with the same network and reads rank m2 - 1, a rare
+// branch of this kernel. The need count and the index-order sum are the
+// JAX kernel's. With m2 == 1 the median is returned (`averaged_median`'s
+// shortcut); it may be -0 where the float network gives +0 or the reverse
+// (`batcher.cuh`), an equal value.
+// The deviation key of the value of key k from a finite median
+__device__ __forceinline__ uint32_t head_deviation(uint32_t k, float med) {
+  return bmt::deviation_key(fabsf(bmt::key_value(k) - med));
+}
+
 template <int R>
+__device__ __forceinline__ float median_closest_mean(const float (&rows)[R],
+                                                     int m2) {
+  constexpr int kMid = (R - 1) / 2;
+  constexpr uint32_t kNone = 0xffffffffu;  // past the end of a run
+  uint32_t srt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) srt[r] = bmt::value_key(rows[r]);
+  bmt::key_select<R>(srt);
+  const float med = bmt::key_value(srt[kMid]);
+  if (m2 == 1 || isnan(med)) return med;  // a NaN median: NaN deviations
+  uint32_t thresh = 0;  // the median's own deviation, the smallest
+  if (isfinite(med)) {
+    // The left run is srt[kMid - 1], srt[kMid - 2], ..., srt[0]; the right
+    // run srt[kMid + 1], ..., srt[R - 1]. After s steps, tl + tr = s values
+    // are taken, so each head is one of s + 1 wires: it is picked by a
+    // chain of selects over those (the walk is unrolled), and only the two
+    // heads' deviations are computed a step.
+    int tl = 0, tr = 0;
+#pragma unroll
+    for (int s = 0; s < R - 1; ++s) {
+      if (s >= m2 - 1) break;
+      uint32_t ka = 0, kb = 0;
+#pragma unroll
+      for (int t = 0; t <= s; ++t) {
+        // (the guarded indices keep the unused ones inside the array)
+        if (kMid - 1 - t >= 0 && t == tl) {
+          ka = srt[kMid - 1 - t >= 0 ? kMid - 1 - t : 0];
+        }
+        if (kMid + 1 + t < R && t == tr) {
+          kb = srt[kMid + 1 + t < R ? kMid + 1 + t : 0];
+        }
+      }
+      const uint32_t a = tl < kMid ? head_deviation(ka, med) : kNone;
+      const uint32_t b = tr < R - 1 - kMid ? head_deviation(kb, med) : kNone;
+      const bool left = a <= b;
+      thresh = left ? a : b;
+      tl += left ? 1 : 0;
+      tr += left ? 0 : 1;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      srt[r] = bmt::deviation_key(fabsf(rows[r] - med));
+    }
+    bmt::key_select<R>(srt);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r == m2 - 1) thresh = srt[r];
+    }
+  }
+  int below = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    srt[r] = bmt::deviation_key(fabsf(rows[r] - med));
+    below += srt[r] < thresh ? 1 : 0;
+  }
+  const int need = m2 - below;
+  float sum = 0.0f;
+  int cum = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool eq = srt[r] == thresh;
+    cum += eq ? 1 : 0;
+    if (srt[r] < thresh || (eq && cum <= need)) sum += rows[r];
+  }
+  return thresh > bmt::kInfKey ? nanf("") : sum / (float)m2;
+}
+
+// Rows [i0, i0 + C) of stage 1 (those below n), whose V columns are in x:
+// `fmaf` into the R rounds' sums, non-finite values excluded from every
+// sum and poisoning the rounds that select them. W's rows are read as
+// float4s of the staged, padded W; no FMA is done past round R.
+template <int R, int C, int V>
+__device__ __forceinline__ void stage_one_chunk(
+    const float4* wt, const unsigned long long* sel, const float (&x)[C][V],
+    int i0, int n, float (&acc)[R][V], unsigned long long (&bad)[V]) {
+  constexpr int R4 = (R + 3) / 4;
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    const int i = i0 + u;
+    if (i < n) {
+      bool fin[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        fin[v] = isfinite(x[u][v]);
+        if (!fin[v]) bad[v] |= sel[i];  // poisons the rounds selecting it
+      }
+#pragma unroll
+      for (int q = 0; q < R4; ++q) {
+        const float4 wq = wt[i * R4 + q];
+        const float w[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (4 * q + e < R) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              if (fin[v]) {
+                acc[4 * q + e][v] = fmaf(w[e], x[u][v], acc[4 * q + e][v]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// selected_median_mean: Bulyan's stages 1 and 2 over thread-owned groups
+// of V consecutive columns (V divides d), walked by a persistent grid.
+// Stage 1 is `rows_mean_kernel`'s: W and the selection masks staged once a
+// block, chunks of rows with the next in flight, `fmaf` over rows 0..n-1
+// in index order from +0, non-finite values excluded, NaN where a round
+// selects one. W's rows are padded to a multiple of 4 in shared memory
+// only, for 16-byte reads: no FMA is done past round R.
+template <int R, int V>
 __global__ void __launch_bounds__(kMeanThreads)
 selected_median_mean_kernel(const float* __restrict__ W,
                             const float* __restrict__ g,
                             float* __restrict__ out, int n, long long d,
                             int m2) {
   constexpr int R4 = (R + 3) / 4;
+  constexpr int C = kChunkFloats / V;  // rows a chunk
   __shared__ float4 wt[kMaxRows * R4];
   __shared__ unsigned long long sel[kMaxRows];
   stage_weights<R4 * 4>(W, R, n, reinterpret_cast<float*>(wt), sel);
 
+  const long long groups = d / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    // Stage 1: the (R,) stack of column j; bit r of `bad`: round r
-    // selected a non-finite value
-    float acc[R4 * 4];
-    const unsigned long long bad =
-        select_rows_column<R4>(wt, sel, g, n, d, j, acc);
-    float rows[R], srt[R];
+  for (long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       grp < groups; grp += stride) {
+    const float* col = g + grp * V;
+    float acc[R][V];
+    unsigned long long bad[V];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      rows[r] = (bad >> r) & 1ull ? nanf("") : acc[r];
-      srt[r] = rows[r];
+    for (int v = 0; v < V; ++v) {
+      bad[v] = 0;
+#pragma unroll
+      for (int k = 0; k < R; ++k) acc[k][v] = 0.0f;
     }
-    // Stage 2: NaN-last lower median over the stack, then the mean of
-    // the m2 stack values closest to it
-    bmt::batcher_sort<R>(srt);
-    const float med = srt[(R - 1) / 2];
-    // `_common.averaged_median`'s m == 1 shortcut
-    out[j] = m2 == 1 ? med : bmt::closest_mean_values<R>(rows, med, m2, srt);
+    // Two chunks in turn, so that each is summed while the other is in
+    // flight and no registers are copied between them
+    float xa[C][V], xb[C][V];
+    load_rows<V, C>(col, d, 0, n, xa);
+    for (int i0 = 0; i0 < n; i0 += 2 * C) {
+      if (i0 + C < n) load_rows<V, C>(col, d, i0 + C, n, xb);
+      stage_one_chunk<R>(wt, sel, xa, i0, n, acc, bad);
+      if (i0 + C >= n) break;
+      if (i0 + 2 * C < n) load_rows<V, C>(col, d, i0 + 2 * C, n, xa);
+      stage_one_chunk<R>(wt, sel, xb, i0 + C, n, acc, bad);
+    }
+    float y[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float rows[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        rows[k] = (bad[v] >> k) & 1ull ? nanf("") : acc[k][v];
+      }
+      y[v] = median_closest_mean<R>(rows, m2);
+    }
+    store_vec<V>(out + grp * V, y);
   }
 }
 
-template <int R>
-cudaError_t launch_mean(const float* W, const float* g, float* out, int n,
-                        long long d, int m2, cudaStream_t stream) {
-  long long blocks = (d + kMeanThreads - 1) / kMeanThreads;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  selected_median_mean_kernel<R>
-      <<<(unsigned)blocks, kMeanThreads, 0, stream>>>(W, g, out, n, d, m2);
-  return cudaGetLastError();
+// Two columns a thread up to this many rounds; past it, one (registers)
+constexpr int kMedianPairRounds = 32;
+
+// The form of `selected_median_mean_kernel` for V columns a thread, nullptr
+// for one that is not built (a template, so that the V = 2 form is not
+// instantiated past kMedianPairRounds)
+typedef void (*MedianMeanKernel)(const float*, const float*, float*, int,
+                                 long long, int);
+template <int V>
+MedianMeanKernel median_mean_form() {
+  if constexpr (V == 1 || BMT_ROUNDS <= kMedianPairRounds) {
+    return selected_median_mean_kernel<BMT_ROUNDS, V>;
+  } else {
+    return nullptr;
+  }
 }
+
+MedianMeanKernel median_mean_kernel_for(int width) {
+  return width == 1 ? median_mean_form<1>()
+         : width == 2 ? median_mean_form<2>() : nullptr;
+}
+#endif  // BMT_ROUNDS > 0
 
 }  // namespace
 
@@ -774,11 +914,25 @@ int bmt_masked_rows_mean(const unsigned char* mask, const float* g,
 #else
 int bmt_rounds() { return BMT_ROUNDS; }
 
-// W f32[BMT_ROUNDS, n], g f32[n, d] -> out f32[d]
+int bmt_median_pair_rounds() { return kMedianPairRounds; }
+
+// Blocks of selected_median_mean's `width` form that fit on one SM, or -1
+int bmt_median_mean_resident(int width) {
+  return resident_blocks((const void*)median_mean_kernel_for(width),
+                         kMeanThreads, 0);
+}
+
+// W f32[BMT_ROUNDS, n], g f32[n, d] -> out f32[d]; width (1, or 2 up to
+// kMedianPairRounds rounds) divides d and g's address is aligned to
+// 4 * width bytes (`ops/gar_kernels.py::median_mean_geometry`)
 int bmt_selected_median_mean(const float* W, const float* g, float* out,
-                             int n, long long d, int m2, void* stream) {
-  return (int)launch_mean<BMT_ROUNDS>(W, g, out, n, d, m2,
-                                      (cudaStream_t)stream);
+                             int n, long long d, int m2, int width,
+                             int blocks, void* stream) {
+  const MedianMeanKernel kernel = median_mean_kernel_for(width);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kMeanThreads, 0, (cudaStream_t)stream>>>(W, g, out, n, d,
+                                                             m2);
+  return (int)cudaGetLastError();
 }
 #endif
 

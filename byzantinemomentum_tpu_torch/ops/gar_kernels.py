@@ -26,13 +26,14 @@ mask and a divisor k >= 1.
 The kernels take f32 only, as the JAX package's `pallas_gar` does: a
 half-precision stack takes the plain path in the callers.
 
-Launch geometry. `sq_gram` and `weighted_rows_mean` run a persistent
-grid: as many blocks as fit on the card's SMs at once (the library's
-occupancy query), capped by the work. Their per-call shape is chosen
-here, in plain Python that the CPU tests hold (`gram_geometry`,
-`rows_mean_geometry`): the width of each copy or load from `d` and the
-operand's address (a contiguous row slice may start off alignment), the
-Gram's row block from `n`.
+Launch geometry. `sq_gram`, `weighted_rows_mean` and
+`selected_median_mean` run a persistent grid: as many blocks as fit on
+the card's SMs at once (the library's occupancy query), capped by the
+work. Their per-call shape is chosen here, in plain Python that the CPU
+tests hold (`gram_geometry`, `rows_mean_geometry`, `median_mean_width`):
+the width of each copy or load from `d` and the operand's address (a
+contiguous row slice may start off alignment), the Gram's row block from
+`n`.
 
 Each wrapper counts its kernel launches in `<wrapper>.launches` (and
 per dtype, `ops/_cuda.py`); `reset_launches()` zeroes every wrapper's
@@ -51,6 +52,7 @@ from byzantinemomentum_tpu_torch.ops._cuda import (
 
 __all__ = ["MAX_ROWS", "MAX_ROUNDS", "supported", "build", "sq_gram",
            "sq_gram_plain", "gram_geometry", "rows_mean_geometry",
+           "median_mean_width",
            "weighted_rows_mean", "select_rows",
            "masked_rows_mean", "masked_rows_mean_plain",
            "selected_median_mean", "selected_median_mean_plain",
@@ -64,6 +66,7 @@ GRAM_MAX_THREADS = 288  # kGramMaxThreads
 GRAM_MIN_TILE = 128     # columns of a slab, at least
 SMEM_LIMIT = 232_448    # shared memory one block may use on an H100
 MEAN_THREADS = 256      # kMeanThreads
+MEDIAN_PAIR_ROUNDS = 32  # kMedianPairRounds: selected_median_mean's V = 2 forms
 
 
 # --------------------------------------------------------------------------- #
@@ -111,14 +114,19 @@ def _library(rounds=0):
             raise RuntimeError("csrc/gar_kernels.cu and ops/gar_kernels.py "
                                "disagree on MAX_ROUNDS or the GRAM_ limits")
     else:
-        lib.bmt_rounds.argtypes = []
-        lib.bmt_rounds.restype = i32
+        for name in ("bmt_rounds", "bmt_median_pair_rounds"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib.bmt_median_mean_resident.argtypes = [i32]
+        lib.bmt_median_mean_resident.restype = i32
         lib.bmt_selected_median_mean.argtypes = [ptr, ptr, ptr, i32, i64,
-                                                 i32, ptr]
+                                                 i32, i32, i32, ptr]
         lib.bmt_selected_median_mean.restype = i32
-        if lib.bmt_rounds() != rounds:
+        if (lib.bmt_rounds(), lib.bmt_median_pair_rounds()) != (
+                rounds, MEDIAN_PAIR_ROUNDS):
             raise RuntimeError(f"library {lib._name} is not built for "
-                               f"{rounds} rounds")
+                               f"{rounds} rounds with two columns a thread "
+                               f"up to {MEDIAN_PAIR_ROUNDS}")
     return lib
 
 
@@ -196,6 +204,16 @@ def rows_mean_geometry(r, d, address):
     return 1, MAX_ROWS
 
 
+def median_mean_width(rounds, d, address):
+    """Columns a thread of `selected_median_mean` owns for `rounds` stage-1
+    rounds over an f32[n, d] operand at `address`: 2 (float2 loads) where
+    `vector_bytes` allows 8 bytes and rounds <= MEDIAN_PAIR_ROUNDS (two
+    stacks of registers), else 1."""
+    if rounds <= MEDIAN_PAIR_ROUNDS and vector_bytes(d, address) >= 8:
+        return 2
+    return 1
+
+
 def persistent_blocks(work, resident, sms):
     """Blocks of a persistent grid: all that fit on the card at once
     (`resident` a SM), but no more than the `work` items it walks."""
@@ -232,6 +250,16 @@ def _rows_mean_plan(device_index, r, d, alignment):
         resident = _library().bmt_rows_mean_resident(width, row_block)
     return width, row_block, persistent_blocks(
         -(-d // (width * MEAN_THREADS)), resident, _sm_count(device_index))
+
+
+@functools.lru_cache(maxsize=256)
+def _median_mean_plan(device_index, rounds, d, alignment):
+    """`(width, blocks)` of `selected_median_mean`, as `_gram_plan`."""
+    width = median_mean_width(rounds, d, alignment)
+    with torch.cuda.device(device_index):
+        resident = _library(rounds).bmt_median_mean_resident(width)
+    return width, persistent_blocks(-(-d // (width * MEAN_THREADS)), resident,
+                                    _sm_count(device_index))
 
 
 @_cuda.counted
@@ -371,10 +399,13 @@ def selected_median_mean(W, g, m2):
     if not 1 <= m2 <= rounds:
         raise ValueError(f"selected_median_mean: m2 = {m2} outside 1..{rounds}")
     W = W.contiguous()
-    out = torch.empty((g.shape[1],), dtype=torch.float32, device=g.device)
+    d = g.shape[1]
+    out = torch.empty((d,), dtype=torch.float32, device=g.device)
+    width, blocks = _median_mean_plan(g.device.index, rounds, d,
+                                      g.data_ptr() % 16)
     _cuda.raise_on("selected_median_mean",
                    _library(rounds).bmt_selected_median_mean(
-                       W.data_ptr(), g.data_ptr(), out.data_ptr(), n,
-                       g.shape[1], m2, _cuda.stream(g)))
+                       W.data_ptr(), g.data_ptr(), out.data_ptr(), n, d, m2,
+                       width, blocks, _cuda.stream(g)))
     _cuda.launched(selected_median_mean, g.dtype)
     return out

@@ -2,12 +2,16 @@
 plain PyTorch versions — the port's counterpart of
 `byzantinemomentum_tpu/ops/pallas_sort.py` (`lower_median`,
 `trimmed_mean`, `closest_mean`, `colsort`, and the Batcher schedule
-`_batcher_pairs` / `sort_values` that the CUDA kernels unroll).
+`_batcher_pairs` / `sort_values` that the CUDA kernels unroll), with the
+keyed selection network of `csrc/batcher.cuh` modelled step for step
+(`selection_pairs`, `select_keys`, `value_keys`, `deviation_keys`).
 
 Kernels live in `csrc/sort_kernels.cu` (CUDA C++ for `sm_90a`), built and
 bound as `ops/_cuda.py` describes: one library per (kernel, row count n,
 element type) that a run meets, since each sorting network is unrolled
-for its n. They launch on `torch.cuda.current_stream()`.
+for its n, and for `closest_mean` per m too, since its keyed network is
+pruned to rank m - 1 (`selection_pairs`). They launch on
+`torch.cuda.current_stream()`.
 
 Dtypes: f32, bf16 and f16, the JAX kernels' (`pallas_sort.supported`).
 Arithmetic is the storage type's, as in the JAX kernels: every add,
@@ -39,7 +43,10 @@ from byzantinemomentum_tpu_torch.ops import _cuda
 from byzantinemomentum_tpu_torch.ops._cuda import MAX_ROWS, reset_launches
 
 __all__ = ["MAX_ROWS", "KERNELS", "DTYPES", "supported", "build",
-           "batcher_pairs", "sort_values", "sort_nan_last", "lower_median",
+           "batcher_pairs", "selection_pairs", "selection_operations",
+           "select_keys", "value_keys", "key_values", "deviation_keys",
+           "closest_mean_width",
+           "sort_values", "sort_nan_last", "lower_median",
            "lower_median_plain", "trimmed_mean", "trimmed_mean_plain",
            "closest_mean", "closest_mean_plain", "colsort", "colsort_plain",
            "reset_launches"]
@@ -59,35 +66,47 @@ def supported(g):
 # --------------------------------------------------------------------------- #
 # Build and binding
 
-def build(kernel, n, dtype=torch.float32):
+def build(kernel, n, dtype=torch.float32, m=None):
     """Compile the library of `csrc/sort_kernels.cu` that holds `kernel`
-    for `n` rows of `dtype`, if it does not exist yet; returns `(library
-    path, nvcc's output)`."""
+    for `n` rows of `dtype` (and, for `closest_mean` only, `m` closest
+    values, for which its network is pruned), if it does not exist yet;
+    returns `(library path, nvcc's output)`."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown sort kernel {kernel!r}, expected one of {KERNELS}")
     if not 1 <= n <= MAX_ROWS:
         raise ValueError(f"n = {n} rows outside 1..{MAX_ROWS}")
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype} outside {DTYPES}")
-    return _cuda.compile_library(
-        "sort_kernels.cu", f"{kernel}-n{n}-{_cuda.DTYPE_NAMES[dtype]}",
-        {"BMT_SORT_KERNEL": KERNELS.index(kernel) + 1, "BMT_N": n,
-         "BMT_DTYPE": DTYPES.index(dtype) + 1})
+    if (kernel == "closest_mean") != (m is not None):
+        raise ValueError(f"m = {m!r}: closest_mean takes one, the other "
+                         f"kernels none")
+    defines = {"BMT_SORT_KERNEL": KERNELS.index(kernel) + 1, "BMT_N": n,
+               "BMT_DTYPE": DTYPES.index(dtype) + 1}
+    tag = f"{kernel}-n{n}-{_cuda.DTYPE_NAMES[dtype]}"
+    if m is not None:
+        if not 1 <= m <= n:
+            raise ValueError(f"m = {m} outside 1..{n}")
+        defines["BMT_M"] = m
+        tag += f"-m{m}"
+    return _cuda.compile_library("sort_kernels.cu", tag, defines)
 
 
 @functools.cache
-def _entry(kernel, n, dtype):
+def _entry(kernel, n, dtype, m=None):
     """The typed C entry `bmt_<kernel>` of the loaded `build(kernel, n,
-    dtype)`."""
-    lib = ctypes.CDLL(str(build(kernel, n, dtype)[0]))
+    dtype, m)`."""
+    lib = ctypes.CDLL(str(build(kernel, n, dtype, m)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("bmt_sort_n", "bmt_sort_kernel", "bmt_sort_dtype"):
+    for name in ("bmt_sort_n", "bmt_sort_kernel", "bmt_sort_dtype",
+                 "bmt_sort_m"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
-    if ((lib.bmt_sort_n(), lib.bmt_sort_kernel(), lib.bmt_sort_dtype())
-            != (n, KERNELS.index(kernel) + 1, DTYPES.index(dtype) + 1)):
+    if ((lib.bmt_sort_n(), lib.bmt_sort_kernel(), lib.bmt_sort_dtype(),
+         lib.bmt_sort_m())
+            != (n, KERNELS.index(kernel) + 1, DTYPES.index(dtype) + 1,
+                m or 0)):
         raise RuntimeError(f"library {lib._name} is not built for {kernel} "
-                           f"at n = {n} in {dtype}")
+                           f"at n = {n}, m = {m} in {dtype}")
     entry = getattr(lib, f"bmt_{kernel}")
     entry.argtypes = {"lower_median": [ptr, ptr, i64, ptr],
                       "trimmed_mean": [ptr, ptr, i64, i32, ptr],
@@ -97,14 +116,30 @@ def _entry(kernel, n, dtype):
     return entry
 
 
-def _launch(wrapper, g, *args):
+def _launch(wrapper, g, *args, m=None):
     """Launch the entry of `wrapper`'s kernel for the row count and dtype
-    of the checked operand `g` on `args` (pointers and ints), raise on a
-    CUDA error, and count the launch."""
+    of the checked operand `g` (and `m`) on `args` (pointers and ints),
+    raise on a CUDA error, and count the launch."""
     kernel = wrapper.__name__
-    _cuda.raise_on(kernel, _entry(kernel, g.shape[0], g.dtype)(
+    _cuda.raise_on(kernel, _entry(kernel, g.shape[0], g.dtype, m)(
         *args, _cuda.stream(g)))
     _cuda.launched(wrapper, g.dtype)
+
+
+# Rows up to which closest_mean's thread may own two columns
+# (kKeepDeviations in csrc/batcher.cuh)
+PAIR_ROWS = 32
+
+
+def closest_mean_width(n, d, element_size, *addresses):
+    """Columns a thread of `closest_mean` owns on a [n, d] operand whose
+    g and c start at `addresses`: 2 (one load of two adjacent elements a
+    row) where n <= PAIR_ROWS, d is even and every address is aligned to
+    two elements, else 1."""
+    pair = 2 * element_size
+    if n <= PAIR_ROWS and d % 2 == 0 and all(a % pair == 0 for a in addresses):
+        return 2
+    return 1
 
 
 # --------------------------------------------------------------------------- #
@@ -126,6 +161,75 @@ def batcher_pairs(n):
             k //= 2
         p *= 2
     return tuple(pairs)
+
+
+def selection_pairs(n, rank=None):
+    """The Batcher schedule pruned to the comparators on which output rank
+    `rank` depends (every comparator for `rank=None`, a full sort): the
+    schedule that `key_select` in `csrc/batcher.cuh` unrolls for
+    `closest_mean` and `selected_median_mean`. Working backwards from the
+    output wire, a comparator touching a live wire is kept and makes both
+    its wires live. Returns `(i, j, side)` triples in network order:
+    `side` is "both" (min to i, max to j), "min" (only wire i is read
+    later: i = min) or "max" (only j: j = max)."""
+    if rank is not None and not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside 0..{n - 1}")
+    live = [rank is None or wire == rank for wire in range(n)]
+    kept = []
+    for i, j in reversed(batcher_pairs(n)):
+        if live[i] or live[j]:
+            kept.append((i, j, "both" if live[i] and live[j]
+                         else "min" if live[i] else "max"))
+            live[i] = live[j] = True
+    return tuple(reversed(kept))
+
+
+def selection_operations(n, rank=None):
+    """Min/max instructions of `selection_pairs(n, rank)`: two for a
+    two-sided comparator, one for a one-sided one."""
+    return sum(2 if side == "both" else 1
+               for _, _, side in selection_pairs(n, rank))
+
+
+def select_keys(keys, rank=None):
+    """Run `selection_pairs(len(keys), rank)` over a list of equal-shape
+    integer key rows (the kernels' keyed network, step for step); returns
+    the list, whose entry `rank` is then the key of that rank (sorted for
+    `rank=None`)."""
+    keys = list(keys)
+    for i, j, side in selection_pairs(len(keys), rank):
+        a, b = keys[i], keys[j]
+        if side != "max":
+            keys[i] = torch.minimum(a, b)
+        if side != "min":
+            keys[j] = torch.maximum(a, b)
+    return keys
+
+
+NAN_KEY = 0xFFFFFFFF
+INF_KEY = 0x7F800000
+
+
+def value_keys(x):
+    """`bmt::value_key` of every entry of `x` (any float dtype; a half
+    value is widened to f32 exactly) as int64: the uint32 whose unsigned
+    order is the NaN-last float order, -0 one key below +0, every NaN
+    NAN_KEY."""
+    bits = x.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    keys = torch.where(bits >> 31 == 1, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
+    return torch.where(torch.isnan(x), NAN_KEY, keys)
+
+
+def key_values(keys):
+    """The f32 values of `value_keys` (the NaN key gives a NaN)."""
+    bits = torch.where(keys >> 31 == 1, keys ^ 0x80000000, keys ^ 0xFFFFFFFF)
+    return (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def deviation_keys(dev):
+    """`bmt::deviation_key` of non-negative or NaN deviations: their f32
+    bits as int64 (0 <= finite < INF_KEY < every NaN)."""
+    return dev.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
 def sort_values(rows):
@@ -263,6 +367,8 @@ def closest_mean(g, c, m):
     if not (isinstance(m, int) and 1 <= m <= n):
         raise ValueError(f"closest_mean: m = {m!r} outside 1..{n}")
     out = _output(g)
+    width = closest_mean_width(n, d, g.element_size(), g.data_ptr(),
+                               c.data_ptr())
     _launch(closest_mean, g, g.data_ptr(), c.data_ptr(), out.data_ptr(),
-            d, m)
+            d, width, m=m)
     return out

@@ -9,14 +9,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
    type) for the four sorting kernels, in f32, bf16 and f16), all side by
-   side; prints their registers and spills.
+   side (`closest_mean` once for each m it meets); prints their count,
+   the build's seconds and each kernel's registers and spills, and fails
+   on a spill; prints the SASS instruction counts of the redesigned
+   kernels at the headline shapes (`cuobjdump -sass`).
 3. Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
    enumeration itself, the trimmed mean at f=5 and 11, the closest mean
    with m = n - f about the median and the trimmed mean, the column
-   sort), on a ragged d with NaN rows, +-inf and ties (a selected +inf
-   must stay +inf in Brute's mean), and at n = 2 and 64; the bf16 and
+   sort), on a ragged d with NaN rows, +-inf, ties, columns whose median
+   is +inf or -inf and a column of +-0 (a selected +inf must stay +inf
+   in Brute's mean), and at n = 2 and 64; the bf16 and
    f16 forms of the four sorting kernels on the same cases; each GAR of
    the port on the card against the same GAR on the CPU at a small size,
    Brute and CGE at n=11, f=4. Bulyan's W, Krum's w and Brute's mask
@@ -28,11 +32,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    host's time hides behind the device's work). For `sq_gram` and
    `weighted_rows_mean` it also prints the achieved GB/s, the host's
    time per call of the wrapper and of the library call, and their
-   one-call times before their redesign;
+   one-call times before their redesign, as for `selected_median_mean`
+   and the three forms of `closest_mean`;
    `bound_ms` is the larger of the bytes the function must move over the
    card's memory rate and its operations over the card's f32
    (non-tensor-core) peak (the half forms compute in f32 too), counting
-   2 operations per compare-exchange of a sorting network.
+   2 operations per compare-exchange of a sorting network and 1 per
+   one-sided comparator of `closest_mean`'s pruned one.
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
@@ -84,7 +90,9 @@ from byzantinemomentum_tpu_torch.ops import (
 
 STEPS = 10        # steps of the headline and krum_f11 cells
 GAR_STEPS = 3     # steps of each other run
-SORT_SIZES = (2, 25, 64)  # row counts the sorting kernels meet below
+# Row counts the sorting kernels meet below, each with the trims f of
+# `check_sort_kernels` (closest_mean's m = n - f)
+SORT_CASES = {2: (0,), 25: (5, 11), 64: (7, 31)}
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # tests/test_torch_ops.py's tolerances
 # Two ulps of each half dtype: the sorting kernels' half forms round after
 # every operation, as their plain versions do (tests/test_torch_gpu.py)
@@ -95,9 +103,12 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # outside the tensor cores
 PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
          "sxm": (3.35e12, 67e12)}
-# Phase-3 times of sq_gram and weighted_rows_mean before their redesign
-# (one call each, PERF.md's kernel table), printed beside this run's
-BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888}
+# Phase-3 times of the redesigned kernels before their redesign (one call
+# each, PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
+BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888,
+                      "selected_median_mean": 0.1346, "closest_mean": 0.1787,
+                      "closest_mean_bf16": 0.1786, "closest_mean_f16": 0.1931}
 
 
 def log(*args):
@@ -204,17 +215,22 @@ def build():
     """Phase 2: the `sq_gram`/`weighted_rows_mean`/`masked_rows_mean`
     library, the `selected_median_mean` ones for the round counts this
     script meets (13 at n=25, f=5; 5 at n=11, f=2) and the four sorting
-    kernels at the row counts and element types it meets, compiled side
-    by side."""
+    kernels at the row counts and element types it meets (`closest_mean`
+    for each m it meets), compiled side by side; prints each kernel's
+    registers and spills, and fails on a spill."""
     jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13)]
     jobs += [(sort_kernels.build, kernel, n, dtype)
-             for kernel in sort_kernels.KERNELS for n in SORT_SIZES
+             for kernel in sort_kernels.KERNELS if kernel != "closest_mean"
+             for n in SORT_CASES for dtype in sort_kernels.DTYPES]
+    jobs += [(sort_kernels.build, "closest_mean", n, dtype, n - f)
+             for n, fs in SORT_CASES.items() for f in fs
              for dtype in sort_kernels.DTYPES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda job: job[0](*job[1:]), jobs))
-    log(f"build {time.perf_counter() - t0:.1f} s -> "
-        f"{', '.join(path.name for path, _ in built)}")
+    log(f"build {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
+        f"-> {', '.join(path.name for path, _ in built)}")
+    spills = []
     for path, text in built:
         kernels = re.findall(
             r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) "
@@ -222,6 +238,42 @@ def build():
         log(f"  ptxas {path.name}: " + ", ".join(
             f"{kernel_name(name)} {regs} registers, {spill} bytes spilled"
             for name, spill, regs in kernels))
+        spills += [f"{path.name}: {kernel_name(name)}"
+                   for name, spill, _ in kernels if int(spill)]
+    if spills:
+        raise SystemExit(f"ptxas spilled registers in {', '.join(spills)}")
+    for path, _ in built:
+        if re.search(r"-r13\.so$|-closest_mean-n25-\w+-m14\.so$", path.name):
+            sass_summary(path)
+
+
+def sass_summary(path):
+    """Instruction counts of each kernel of a library, from `cuobjdump
+    -sass` (NOPs left out): in all, FFMA, integer min/max, and each loop
+    (a backward branch) with its FFMA."""
+    cuobjdump = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    if not cuobjdump.is_file():
+        log(f"  sass {path.name}: cuobjdump not found")
+        return
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for function in text.split("Function : ")[1:]:
+        code = [(int(addr, 16), op) for addr, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            function) if op != "NOP"]
+        loops = []
+        for addr, op in code:
+            if not op.startswith("BRA"):
+                continue
+            target = re.search(rf"/\*{addr:04x}\*/[^;]*BRA[^;]*0x([0-9a-f]+)", function)
+            if target and int(target.group(1), 16) < addr:
+                body = [o for a, o in code if int(target.group(1), 16) <= a <= addr]
+                loops.append(f"{len(body)} ({sum(o.startswith('FFMA') for o in body)} FFMA)")
+        ops = [op for _, op in code]
+        log(f"  sass {kernel_name(function.split()[0])}: {len(ops)} instructions, "
+            f"{sum(op.startswith('FFMA') for op in ops)} FFMA, "
+            f"{sum('IMNMX' in op for op in ops)} integer min/max; loops "
+            + ", ".join(loops))
 
 
 def kernel_name(mangled):
@@ -345,6 +397,11 @@ def kernels_vs_plain(smi):
         h[min(3, rows - 1), rng.integers(0, h.shape[1], 50)] = np.nan
         h[0, rng.integers(0, h.shape[1], 20)] = np.inf
         h[rows // 2, rng.integers(0, h.shape[1], 20)] = -np.inf
+        # Columns whose median is +inf (0..4) and -inf (5..9), a column
+        # of +-0 only (10); the rows past the first half stay finite there
+        h[:rows // 2 + 1, 0:5] = np.inf
+        h[:rows // 2 + 1, 5:10] = -np.inf
+        h[:, 10] = np.where(rng.random(rows) < 0.5, -0.0, 0.0)
         return torch.from_numpy(h).to(dev)
 
     h = ragged(n)
@@ -380,7 +437,8 @@ def kernels_vs_plain(smi):
     check_sort_kernels("ragged", h, (f, f11))
 
     # The row counts at the ends of the kernels' domain
-    for rows, fs in ((2, (0,)), (64, (7, 31))):
+    for rows in (2, 64):
+        fs = SORT_CASES[rows]
         h = ragged(rows)
         check_sort_kernels(f"n={rows}", h, fs)
         W_rows = torch.from_numpy(
@@ -425,6 +483,9 @@ def kernels_vs_plain(smi):
 
     bandwidth, flops32 = card_peaks(smi)
     exchanges = len(sort_kernels.batcher_pairs(n))
+    # closest_mean's network is pruned to rank m - 1: one operation a
+    # one-sided comparator, two a two-sided one
+    closest_ops = sort_kernels.selection_operations(n, n - f11 - 1)
     # (name, kernel, plain, library call, bytes, f32 operations)
     work = [
         ("sq_gram", lambda: gar_kernels.sq_gram(g),
@@ -433,7 +494,8 @@ def kernels_vs_plain(smi):
         ("selected_median_mean",
          lambda: gar_kernels.selected_median_mean(W, g, m2),
          lambda: gar_kernels.selected_median_mean_plain(W, g, m2), None,
-         (n * d + rounds * n + d) * 4, 2 * rounds * n * d),
+         (n * d + rounds * n + d) * 4,
+         (2 * rounds * n + sort_kernels.selection_operations(rounds)) * d),
         ("weighted_rows_mean", lambda: gar_kernels.weighted_rows_mean(w, g),
          lambda: gar_kernels.select_rows(w, g), lambda: torch.matmul(w, g),
          (n * d + n + d) * 4, 2 * n * d),
@@ -466,7 +528,7 @@ def kernels_vs_plain(smi):
             (record_name("closest_mean", dtype),
              lambda x=x, c=median: sort_kernels.closest_mean(x, c, n - f11),
              lambda x=x, c=median: sort_kernels.closest_mean_plain(x, c, n - f11),
-             None, (n * d + 2 * d) * size, (2 * exchanges + 2 * n) * d)]
+             None, (n * d + 2 * d) * size, (closest_ops + 2 * n) * d)]
     sources = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
                "weighted_rows_mean": "gar_kernels.cu",
                "masked_rows_mean": "gar_kernels.cu"}
@@ -499,12 +561,13 @@ def kernels_vs_plain(smi):
             f"({rec['bound_by']}), library {rec['library_ms']} "
             f"({rec['library_queued_ms']} queued)")
         if name in BEFORE_REDESIGN_MS:
+            library_us = f"{host_us(library):.2f} us" if library else "none"
             log(f"    {name}: {nbytes / rec['ms'] / 1e6:.1f} GB/s achieved one "
                 f"call, {nbytes / rec['queued_ms'] / 1e6:.1f} queued "
                 f"({nbytes} bytes); host time per call {host_us(fn):.2f} us "
-                f"(library {host_us(library):.2f} us); before the redesign "
-                f"one call took {BEFORE_REDESIGN_MS[name]} ms (NVIDIA H100 "
-                f"80GB HBM3, 700.00 W)")
+                f"(library {library_us}); before the redesign one call "
+                f"took {BEFORE_REDESIGN_MS[name]} ms (NVIDIA H100 80GB "
+                f"HBM3, 700.00 W)")
     return records
 
 

@@ -8,8 +8,11 @@ exact, values within rtol 1e-5, atol 1e-6 (f32 sums in another order),
 Gram entries within 1e-5 of their largest diagonal entry. The half forms
 of the sorting kernels: `colsort` and `lower_median` exactly (they move
 values), `trimmed_mean` and `closest_mean` within 2 ulps of the dtype
-(rtol 2^-7 for bf16, 2^-10 for f16). Every launch of a kernel must add
-one to its wrapper's count, and to its count for the operand's dtype.
+(rtol 2^-7 for bf16, 2^-10 for f16). +-0 compare as equal: the keyed
+networks of `closest_mean` and `selected_median_mean` order -0 below +0,
+so a median may come back as the other zero. Every launch of a kernel
+must add one to its wrapper's count, and to its count for the operand's
+dtype.
 """
 
 import numpy as np
@@ -75,19 +78,54 @@ def test_sq_gram_matches_plain(cuda, n, d):
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(gar_kernels.sq_gram(g)))
 
 
+def _stack_columns(g, rounds, m2):
+    """Columns of g (n >= rounds rows) whose stack under `W = 2 I` (round k
+    takes 2 g[k], exact) has a median of +inf (0..4: 3e38 doubled
+    overflows) or -inf (5..9), only NaN (10..12), fewer than m2 finite
+    values (13..15), +-0 only (16), +-inf and NaN mixed (17..19)."""
+    half = rounds // 2 + 1
+    g[:half, 0:5] = 3e38
+    g[:half, 5:10] = -3e38
+    g[:, 10:13] = torch.nan
+    g[:rounds - m2 + 1, 13:16] = torch.nan
+    g[:, 16] = torch.where(torch.arange(g.shape[0], device=g.device) % 3 == 0,
+                           -0.0, 0.0)
+    g[0:rounds:3, 17:20] = 3e38
+    g[1:rounds:3, 17:20] = -3e38
+    g[2, 17:20] = torch.nan
+    W = torch.zeros((rounds, g.shape[0]), device=g.device)
+    W[torch.arange(rounds), torch.arange(rounds)] = 2.0
+    return W
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,f,dup", ((25, 5, False), (25, 5, True), (11, 2, False),
                                      (64, 7, False), (16, 3, True), (64, 1, True)))
 def test_selected_median_mean_matches_plain(cuda, n, f, dup):
+    """Bulyan's W on random values with a NaN row; then `W = 2 I` over
+    columns whose stack median is +-inf (the kernel's rare branch), all
+    NaN, fewer than m2 finite or +-0 only, for every m2 up to the rounds.
+    +-0 compare as equal; repeat calls are bitwise equal."""
     g = _mat(n, 20_011, seed=3 * n, nan_rows=(n - 1,), dup=dup).to(cuda)
     W = bulyan.selection_weights(_common.pairwise_distances(g), f)
     rounds = W.shape[0]
     W[0, n - 1] = W[0][W[0] > 0][0]  # round 0 also selects the NaN row
     for m2 in sorted({1, max(rounds - 2 * f, 1), rounds}):
-        got = gar_kernels.selected_median_mean(W, g, m2)
+        got = _launched(gar_kernels.selected_median_mean,
+                        lambda: gar_kernels.selected_median_mean(W, g, m2))
         _assert_values(got, gar_kernels.selected_median_mean_plain(W, g, m2))
+        assert torch.equal(_bits(got), _bits(gar_kernels.selected_median_mean(W, g, m2)))
         if m2 == rounds:
             assert bool(got.isnan().any())  # the selected NaN comes out
+    for m2 in sorted({1, 2, 3, (rounds + 1) // 2, rounds - 1, rounds} - {0}):
+        h = g.clone()
+        W2 = _stack_columns(h, rounds, m2)
+        got = gar_kernels.selected_median_mean(W2, h, m2)
+        want = gar_kernels.selected_median_mean_plain(W2, h, m2)
+        _assert_values(got, want)
+        if rounds >= 3:
+            med = sort_kernels.lower_median_plain(gar_kernels.select_rows(W2, h))
+            assert bool(med[0:5].isposinf().all()) and bool(med[5:10].isneginf().all())
 
 
 @pytest.mark.gpu
@@ -153,13 +191,29 @@ def test_trimmed_mean_matches_plain(cuda, n, f):
     _assert_values(got, sort_kernels.trimmed_mean_plain(g, f))
 
 
+def _closest_columns(g, m):
+    """Columns of g whose median is +inf (9..13) or -inf (14..18), only
+    NaN (19..21), fewer than m finite values (22..24) or +-0 only (25)."""
+    n = g.shape[0]
+    g[:n // 2 + 1, 9:14] = torch.inf
+    g[:n // 2 + 1, 14:19] = -torch.inf
+    g[:, 19:22] = torch.nan
+    g[:n - m + 1, 22:25] = torch.nan
+    g[:, 25] = torch.where(torch.arange(n, device=g.device) % 3 == 0, -0.0, 0.0)
+    return g
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,m", ((1, 1), (2, 1), (2, 2), (25, 1), (25, 14),
                                  (25, 25), (64, 57), (64, 64)))
 @pytest.mark.parametrize("centre", ("median", "trmean"))
 def test_closest_mean_matches_plain(cuda, n, m, centre):
+    """Random values with ties, NaN and +-inf, and columns whose centre is
+    NaN (0..8), +inf or -inf, all NaN, with fewer than m finite values or
+    +-0 only; repeat calls are bitwise equal."""
     g = _mat(n, 20_011, seed=13 * n + m, nan_rows=(n - 1,), dup=True,
              inf=True).to(cuda)
+    g = _closest_columns(g, m)
     c = (sort_kernels.lower_median_plain(g) if centre == "median"
          else sort_kernels.trimmed_mean_plain(g, (n - 1) // 4))
     c[:9] = torch.nan
@@ -167,6 +221,9 @@ def test_closest_mean_matches_plain(cuda, n, m, centre):
                     lambda: sort_kernels.closest_mean(g, c, m))
     _assert_values(got, sort_kernels.closest_mean_plain(g, c, m))
     assert bool(got[:9].isnan().all())
+    assert torch.equal(_bits(got), _bits(sort_kernels.closest_mean(g, c, m)))
+    if centre == "median" and n > 2:
+        assert bool(c[9:14].isposinf().all()) and bool(c[14:19].isneginf().all())
 
 
 @pytest.mark.gpu
@@ -359,17 +416,18 @@ OFFSETS = (0, 1, 2)  # f32 elements past an aligned allocation
 
 
 def _shifted(g, floats):
-    """A contiguous copy of `g` whose first element lies `floats` f32
-    past the start of its allocation (4 or 8 bytes off 16-byte
-    alignment)."""
-    n, d = g.shape
-    view = torch.empty(n * d + floats, device=g.device)[floats:].view(n, d)
+    """A contiguous copy of `g` whose first element lies `floats`
+    elements past the start of its allocation (an f32 operand 4 or 8
+    bytes off 16-byte alignment)."""
+    view = torch.empty(g.numel() + floats, dtype=g.dtype,
+                       device=g.device)[floats:].view(g.shape)
     view.copy_(g)
     return view
 
 
 def _bits(t):
-    return t.contiguous().view(torch.int32).cpu()
+    t = t.contiguous()
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16).cpu()
 
 
 def _check_gram(g):
@@ -450,3 +508,116 @@ def test_redesigned_kernels_at_the_headline_shape(cuda):
         _check_gram(g)
         for weights in (w, W):
             _check_rows_mean(weights, g)
+
+
+# --------------------------------------------------------------------------- #
+# The redesigned closest_mean and selected_median_mean: every m a GAR
+# meets, every load width (d mod 4), operands off alignment, repeat calls
+
+
+def _build_all(jobs):
+    """Build the libraries of `jobs` ((kernel, n, dtype, m) of
+    `sort_kernels.build`) side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda job: sort_kernels.build(*job), jobs))
+
+
+# (n, m) of closest_mean that the GARs meet at n = 25: Phocas and MeaMed
+# take m = n - f, f = 1..12; Bulyan on a half stack takes n = rounds =
+# 25 - 2f - 2 rows and m = rounds - 2f, f = 1..5
+GAR_CLOSEST = (tuple((25, 25 - f) for f in range(1, 13))
+               + tuple((23 - 2 * f, 23 - 4 * f) for f in range(1, 6)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_closest_mean_every_m_a_gar_meets(cuda, dtype):
+    _build_all([("closest_mean", n, dtype, m) for n, m in GAR_CLOSEST])
+    for n, m in GAR_CLOSEST:
+        g = _closest_columns(_mat(n, 20_012, seed=53 * n + m, nan_rows=(n - 1,),
+                                  dup=True, inf=True), m)
+        g = (g + 0.0).to(dtype).to(cuda)
+        c = sort_kernels.lower_median_plain(g)
+        got = _launched(sort_kernels.closest_mean,
+                        lambda: sort_kernels.closest_mean(g, c, m), dtype)
+        want = sort_kernels.closest_mean_plain(g, c, m)
+        if dtype == torch.float32:
+            _assert_values(got, want)
+        else:
+            _assert_ulps(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", ((2, 2), (25, 14), (33, 20), (64, 57)))
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_closest_mean_every_width_and_offset(cuda, n, m, dtype):
+    """d = 0..3 (mod 4), g and c 0, 1 or 2 elements past an aligned
+    allocation: two columns a thread where d is even, both addresses are
+    aligned to two elements and n <= 32, else one."""
+    for d in WIDTH_DS:
+        g = _closest_columns(_mat(n, d, seed=59 * n + d, nan_rows=(n - 1,),
+                                  dup=True, inf=True), m)
+        g = (g + 0.0).to(dtype).to(cuda)
+        c = sort_kernels.lower_median_plain(g)
+        c[:9] = torch.nan
+        want = sort_kernels.closest_mean_plain(g, c, m)
+        for g_off, c_off in ((0, 0), (1, 0), (0, 1), (2, 2)):
+            gs, cs = _shifted(g, g_off), _shifted(c, c_off)
+            got = _launched(sort_kernels.closest_mean,
+                            lambda: sort_kernels.closest_mean(gs, cs, m), dtype)
+            if dtype == torch.float32:
+                _assert_values(got, want)
+            else:
+                _assert_ulps(got, want)
+            assert torch.equal(_bits(got), _bits(sort_kernels.closest_mean(gs, cs, m)))
+        assert sort_kernels.closest_mean_width(n, d, g.element_size(), 0, 0) == (
+            2 if d % 2 == 0 and n <= 32 else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", WIDTH_DS)
+def test_selected_median_mean_every_width_and_offset(cuda, d):
+    """Bulyan's 13 rounds at n = 25, f = 5 over d = 0..3 (mod 4) and
+    operands 0, 4 or 8 bytes off 16-byte alignment (float2 columns where
+    d is even and the address 8-byte aligned), and the +-inf-median
+    columns; repeat calls bitwise equal."""
+    n, f = 25, 5
+    g = _mat(n, d, seed=61 + d, nan_rows=(n - 1,), dup=True).to(cuda)
+    W = bulyan.selection_weights(_common.pairwise_distances(g), f)
+    h = g.clone()
+    W2 = _stack_columns(h, W.shape[0], 3)
+    for offset in OFFSETS:
+        for weights, x in ((W, g), (W2, h)):
+            xs = _shifted(x, offset)
+            for m2 in (1, 3):
+                got = _launched(gar_kernels.selected_median_mean,
+                                lambda: gar_kernels.selected_median_mean(weights, xs, m2))
+                _assert_values(got, gar_kernels.selected_median_mean_plain(weights, xs, m2))
+                assert torch.equal(_bits(got), _bits(
+                    gar_kernels.selected_median_mean(weights, xs, m2)))
+
+
+@pytest.mark.gpu
+def test_redesigned_sort_kernels_at_the_headline_shape(cuda):
+    """closest_mean (m = 14, each dtype) and selected_median_mean (13
+    rounds, m2 = 3) at [25, 1,310,922], as allocated and as the row slice
+    big[1:] of a 26-row matrix (8 bytes off 16-byte alignment)."""
+    n, d = 25, 1_310_922
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    big = torch.randn((n + 1, d), generator=gen, device=cuda)
+    big[n, :100] = torch.nan
+    big[1, 7] = torch.inf
+    for g in (big[:n].contiguous(), big[1:]):
+        W = bulyan.selection_weights(_common.pairwise_distances(g), 5)
+        _assert_values(gar_kernels.selected_median_mean(W, g, 3),
+                       gar_kernels.selected_median_mean_plain(W, g, 3))
+        for dtype in SORT_DTYPES:
+            x = g.to(dtype)
+            c = sort_kernels.lower_median_plain(x)
+            got = sort_kernels.closest_mean(x, c, 14)
+            want = sort_kernels.closest_mean_plain(x, c, 14)
+            if dtype == torch.float32:
+                _assert_values(got, want)
+            else:
+                _assert_ulps(got, want)

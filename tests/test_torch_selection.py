@@ -1,0 +1,260 @@
+"""The keyed selection network of `csrc/batcher.cuh` and the window walk of
+`csrc/gar_kernels.cu::median_closest_mean`, modelled in torch on the CPU.
+
+The CUDA kernels of `closest_mean` and `selected_median_mean` run on a
+card only (`tests/test_torch_gpu.py`); what they compute is held here:
+
+* (a) `sort_kernels.selection_pairs(n, rank)`, the Batcher schedule
+  pruned to one output rank, applied to order keys column by column
+  (`select_keys`), gives the value of that rank of `sort_nan_last`, for
+  every n in 1..64 and every rank, on values with NaN, +-inf, ties and
+  +-0 (compared as equal: keys order -0 below +0);
+* (b) the key maps (`value_keys`, `deviation_keys`) order like
+  `sort_nan_last` in f32, bf16 and f16;
+* (c) a model of the window walk gives the threshold of the full
+  deviation sort wherever the median is finite, and flags every column
+  whose median is +-inf (the kernel's keyed-network branch);
+* (d) a model of the whole stage 2 (keyed sort, walk or branch,
+  index-order count and sum) equals `pallas_sort.closest_mean_values` of
+  the JAX package over `pallas_sort.sort_values`' median: NaN positions
+  and counts exactly, values within rtol 1e-6 (the same f32 operations
+  in the same order).
+
+Inputs are made with numpy from a seed.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from byzantinemomentum_tpu.ops import pallas_sort
+from byzantinemomentum_tpu_torch.ops import gar_kernels, sort_kernels
+
+D = 512
+NONE_KEY = 0xFFFFFFFF + 1  # past every key: the end of a run
+
+
+def _values(n, d, seed):
+    """f32[n, d] on a coarse grid (ties across rows), with NaN, +-inf,
+    +-0 and +-3e38 (whose sums overflow); columns 0..19 hold more than
+    half +inf, 20..39 more than half -inf. No denormals: XLA on the CPU
+    flushes them to zero, torch does not."""
+    rng = np.random.default_rng(seed)
+    g = np.round(rng.standard_normal((n, d)) * 2.0).astype(np.float32) / 2.0
+    for value, share in ((np.nan, 0.08), (np.inf, 0.06), (-np.inf, 0.06),
+                         (-0.0, 0.06), (0.0, 0.06), (3e38, 0.03),
+                         (-3e38, 0.03)):
+        g[rng.random((n, d)) < share] = value
+    half = n // 2 + 1
+    g[:half, 0:20] = np.inf
+    g[:half, 20:40] = -np.inf
+    return torch.from_numpy(g)
+
+
+def _same(got, want):
+    """Equal values (+-0 equal), NaN at the same places."""
+    got, want = got.float(), want.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+# --------------------------------------------------------------------------- #
+# (a) the pruned schedule
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_selection_pairs_select_every_rank(n):
+    g = _values(n, 64, seed=n)
+    keys = list(sort_kernels.value_keys(g))
+    want = sort_kernels.sort_nan_last(g)
+    full = sort_kernels.select_keys(keys)
+    for rank in range(n):
+        got = sort_kernels.select_keys(keys, rank)[rank]
+        _same(sort_kernels.key_values(got), want[rank])
+        assert torch.equal(got, full[rank])
+    # The pruned schedule is a subsequence of Batcher's, in its order
+    pairs = sort_kernels.batcher_pairs(n)
+    assert [(i, j) for i, j, _ in sort_kernels.selection_pairs(n)] == list(pairs)
+    for rank in range(n):
+        kept = [(i, j) for i, j, _ in sort_kernels.selection_pairs(n, rank)]
+        it = iter(pairs)
+        assert all(pair in it for pair in kept)
+
+
+@pytest.mark.parametrize("n,rank,operations", ((25, 13, 204), (25, None, 280),
+                                               (13, 6, 66), (13, None, 96),
+                                               (64, 56, 715), (64, None, 1086),
+                                               (1, 0, 0)))
+def test_selection_operations(n, rank, operations):
+    """Min/max instructions: two a two-sided comparator, one a one-sided
+    one (rank 13 of 25 keeps 90 two-sided and 24 one-sided)."""
+    assert sort_kernels.selection_operations(n, rank) == operations
+    if (n, rank) == (25, 13):
+        sides = [side for _, _, side in sort_kernels.selection_pairs(n, rank)]
+        assert sides.count("both") == 90
+        assert sides.count("min") + sides.count("max") == 24
+
+
+def test_selection_pairs_refuse_a_rank_outside_the_rows():
+    for rank in (-1, 5):
+        with pytest.raises(ValueError, match="rank"):
+            sort_kernels.selection_pairs(5, rank)
+
+
+# --------------------------------------------------------------------------- #
+# (b) the key maps
+
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ("values", "deviations"))
+def test_keys_order_like_sort_nan_last(dtype, kind):
+    x = _values(25, D, seed=7).to(dtype)
+    if kind == "values":
+        keys = sort_kernels.value_keys(x)
+    else:  # |x - c| in the storage type: +0 or more, or NaN
+        c = sort_kernels.lower_median_plain(x)
+        x = torch.abs(x - c[None, :])
+        keys = sort_kernels.deviation_keys(x)
+        assert not bool(torch.signbit(x[~torch.isnan(x)]).any())
+    assert bool((keys >= 0).all()) and bool((keys <= 0xFFFFFFFF).all())
+    order = torch.sort(keys, dim=0, stable=True).values
+    want = sort_kernels.sort_nan_last(x)
+    got = (sort_kernels.key_values(order) if kind == "values"
+           else order.to(torch.int32).view(torch.float32))
+    _same(got, want.float())
+    # Every non-NaN value comes back bit for bit; each NaN is one key above +inf's
+    finite = ~torch.isnan(x)
+    if kind == "values":
+        back = sort_kernels.key_values(keys)
+        assert torch.equal(back[finite].view(torch.int32),
+                           x.float()[finite].view(torch.int32))
+        assert bool((keys[~finite] == sort_kernels.NAN_KEY).all())
+    assert bool((keys[~finite] > sort_kernels.INF_KEY).all())
+    assert bool((keys[finite] <= sort_kernels.INF_KEY + (kind == "values") * 2**31).all())
+
+
+def test_value_keys_order_signed_zero_below_positive_zero():
+    keys = sort_kernels.value_keys(torch.tensor([-torch.inf, -1.0, -0.0, 0.0, 1e-45,
+                                                 torch.inf, torch.nan]))
+    assert keys.tolist() == sorted(keys.tolist())
+    assert len(set(keys.tolist())) == 7
+
+
+# --------------------------------------------------------------------------- #
+# (c) the window walk, (d) the whole stage 2
+
+def _walk_threshold(stack, m2):
+    """The kernel's walk over the sorted stack: `(threshold key, +-inf
+    median flag)` a column. The sorted values' deviations from the
+    median, then m2 - 1 steps, each taking the smaller of the next
+    deviation on the left and on the right of the median."""
+    r = stack.shape[0]
+    mid = (r - 1) // 2
+    srt = torch.stack(sort_kernels.select_keys(list(sort_kernels.value_keys(stack))))
+    med = sort_kernels.key_values(srt[mid])
+    devs = sort_kernels.deviation_keys(
+        torch.abs(sort_kernels.key_values(srt) - med[None, :]))
+    none = torch.full_like(devs[:1], NONE_KEY)
+    padded = torch.cat([none, devs, none])  # run ends read NONE_KEY
+    left = torch.full_like(med, mid, dtype=torch.int64)      # padded index of srt[mid - 1]
+    right = torch.full_like(med, mid + 2, dtype=torch.int64)  # of srt[mid + 1]
+    thresh = torch.zeros_like(left)  # the median's own deviation
+    for _ in range(m2 - 1):
+        a = padded.gather(0, left[None])[0]
+        b = padded.gather(0, right[None])[0]
+        take_left = a <= b
+        thresh = torch.where(take_left, a, b)
+        left = torch.where(take_left, left - 1, left)
+        right = torch.where(take_left, right, right + 1)
+    return thresh, med, torch.isinf(med)
+
+
+def _stage2_model(stack, m2):
+    """The kernel's stage 2 (`median_closest_mean`) a column: the keyed
+    sort, the walk (or, for a +-inf median, the keyed deviation network
+    read at rank m2 - 1), the index-order count and sum."""
+    thresh, med, inf = _walk_threshold(stack, m2)
+    if m2 == 1:
+        return med
+    dev = sort_kernels.deviation_keys(torch.abs(stack - med[None, :]))
+    branch = sort_kernels.select_keys(list(dev), m2 - 1)[m2 - 1]
+    thresh = torch.where(inf, branch, thresh)
+    need = m2 - (dev < thresh).sum(dim=0)
+    total = torch.zeros_like(med)
+    cum = torch.zeros_like(need)
+    for r in range(stack.shape[0]):
+        eq = dev[r] == thresh
+        cum = cum + eq
+        take = (dev[r] < thresh) | (eq & (cum <= need))
+        total = torch.where(take, total + stack[r], total)
+    out = total / m2
+    return torch.where(torch.isnan(med) | (thresh > sort_kernels.INF_KEY),
+                       torch.nan, out)
+
+
+ROUNDS = (1, 2, 3, 4, 5, 8, 13, 25, 48, 62)
+
+
+@pytest.mark.parametrize("rounds", ROUNDS)
+def test_window_walk_threshold_is_the_deviation_sort_s(rounds):
+    stack = _values(rounds, D, seed=100 + rounds)
+    med = sort_kernels.lower_median_plain(stack)
+    for m2 in range(1, rounds + 1):
+        thresh, walk_med, inf = _walk_threshold(stack, m2)
+        _same(walk_med, med)
+        assert torch.equal(inf, torch.isinf(med))
+        want = sort_kernels.deviation_keys(
+            sort_kernels.sort_nan_last(torch.abs(stack - med[None, :]))[m2 - 1])
+        # NaN keys differ in their payload bits: each is above +inf's
+        finite = torch.isfinite(med)
+        nan = thresh > sort_kernels.INF_KEY
+        assert torch.equal(nan[finite], (want > sort_kernels.INF_KEY)[finite])
+        assert torch.equal(thresh[finite & ~nan], want[finite & ~nan])
+    if rounds >= 3:  # the input holds +inf and -inf medians, all flagged
+        assert bool(inf[0:20].all()) and bool(inf[20:40].all())
+
+
+@pytest.mark.parametrize("rounds", ROUNDS)
+def test_stage2_model_matches_jax_closest_mean_values(rounds):
+    stack = _values(rounds, D, seed=200 + rounds)
+    rows = [jnp.asarray(row) for row in stack.numpy()]
+    med = pallas_sort.sort_values(rows)[(rounds - 1) // 2]
+    for m2 in sorted({m for m in (1, 2, 3, (rounds + 1) // 2, rounds - 1, rounds)
+                      if 1 <= m <= rounds}):
+        want = np.asarray(med if m2 == 1 else
+                          pallas_sort.closest_mean_values(rows, med, m2))
+        got = _stage2_model(stack, m2).numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert int(np.isnan(got).sum()) == int(np.isnan(want).sum())
+        for test in (np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(test(got), test(want))
+        finite = np.isfinite(want)
+        np.testing.assert_allclose(got[finite], want[finite], rtol=1e-6, atol=0)
+        # and the port's plain stage 2 over the same stack
+        plain = (sort_kernels.lower_median_plain(stack) if m2 == 1 else
+                 sort_kernels.closest_mean_plain(
+                     stack, sort_kernels.lower_median_plain(stack), m2))
+        _same(torch.from_numpy(got), plain)
+
+
+# --------------------------------------------------------------------------- #
+# The load widths the wrappers choose
+
+@pytest.mark.parametrize("n,d,size,addresses,width", (
+        (25, 1_310_922, 4, (0, 0), 2), (25, 1_310_922, 4, (4, 0), 1),
+        (25, 1_310_922, 4, (8, 8), 2), (25, 1_310_921, 4, (0, 0), 1),
+        (25, 20_014, 2, (0, 2), 1), (25, 20_014, 2, (4, 4), 2),
+        (32, 10, 2, (0, 0), 2), (33, 10, 2, (0, 0), 1), (64, 10, 4, (0, 0), 1),
+        (1, 2, 4, (0, 0), 2)))
+def test_closest_mean_width(n, d, size, addresses, width):
+    assert sort_kernels.closest_mean_width(n, d, size, *addresses) == width
+
+
+@pytest.mark.parametrize("rounds,d,address,width", (
+        (13, 1_310_922, 0, 2), (13, 1_310_922, 8, 2), (13, 1_310_922, 4, 1),
+        (13, 1_310_921, 0, 1), (13, 1_310_924, 0, 2), (32, 100, 0, 2),
+        (33, 100, 0, 1), (62, 100, 0, 1), (1, 2, 0, 2)))
+def test_median_mean_width(rounds, d, address, width):
+    assert gar_kernels.median_mean_width(rounds, d, address) == width
