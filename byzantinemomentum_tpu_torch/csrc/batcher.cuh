@@ -11,17 +11,20 @@
 //
 // Two networks. `batcher_sort` (float values, NaN tested in every
 // compare-exchange: two compares, an `isnan` pair and two selects) serves
-// lower_median, trimmed_mean and colsort. The keyed network serves
+// colsort alone. The keyed network serves lower_median, trimmed_mean,
 // closest_mean and selected_median_mean: each value becomes a uint32 key
 // whose unsigned order is the NaN-last float order (`value_key`,
 // `deviation_key`), so a compare-exchange is one `umin` and one `umax`;
 // and the schedule is Batcher's pruned to the comparators on which the
-// wanted output rank depends (`selection_schedule`): rank 13 of 25 keeps
-// 90 two-sided and 24 one-sided comparators, 204 min/max instructions
+// wanted output ranks depend (`selection_schedule`, for one rank or a
+// window of consecutive ranks): at n = 25, rank 12 keeps 202 min/max
+// instructions, rank 13 204, the ranks [11, 14) 212 and [5, 20) 258,
 // against 280 for the whole keyed network and about 840 for the float one.
 // The kernels are bound by bytes on paper but were bound by instruction
 // issue in practice (their half forms, half the bytes, took the same
-// time), which is what the keys and the pruning cut.
+// time), which is what the keys and the pruning cut. The half forms of
+// lower_median and trimmed_mean go one step further: two columns' 16-bit
+// keys in one word (`PairKey`), one packed min/max a comparator for both.
 //
 // Signed zero: keys order -0 below +0, where the float network leaves
 // equal values as they come. A rank read off the keyed network may
@@ -49,7 +52,8 @@
 namespace bmt {
 
 // Loads (`load`), stores (`store`, round to nearest even) and the rounding
-// of a float result to the storage type T (`round`)
+// of a float result to the storage type T (`round`); for the 16-bit types
+// also the value of a bit pattern (`from_bits`) and +inf's bits
 template <typename T>
 struct Elem;
 
@@ -71,6 +75,10 @@ struct Elem<__nv_bfloat16> {
   static __device__ __forceinline__ float round(float x) {
     return load(store(x));
   }
+  static __device__ __forceinline__ float from_bits(unsigned short h) {
+    return load(__ushort_as_bfloat16(h));
+  }
+  static constexpr uint32_t kInfBits = 0x7f80u;
 };
 
 template <>
@@ -84,6 +92,10 @@ struct Elem<__half> {
   static __device__ __forceinline__ float round(float x) {
     return load(store(x));
   }
+  static __device__ __forceinline__ float from_bits(unsigned short h) {
+    return load(__ushort_as_half(h));
+  }
+  static constexpr uint32_t kInfBits = 0x7c00u;
 };
 
 // NaN-last compare-exchange (`pallas_sort.sort_values`):
@@ -162,6 +174,44 @@ __device__ __forceinline__ float key_value(uint32_t k) {
   return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
 }
 
+// Two 16-bit keys in one word, one a lane, for two adjacent columns of a
+// bf16 or f16 matrix: one `__vminu2` or `__vmaxu2` (a `VIMNMX.U16x2` on
+// sm_90a, the instruction of the 32-bit min/max) orders both lanes, where
+// the f32 keys of two columns take two instructions. `pair_key<T>` keys
+// the bits of a pair of T (the low lane the first): every NaN's sign is
+// cleared (a lane is a NaN where its magnitude plus 0x7fff - inf's bits
+// reaches bit 15, with no carry out of the lane), so every NaN keys above
+// +inf, then the sign flip of `value_key` lane by lane (negative lanes all
+// 16 bits, the others the sign bit: (sign * 0x7fff + 0x8000) a lane, with
+// no carry). `pair_bits` inverts it (a NaN comes back as a NaN).
+struct PairKey {
+  uint32_t v;
+};
+
+template <typename T>
+__device__ __forceinline__ PairKey pair_key(uint32_t b) {
+  constexpr uint32_t kNanBias = (0x7fffu - Elem<T>::kInfBits) * 0x10001u;
+  b &= ~(((b & 0x7fff7fffu) + kNanBias) & 0x80008000u);
+  return {b ^ (((b >> 15) & 0x10001u) * 0x7fffu + 0x80008000u)};
+}
+
+__device__ __forceinline__ uint32_t pair_bits(PairKey k) {
+  return k.v ^ ((((k.v >> 15) & 0x10001u) ^ 0x10001u) * 0x7fffu + 0x80008000u);
+}
+
+__device__ __forceinline__ uint32_t key_min(uint32_t a, uint32_t b) {
+  return min(a, b);
+}
+__device__ __forceinline__ uint32_t key_max(uint32_t a, uint32_t b) {
+  return max(a, b);
+}
+__device__ __forceinline__ PairKey key_min(PairKey a, PairKey b) {
+  return {__vminu2(a.v, b.v)};
+}
+__device__ __forceinline__ PairKey key_max(PairKey a, PairKey b) {
+  return {__vmaxu2(a.v, b.v)};
+}
+
 // The key of a deviation |x - c|: its bits. A deviation is +0 or more, or
 // a NaN, so 0 <= finite < +inf (kInfKey) < every NaN in unsigned order
 constexpr uint32_t kInfKey = 0x7f800000u;
@@ -170,13 +220,14 @@ __device__ __forceinline__ uint32_t deviation_key(float dev) {
   return __float_as_uint(dev);
 }
 
-// Batcher's schedule pruned to the comparators on which one output rank
-// depends (`ops/sort_kernels.py::selection_pairs` computes the same).
-// Working backwards from the output wire, a comparator that touches a
-// live wire is kept and makes both its wires live; one whose two outputs
-// are live exchanges (kBoth), one with only its low output live computes
-// the min alone (kMin), only its high output the max alone (kMax). Rank
-// -1 keeps every comparator: a full sort. Each comparator is coded as
+// Batcher's schedule pruned to the comparators on which the output ranks
+// [lo, hi) depend (`ops/sort_kernels.py::selection_pairs` computes the
+// same). Working backwards from the output wires, a comparator that
+// touches a live wire is kept and makes both its wires live; one whose
+// two outputs are live exchanges (kBoth), one with only its low output
+// live computes the min alone (kMin), only its high output the max alone
+// (kMax). One rank r is the window [r, r + 1); [0, n) keeps every
+// comparator: a full sort. Each comparator is coded as
 // lo | hi << 8 | kind << 16, in network order.
 constexpr int kMaxNetworkRows = 64;
 constexpr int kMaxComparators = 543;  // Batcher's network of 64 rows
@@ -187,7 +238,7 @@ struct Schedule {
   int code[kMaxComparators];
 };
 
-constexpr Schedule selection_schedule(int n, int rank) {
+constexpr Schedule selection_schedule(int n, int lo, int hi) {
   Schedule all{}, out{};
   for (int p = 1; p < n; p *= 2) {
     for (int k = p; k >= 1; k /= 2) {
@@ -201,7 +252,7 @@ constexpr Schedule selection_schedule(int n, int rank) {
     }
   }
   bool live[kMaxNetworkRows] = {};
-  for (int w = 0; w < n; ++w) live[w] = rank < 0 || w == rank;
+  for (int w = 0; w < n; ++w) live[w] = lo <= w && w < hi;
   int kind[kMaxComparators] = {};
   for (int t = all.count - 1; t >= 0; --t) {
     const int lo = all.code[t] & 0xff, hi = all.code[t] >> 8;
@@ -215,45 +266,57 @@ constexpr Schedule selection_schedule(int n, int rank) {
   return out;
 }
 
-template <int N, int Rank>
+template <int N, int Lo, int Hi>
 struct Selection {
-  static_assert(1 <= N && N <= kMaxNetworkRows && -1 <= Rank && Rank < N,
+  static_assert(1 <= N && N <= kMaxNetworkRows && 0 <= Lo && Lo < Hi &&
+                    Hi <= N,
                 "selection outside the network");
-  static constexpr Schedule schedule = selection_schedule(N, Rank);
+  static constexpr Schedule schedule = selection_schedule(N, Lo, Hi);
 };
 
 // Scalar constants, so that device code reads no array of the host's
-template <int N, int Rank>
-inline constexpr int kComparators = Selection<N, Rank>::schedule.count;
-template <int N, int Rank, int T>
-inline constexpr int kComparator = Selection<N, Rank>::schedule.code[T];
+template <int N, int Lo, int Hi>
+inline constexpr int kComparators = Selection<N, Lo, Hi>::schedule.count;
+template <int N, int Lo, int Hi, int T>
+inline constexpr int kComparator = Selection<N, Lo, Hi>::schedule.code[T];
 
-template <int Code, int N>
-__device__ __forceinline__ void key_exchange(uint32_t (&v)[N]) {
+// K is uint32_t (one key) or PairKey (two, lane by lane)
+template <int Code, int N, typename K>
+__device__ __forceinline__ void key_exchange(K (&v)[N]) {
   constexpr int lo = Code & 0xff, hi = (Code >> 8) & 0xff, kind = Code >> 16;
   if constexpr (kind == kBoth) {
-    const uint32_t a = v[lo], b = v[hi];
-    v[lo] = min(a, b);
-    v[hi] = max(a, b);
+    const K a = v[lo], b = v[hi];
+    v[lo] = key_min(a, b);
+    v[hi] = key_max(a, b);
   } else if constexpr (kind == kMin) {
-    v[lo] = min(v[lo], v[hi]);
+    v[lo] = key_min(v[lo], v[hi]);
   } else {
-    v[hi] = max(v[lo], v[hi]);
+    v[hi] = key_max(v[lo], v[hi]);
   }
 }
 
-template <int N, int Rank, int... T>
-__device__ __forceinline__ void key_network(uint32_t (&v)[N],
+template <int N, int Lo, int Hi, typename K, int... T>
+__device__ __forceinline__ void key_network(K (&v)[N],
                                             std::integer_sequence<int, T...>) {
-  (key_exchange<kComparator<N, Rank, T>>(v), ...);
+  (key_exchange<kComparator<N, Lo, Hi, T>>(v), ...);
 }
 
-// v[Rank] becomes the key of rank Rank of v (the other wires are left
-// partly ordered); with Rank = -1, v is sorted
-template <int N, int Rank = -1>
-__device__ __forceinline__ void key_select(uint32_t (&v)[N]) {
-  key_network<N, Rank>(
-      v, std::make_integer_sequence<int, kComparators<N, Rank>>{});
+// v[Lo], ..., v[Hi - 1] become the keys of ranks Lo..Hi - 1 of v (the
+// other wires are left partly ordered)
+template <int N, int Lo, int Hi, typename K>
+__device__ __forceinline__ void key_select_window(K (&v)[N]) {
+  key_network<N, Lo, Hi>(
+      v, std::make_integer_sequence<int, kComparators<N, Lo, Hi>>{});
+}
+
+// v[Rank] becomes the key of rank Rank of v; with Rank = -1, v is sorted
+template <int N, int Rank = -1, typename K>
+__device__ __forceinline__ void key_select(K (&v)[N]) {
+  if constexpr (Rank < 0) {
+    key_select_window<N, 0, N>(v);
+  } else {
+    key_select_window<N, Rank, Rank + 1>(v);
+  }
 }
 
 // Deviation keys kept in registers up to this many rows; above it a

@@ -6,25 +6,27 @@
 // at its first use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DBMT_SORT_KERNEL=<K> -DBMT_N=<n> -DBMT_DTYPE=<T> \
-//        [-DBMT_M=<m>] -o <build>/lib...so sort_kernels.cu
+//        [-DBMT_M=<m> | -DBMT_F=<f>] -o <build>/lib...so sort_kernels.cu
 // K = 1 lower_median, 2 trimmed_mean, 3 closest_mean, 4 colsort;
 // 1 <= n <= kMaxRows; T = 1 f32, 2 bf16, 3 f16 (the JAX kernels' dtypes);
 // closest_mean also takes its 1 <= m <= n, for which its network is
 // pruned (a caller meets a few: n - f from Phocas and MeaMed, Bulyan's m2
-// on a half stack).
+// on a half stack), and trimmed_mean its trim 0 <= f < n / 2, for which
+// its network is pruned to the ranks [f, n - f) (Trimmed mean and Phocas
+// meet the f of their run).
 // The sorting network is unrolled for n, and its compile time grows
 // steeply with n (140 compare-exchanges at n = 25, 543 at n = 64), so
 // only the libraries in use are built. Each library exports
-// `bmt_sort_n`, `bmt_sort_kernel`, `bmt_sort_dtype`, `bmt_sort_m` and its
-// one entry,
-// which launches on the stream it is given, allocates nothing and returns
-// cudaGetLastError(). Operands and outputs are T arrays; the entries take
-// them as untyped pointers, since the element type is the library's.
+// `bmt_sort_n`, `bmt_sort_kernel`, `bmt_sort_dtype`, `bmt_sort_m`,
+// `bmt_sort_f` and its one entry, which launches on the stream it is
+// given, allocates nothing and returns cudaGetLastError(). Operands and
+// outputs are T arrays; the entries take them as untyped pointers, since
+// the element type is the library's.
 //
 // Arithmetic (`batcher.cuh`, `Elem<T>`): values are converted to float as
-// they are loaded, compared as floats, and every add, subtract and divide
-// is rounded to T, so a bf16 or f16 result is the one the JAX kernel's
-// storage-type arithmetic gives. Outputs are T.
+// they are loaded, compared as floats or order keys, and every add,
+// subtract and divide is rounded to T, so a bf16 or f16 result is the one
+// the JAX kernel's storage-type arithmetic gives. Outputs are T.
 //
 // ---------------------------------------------------------------------------
 // lower_median: replaces `pallas_sort.py::lower_median` (`_median_kernel`),
@@ -36,7 +38,7 @@
 // with `closest_mean_values`), the mean of the m values of each column
 // closest to c[j] (`bmt::closest_mean_keyed`).
 // colsort: replaces `pallas_sort.py::colsort` (`_colsort_kernel`), every
-// column sorted, NaN last: the lower_median network, writing all n rows.
+// column sorted, NaN last, on the float network (`bmt::batcher_sort`).
 //   Bound: bytes. lower_median, trimmed_mean and closest_mean read g once
 //   and write one (d,) row (closest_mean also reads c): 136.3 MB
 //   (141.6 MB) at f32[25, 1,310,922], half that in bf16 or f16. colsort
@@ -44,31 +46,46 @@
 //   coordinate is one sorting network (of the values, or of closest_mean's
 //   deviations) plus O(n) adds; it does not shrink with the element type,
 //   so the half forms sit further above their (halved) bound.
-//   Design: the TPU kernels sort (n, tile) column blocks in VMEM. Here
-//   thread j owns column j: it issues all n loads of its column before
-//   the first use (consecutive threads read consecutive addresses, so
-//   each row's loads are coalesced and n of them are in flight), sorts in
-//   registers with the template-unrolled Batcher network of `batcher.cuh`
-//   and writes one T (colsort: n, each row's stores coalesced). The rank
-//   bound f is a run-time argument: the loops over ranks are unrolled
-//   with a predicate, so the values never leave registers.
-//   closest_mean was bound by instruction issue, not bytes: its half
-//   forms, half the bytes, took the time of the f32 form, since each
-//   column ran the whole NaN-tested float network and computed each
-//   deviation three times (each a float -> T -> float round trip in a
-//   half form). It now computes each deviation once, as a key (kept in
-//   registers for n <= 32, recomputed where read above that, where a
-//   second array of n would spill), selects the threshold with the keyed
-//   network pruned to rank m - 1 (m is a template parameter: 204 min/max
-//   instructions at n = 25, m = 14, against about 840 for the float
-//   network), and counts and sums by comparing keys. A thread owns V = 2
-//   adjacent columns (one 8-byte f32 or 4-byte half load a row) where d
-//   and the addresses allow it and n <= 32, else V = 1
-//   (`ops/sort_kernels.py::closest_mean_width`).
+//   Design: the TPU kernels sort (n, tile) column blocks in VMEM. Here a
+//   thread owns V adjacent columns: it issues all n loads of its columns
+//   before the first use (consecutive threads read consecutive addresses,
+//   so each row's loads are coalesced and n of them are in flight),
+//   selects in registers and writes V T (colsort: n rows, each row's
+//   stores coalesced). V = 2 (one 8-byte f32 or 4-byte half load a row)
+//   where d and the addresses allow it and n <= kPairRows, else V = 1
+//   (`ops/sort_kernels.py::column_width`); colsort keeps V = 1.
+//   The three selecting kernels were bound by instruction issue, not
+//   bytes, on the NaN-tested float network: their half forms, half the
+//   bytes, took the time of the f32 forms (about 840 instructions a column
+//   at n = 25, six a compare-exchange). They now key every value once
+//   (`bmt::value_key`: no arithmetic touches a value, so a selected rank
+//   decodes to the value itself, bit for bit) and run the keyed network
+//   pruned to what they read: lower_median to rank (n - 1) / 2 (202
+//   min/max instructions at n = 25); trimmed_mean to the window [f, n - f)
+//   (f a template parameter: 212 at f = 11, 258 at f = 5, 280 at f = 0),
+//   whose ranks it decodes and sums in rank order, rounding each add to T,
+//   exactly as the JAX kernel and the plain version do; closest_mean
+//   computes each deviation once, as a key (kept in registers for
+//   n <= 32, recomputed where read above that, where a second array of n
+//   would spill), selects the threshold with the network pruned to rank
+//   m - 1 (204 min/max at n = 25, m = 14) and counts and sums by comparing
+//   keys. Keys order -0 below +0, so a median or a zero sum may come back
+//   as the other signed zero (`batcher.cuh`), an equal value.
+//   On the keyed network the half forms were still held by integer issue
+//   (Hopper runs 32-bit integer min/max and logic at half the f32 rate):
+//   at two columns a thread, lower_median and trimmed_mean in bf16 and f16
+//   key both columns of a row in one word (`bmt::PairKey`: one 4-byte
+//   load, about 7 key instructions and one `VIMNMX.U16x2` a comparator for
+//   both columns), which cut their time by a sixth to a fifth on the card
+//   (`PERF.md`). Their median is the pair's bits, decoded, stored as
+//   they are. A thread owning two columns was no slower than one in every
+//   form measured, and faster in the packed half forms.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "batcher.cuh"
 
@@ -84,11 +101,17 @@
 #ifndef BMT_M
 #define BMT_M 0
 #endif
+#ifndef BMT_F
+#define BMT_F 0
+#endif
 
 namespace {
 
 constexpr int kMaxRows = 64;  // MAX_ROWS of the JAX package
 constexpr int kSortThreads = 256;
+// Two columns a thread up to this many rows; past it, one (registers;
+// `ops/sort_kernels.py::PAIR_ROWS`)
+constexpr int kPairRows = 32;
 static_assert(1 <= BMT_N && BMT_N <= kMaxRows, "BMT_N outside 1..kMaxRows");
 static_assert(1 <= BMT_SORT_KERNEL && BMT_SORT_KERNEL <= 4,
               "BMT_SORT_KERNEL outside 1..4");
@@ -105,6 +128,9 @@ using T = __half;
 using E = bmt::Elem<T>;
 #if BMT_SORT_KERNEL == 3
 static_assert(1 <= BMT_M && BMT_M <= BMT_N, "BMT_M outside 1..BMT_N");
+#endif
+#if BMT_SORT_KERNEL == 2
+static_assert(0 <= BMT_F && 2 * BMT_F < BMT_N, "BMT_F outside 0 <= f < n/2");
 #endif
 
 // Pairs of T for the two-column loads and stores
@@ -148,53 +174,127 @@ __device__ __forceinline__ void store_elems(T* p, const float (&x)[V]) {
   }
 }
 
-// Column j of g (T[N, d], row-major) as floats: every load issued before
-// any use
-template <int N>
-__device__ __forceinline__ void load_column(const T* __restrict__ g,
-                                            long long d, long long j,
-                                            float (&v)[N]) {
+// Columns j..j + V - 1 of g (T[N, d], row-major) as floats x[row][column]:
+// every load issued before any use
+template <int N, int V>
+__device__ __forceinline__ void load_columns(const T* __restrict__ g,
+                                             long long d, long long j,
+                                             float (&x)[N][V]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = E::load(g[i * d + j]);
+  for (int i = 0; i < N; ++i) load_elems<V>(g + i * d + j, x[i]);
 }
 
+// The order keys of column v of x
+template <int N, int V>
+__device__ __forceinline__ void column_keys(const float (&x)[N][V], int v,
+                                            uint32_t (&k)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) k[i] = bmt::value_key(x[i][v]);
+}
+
+// The half forms at two columns a thread key both columns of a row in one
+// word (`bmt::PairKey`): one load, one key and one min/max a row for both
+template <int V>
+inline constexpr bool kPairKeys = V == 2 && sizeof(T) == 2;
+
 template <int N>
+__device__ __forceinline__ void load_pair_keys(const T* __restrict__ g,
+                                               long long d, long long j,
+                                               bmt::PairKey (&k)[N]) {
+  uint32_t bits[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    bits[i] = *reinterpret_cast<const uint32_t*>(g + i * d + j);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) k[i] = bmt::pair_key<T>(bits[i]);
+}
+
+// Lane `lane` (0: the first column) of a pair of T's bits, as a float (a
+// template, so that it exists for the 16-bit T only)
+template <typename U = T>
+__device__ __forceinline__ float pair_lane(uint32_t bits, int lane) {
+  return bmt::Elem<U>::from_bits((unsigned short)(bits >> (16 * lane)));
+}
+
+// Columns j, j + 1, ..., j + V - 1 a thread (V divides d); the V columns'
+// networks are independent, so the unrolled code interleaves them
+template <int N, int V>
 __global__ void __launch_bounds__(kSortThreads)
 lower_median_kernel(const T* __restrict__ g, T* __restrict__ out,
                     long long d) {
+  constexpr int kMid = (N - 1) / 2;
+  const long long groups = d / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    float v[N];
-    load_column<N>(g, d, j, v);
-    bmt::batcher_sort<N>(v);
-    out[j] = E::store(v[(N - 1) / 2]);
+  for (long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       grp < groups; grp += stride) {
+    const long long j = grp * V;
+    if constexpr (kPairKeys<V>) {
+      bmt::PairKey k[N];
+      load_pair_keys<N>(g, d, j, k);
+      bmt::key_select<N, kMid>(k);
+      *reinterpret_cast<uint32_t*>(out + j) = bmt::pair_bits(k[kMid]);
+    } else {
+      float x[N][V], y[V];
+      load_columns<N, V>(g, d, j, x);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        uint32_t k[N];
+        column_keys<N, V>(x, v, k);
+        bmt::key_select<N, kMid>(k);
+        y[v] = bmt::key_value(k[kMid]);
+      }
+      store_elems<V>(out + j, y);
+    }
   }
 }
 
-template <int N>
+template <int N, int F, int V>
 __global__ void __launch_bounds__(kSortThreads)
 trimmed_mean_kernel(const T* __restrict__ g, T* __restrict__ out,
-                    long long d, int f) {
+                    long long d) {
+  const long long groups = d / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    float v[N];
-    load_column<N>(g, d, j, v);
-    bmt::batcher_sort<N>(v);
+  for (long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       grp < groups; grp += stride) {
+    const long long j = grp * V;
     // -0 + x == x for every x, so starting from -0 the first add is the
     // JAX kernel's `acc = rows[f]` exactly
-    float acc = -0.0f;
+    float acc[V], y[V];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i >= f && i < N - f) acc = E::round(acc + v[i]);
+    for (int v = 0; v < V; ++v) acc[v] = -0.0f;
+    if constexpr (kPairKeys<V>) {
+      bmt::PairKey k[N];
+      load_pair_keys<N>(g, d, j, k);
+      bmt::key_select_window<N, F, N - F>(k);
+#pragma unroll
+      for (int i = F; i < N - F; ++i) {
+        const uint32_t bits = bmt::pair_bits(k[i]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc[v] = E::round(acc[v] + pair_lane(bits, v));
+        }
+      }
+    } else {
+      float x[N][V];
+      load_columns<N, V>(g, d, j, x);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        uint32_t k[N];
+        column_keys<N, V>(x, v, k);
+        bmt::key_select_window<N, F, N - F>(k);
+#pragma unroll
+        for (int i = F; i < N - F; ++i) {
+          acc[v] = E::round(acc[v] + bmt::key_value(k[i]));
+        }
+      }
     }
-    out[j] = E::store(acc / (float)(N - 2 * f));
+#pragma unroll
+    for (int v = 0; v < V; ++v) y[v] = acc[v] / (float)(N - 2 * F);
+    store_elems<V>(out + j, y);
   }
 }
 
-// Columns j, j + 1, ..., j + V - 1 of each row a thread (V divides d); the
-// V columns' selections run one after the other
 template <int N, int M, int V>
 __global__ void __launch_bounds__(kSortThreads)
 closest_mean_kernel(const T* __restrict__ g, const T* __restrict__ c,
@@ -205,8 +305,7 @@ closest_mean_kernel(const T* __restrict__ g, const T* __restrict__ c,
        grp < groups; grp += stride) {
     const long long j = grp * V;
     float x[N][V], cv[V], y[V];
-#pragma unroll
-    for (int i = 0; i < N; ++i) load_elems<V>(g + i * d + j, x[i]);
+    load_columns<N, V>(g, d, j, x);
     load_elems<V>(c + j, cv);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -226,7 +325,8 @@ colsort_kernel(const T* __restrict__ g, T* __restrict__ out, long long d) {
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
     float v[N];
-    load_column<N>(g, d, j, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = E::load(g[i * d + j]);
     bmt::batcher_sort<N>(v);
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i * d + j] = E::store(v[i]);
@@ -239,26 +339,29 @@ unsigned grid_for(long long d) {
   return (unsigned)blocks;
 }
 
-#if BMT_SORT_KERNEL == 3
-// Two columns a thread up to this many rows; past it, one (registers)
-constexpr int kPairRows = bmt::kKeepDeviations;
-
-// A template, so that the V = 2 form is not instantiated past kPairRows
-template <int V>
-int launch_closest_mean(const void* g, const void* c, void* out, long long d,
-                        cudaStream_t stream) {
+// Launch the V-column form of a kernel: `launch(std::integral_constant<int,
+// V>, grid)` enqueues it. A template, so that the V = 2 form is not
+// instantiated past kPairRows
+template <int V, typename Launch>
+int launch_form(long long d, Launch launch) {
   if constexpr (V == 2 && BMT_N > kPairRows) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (d % V != 0) return (int)cudaErrorInvalidValue;
-    closest_mean_kernel<BMT_N, BMT_M, V>
-        <<<grid_for(d / V), kSortThreads, 0, stream>>>(
-            (const T*)g, (const T*)c, (T*)out, d);
+    launch(std::integral_constant<int, V>{}, grid_for(d / V));
     return (int)cudaGetLastError();
   }
 }
 
-#endif
+// The form of `width` columns a thread: 1, or 2 up to kPairRows rows; width
+// divides d, and the operands' addresses are aligned to width * sizeof(T)
+// bytes (`ops/sort_kernels.py::column_width`)
+template <typename Launch>
+int launch_width(int width, long long d, Launch launch) {
+  return width == 1   ? launch_form<1>(d, launch)
+         : width == 2 ? launch_form<2>(d, launch)
+                      : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -272,33 +375,37 @@ int bmt_sort_dtype() { return BMT_DTYPE; }
 
 int bmt_sort_m() { return BMT_M; }
 
+int bmt_sort_f() { return BMT_F; }
+
 #if BMT_SORT_KERNEL == 1
-// g T[BMT_N, d] -> out T[d]
-int bmt_lower_median(const void* g, void* out, long long d, void* stream) {
-  lower_median_kernel<BMT_N><<<grid_for(d), kSortThreads, 0,
-                               (cudaStream_t)stream>>>(
-      (const T*)g, (T*)out, d);
-  return (int)cudaGetLastError();
+// g T[BMT_N, d] -> out T[d], `width` columns a thread
+int bmt_lower_median(const void* g, void* out, long long d, int width,
+                     void* stream) {
+  return launch_width(width, d, [&](auto v, unsigned grid) {
+    lower_median_kernel<BMT_N, decltype(v)::value>
+        <<<grid, kSortThreads, 0, (cudaStream_t)stream>>>((const T*)g,
+                                                          (T*)out, d);
+  });
 }
 #elif BMT_SORT_KERNEL == 2
-// g T[BMT_N, d] -> out T[d]; 0 <= f, 2f < BMT_N
-int bmt_trimmed_mean(const void* g, void* out, long long d, int f,
+// g T[BMT_N, d] -> out T[d], f = BMT_F, `width` columns a thread
+int bmt_trimmed_mean(const void* g, void* out, long long d, int width,
                      void* stream) {
-  trimmed_mean_kernel<BMT_N><<<grid_for(d), kSortThreads, 0,
-                               (cudaStream_t)stream>>>(
-      (const T*)g, (T*)out, d, f);
-  return (int)cudaGetLastError();
+  return launch_width(width, d, [&](auto v, unsigned grid) {
+    trimmed_mean_kernel<BMT_N, BMT_F, decltype(v)::value>
+        <<<grid, kSortThreads, 0, (cudaStream_t)stream>>>((const T*)g,
+                                                          (T*)out, d);
+  });
 }
 #elif BMT_SORT_KERNEL == 3
-// g T[BMT_N, d], c T[d] -> out T[d], m = BMT_M; width (1, or 2 up to
-// kPairRows rows) divides d, and g's and c's addresses are aligned to
-// width * sizeof(T) bytes (`ops/sort_kernels.py::closest_mean_width`)
+// g T[BMT_N, d], c T[d] -> out T[d], m = BMT_M, `width` columns a thread
 int bmt_closest_mean(const void* g, const void* c, void* out, long long d,
                      int width, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return width == 1   ? launch_closest_mean<1>(g, c, out, d, s)
-         : width == 2 ? launch_closest_mean<2>(g, c, out, d, s)
-                      : (int)cudaErrorInvalidValue;
+  return launch_width(width, d, [&](auto v, unsigned grid) {
+    closest_mean_kernel<BMT_N, BMT_M, decltype(v)::value>
+        <<<grid, kSortThreads, 0, (cudaStream_t)stream>>>(
+            (const T*)g, (const T*)c, (T*)out, d);
+  });
 }
 #else
 // g T[BMT_N, d] -> out T[BMT_N, d]

@@ -49,13 +49,28 @@ def distances_from_sq_gram(gram, *, squared=False):
     return sanitize_inf(torch.sqrt(d2))
 
 
-def pairwise_distances(g, *, squared=False):
+def pairwise_distances(g, *, squared=False, method="dot"):
     """All-pairs Euclidean distances over the rows of `g: [n, d]`, in
-    `g`'s dtype (the JAX package's method 'dot'), +inf on the
-    diagonal."""
-    gram = (gar_kernels.sq_gram(g) if gar_kernels.supported(g)
-            else gar_kernels.sq_gram_plain(g))
-    return distances_from_sq_gram(gram, squared=squared)
+    `g`'s dtype, non-finite -> +inf, +inf on the diagonal.
+
+    `method` is the JAX package's: "dot" reads the distances off the Gram
+    matrix (the `sq_gram` kernel on the card); "diff" reduces the
+    differences directly, one row of the (n, n) matrix at a time, so the
+    (n, n, d) differences are never built."""
+    if method == "dot":
+        gram = (gar_kernels.sq_gram(g) if gar_kernels.supported(g)
+                else gar_kernels.sq_gram_plain(g))
+        return distances_from_sq_gram(gram, squared=squared)
+    if method != "diff":
+        raise ValueError(f"Unknown pairwise distance method {method!r}")
+    n = g.shape[0]
+    d2 = torch.stack([torch.sum((g - g[i]) ** 2, dim=1) for i in range(n)])
+    d2 = sanitize_inf(d2)
+    eye = torch.eye(n, dtype=torch.bool, device=g.device)
+    d2 = torch.where(eye, torch.inf, d2)
+    if squared:
+        return d2
+    return sanitize_inf(torch.sqrt(d2))
 
 
 def all_finite_from_dist(dist):

@@ -106,22 +106,23 @@ def best_subset_mask_from_dist(dist, f):
     return _unrank_masks(best_rank[None], n, k, tbl)[0]
 
 
-def _best_subset_mask(gradients, f):
-    return best_subset_mask_from_dist(pairwise_distances(gradients), f)
+def _best_subset_mask(gradients, f, *, method="dot"):
+    return best_subset_mask_from_dist(
+        pairwise_distances(gradients, method=method), f)
 
 
-def selection(gradients, f, **kwargs):
+def selection(gradients, f, *, method="dot", **kwargs):
     """Indices (i64[n-f], ascending) of the minimum-diameter subset."""
     n = gradients.shape[0]
-    mask = _best_subset_mask(gradients, f)
+    mask = _best_subset_mask(gradients, f, method=method)
     # The members in index order, without a host round trip
     return torch.argsort((~mask).to(torch.uint8), stable=True)[:n - f]
 
 
-def aggregate(gradients, f, **kwargs):
+def aggregate(gradients, f, *, method="dot", **kwargs):
     """Brute rule: the mean of the minimum-diameter subset."""
     n = gradients.shape[0]
-    mask = _best_subset_mask(gradients, f)
+    mask = _best_subset_mask(gradients, f, method=method)
     if gar_kernels.supported(gradients):
         return gar_kernels.masked_rows_mean(mask, gradients, n - f)
     # where (not mask @ G): excluded rows may be all-NaN and 0*NaN = NaN

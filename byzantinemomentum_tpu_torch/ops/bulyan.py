@@ -47,12 +47,12 @@ def selection_weights(dist, f, m=None):
     return torch.stack(rows)
 
 
-def aggregate(gradients, f, m=None, **kwargs):
+def aggregate(gradients, f, m=None, *, method="dot", **kwargs):
     """Bulyan over Multi-Krum. A CUDA operand in `gar_kernels.supported`
     goes through the fused `selected_median_mean` kernel (one more read of
     the matrix after the Gram's); any other operand takes the plain
     `weighted_rows_mean` + `averaged_median`."""
-    dist = pairwise_distances(gradients)
+    dist = pairwise_distances(gradients, method=method)
     # The weights take the stack's dtype, as in the JAX package, so a
     # half-precision stack is averaged and sorted in its own dtype
     W = selection_weights(dist, f, m).to(gradients.dtype)

@@ -6,7 +6,8 @@ average of the m lowest-score gradients, default m = n-f-2, ties in
 stable-sort (index) order.
 
 The distance matrix comes from one Gram pass (`_common.pairwise_distances`,
-the `sq_gram` kernel on the card) and the selected-row average is a
+the `sq_gram` kernel on the card; `method="diff"` reduces the differences
+instead, as in the JAX package) and the selected-row average is a
 weight-vector product (`_common.weighted_rows_mean`, the
 `weighted_rows_mean` kernel on the card), so the rule reads the (n, d)
 matrix twice.
@@ -32,9 +33,9 @@ def scores_from_dist(dist, f):
     return torch.sort(dist, dim=1).values[:, :n - f - 1].sum(dim=1)
 
 
-def scores(gradients, f):
+def scores(gradients, f, *, method="dot"):
     """Multi-Krum scores, `f32[n, d] -> f32[n]`."""
-    return scores_from_dist(pairwise_distances(gradients), f)
+    return scores_from_dist(pairwise_distances(gradients, method=method), f)
 
 
 def selection_weights(dist, f, m=None):
@@ -49,18 +50,18 @@ def selection_weights(dist, f, m=None):
     return torch.where(ranks < m, 1.0 / m, 0.0)
 
 
-def selection(gradients, f, m=None, **kwargs):
+def selection(gradients, f, m=None, *, method="dot", **kwargs):
     """Indices of the m selected (lowest-score) gradients, in stable-sort
     order."""
     if m is None:
         m = gradients.shape[0] - f - 2
-    return torch.argsort(scores(gradients, f), stable=True)[:m]
+    return torch.argsort(scores(gradients, f, method=method), stable=True)[:m]
 
 
-def aggregate(gradients, f, m=None, **kwargs):
+def aggregate(gradients, f, m=None, *, method="dot", **kwargs):
     """Multi-Krum: the mean of the m selected rows, as a weight-vector
     product with `_common.weighted_rows_mean`'s non-finite contract."""
-    w = selection_weights(pairwise_distances(gradients), f, m)
+    w = selection_weights(pairwise_distances(gradients, method=method), f, m)
     return weighted_rows_mean(w.to(gradients.dtype), gradients)
 
 

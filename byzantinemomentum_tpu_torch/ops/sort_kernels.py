@@ -9,9 +9,11 @@ keyed selection network of `csrc/batcher.cuh` modelled step for step
 Kernels live in `csrc/sort_kernels.cu` (CUDA C++ for `sm_90a`), built and
 bound as `ops/_cuda.py` describes: one library per (kernel, row count n,
 element type) that a run meets, since each sorting network is unrolled
-for its n, and for `closest_mean` per m too, since its keyed network is
-pruned to rank m - 1 (`selection_pairs`). They launch on
-`torch.cuda.current_stream()`.
+for its n; for `closest_mean` per m too, since its keyed network is
+pruned to rank m - 1, and for `trimmed_mean` per f, since its keyed
+network is pruned to the ranks [f, n - f) (`selection_pairs`). They
+launch on `torch.cuda.current_stream()`, with two columns a thread where
+the operand allows it (`column_width`).
 
 Dtypes: f32, bf16 and f16, the JAX kernels' (`pallas_sort.supported`).
 Arithmetic is the storage type's, as in the JAX kernels: every add,
@@ -45,7 +47,8 @@ from byzantinemomentum_tpu_torch.ops._cuda import MAX_ROWS, reset_launches
 __all__ = ["MAX_ROWS", "KERNELS", "DTYPES", "supported", "build",
            "batcher_pairs", "selection_pairs", "selection_operations",
            "select_keys", "value_keys", "key_values", "deviation_keys",
-           "closest_mean_width",
+           "half_keys", "half_key_values",
+           "column_width",
            "sort_values", "sort_nan_last", "lower_median",
            "lower_median_plain", "trimmed_mean", "trimmed_mean_plain",
            "closest_mean", "closest_mean_plain", "colsort", "colsort_plain",
@@ -66,11 +69,13 @@ def supported(g):
 # --------------------------------------------------------------------------- #
 # Build and binding
 
-def build(kernel, n, dtype=torch.float32, m=None):
+def build(kernel, n, dtype=torch.float32, m=None, f=None):
     """Compile the library of `csrc/sort_kernels.cu` that holds `kernel`
     for `n` rows of `dtype` (and, for `closest_mean` only, `m` closest
-    values, for which its network is pruned), if it does not exist yet;
-    returns `(library path, nvcc's output)`."""
+    values, for which its network is pruned to rank m - 1; for
+    `trimmed_mean` only, the trim `f`, for which it is pruned to the ranks
+    [f, n - f)), if it does not exist yet; returns `(library path, nvcc's
+    output)`."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown sort kernel {kernel!r}, expected one of {KERNELS}")
     if not 1 <= n <= MAX_ROWS:
@@ -80,6 +85,9 @@ def build(kernel, n, dtype=torch.float32, m=None):
     if (kernel == "closest_mean") != (m is not None):
         raise ValueError(f"m = {m!r}: closest_mean takes one, the other "
                          f"kernels none")
+    if (kernel == "trimmed_mean") != (f is not None):
+        raise ValueError(f"f = {f!r}: trimmed_mean takes one, the other "
+                         f"kernels none")
     defines = {"BMT_SORT_KERNEL": KERNELS.index(kernel) + 1, "BMT_N": n,
                "BMT_DTYPE": DTYPES.index(dtype) + 1}
     tag = f"{kernel}-n{n}-{_cuda.DTYPE_NAMES[dtype]}"
@@ -88,27 +96,32 @@ def build(kernel, n, dtype=torch.float32, m=None):
             raise ValueError(f"m = {m} outside 1..{n}")
         defines["BMT_M"] = m
         tag += f"-m{m}"
+    if f is not None:
+        if not 0 <= 2 * f < n:
+            raise ValueError(f"f = {f} outside 0 <= f < {n}/2")
+        defines["BMT_F"] = f
+        tag += f"-f{f}"
     return _cuda.compile_library("sort_kernels.cu", tag, defines)
 
 
 @functools.cache
-def _entry(kernel, n, dtype, m=None):
+def _entry(kernel, n, dtype, m=None, f=None):
     """The typed C entry `bmt_<kernel>` of the loaded `build(kernel, n,
-    dtype, m)`."""
-    lib = ctypes.CDLL(str(build(kernel, n, dtype, m)[0]))
+    dtype, m, f)`."""
+    lib = ctypes.CDLL(str(build(kernel, n, dtype, m, f)[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("bmt_sort_n", "bmt_sort_kernel", "bmt_sort_dtype",
-                 "bmt_sort_m"):
+                 "bmt_sort_m", "bmt_sort_f"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
     if ((lib.bmt_sort_n(), lib.bmt_sort_kernel(), lib.bmt_sort_dtype(),
-         lib.bmt_sort_m())
+         lib.bmt_sort_m(), lib.bmt_sort_f())
             != (n, KERNELS.index(kernel) + 1, DTYPES.index(dtype) + 1,
-                m or 0)):
+                m or 0, f or 0)):
         raise RuntimeError(f"library {lib._name} is not built for {kernel} "
-                           f"at n = {n}, m = {m} in {dtype}")
+                           f"at n = {n}, m = {m}, f = {f} in {dtype}")
     entry = getattr(lib, f"bmt_{kernel}")
-    entry.argtypes = {"lower_median": [ptr, ptr, i64, ptr],
+    entry.argtypes = {"lower_median": [ptr, ptr, i64, i32, ptr],
                       "trimmed_mean": [ptr, ptr, i64, i32, ptr],
                       "closest_mean": [ptr, ptr, ptr, i64, i32, ptr],
                       "colsort": [ptr, ptr, i64, ptr]}[kernel]
@@ -116,26 +129,27 @@ def _entry(kernel, n, dtype, m=None):
     return entry
 
 
-def _launch(wrapper, g, *args, m=None):
+def _launch(wrapper, g, *args, m=None, f=None):
     """Launch the entry of `wrapper`'s kernel for the row count and dtype
-    of the checked operand `g` (and `m`) on `args` (pointers and ints),
-    raise on a CUDA error, and count the launch."""
+    of the checked operand `g` (and `m` or `f`) on `args` (pointers and
+    ints), raise on a CUDA error, and count the launch."""
     kernel = wrapper.__name__
-    _cuda.raise_on(kernel, _entry(kernel, g.shape[0], g.dtype, m)(
+    _cuda.raise_on(kernel, _entry(kernel, g.shape[0], g.dtype, m, f)(
         *args, _cuda.stream(g)))
     _cuda.launched(wrapper, g.dtype)
 
 
-# Rows up to which closest_mean's thread may own two columns
-# (kKeepDeviations in csrc/batcher.cuh)
+# Rows up to which a thread of lower_median, trimmed_mean or closest_mean
+# may own two columns (kPairRows in csrc/sort_kernels.cu)
 PAIR_ROWS = 32
 
 
-def closest_mean_width(n, d, element_size, *addresses):
-    """Columns a thread of `closest_mean` owns on a [n, d] operand whose
-    g and c start at `addresses`: 2 (one load of two adjacent elements a
-    row) where n <= PAIR_ROWS, d is even and every address is aligned to
-    two elements, else 1."""
+def column_width(n, d, element_size, *addresses):
+    """Columns a thread of `lower_median`, `trimmed_mean` or
+    `closest_mean` owns on a [n, d] operand whose inputs start at
+    `addresses`: 2 (one load of two adjacent elements a row) where
+    n <= PAIR_ROWS, d is even and every address is aligned to two
+    elements, else 1."""
     pair = 2 * element_size
     if n <= PAIR_ROWS and d % 2 == 0 and all(a % pair == 0 for a in addresses):
         return 2
@@ -163,18 +177,33 @@ def batcher_pairs(n):
     return tuple(pairs)
 
 
-def selection_pairs(n, rank=None):
-    """The Batcher schedule pruned to the comparators on which output rank
-    `rank` depends (every comparator for `rank=None`, a full sort): the
-    schedule that `key_select` in `csrc/batcher.cuh` unrolls for
+def _window(n, ranks):
+    """`ranks` (None: every rank; an int r: range(r, r + 1); a range of
+    step 1) as a non-empty `range` inside 0..n - 1."""
+    if ranks is None:
+        return range(n)
+    if isinstance(ranks, int):
+        ranks = range(ranks, ranks + 1)
+    if (not isinstance(ranks, range) or ranks.step != 1 or not ranks
+            or ranks.start < 0 or ranks.stop > n):
+        raise ValueError(f"ranks {ranks!r} outside 0..{n - 1}, or not a "
+                         f"non-empty window of consecutive ranks")
+    return ranks
+
+
+def selection_pairs(n, ranks=None):
+    """The Batcher schedule pruned to the comparators on which the output
+    ranks `ranks` depend: one rank (an int), a window of consecutive ranks
+    (a `range`), or every rank (None, a full sort). It is the schedule
+    that `key_select` / `key_select_window` in `csrc/batcher.cuh` unroll
+    for `lower_median`, `trimmed_mean` (the window [f, n - f)),
     `closest_mean` and `selected_median_mean`. Working backwards from the
-    output wire, a comparator touching a live wire is kept and makes both
+    output wires, a comparator touching a live wire is kept and makes both
     its wires live. Returns `(i, j, side)` triples in network order:
     `side` is "both" (min to i, max to j), "min" (only wire i is read
     later: i = min) or "max" (only j: j = max)."""
-    if rank is not None and not 0 <= rank < n:
-        raise ValueError(f"rank {rank} outside 0..{n - 1}")
-    live = [rank is None or wire == rank for wire in range(n)]
+    window = _window(n, ranks)
+    live = [wire in window for wire in range(n)]
     kept = []
     for i, j in reversed(batcher_pairs(n)):
         if live[i] or live[j]:
@@ -184,20 +213,20 @@ def selection_pairs(n, rank=None):
     return tuple(reversed(kept))
 
 
-def selection_operations(n, rank=None):
-    """Min/max instructions of `selection_pairs(n, rank)`: two for a
+def selection_operations(n, ranks=None):
+    """Min/max instructions of `selection_pairs(n, ranks)`: two for a
     two-sided comparator, one for a one-sided one."""
     return sum(2 if side == "both" else 1
-               for _, _, side in selection_pairs(n, rank))
+               for _, _, side in selection_pairs(n, ranks))
 
 
-def select_keys(keys, rank=None):
-    """Run `selection_pairs(len(keys), rank)` over a list of equal-shape
+def select_keys(keys, ranks=None):
+    """Run `selection_pairs(len(keys), ranks)` over a list of equal-shape
     integer key rows (the kernels' keyed network, step for step); returns
-    the list, whose entry `rank` is then the key of that rank (sorted for
-    `rank=None`)."""
+    the list, whose entries at `ranks` are then the keys of those ranks
+    (sorted for `ranks=None`)."""
     keys = list(keys)
-    for i, j, side in selection_pairs(len(keys), rank):
+    for i, j, side in selection_pairs(len(keys), ranks):
         a, b = keys[i], keys[j]
         if side != "max":
             keys[i] = torch.minimum(a, b)
@@ -224,6 +253,31 @@ def key_values(keys):
     """The f32 values of `value_keys` (the NaN key gives a NaN)."""
     bits = torch.where(keys >> 31 == 1, keys ^ 0x80000000, keys ^ 0xFFFFFFFF)
     return (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+# +inf's bits in each 16-bit dtype (Elem<T>::kInfBits)
+HALF_INF_BITS = {torch.bfloat16: 0x7F80, torch.float16: 0x7C00}
+
+
+def half_keys(x):
+    """`bmt::pair_key`, one lane per entry of a bf16 or f16 tensor, as
+    int64: the 16-bit key of the half forms of `lower_median` and
+    `trimmed_mean` at two columns a thread. Every NaN's sign is cleared
+    (a NaN is a magnitude whose sum with 0x7fff - inf's bits reaches bit
+    15), so every NaN keys above +inf; then the negative values flip all
+    16 bits, the others the sign bit. Unsigned order is the NaN-last
+    order, -0 one key below +0."""
+    bits = x.view(torch.int16).to(torch.int64) & 0xFFFF
+    nan = ((bits & 0x7FFF) + 0x7FFF - HALF_INF_BITS[x.dtype]) & 0x8000
+    bits = bits & ~nan
+    return torch.where(bits >> 15 == 1, bits ^ 0xFFFF, bits ^ 0x8000)
+
+
+def half_key_values(keys, dtype):
+    """The `dtype` values of `half_keys` (`bmt::pair_bits`; a NaN's key
+    gives a NaN)."""
+    bits = torch.where(keys >> 15 == 1, keys ^ 0x8000, keys ^ 0xFFFF)
+    return (bits - ((bits >> 15) << 16)).to(torch.int16).view(dtype)
 
 
 def deviation_keys(dev):
@@ -283,7 +337,11 @@ def trimmed_mean_plain(g, f):
     in ascending rank order from rank f, then divided by n - 2f."""
     n = g.shape[0]
     ranks = sort_nan_last(g)[f:n - f]
-    return _sum_rows(ranks[1:], ranks[0]) / (n - 2 * f)
+    # A divisor on g's device: torch on CUDA turns a division by a Python
+    # number into a product with its reciprocal, which may round the
+    # quotient one ulp away from the kernels' division
+    count = torch.tensor(n - 2 * f, dtype=g.dtype, device=g.device)
+    return _sum_rows(ranks[1:], ranks[0]) / count
 
 
 def closest_mean_plain(g, c, m):
@@ -330,8 +388,10 @@ def lower_median(g):
     if g.device.type == "cpu":
         return lower_median_plain(g)
     _cuda.check_matrix("lower_median", g, DTYPES)
+    n, d = g.shape
     out = _output(g)
-    _launch(lower_median, g, g.data_ptr(), out.data_ptr(), g.shape[1])
+    width = column_width(n, d, g.element_size(), g.data_ptr())
+    _launch(lower_median, g, g.data_ptr(), out.data_ptr(), d, width)
     return out
 
 
@@ -342,11 +402,12 @@ def trimmed_mean(g, f):
     if g.device.type == "cpu":
         return trimmed_mean_plain(g, f)
     _cuda.check_matrix("trimmed_mean", g, DTYPES)
-    n = g.shape[0]
+    n, d = g.shape
     if not (isinstance(f, int) and 0 <= f and 2 * f < n):
         raise ValueError(f"trimmed_mean: f = {f!r} outside 0 <= f < {n}/2")
     out = _output(g)
-    _launch(trimmed_mean, g, g.data_ptr(), out.data_ptr(), g.shape[1], f)
+    width = column_width(n, d, g.element_size(), g.data_ptr())
+    _launch(trimmed_mean, g, g.data_ptr(), out.data_ptr(), d, width, f=f)
     return out
 
 
@@ -367,8 +428,7 @@ def closest_mean(g, c, m):
     if not (isinstance(m, int) and 1 <= m <= n):
         raise ValueError(f"closest_mean: m = {m!r} outside 1..{n}")
     out = _output(g)
-    width = closest_mean_width(n, d, g.element_size(), g.data_ptr(),
-                               c.data_ptr())
+    width = column_width(n, d, g.element_size(), g.data_ptr(), c.data_ptr())
     _launch(closest_mean, g, g.data_ptr(), c.data_ptr(), out.data_ptr(),
             d, width, m=m)
     return out

@@ -9,10 +9,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
    type) for the four sorting kernels, in f32, bf16 and f16), all side by
-   side (`closest_mean` once for each m it meets); prints their count,
-   the build's seconds and each kernel's registers and spills, and fails
-   on a spill; prints the SASS instruction counts of the redesigned
-   kernels at the headline shapes (`cuobjdump -sass`).
+   side (`closest_mean` once for each m it meets, `trimmed_mean` once for
+   each f); prints their count, the build's seconds and each kernel's
+   registers and spills, and fails on a spill; prints the SASS
+   instruction counts of the redesigned kernels at the headline shapes
+   (`cuobjdump -sass`; `lower_median` and `trimmed_mean` at n = 25, f =
+   11, in each dtype).
 3. Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
@@ -24,7 +26,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    f16 forms of the four sorting kernels on the same cases; each GAR of
    the port on the card against the same GAR on the CPU at a small size,
    Brute and CGE at n=11, f=4. Bulyan's W, Krum's w and Brute's mask
-   from `sq_gram` must equal those from `sq_gram_plain`. `ms`,
+   from `sq_gram` must equal those from `sq_gram_plain`; `lower_median`
+   and `trimmed_mean` must equal their plain versions exactly (+-0
+   equal). `ms`,
    `plain_ms` and `library_ms` are medians of 20 CUDA-event times of one
    call on an idle stream (the host's time to issue the call lies inside
    the interval); `queued_ms` and `library_queued_ms` are per call,
@@ -33,12 +37,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `weighted_rows_mean` it also prints the achieved GB/s, the host's
    time per call of the wrapper and of the library call, and their
    one-call times before their redesign, as for `selected_median_mean`
-   and the three forms of `closest_mean`;
+   and the three forms of `closest_mean`, `lower_median` and
+   `trimmed_mean`; for the last two it also times the one-column form
+   (the operand one element off alignment) beside the two-column one.
+   The library calls are `torch.matmul` (1, 3, 4), `torch.sort` (5, 7),
+   `torch.kthvalue` (6: the same rank on finite input; null where it
+   refuses a dtype);
    `bound_ms` is the larger of the bytes the function must move over the
    card's memory rate and its operations over the card's f32
    (non-tensor-core) peak (the half forms compute in f32 too), counting
    2 operations per compare-exchange of a sorting network and 1 per
-   one-sided comparator of `closest_mean`'s pruned one.
+   one-sided comparator of a pruned one.
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
@@ -108,7 +117,10 @@ PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
 # beside this run's
 BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888,
                       "selected_median_mean": 0.1346, "closest_mean": 0.1787,
-                      "closest_mean_bf16": 0.1786, "closest_mean_f16": 0.1931}
+                      "closest_mean_bf16": 0.1786, "closest_mean_f16": 0.1931,
+                      "lower_median": 0.0939, "lower_median_bf16": 0.1002,
+                      "lower_median_f16": 0.0949, "trimmed_mean": 0.1138,
+                      "trimmed_mean_bf16": 0.1168, "trimmed_mean_f16": 0.1145}
 
 
 def log(*args):
@@ -216,15 +228,18 @@ def build():
     library, the `selected_median_mean` ones for the round counts this
     script meets (13 at n=25, f=5; 5 at n=11, f=2) and the four sorting
     kernels at the row counts and element types it meets (`closest_mean`
-    for each m it meets), compiled side by side; prints each kernel's
-    registers and spills, and fails on a spill."""
+    for each m, `trimmed_mean` for each f it meets), compiled side by
+    side; prints each kernel's registers and spills, and fails on a
+    spill."""
     jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13)]
     jobs += [(sort_kernels.build, kernel, n, dtype)
-             for kernel in sort_kernels.KERNELS if kernel != "closest_mean"
+             for kernel in ("lower_median", "colsort")
              for n in SORT_CASES for dtype in sort_kernels.DTYPES]
-    jobs += [(sort_kernels.build, "closest_mean", n, dtype, n - f)
+    jobs += [(sort_kernels.build, kernel, n, dtype, *extra)
              for n, fs in SORT_CASES.items() for f in fs
-             for dtype in sort_kernels.DTYPES]
+             for dtype in sort_kernels.DTYPES
+             for kernel, extra in (("closest_mean", (n - f,)),
+                                   ("trimmed_mean", (None, f)))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda job: job[0](*job[1:]), jobs))
@@ -243,7 +258,9 @@ def build():
     if spills:
         raise SystemExit(f"ptxas spilled registers in {', '.join(spills)}")
     for path, _ in built:
-        if re.search(r"-r13\.so$|-closest_mean-n25-\w+-m14\.so$", path.name):
+        if re.search(r"-r13\.so$|-closest_mean-n25-\w+-m14\.so$|"
+                     r"-lower_median-n25-\w+\.so$|-trimmed_mean-n25-\w+-f11\.so$",
+                     path.name):
             sass_summary(path)
 
 
@@ -286,6 +303,16 @@ def kernel_name(mangled):
         return mangled
     args = re.findall(r"Li(-?[0-9]+)E", match.group(2) or "")
     return match.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def split_record_name(name):
+    """(kernel, dtype) of a record's name: the f32 form under the kernel's
+    name, the half forms as `<kernel>_bf16` and `<kernel>_f16`."""
+    for half in (BF16, F16):
+        suffix = "_" + DTYPE_NAMES[half]
+        if name.endswith(suffix):
+            return name[:-len(suffix)], half
+    return name, F32
 
 
 def kernels_vs_plain(smi):
@@ -334,8 +361,9 @@ def kernels_vs_plain(smi):
     def record_name(kernel, dtype):
         return kernel if dtype == F32 else f"{kernel}_{DTYPE_NAMES[dtype]}"
 
-    def check(name, label, got, want, atol=TOL_ATOL, dtype=F32):
-        rtol = HALF_RTOL.get(dtype, TOL_RTOL)
+    def check(name, label, got, want, atol=TOL_ATOL, dtype=F32, rtol=None):
+        if rtol is None:
+            rtol = HALF_RTOL.get(dtype, TOL_RTOL)
         if got.dtype != want.dtype or got.dtype != dtype:
             raise SystemExit(f"{name} {label}: dtype {got.dtype}, plain "
                              f"{want.dtype}, expected {dtype}")
@@ -352,15 +380,18 @@ def kernels_vs_plain(smi):
         for dtype in dtypes:
             x = h.to(dtype)
             tol = {"dtype": dtype, "atol": 0.0 if dtype != F32 else TOL_ATOL}
-            # The column sort and the median move values: exactly equal
+            # The column sort and the median move values: exactly equal;
+            # the trimmed mean adds and divides as its plain version does
             check("colsort", label, sort_kernels.colsort(x),
                   sort_kernels.colsort_plain(x), atol=0.0, dtype=dtype)
             check("lower_median", label, sort_kernels.lower_median(x),
-                  sort_kernels.lower_median_plain(x), atol=0.0, dtype=dtype)
+                  sort_kernels.lower_median_plain(x), atol=0.0, dtype=dtype,
+                  rtol=0.0)
             for fh in fs:
                 check("trimmed_mean", f"{label} f={fh}",
                       sort_kernels.trimmed_mean(x, fh),
-                      sort_kernels.trimmed_mean_plain(x, fh), **tol)
+                      sort_kernels.trimmed_mean_plain(x, fh), atol=0.0,
+                      dtype=dtype, rtol=0.0)
                 for centre_name, centre in (
                         ("median", sort_kernels.lower_median_plain(x)),
                         ("trmean", sort_kernels.trimmed_mean_plain(x, fh))):
@@ -481,11 +512,27 @@ def kernels_vs_plain(smi):
     log("kernels agree with their plain versions: " + ", ".join(
         f"{name} max abs err {err:.3e}" for name, err in errs.items()))
 
+    def kthvalue(x):
+        """`torch.kthvalue` at the lower median's rank (the same function
+        on finite input), or None, with the error printed, where it
+        refuses x's dtype on the card."""
+        def call():
+            return torch.kthvalue(x, (n - 1) // 2 + 1, dim=0)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            log(f"  torch.kthvalue refuses {x.dtype}: {err}")
+            return None
+        return call
+
     bandwidth, flops32 = card_peaks(smi)
     exchanges = len(sort_kernels.batcher_pairs(n))
-    # closest_mean's network is pruned to rank m - 1: one operation a
+    # The keyed networks are pruned to the ranks read: one operation a
     # one-sided comparator, two a two-sided one
     closest_ops = sort_kernels.selection_operations(n, n - f11 - 1)
+    median_ops = sort_kernels.selection_operations(n, (n - 1) // 2)
+    trimmed_ops = sort_kernels.selection_operations(n, range(f11, n - f11))
     # (name, kernel, plain, library call, bytes, f32 operations)
     work = [
         ("sq_gram", lambda: gar_kernels.sq_gram(g),
@@ -517,13 +564,13 @@ def kernels_vs_plain(smi):
             (record_name("lower_median", dtype),
              lambda x=x: sort_kernels.lower_median(x),
              lambda x=x: sort_kernels.lower_median_plain(x),
-             lambda x=x: torch.sort(x, dim=0),
-             (n * d + d) * size, 2 * exchanges * d),
+             kthvalue(x), (n * d + d) * size, median_ops * d),
+            # n - 2f - 1 adds and a divide
             (record_name("trimmed_mean", dtype),
              lambda x=x: sort_kernels.trimmed_mean(x, f11),
              lambda x=x: sort_kernels.trimmed_mean_plain(x, f11),
              lambda x=x: torch.sort(x, dim=0),
-             (n * d + d) * size, (2 * exchanges + n - 2 * f11 + 1) * d),
+             (n * d + d) * size, (trimmed_ops + n - 2 * f11) * d),
             # Deviations: a subtract and an absolute value per value
             (record_name("closest_mean", dtype),
              lambda x=x, c=median: sort_kernels.closest_mean(x, c, n - f11),
@@ -541,7 +588,7 @@ def kernels_vs_plain(smi):
                 "closest_mean": "pallas_sort.py:252"}
     records = []
     for name, fn, plain, library, nbytes, ops in work:
-        kernel = name.rsplit("_", 1)[0] if name.endswith(("_bf16", "_f16")) else name
+        kernel, dtype = split_record_name(name)
         t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
         records.append({
             "name": name, "route": "cuda",
@@ -560,6 +607,19 @@ def kernels_vs_plain(smi):
             f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library {rec['library_ms']} "
             f"({rec['library_queued_ms']} queued)")
+        if kernel in ("lower_median", "trimmed_mean"):
+            # The one-column form at the same shape: `column_width` takes it
+            # for an operand one element past an aligned allocation
+            off = torch.empty(n * d + 1, dtype=dtype, device=dev)[1:].view(n, d)
+            off.copy_(g)
+            args = () if kernel == "lower_median" else (f11,)
+
+            def single(off=off, args=args, wrapper=getattr(sort_kernels, kernel)):
+                return wrapper(off, *args)
+            log(f"    {name}: one column a thread (the operand one element off "
+                f"alignment) {cuda_ms(single):.4f} ms ({queued_ms(single):.4f} "
+                f"queued), two: {rec['ms']:.4f} ({rec['queued_ms']:.4f})")
+            del off, single
         if name in BEFORE_REDESIGN_MS:
             library_us = f"{host_us(library):.2f} us" if library else "none"
             log(f"    {name}: {nbytes / rec['ms'] / 1e6:.1f} GB/s achieved one "
@@ -741,12 +801,7 @@ def main():
         if cell[0] in ("headline", "krum_f11", "brute", "headline_mixed"):
             step_profile(cell, smi)
     for record in records:
-        kernel, dtype = record["name"], F32
-        for half in (BF16, F16):
-            suffix = "_" + DTYPE_NAMES[half]
-            if kernel.endswith(suffix):
-                kernel, dtype = kernel[:-len(suffix)], half
-        record["launches"] = totals.get((kernel, dtype), 0)
+        record["launches"] = totals.get(split_record_name(record["name"]), 0)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

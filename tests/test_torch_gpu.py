@@ -7,12 +7,14 @@ Tolerances are those of `tests/test_torch_ops.py`: NaN/inf positions
 exact, values within rtol 1e-5, atol 1e-6 (f32 sums in another order),
 Gram entries within 1e-5 of their largest diagonal entry. The half forms
 of the sorting kernels: `colsort` and `lower_median` exactly (they move
-values), `trimmed_mean` and `closest_mean` within 2 ulps of the dtype
-(rtol 2^-7 for bf16, 2^-10 for f16). +-0 compare as equal: the keyed
-networks of `closest_mean` and `selected_median_mean` order -0 below +0,
-so a median may come back as the other zero. Every launch of a kernel
-must add one to its wrapper's count, and to its count for the operand's
-dtype.
+values) and `trimmed_mean` exactly (it adds and divides as its plain
+version does, in the same order), `closest_mean` within 2 ulps of the
+dtype (rtol 2^-7 for bf16, 2^-10 for f16). `trimmed_mean` in f32 is
+exact too. +-0 compare as equal: the keyed networks of `lower_median`,
+`trimmed_mean`, `closest_mean` and `selected_median_mean` order -0 below
++0, so a median or a zero sum may come back as the other zero. Every
+launch of a kernel must add one to its wrapper's count, and to its count
+for the operand's dtype.
 """
 
 import numpy as np
@@ -188,7 +190,9 @@ def test_trimmed_mean_matches_plain(cuda, n, f):
              inf=True).to(cuda)
     got = _launched(sort_kernels.trimmed_mean,
                     lambda: sort_kernels.trimmed_mean(g, f))
-    _assert_values(got, sort_kernels.trimmed_mean_plain(g, f))
+    want = sort_kernels.trimmed_mean_plain(g, f)
+    _assert_values(got, want)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 def _closest_columns(g, m):
@@ -345,9 +349,9 @@ def test_half_sort_kernels_match_plain(cuda, n, dtype):
                     lambda: sort_kernels.lower_median(g), dtype)
     _assert_exact(med, sort_kernels.lower_median_plain(g))
     for f in sorted({0, (n - 1) // 4, (n - 1) // 2}):
-        _assert_ulps(_launched(sort_kernels.trimmed_mean,
-                               lambda: sort_kernels.trimmed_mean(g, f), dtype),
-                     sort_kernels.trimmed_mean_plain(g, f))
+        _assert_exact(_launched(sort_kernels.trimmed_mean,
+                                lambda: sort_kernels.trimmed_mean(g, f), dtype),
+                      sort_kernels.trimmed_mean_plain(g, f))
     c = sort_kernels.lower_median_plain(g)
     c[:9] = torch.nan
     for m in sorted({1, n - (n - 1) // 2, n}):
@@ -571,7 +575,7 @@ def test_closest_mean_every_width_and_offset(cuda, n, m, dtype):
             else:
                 _assert_ulps(got, want)
             assert torch.equal(_bits(got), _bits(sort_kernels.closest_mean(gs, cs, m)))
-        assert sort_kernels.closest_mean_width(n, d, g.element_size(), 0, 0) == (
+        assert sort_kernels.column_width(n, d, g.element_size(), 0, 0) == (
             2 if d % 2 == 0 and n <= 32 else 1)
 
 
@@ -621,3 +625,87 @@ def test_redesigned_sort_kernels_at_the_headline_shape(cuda):
                 _assert_values(got, want)
             else:
                 _assert_ulps(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# The redesigned lower_median and trimmed_mean: every trim a GAR meets at
+# n = 25, the ends of the row range, special columns, both column widths
+# (d even and aligned: two columns a thread up to 32 rows, whose bf16 and
+# f16 forms key both columns in one word), operands one element off
+# alignment, repeat calls
+
+
+def _selection_columns(g):
+    """g with an all-NaN column (0), +-0 only (1), +inf only (2), -inf
+    only (3), +inf and -inf (4), +-3e38 whose sums overflow (5, 6, 7: in
+    f16 these are +-inf) and a NaN in every other row (8)."""
+    n = g.shape[0]
+    rows = torch.arange(n, device=g.device)
+    g[:, 0] = torch.nan
+    g[:, 1] = torch.where(rows % 3 == 0, -0.0, 0.0)
+    g[:, 2] = torch.inf
+    g[:, 3] = -torch.inf
+    g[:, 4] = torch.where(rows % 2 == 0, torch.inf, -torch.inf)
+    g[:, 5] = 3e38
+    g[:, 6] = -3e38
+    g[:, 7] = torch.where(rows % 2 == 0, 3e38, -3e38)
+    g[rows % 2 == 1, 8] = torch.nan
+    return g
+
+
+def _trims(n, dtype):
+    """Every f a GAR meets at n = 25 in f32 (Trimmed mean and Phocas take
+    f = 1..12; f = 0 is the full sort), f = 5 and 11 in the half types,
+    and 0, (n - 1) // 4 and (n - 1) // 2 elsewhere."""
+    if n == 25:
+        return tuple(range(13)) if dtype == torch.float32 else (5, 11)
+    return tuple(sorted({0, (n - 1) // 4, (n - 1) // 2}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+@pytest.mark.parametrize("n", (1, 2, 25, 63, 64))
+def test_keyed_lower_median_and_trimmed_mean_every_form(cuda, n, dtype):
+    fs = _trims(n, dtype)
+    _build_all([("lower_median", n, dtype)]
+               + [("trimmed_mean", n, dtype, None, f) for f in fs])
+    for d in (20_012, 20_013):
+        g = _selection_columns(_mat(n, d, seed=67 * n + d, nan_rows=(n - 1,),
+                                    dup=True, inf=True)).to(dtype).to(cuda)
+        for offset in (0, 1):
+            gs = _shifted(g, offset)
+            assert sort_kernels.column_width(n, d, gs.element_size(),
+                                             gs.data_ptr()) == (
+                2 if n <= 32 and d % 2 == 0 and offset == 0 else 1)
+            got = _launched(sort_kernels.lower_median,
+                            lambda: sort_kernels.lower_median(gs), dtype)
+            _assert_exact(got, sort_kernels.lower_median_plain(gs))
+            assert torch.equal(_bits(got), _bits(sort_kernels.lower_median(gs)))
+            for f in fs:
+                got = _launched(sort_kernels.trimmed_mean,
+                                lambda: sort_kernels.trimmed_mean(gs, f), dtype)
+                _assert_exact(got, sort_kernels.trimmed_mean_plain(gs, f))
+                assert torch.equal(_bits(got),
+                                   _bits(sort_kernels.trimmed_mean(gs, f)))
+                assert bool(got[0].isnan())
+                if n - 2 * f >= 2:  # sums that overflow
+                    assert bool(got[5].isposinf()) and bool(got[6].isneginf())
+
+
+@pytest.mark.gpu
+def test_keyed_lower_median_and_trimmed_mean_at_the_headline_shape(cuda):
+    """[25, 1,310,922] in each dtype, as allocated (two columns a thread)
+    and one element off alignment (one), f = 5 and 11."""
+    n, d = 25, 1_310_922
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    g = torch.randn((n, d), generator=gen, device=cuda)
+    g[n - 1, :100] = torch.nan
+    g[1, 7] = torch.inf
+    for dtype in SORT_DTYPES:
+        x = g.to(dtype)
+        for xs in (x, _shifted(x, 1)):
+            _assert_exact(sort_kernels.lower_median(xs),
+                          sort_kernels.lower_median_plain(xs))
+            for f in (5, 11):
+                _assert_exact(sort_kernels.trimmed_mean(xs, f),
+                              sort_kernels.trimmed_mean_plain(xs, f))

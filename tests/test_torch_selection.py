@@ -1,15 +1,28 @@
 """The keyed selection network of `csrc/batcher.cuh` and the window walk of
 `csrc/gar_kernels.cu::median_closest_mean`, modelled in torch on the CPU.
 
-The CUDA kernels of `closest_mean` and `selected_median_mean` run on a
-card only (`tests/test_torch_gpu.py`); what they compute is held here:
+The CUDA kernels of `lower_median`, `trimmed_mean`, `closest_mean` and
+`selected_median_mean` run on a card only (`tests/test_torch_gpu.py`);
+what they compute is held here:
 
 * (a) `sort_kernels.selection_pairs(n, rank)`, the Batcher schedule
   pruned to one output rank, applied to order keys column by column
   (`select_keys`), gives the value of that rank of `sort_nan_last`, for
   every n in 1..64 and every rank, on values with NaN, +-inf, ties and
-  +-0 (compared as equal: keys order -0 below +0);
-* (b) the key maps (`value_keys`, `deviation_keys`) order like
+  +-0 (compared as equal: keys order -0 below +0); so does the schedule
+  pruned to a window of ranks, for every window [f, n - f) and others;
+  the operation counts of the kernels' schedules are pinned;
+* (a') models of the `lower_median` and `trimmed_mean` kernels (keys,
+  the f32 ones or the 16-bit ones of the half forms at two columns a
+  thread, the pruned network, the decode, the rank-order sum rounded to
+  the dtype, the divide) equal the JAX package's `pallas_sort.lower_median`
+  and `pallas_sort.trimmed_mean` in interpret mode, in f32, bf16 and
+  f16: NaN positions exactly, values with +-0 equal, bit for bit in f32
+  and for the median; the half trimmed means within the 2 ulps of XLA's
+  fused f16 chains (`tests/test_torch_dtype.py`), and bit for bit
+  against `sort_kernels.trimmed_mean_plain`;
+* (b) the key maps (`value_keys`, `deviation_keys`, and `half_keys` in
+  bf16 and f16, with negative NaNs and subnormals) order like
   `sort_nan_last` in f32, bf16 and f16;
 * (c) a model of the window walk gives the threshold of the full
   deviation sort wherever the median is finite, and flags every column
@@ -32,6 +45,7 @@ from byzantinemomentum_tpu.ops import pallas_sort
 from byzantinemomentum_tpu_torch.ops import gar_kernels, sort_kernels
 
 D = 512
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NONE_KEY = 0xFFFFFFFF + 1  # past every key: the end of a run
 
 
@@ -84,10 +98,15 @@ def test_selection_pairs_select_every_rank(n):
 @pytest.mark.parametrize("n,rank,operations", ((25, 13, 204), (25, None, 280),
                                                (13, 6, 66), (13, None, 96),
                                                (64, 56, 715), (64, None, 1086),
-                                               (1, 0, 0)))
+                                               (1, 0, 0), (25, 12, 202),
+                                               (25, range(11, 14), 212),
+                                               (25, range(5, 20), 258),
+                                               (25, range(0, 25), 280)))
 def test_selection_operations(n, rank, operations):
     """Min/max instructions: two a two-sided comparator, one a one-sided
-    one (rank 13 of 25 keeps 90 two-sided and 24 one-sided)."""
+    one (rank 13 of 25 keeps 90 two-sided and 24 one-sided). At n = 25,
+    `lower_median` reads rank 12, `trimmed_mean` the window [11, 14) at
+    f = 11 and [5, 20) at f = 5; [0, n) is the full sort."""
     assert sort_kernels.selection_operations(n, rank) == operations
     if (n, rank) == (25, 13):
         sides = [side for _, _, side in sort_kernels.selection_pairs(n, rank)]
@@ -96,15 +115,141 @@ def test_selection_operations(n, rank, operations):
 
 
 def test_selection_pairs_refuse_a_rank_outside_the_rows():
-    for rank in (-1, 5):
+    for rank in (-1, 5, range(2, 2), range(-1, 3), range(3, 6), range(0, 4, 2)):
         with pytest.raises(ValueError, match="rank"):
             sort_kernels.selection_pairs(5, rank)
 
 
+def _windows(n):
+    """[f, n - f) for every f with 2f < n, the first and last half, the
+    first and last rank and a pair of ranks."""
+    wins = {range(f, n - f) for f in range((n + 1) // 2)}
+    wins |= {range(0, (n + 1) // 2), range(n // 2, n), range(0, 1),
+             range(n - 1, n), range(n // 3, min(n // 3 + 2, n))}
+    return sorted(wins, key=lambda w: (w.start, w.stop))
+
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_selection_pairs_select_every_window(n):
+    g = _values(n, 64, seed=300 + n)
+    keys = list(sort_kernels.value_keys(g))
+    want = sort_kernels.sort_nan_last(g)
+    full = sort_kernels.select_keys(keys)
+    pairs = sort_kernels.batcher_pairs(n)
+    for window in _windows(n):
+        got = sort_kernels.select_keys(keys, window)
+        for rank in window:
+            _same(sort_kernels.key_values(got[rank]), want[rank])
+            assert torch.equal(got[rank], full[rank])
+        # A subsequence of Batcher's schedule, which holds the one-rank ones
+        kept = [(i, j) for i, j, _ in sort_kernels.selection_pairs(n, window)]
+        it = iter(pairs)
+        assert all(pair in it for pair in kept)
+    assert sort_kernels.selection_pairs(n, range(n)) == sort_kernels.selection_pairs(n)
+
+
+# --------------------------------------------------------------------------- #
+# (a') the lower_median and trimmed_mean kernels
+
+HALF_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+              torch.float16: jnp.float16}
+
+
+def _key_maps(dtype):
+    """(keys, decode) of the kernels' forms in `dtype`: the f32 value keys
+    (every f32 form, the half forms at one column a thread) and, for bf16
+    and f16, the 16-bit keys of two columns a thread."""
+    maps = [(sort_kernels.value_keys,
+             lambda keys: sort_kernels.key_values(keys).to(dtype))]
+    if dtype != torch.float32:
+        maps.append((sort_kernels.half_keys,
+                     lambda keys: sort_kernels.half_key_values(keys, dtype)))
+    return maps
+
+
+def _lower_median_model(x, keys, decode):
+    """The kernel a column: keys, the network pruned to rank (n - 1) // 2,
+    the decode."""
+    mid = (x.shape[0] - 1) // 2
+    return decode(sort_kernels.select_keys(list(keys(x)), mid)[mid])
+
+
+def _trimmed_sum_model(x, f, keys, decode):
+    """The kernel's sum a column: keys, the network pruned to the ranks
+    [f, n - f), their decode summed in rank order from -0 (each add
+    rounded to the dtype). The kernel then divides it by n - 2f."""
+    n = x.shape[0]
+    srt = sort_kernels.select_keys(list(keys(x)), range(f, n - f))
+    acc = torch.full_like(x[0], -0.0)
+    for rank in range(f, n - f):
+        acc = acc + decode(srt[rank])
+    return acc
+
+
+def _jax(x, fn, *args):
+    """`fn` of the JAX package on the values of the torch tensor `x`, as a
+    torch tensor of x's dtype."""
+    xj = jnp.asarray(x.float().numpy()).astype(JAX_DTYPES[x.dtype])
+    out = fn(xj, *args, interpret=True)
+    return torch.from_numpy(np.array(out.astype(jnp.float32))).to(x.dtype)
+
+
+def _within_ulps(got, want):
+    """Within 2 ulps of a half dtype; NaN and +-inf positions exact."""
+    rtol = HALF_TOL[got.dtype]
+    got, want = got.float(), want.float()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    finite = torch.isfinite(want)
+    torch.testing.assert_close(got[finite], want[finite], rtol=rtol, atol=0)
+
+
+KERNEL_NS = (1, 2, 9, 25, 64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", KERNEL_NS)
+def test_lower_median_model_matches_pallas(n, dtype):
+    x = _values(n, D, seed=400 + n).to(dtype)
+    want = _jax(x, pallas_sort.lower_median)
+    for keys, decode in _key_maps(dtype):
+        got = _lower_median_model(x, keys, decode)
+        _same(got, want)
+        _same(got, sort_kernels.lower_median_plain(x))
+
+
+def _trims(n):
+    """The trims tested at n rows (each is one run of the JAX kernel in
+    interpret mode, seconds at n = 64)."""
+    if n == 25:
+        return (0, 5, 11, 12)
+    return sorted({0, (n - 1) // 4, (n - 1) // 2} if n < 64 else {(n - 1) // 2})
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", KERNEL_NS)
+def test_trimmed_mean_model_matches_pallas(n, dtype):
+    """In f32, XLA on the CPU divides by the constant n - 2f as a product
+    with its f32 reciprocal, which may round the quotient one ulp away
+    from the division that the kernel and the plain version make: the
+    model's sum times that reciprocal is JAX's bit for bit."""
+    x = _values(n, D, seed=500 + n).to(dtype)
+    for f in _trims(n):
+        want = _jax(x, pallas_sort.trimmed_mean, f)
+        count = torch.tensor(n - 2 * f, dtype=dtype)
+        for keys, decode in _key_maps(dtype):
+            total = _trimmed_sum_model(x, f, keys, decode)
+            got = total / count
+            if dtype == torch.float32:
+                _same(total * (torch.tensor(1.0) / count), want)
+            else:
+                _within_ulps(got, want)
+            _same(got, sort_kernels.trimmed_mean_plain(x, f))
+
+
 # --------------------------------------------------------------------------- #
 # (b) the key maps
-
-DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -133,6 +278,29 @@ def test_keys_order_like_sort_nan_last(dtype, kind):
         assert bool((keys[~finite] == sort_kernels.NAN_KEY).all())
     assert bool((keys[~finite] > sort_kernels.INF_KEY).all())
     assert bool((keys[finite] <= sort_kernels.INF_KEY + (kind == "values") * 2**31).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_half_keys_order_like_sort_nan_last(dtype):
+    """The 16-bit keys of the half forms at two columns a thread, on
+    values with negative NaNs with payloads and subnormals besides."""
+    x = _values(25, D, seed=9).to(dtype)
+    rng = np.random.default_rng(9)
+    bits = x.view(torch.int16)
+    bits[torch.from_numpy(rng.random(tuple(x.shape)) < 0.05)] = -63  # 0xffc1
+    sub = torch.from_numpy(rng.random(tuple(x.shape)) < 0.05)
+    bits[sub] = torch.from_numpy(
+        rng.integers(1, 0x3FF, size=int(sub.sum())) - 32768 * rng.integers(0, 2, size=int(sub.sum()))
+    ).to(torch.int16)
+    keys = sort_kernels.half_keys(x)
+    assert bool((keys >= 0).all()) and bool((keys <= 0xFFFF).all())
+    order = torch.sort(keys, dim=0, stable=True).values
+    _same(sort_kernels.half_key_values(order, dtype), sort_kernels.sort_nan_last(x))
+    finite = ~torch.isnan(x)
+    back = sort_kernels.half_key_values(keys, dtype)
+    assert torch.equal(back[finite].view(torch.int16), x[finite].view(torch.int16))
+    assert bool(torch.isnan(back[~finite]).all())
+    assert bool((keys[~finite] > keys[torch.isposinf(x)].max()).all())
 
 
 def test_value_keys_order_signed_zero_below_positive_zero():
@@ -249,7 +417,23 @@ def test_stage2_model_matches_jax_closest_mean_values(rounds):
         (32, 10, 2, (0, 0), 2), (33, 10, 2, (0, 0), 1), (64, 10, 4, (0, 0), 1),
         (1, 2, 4, (0, 0), 2)))
 def test_closest_mean_width(n, d, size, addresses, width):
-    assert sort_kernels.closest_mean_width(n, d, size, *addresses) == width
+    """closest_mean's operands g and c (the helper it shares with
+    lower_median and trimmed_mean)."""
+    assert sort_kernels.column_width(n, d, size, *addresses) == width
+
+
+@pytest.mark.parametrize("size", (2, 4))
+def test_column_width_every_case(size):
+    """One operand (lower_median, trimmed_mean): two columns a thread
+    exactly where n <= 32, d is even and the address is aligned to two
+    elements; for every n in 1..64, d mod 2 and an address 0..3 elements
+    past an aligned one."""
+    for n in range(1, 65):
+        for d in (1_310_922, 1_310_921, 2, 1):
+            for offset in range(4):
+                address = 4096 + offset * size
+                want = 2 if n <= 32 and d % 2 == 0 and offset % 2 == 0 else 1
+                assert sort_kernels.column_width(n, d, size, address) == want
 
 
 @pytest.mark.parametrize("rounds,d,address,width", (
@@ -258,3 +442,15 @@ def test_closest_mean_width(n, d, size, addresses, width):
         (33, 100, 0, 1), (62, 100, 0, 1), (1, 2, 0, 2)))
 def test_median_mean_width(rounds, d, address, width):
     assert gar_kernels.median_mean_width(rounds, d, address) == width
+
+
+@pytest.mark.parametrize("kernel,kwargs", (
+        ("lower_median", {"f": 3}), ("colsort", {"f": 0}),
+        ("closest_mean", {"m": 3, "f": 1}), ("trimmed_mean", {}),
+        ("trimmed_mean", {"m": 3, "f": 1}), ("trimmed_mean", {"f": 13}),
+        ("trimmed_mean", {"f": -1}), ("lower_median", {"m": 3})))
+def test_build_takes_m_and_f_only_for_their_kernels(kernel, kwargs):
+    """A library is built for m (closest_mean) or f (trimmed_mean) and no
+    other; checked before nvcc is looked for, so this runs on any host."""
+    with pytest.raises(ValueError, match="f = |m = "):
+        sort_kernels.build(kernel, 25, torch.float32, **kwargs)
