@@ -1,36 +1,41 @@
-// The NaN-last sorting networks and the closest-mean selection over a
+// The NaN-last sorting network and the closest-mean selection over a
 // register array, shared by gar_kernels.cu and sort_kernels.cu (the
 // port's counterpart of `byzantinemomentum_tpu/ops/pallas_sort.py`'s
 // `_batcher_pairs`, `sort_values` and `closest_mean_values`).
 //
 // Register arrays need compile-time indices, so every function here is a
-// template on the array length and every loop is unrolled: the float
-// network by template recursion, the keyed network by a fold over a
-// schedule computed at compile time, the selection by `#pragma unroll`
-// over a constant trip count.
+// template on the array length and every loop is unrolled: the network by
+// a fold over a schedule computed at compile time, the selection by
+// `#pragma unroll` over a constant trip count.
 //
-// Two networks. `batcher_sort` (float values, NaN tested in every
-// compare-exchange: two compares, an `isnan` pair and two selects) serves
-// colsort alone. The keyed network serves lower_median, trimmed_mean,
-// closest_mean and selected_median_mean: each value becomes a uint32 key
-// whose unsigned order is the NaN-last float order (`value_key`,
-// `deviation_key`), so a compare-exchange is one `umin` and one `umax`;
-// and the schedule is Batcher's pruned to the comparators on which the
-// wanted output ranks depend (`selection_schedule`, for one rank or a
-// window of consecutive ranks): at n = 25, rank 12 keeps 202 min/max
-// instructions, rank 13 204, the ranks [11, 14) 212 and [5, 20) 258,
-// against 280 for the whole keyed network and about 840 for the float one.
-// The kernels are bound by bytes on paper but were bound by instruction
-// issue in practice (their half forms, half the bytes, took the same
-// time), which is what the keys and the pruning cut. The half forms of
-// lower_median and trimmed_mean go one step further: two columns' 16-bit
-// keys in one word (`PairKey`), one packed min/max a comparator for both.
+// One network, on keys. Each value becomes a uint32 key whose unsigned
+// order is the NaN-last float order (`value_key`, `deviation_key`), so a
+// compare-exchange is one `umin` and one `umax`, where the JAX package's
+// float network tests NaN in every one (two compares, an `isnan` pair and
+// two selects: about 840 instructions a column at n = 25). The schedule
+// is Batcher's, pruned to the comparators on which the wanted output
+// ranks depend (`selection_schedule`, for one rank or a window of
+// consecutive ranks): at n = 25, rank 12 keeps 202 min/max instructions,
+// rank 13 204, the ranks [11, 14) 212 and [5, 20) 258, and the whole
+// network, colsort's full sort, 280. The kernels are bound by bytes on
+// paper but were bound by instruction issue in practice (their half
+// forms, half the bytes, took the same time on the float network), which
+// is what the keys and the pruning cut. The half forms of lower_median,
+// trimmed_mean and colsort go one step further: two columns' 16-bit keys
+// in one word (`PairKey`), one packed min/max a comparator for both.
 //
-// Signed zero: keys order -0 below +0, where the float network leaves
-// equal values as they come. A rank read off the keyed network may
-// therefore be -0 where the float network gives +0, or the reverse; the
-// value is equal. Deviations hold no -0 (|x - c| >= +0), so a deviation
+// Signed zero: keys order -0 below +0, where the JAX package's float
+// network leaves equal values as they come. A rank read off the keyed
+// network may therefore be -0 where the float network gives +0, or the
+// reverse; the value is equal. A column sorted on keys holds every -0
+// before every +0. Deviations hold no -0 (|x - c| >= +0), so a deviation
 // key equals another exactly when the two floats are equal.
+//
+// NaN: `value_key` maps every NaN to one key above +inf's, and `pair_key`
+// clears a half NaN's sign (its key then lies above +inf's), so a NaN may
+// decode to a NaN of another sign or payload than the one loaded; every
+// NaN still ranks after every other value. Every other key decodes to the
+// value's bits.
 //
 // Element types. The JAX sorting kernels take f32, bf16 and f16 and do
 // their arithmetic in the storage type. Here every value is converted to
@@ -97,65 +102,6 @@ struct Elem<__half> {
   }
   static constexpr uint32_t kInfBits = 0x7c00u;
 };
-
-// NaN-last compare-exchange (`pallas_sort.sort_values`):
-// swap = (b < a) | (isnan(a) & !isnan(b))
-__device__ __forceinline__ void cmp_swap(float& a, float& b) {
-  const bool swap = (b < a) || (isnan(a) && !isnan(b));
-  const float lo = swap ? b : a;
-  const float hi = swap ? a : b;
-  a = lo;
-  b = hi;
-}
-
-// Batcher odd-even mergesort, the exact schedule of
-// `pallas_sort._batcher_pairs(R)`:
-//   for p = 1, 2, 4, ... < R:
-//     for k = p, p/2, ..., 1:
-//       for j = k % p; j < R - k; j += 2k:
-//         for i = 0; i < min(k, R - j - k); ++i:
-//           if (i + j) / 2p == (i + j + k) / 2p: cmp_swap(v[i + j], v[i + j + k])
-// Each loop is a compile-time recursion, so every index is a constant and
-// `v` stays in registers (`#pragma unroll` over the same nest leaves some
-// R partly rolled, which puts `v` in local memory)
-template <int R, int P, int K, int J, int I>
-__device__ __forceinline__ void batcher_i(float (&v)[R]) {
-  if constexpr (I < K && I < R - J - K) {
-    if constexpr ((I + J) / (2 * P) == (I + J + K) / (2 * P)) {
-      cmp_swap(v[I + J], v[I + J + K]);
-    }
-    batcher_i<R, P, K, J, I + 1>(v);
-  }
-}
-
-template <int R, int P, int K, int J>
-__device__ __forceinline__ void batcher_j(float (&v)[R]) {
-  if constexpr (J < R - K) {
-    batcher_i<R, P, K, J, 0>(v);
-    batcher_j<R, P, K, J + 2 * K>(v);
-  }
-}
-
-template <int R, int P, int K>
-__device__ __forceinline__ void batcher_k(float (&v)[R]) {
-  if constexpr (K >= 1) {
-    batcher_j<R, P, K, K % P>(v);
-    batcher_k<R, P, K / 2>(v);
-  }
-}
-
-template <int R, int P>
-__device__ __forceinline__ void batcher_p(float (&v)[R]) {
-  if constexpr (P < R) {
-    batcher_k<R, P, P>(v);
-    batcher_p<R, 2 * P>(v);
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void batcher_sort(float (&v)[R]) {
-  batcher_p<R, 1>(v);
-}
 
 // ---------------------------------------------------------------------------
 // The keyed selection network

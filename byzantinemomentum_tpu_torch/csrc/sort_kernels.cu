@@ -38,7 +38,9 @@
 // with `closest_mean_values`), the mean of the m values of each column
 // closest to c[j] (`bmt::closest_mean_keyed`).
 // colsort: replaces `pallas_sort.py::colsort` (`_colsort_kernel`), every
-// column sorted, NaN last, on the float network (`bmt::batcher_sort`).
+// column sorted, NaN last, on the whole keyed network
+// (`bmt::key_select<N, -1>`: every comparator two-sided, 280 min/max at
+// n = 25).
 //   Bound: bytes. lower_median, trimmed_mean and closest_mean read g once
 //   and write one (d,) row (closest_mean also reads c): 136.3 MB
 //   (141.6 MB) at f32[25, 1,310,922], half that in bf16 or f16. colsort
@@ -50,18 +52,26 @@
 //   thread owns V adjacent columns: it issues all n loads of its columns
 //   before the first use (consecutive threads read consecutive addresses,
 //   so each row's loads are coalesced and n of them are in flight),
-//   selects in registers and writes V T (colsort: n rows, each row's
-//   stores coalesced). V = 2 (one 8-byte f32 or 4-byte half load a row)
-//   where d and the addresses allow it and n <= kPairRows, else V = 1
-//   (`ops/sort_kernels.py::column_width`); colsort keeps V = 1.
-//   The three selecting kernels were bound by instruction issue, not
-//   bytes, on the NaN-tested float network: their half forms, half the
-//   bytes, took the time of the f32 forms (about 840 instructions a column
-//   at n = 25, six a compare-exchange). They now key every value once
-//   (`bmt::value_key`: no arithmetic touches a value, so a selected rank
-//   decodes to the value itself, bit for bit) and run the keyed network
-//   pruned to what they read: lower_median to rank (n - 1) / 2 (202
-//   min/max instructions at n = 25); trimmed_mean to the window [f, n - f)
+//   selects in registers and writes V T (colsort: n rows, stored row by
+//   row, each row's stores coalesced). V = 2 (one 8-byte f32 or 4-byte
+//   half load a row) where d and the addresses (colsort's output's too)
+//   allow it and n <= kPairRows, else V = 1
+//   (`ops/sort_kernels.py::column_width`). colsort moves every value, and
+//   its network hides behind its bytes: on the card its time followed the
+//   bytes a thread moves a row, not its instructions (`PERF.md`). Its two-
+//   column form therefore moves its rows through shared memory in 16-byte
+//   chunks aligned to the rows' 32-byte sectors (`colsort_tile_kernel`),
+//   which made its half forms 5-9% faster than 4- and 8-byte loads and
+//   stores straight from each thread, and left f32 where it was.
+//   The four kernels were bound by instruction issue, not bytes, on the
+//   NaN-tested float network: their half forms, half the bytes, took the
+//   time of the f32 forms (about 840 instructions a column at n = 25, six
+//   a compare-exchange). They now key every value once (`bmt::value_key`:
+//   no arithmetic touches a value, so a rank decodes to the value itself,
+//   bit for bit, a NaN to a NaN) and run the keyed network, whole for
+//   colsort (280 min/max at n = 25), pruned to what they read for the
+//   others: lower_median to rank (n - 1) / 2 (202 min/max instructions
+//   at n = 25); trimmed_mean to the window [f, n - f)
 //   (f a template parameter: 212 at f = 11, 258 at f = 5, 280 at f = 0),
 //   whose ranks it decodes and sums in rank order, rounding each add to T,
 //   exactly as the JAX kernel and the plain version do; closest_mean
@@ -77,13 +87,19 @@
 //   key both columns of a row in one word (`bmt::PairKey`: one 4-byte
 //   load, about 7 key instructions and one `VIMNMX.U16x2` a comparator for
 //   both columns), which cut their time by a sixth to a fifth on the card
-//   (`PERF.md`). Their median is the pair's bits, decoded, stored as
-//   they are. A thread owning two columns was no slower than one in every
-//   form measured, and faster in the packed half forms.
+//   (`PERF.md`); so does colsort. The median, and each rank colsort
+//   stores, is the pair's bits, decoded, stored as they are. A thread owning two columns was no slower than one
+//   in every form measured, and faster in the packed half forms.
+//   colsort's output is every value, so its keys' two divergences from the
+//   float network show in it: a column holding -0 and +0 comes back with
+//   every -0 first, and a NaN comes back as a NaN of another sign or
+//   payload (`batcher.cuh`). Values and NaN positions are exact.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -318,18 +334,157 @@ closest_mean_kernel(const T* __restrict__ g, const T* __restrict__ c,
   }
 }
 
+// colsort, one column a thread: every rank stored row by row (each row's
+// stores coalesced across the warp)
 template <int N>
 __global__ void __launch_bounds__(kSortThreads)
 colsort_kernel(const T* __restrict__ g, T* __restrict__ out, long long d) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
-    float v[N];
+    float x[N][1];
+    load_columns<N, 1>(g, d, j, x);
+    uint32_t k[N];
+    column_keys<N, 1>(x, 0, k);
+    bmt::key_select<N>(k);
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = E::load(g[i * d + j]);
-    bmt::batcher_sort<N>(v);
+    for (int i = 0; i < N; ++i) out[i * d + j] = E::store(bmt::key_value(k[i]));
+  }
+}
+
+// colsort, two columns a thread, through shared memory: a block sorts a
+// tile of 2 * kTileThreads columns. Each row of the tile comes in and
+// goes out as 16-byte chunks that start at the row's first 32-byte
+// sector, shared out over the block (a warp moves 512 contiguous bytes an
+// instruction, and no sector is cut); a thread takes its two columns of
+// every row from shared memory, sorts them on the keyed network (the
+// half forms as one pair key) and puts them back in the output's layout. On the way in a
+// chunk is cut to the operand's bytes (the first row's first chunks, the
+// last row's last); on the way out the chunks at a tile's two ends are
+// written word by word, the words of the tile only.
+constexpr int kTileThreads = 128;
+
+// Asynchronous copies to shared memory: 16 bytes of which the first
+// `bytes` are read (the rest zero-filled), or one 4-byte word
+__device__ __forceinline__ void stage_chunk(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_word(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Byte offset of `row` within its 32-byte sector
+__device__ __forceinline__ int sector_offset(const T* row) {
+  return (int)(reinterpret_cast<uintptr_t>(row) & 31u);
+}
+
+template <int N>
+__global__ void __launch_bounds__(kTileThreads)
+colsort_tile_kernel(const T* __restrict__ g, T* __restrict__ out,
+                    long long d) {
+  constexpr int kCols = 2 * kTileThreads;
+  // A row's chunks: its bytes and up to 31 before them
+  constexpr int kChunks = kCols * (int)sizeof(T) / 16 + 2;
+  __shared__ uint4 stage[N][kChunks];
+  const uintptr_t g_lo = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t g_hi = reinterpret_cast<uintptr_t>(g + N * d);
+  const long long tiles = (d + kCols - 1) / kCols;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long j0 = tile * kCols;
+    const int bytes = (int)min((long long)kCols, d - j0) * (int)sizeof(T);
+    for (int c = threadIdx.x; c < N * kChunks; c += kTileThreads) {
+      const int i = c / kChunks, k = c % kChunks;
+      const uintptr_t first = reinterpret_cast<uintptr_t>(g + i * d + j0);
+      const uintptr_t at = (first & ~(uintptr_t)31) + 16 * k;
+      if (at >= first + bytes) continue;
+      if (at >= g_lo) {
+        stage_chunk(&stage[i][k], reinterpret_cast<const void*>(at),
+                    (int)min((uintptr_t)16, g_hi - at));
+      } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) out[i * d + j] = E::store(v[i]);
+        for (int w = 0; w < 16; w += 4) {
+          if (at + w >= g_lo) {
+            stage_word(reinterpret_cast<char*>(&stage[i][k]) + w,
+                       reinterpret_cast<const void*>(at + w));
+          }
+        }
+      }
+    }
+    stage_wait();
+    __syncthreads();
+    // This thread's two columns of row i lie at byte `in_at(i)` of the
+    // row's chunks, and go out at `out_at(i)`
+    auto in_at = [&](int i) {
+      return reinterpret_cast<char*>(stage[i]) + sector_offset(g + i * d + j0) +
+             2 * sizeof(T) * threadIdx.x;
+    };
+    auto out_at = [&](int i) {
+      return reinterpret_cast<char*>(stage[i]) +
+             sector_offset(out + i * d + j0) + 2 * sizeof(T) * threadIdx.x;
+    };
+    if constexpr (sizeof(T) == 4) {
+      uint32_t k[2][N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const uint2 w = *reinterpret_cast<const uint2*>(in_at(i));
+        k[0][i] = bmt::value_key(__uint_as_float(w.x));
+        k[1][i] = bmt::value_key(__uint_as_float(w.y));
+      }
+      bmt::key_select<N>(k[0]);
+      bmt::key_select<N>(k[1]);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        *reinterpret_cast<uint2*>(out_at(i)) =
+            make_uint2(__float_as_uint(bmt::key_value(k[0][i])),
+                       __float_as_uint(bmt::key_value(k[1][i])));
+      }
+    } else {
+      bmt::PairKey k[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        k[i] = bmt::pair_key<T>(*reinterpret_cast<const uint32_t*>(in_at(i)));
+      }
+      bmt::key_select<N>(k);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        *reinterpret_cast<uint32_t*>(out_at(i)) = bmt::pair_bits(k[i]);
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < N * kChunks; c += kTileThreads) {
+      const int i = c / kChunks, k = c % kChunks;
+      const uintptr_t first = reinterpret_cast<uintptr_t>(out + i * d + j0);
+      const uintptr_t at = (first & ~(uintptr_t)31) + 16 * k;
+      const uintptr_t end = first + bytes;
+      if (at >= end) continue;
+      const uint4 v = stage[i][k];
+      if (at >= first && at + 16 <= end) {
+        *reinterpret_cast<uint4*>(at) = v;
+      } else {
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (at + 4 * q >= first && at + 4 * q < end) {
+            *reinterpret_cast<uint32_t*>(at + 4 * q) = w[q];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the chunks are refilled for the next tile
   }
 }
 
@@ -408,11 +563,21 @@ int bmt_closest_mean(const void* g, const void* c, void* out, long long d,
   });
 }
 #else
-// g T[BMT_N, d] -> out T[BMT_N, d]
-int bmt_colsort(const void* g, void* out, long long d, void* stream) {
-  colsort_kernel<BMT_N><<<grid_for(d), kSortThreads, 0,
-                          (cudaStream_t)stream>>>((const T*)g, (T*)out, d);
-  return (int)cudaGetLastError();
+// g T[BMT_N, d] -> out T[BMT_N, d], `width` columns a thread (out's
+// address aligned as g's)
+int bmt_colsort(const void* g, void* out, long long d, int width,
+                void* stream) {
+  return launch_width(width, d, [&](auto v, unsigned grid) {
+    if constexpr (decltype(v)::value == 1) {
+      colsort_kernel<BMT_N><<<grid, kSortThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)g, (T*)out, d);
+    } else {
+      const long long tiles = (d + 2 * kTileThreads - 1) / (2 * kTileThreads);
+      colsort_tile_kernel<BMT_N>
+          <<<(unsigned)(tiles < 65535LL * 32 ? tiles : 65535LL * 32),
+             kTileThreads, 0, (cudaStream_t)stream>>>((const T*)g, (T*)out, d);
+    }
+  });
 }
 #endif
 

@@ -2,18 +2,18 @@
 plain PyTorch versions — the port's counterpart of
 `byzantinemomentum_tpu/ops/pallas_sort.py` (`lower_median`,
 `trimmed_mean`, `closest_mean`, `colsort`, and the Batcher schedule
-`_batcher_pairs` / `sort_values` that the CUDA kernels unroll), with the
-keyed selection network of `csrc/batcher.cuh` modelled step for step
-(`selection_pairs`, `select_keys`, `value_keys`, `deviation_keys`).
+`_batcher_pairs`), with the keyed selection network of `csrc/batcher.cuh`
+that the CUDA kernels unroll modelled step for step (`selection_pairs`,
+`select_keys`, `value_keys`, `half_keys`, `deviation_keys`).
 
 Kernels live in `csrc/sort_kernels.cu` (CUDA C++ for `sm_90a`), built and
 bound as `ops/_cuda.py` describes: one library per (kernel, row count n,
 element type) that a run meets, since each sorting network is unrolled
 for its n; for `closest_mean` per m too, since its keyed network is
 pruned to rank m - 1, and for `trimmed_mean` per f, since its keyed
-network is pruned to the ranks [f, n - f) (`selection_pairs`). They
-launch on `torch.cuda.current_stream()`, with two columns a thread where
-the operand allows it (`column_width`).
+network is pruned to the ranks [f, n - f) (`selection_pairs`); `colsort`
+runs the whole network. They launch on `torch.cuda.current_stream()`,
+with two columns a thread where the operands allow it (`column_width`).
 
 Dtypes: f32, bf16 and f16, the JAX kernels' (`pallas_sort.supported`).
 Arithmetic is the storage type's, as in the JAX kernels: every add,
@@ -49,7 +49,7 @@ __all__ = ["MAX_ROWS", "KERNELS", "DTYPES", "supported", "build",
            "select_keys", "value_keys", "key_values", "deviation_keys",
            "half_keys", "half_key_values",
            "column_width",
-           "sort_values", "sort_nan_last", "lower_median",
+           "sort_nan_last", "lower_median",
            "lower_median_plain", "trimmed_mean", "trimmed_mean_plain",
            "closest_mean", "closest_mean_plain", "colsort", "colsort_plain",
            "reset_launches"]
@@ -124,7 +124,7 @@ def _entry(kernel, n, dtype, m=None, f=None):
     entry.argtypes = {"lower_median": [ptr, ptr, i64, i32, ptr],
                       "trimmed_mean": [ptr, ptr, i64, i32, ptr],
                       "closest_mean": [ptr, ptr, ptr, i64, i32, ptr],
-                      "colsort": [ptr, ptr, i64, ptr]}[kernel]
+                      "colsort": [ptr, ptr, i64, i32, ptr]}[kernel]
     entry.restype = i32
     return entry
 
@@ -139,17 +139,16 @@ def _launch(wrapper, g, *args, m=None, f=None):
     _cuda.launched(wrapper, g.dtype)
 
 
-# Rows up to which a thread of lower_median, trimmed_mean or closest_mean
-# may own two columns (kPairRows in csrc/sort_kernels.cu)
+# Rows up to which a thread of a sorting kernel may own two columns
+# (kPairRows in csrc/sort_kernels.cu)
 PAIR_ROWS = 32
 
 
 def column_width(n, d, element_size, *addresses):
-    """Columns a thread of `lower_median`, `trimmed_mean` or
-    `closest_mean` owns on a [n, d] operand whose inputs start at
-    `addresses`: 2 (one load of two adjacent elements a row) where
-    n <= PAIR_ROWS, d is even and every address is aligned to two
-    elements, else 1."""
+    """Columns a thread of a sorting kernel owns on a [n, d] operand whose
+    inputs (and, for `colsort`, output) start at `addresses`: 2 (two
+    adjacent elements a row, moved as one word) where n <= PAIR_ROWS, d is
+    even and every address is aligned to two elements, else 1."""
     pair = 2 * element_size
     if n <= PAIR_ROWS and d % 2 == 0 and all(a % pair == 0 for a in addresses):
         return 2
@@ -161,8 +160,8 @@ def column_width(n, d, element_size, *addresses):
 
 def batcher_pairs(n):
     """Batcher odd-even mergesort compare-exchange schedule for n rows
-    (the schedule of `pallas_sort._batcher_pairs`, which `batcher_sort` in
-    `csrc/batcher.cuh` unrolls)."""
+    (the schedule of `pallas_sort._batcher_pairs`, which
+    `selection_schedule` in `csrc/batcher.cuh` computes and prunes)."""
     pairs = []
     p = 1
     while p < n:
@@ -197,9 +196,9 @@ def selection_pairs(n, ranks=None):
     (a `range`), or every rank (None, a full sort). It is the schedule
     that `key_select` / `key_select_window` in `csrc/batcher.cuh` unroll
     for `lower_median`, `trimmed_mean` (the window [f, n - f)),
-    `closest_mean` and `selected_median_mean`. Working backwards from the
-    output wires, a comparator touching a live wire is kept and makes both
-    its wires live. Returns `(i, j, side)` triples in network order:
+    `closest_mean`, `selected_median_mean` and `colsort` (every rank).
+    Working backwards from the output wires, a comparator touching a live
+    wire is kept and makes both its wires live. Returns `(i, j, side)` triples in network order:
     `side` is "both" (min to i, max to j), "min" (only wire i is read
     later: i = min) or "max" (only j: j = max)."""
     window = _window(n, ranks)
@@ -261,11 +260,11 @@ HALF_INF_BITS = {torch.bfloat16: 0x7F80, torch.float16: 0x7C00}
 
 def half_keys(x):
     """`bmt::pair_key`, one lane per entry of a bf16 or f16 tensor, as
-    int64: the 16-bit key of the half forms of `lower_median` and
-    `trimmed_mean` at two columns a thread. Every NaN's sign is cleared
-    (a NaN is a magnitude whose sum with 0x7fff - inf's bits reaches bit
-    15), so every NaN keys above +inf; then the negative values flip all
-    16 bits, the others the sign bit. Unsigned order is the NaN-last
+    int64: the 16-bit key of the half forms of `lower_median`,
+    `trimmed_mean` and `colsort` at two columns a thread. Every NaN's sign
+    is cleared (a NaN is a magnitude whose sum with 0x7fff - inf's bits
+    reaches bit 15), so every NaN keys above +inf; then the negative values
+    flip all 16 bits, the others the sign bit. Unsigned order is the NaN-last
     order, -0 one key below +0."""
     bits = x.view(torch.int16).to(torch.int64) & 0xFFFF
     nan = ((bits & 0x7FFF) + 0x7FFF - HALF_INF_BITS[x.dtype]) & 0x8000
@@ -284,19 +283,6 @@ def deviation_keys(dev):
     """`bmt::deviation_key` of non-negative or NaN deviations: their f32
     bits as int64 (0 <= finite < INF_KEY < every NaN)."""
     return dev.float().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-
-
-def sort_values(rows):
-    """Run the Batcher network over a list of equal-shape rows, NaN last;
-    returns the sorted list (the network of the CUDA kernels, step for
-    step)."""
-    rows = list(rows)
-    for i, j in batcher_pairs(len(rows)):
-        a, b = rows[i], rows[j]
-        swap = (b < a) | (torch.isnan(a) & ~torch.isnan(b))
-        rows[i] = torch.where(swap, b, a)
-        rows[j] = torch.where(swap, a, b)
-    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -372,12 +358,19 @@ def _output(g, rows=None):
 @_cuda.counted
 def colsort(g):
     """`colsort_plain(g)` in one read and one write of `g` (kernel on a
-    CUDA tensor, the plain version on a CPU one)."""
+    CUDA tensor, the plain version on a CPU one). Values and NaN positions
+    are the plain version's; the kernel sorts on keys, so every -0 of a
+    column comes before its +0, and a NaN may come back with another sign
+    or payload (the plain version writes `torch.nan`)."""
     if g.device.type == "cpu":
         return colsort_plain(g)
     _cuda.check_matrix("colsort", g, DTYPES)
-    out = _output(g, g.shape[0])
-    _launch(colsort, g, g.data_ptr(), out.data_ptr(), g.shape[1])
+    n, d = g.shape
+    out = _output(g, n)
+    # A fresh allocation is aligned in practice; a thread of two columns
+    # moves them as one word, so out's address is checked as g's
+    width = column_width(n, d, g.element_size(), g.data_ptr(), out.data_ptr())
+    _launch(colsort, g, g.data_ptr(), out.data_ptr(), d, width)
     return out
 
 

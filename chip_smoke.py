@@ -13,8 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    each f); prints their count, the build's seconds and each kernel's
    registers and spills, and fails on a spill; prints the SASS
    instruction counts of the redesigned kernels at the headline shapes
-   (`cuobjdump -sass`; `lower_median` and `trimmed_mean` at n = 25, f =
-   11, in each dtype).
+   (`cuobjdump -sass`; `lower_median`, `trimmed_mean` and `colsort` at
+   n = 25, f = 11, in each dtype).
 3. Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
@@ -26,9 +26,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    f16 forms of the four sorting kernels on the same cases; each GAR of
    the port on the card against the same GAR on the CPU at a small size,
    Brute and CGE at n=11, f=4. Bulyan's W, Krum's w and Brute's mask
-   from `sq_gram` must equal those from `sq_gram_plain`; `lower_median`
-   and `trimmed_mean` must equal their plain versions exactly (+-0
-   equal). `ms`,
+   from `sq_gram` must equal those from `sq_gram_plain`; `lower_median`,
+   `trimmed_mean` and `colsort` must equal their plain versions exactly
+   (+-0 equal, NaN by position), and `colsort` must put every -0 of a
+   column before its +0. `ms`,
    `plain_ms` and `library_ms` are medians of 20 CUDA-event times of one
    call on an idle stream (the host's time to issue the call lies inside
    the interval); `queued_ms` and `library_queued_ms` are per call,
@@ -38,8 +39,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    time per call of the wrapper and of the library call, and their
    one-call times before their redesign, as for `selected_median_mean`
    and the three forms of `closest_mean`, `lower_median` and
-   `trimmed_mean`; for the last two it also times the one-column form
-   (the operand one element off alignment) beside the two-column one.
+   `trimmed_mean`, and for `colsort`; for the last three it also times
+   the one-column form (the operand one element off alignment) beside the
+   two-column one, and for `colsort` `out.copy_(x)` on the same tensor,
+   the card's floor for the same bytes.
    The library calls are `torch.matmul` (1, 3, 4), `torch.sort` (5, 7),
    `torch.kthvalue` (6: the same rank on finite input; null where it
    refuses a dtype);
@@ -120,7 +123,9 @@ BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888,
                       "closest_mean_bf16": 0.1786, "closest_mean_f16": 0.1931,
                       "lower_median": 0.0939, "lower_median_bf16": 0.1002,
                       "lower_median_f16": 0.0949, "trimmed_mean": 0.1138,
-                      "trimmed_mean_bf16": 0.1168, "trimmed_mean_f16": 0.1145}
+                      "trimmed_mean_bf16": 0.1168, "trimmed_mean_f16": 0.1145,
+                      "colsort": 0.1406, "colsort_bf16": 0.1201,
+                      "colsort_f16": 0.1094}
 
 
 def log(*args):
@@ -259,8 +264,8 @@ def build():
         raise SystemExit(f"ptxas spilled registers in {', '.join(spills)}")
     for path, _ in built:
         if re.search(r"-r13\.so$|-closest_mean-n25-\w+-m14\.so$|"
-                     r"-lower_median-n25-\w+\.so$|-trimmed_mean-n25-\w+-f11\.so$",
-                     path.name):
+                     r"-(lower_median|colsort)-n25-\w+\.so$|"
+                     r"-trimmed_mean-n25-\w+-f11\.so$", path.name):
             sass_summary(path)
 
 
@@ -375,15 +380,30 @@ def kernels_vs_plain(smi):
         diag = torch.diagonal(plain)
         return TOL_RTOL * float(diag[torch.isfinite(diag)].max())
 
+    def signed_zeros_in_order(name, out):
+        """Every -0 of a column of `out` before its +0 (the keys' order)."""
+        out = out.float()
+        rank = torch.arange(out.shape[0], device=out.device)[:, None]
+        zero = out == 0
+        neg, pos = zero & torch.signbit(out), zero & ~torch.signbit(out)
+        last_neg = torch.where(neg, rank, -1).amax(dim=0)
+        first_pos = torch.where(pos, rank, out.shape[0]).amin(dim=0)
+        if not bool((last_neg < first_pos).all()):
+            raise SystemExit(f"{name}: a +0 comes before a -0 in a column")
+
     def check_sort_kernels(label, h, fs, dtypes=sort_kernels.DTYPES):
         nh = h.shape[0]
         for dtype in dtypes:
             x = h.to(dtype)
             tol = {"dtype": dtype, "atol": 0.0 if dtype != F32 else TOL_ATOL}
-            # The column sort and the median move values: exactly equal;
-            # the trimmed mean adds and divides as its plain version does
-            check("colsort", label, sort_kernels.colsort(x),
-                  sort_kernels.colsort_plain(x), atol=0.0, dtype=dtype)
+            # The column sort and the median move values: exactly equal
+            # (+-0 equal, NaN by position); the trimmed mean adds and
+            # divides as its plain version does
+            out = sort_kernels.colsort(x)
+            check("colsort", label, out, sort_kernels.colsort_plain(x),
+                  atol=0.0, dtype=dtype, rtol=0.0)
+            signed_zeros_in_order(f"colsort {label} {dtype}", out)
+            del out
             check("lower_median", label, sort_kernels.lower_median(x),
                   sort_kernels.lower_median_plain(x), atol=0.0, dtype=dtype,
                   rtol=0.0)
@@ -607,12 +627,12 @@ def kernels_vs_plain(smi):
             f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library {rec['library_ms']} "
             f"({rec['library_queued_ms']} queued)")
-        if kernel in ("lower_median", "trimmed_mean"):
+        if kernel in ("lower_median", "trimmed_mean", "colsort"):
             # The one-column form at the same shape: `column_width` takes it
             # for an operand one element past an aligned allocation
             off = torch.empty(n * d + 1, dtype=dtype, device=dev)[1:].view(n, d)
             off.copy_(g)
-            args = () if kernel == "lower_median" else (f11,)
+            args = (f11,) if kernel == "trimmed_mean" else ()
 
             def single(off=off, args=args, wrapper=getattr(sort_kernels, kernel)):
                 return wrapper(off, *args)
@@ -620,6 +640,16 @@ def kernels_vs_plain(smi):
                 f"alignment) {cuda_ms(single):.4f} ms ({queued_ms(single):.4f} "
                 f"queued), two: {rec['ms']:.4f} ({rec['queued_ms']:.4f})")
             del off, single
+        if kernel == "colsort":
+            src = g.to(dtype)
+            dst = torch.empty_like(src)
+
+            def copy(src=src, dst=dst):
+                return dst.copy_(src)
+            log(f"    {name}: the card's floor for the same bytes, out.copy_(x) "
+                f"on the same tensor: {cuda_ms(copy):.4f} ms ({queued_ms(copy):.4f} "
+                f"queued); the kernel {rec['ms']:.4f} ({rec['queued_ms']:.4f})")
+            del src, dst, copy
         if name in BEFORE_REDESIGN_MS:
             library_us = f"{host_us(library):.2f} us" if library else "none"
             log(f"    {name}: {nbytes / rec['ms'] / 1e6:.1f} GB/s achieved one "

@@ -11,8 +11,9 @@ values) and `trimmed_mean` exactly (it adds and divides as its plain
 version does, in the same order), `closest_mean` within 2 ulps of the
 dtype (rtol 2^-7 for bf16, 2^-10 for f16). `trimmed_mean` in f32 is
 exact too. +-0 compare as equal: the keyed networks of `lower_median`,
-`trimmed_mean`, `closest_mean` and `selected_median_mean` order -0 below
-+0, so a median or a zero sum may come back as the other zero. Every
+`trimmed_mean`, `closest_mean`, `selected_median_mean` and `colsort`
+order -0 below +0, so a median or a zero sum may come back as the other
+zero, and `colsort` puts every -0 of a column before its +0. Every
 launch of a kernel must add one to its wrapper's count, and to its count
 for the operand's dtype.
 """
@@ -329,14 +330,80 @@ def test_masked_rows_mean_matches_plain(cuda, n):
     assert bool(got.isposinf().any())
 
 
+def _signed_zeros_in_order(t):
+    """Assert that every -0 of a column comes before its +0; returns the
+    number of columns that hold both."""
+    t = t.float().cpu()
+    rank = torch.arange(t.shape[0])[:, None]
+    zero = t == 0
+    neg, pos = zero & torch.signbit(t), zero & ~torch.signbit(t)
+    last_neg = torch.where(neg, rank, -1).max(dim=0).values
+    first_pos = torch.where(pos, rank, t.shape[0]).min(dim=0).values
+    assert bool((last_neg < first_pos).all())
+    return int((neg.any(dim=0) & pos.any(dim=0)).sum())
+
+
+def _colsort_operand(n, d, dtype, seed):
+    """`_selection_columns` (all NaN, +-0 only, +-inf, overflowing sums)
+    over rounded values (ties, -0 and +0 in many columns), a NaN row, +inf
+    and -inf rows, and NaNs with the sign bit set (f32 0xffc00001, bf16
+    and f16 0xffc1) in column 9 and every fifth row."""
+    g = _selection_columns(_mat(n, d, seed=seed, nan_rows=(n - 1,), dup=True,
+                                inf=True)).to(dtype)
+    bits = g.view(torch.int32 if dtype == torch.float32 else torch.int16)
+    bits[:, 9] = -0x3FFFFF if dtype == torch.float32 else -63
+    bits[::5, 10:] = -0x3FFFFF if dtype == torch.float32 else -63
+    return g
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", (1, 2, 25, 64))
+@pytest.mark.parametrize("n", (1, 2, 25, 32, 33, 64))
 @pytest.mark.parametrize("dtype", SORT_DTYPES)
 def test_colsort_matches_plain(cuda, n, dtype):
-    g = _mat(n, 20_011, seed=23 * n, nan_rows=(n - 1,), dup=True, inf=True)
-    g = (g + 0.0).to(dtype).to(cuda)  # +0 only: the network and torch.sort
-    got = _launched(sort_kernels.colsort, lambda: sort_kernels.colsort(g), dtype)
-    _assert_exact(got, sort_kernels.colsort_plain(g))
+    """Both column widths: up to 32 rows, an even d and an operand aligned
+    to two elements take two columns a thread (d / 2 even and odd, the
+    operand as allocated and two elements off); an odd d or an operand
+    one element off, one. Values and NaN positions the plain version's
+    (+-0 equal), every -0 of a column before its +0, repeat launches equal
+    bit for bit, one launch a call counted in the operand's dtype."""
+    for d in (20_012, 20_014, 20_011):
+        g = _colsort_operand(n, d, dtype, seed=23 * n + d).to(cuda)
+        # The sign read off the bits: the card's f16 -> f32 conversion
+        # gives every NaN the same bits
+        assert bool((torch.isnan(g).cpu() & (_bits(g) < 0)).any())
+        for offset in (0, 1, 2):
+            gs = _shifted(g, offset)
+            assert sort_kernels.column_width(n, d, gs.element_size(), gs.data_ptr()) == (
+                2 if n <= 32 and d % 2 == 0 and offset != 1 else 1)
+            got = _launched(sort_kernels.colsort, lambda: sort_kernels.colsort(gs), dtype)
+            _assert_exact(got, sort_kernels.colsort_plain(gs))
+            both = _signed_zeros_in_order(got)
+            assert both > 0 or n == 1
+            assert bool(got[:, 0].isnan().all())
+            assert torch.equal(_bits(got), _bits(sort_kernels.colsort(gs)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (1, 2))
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_colsort_checks_the_output_address(cuda, monkeypatch, dtype, offset):
+    """An output one element off alignment takes one column a thread,
+    though the operand would allow two (a store of two elements there
+    would fault); two elements off, two."""
+    n = 25
+    for d in (20_012, 20_014):
+        g = _colsort_operand(n, d, dtype, seed=71 + d).to(cuda)
+
+        def shifted_output(g, rows=None):
+            return torch.empty(rows * g.shape[1] + offset, dtype=g.dtype,
+                               device=g.device)[offset:].view(rows, g.shape[1])
+        monkeypatch.setattr(sort_kernels, "_output", shifted_output)
+        got = _launched(sort_kernels.colsort, lambda: sort_kernels.colsort(g), dtype)
+        torch.cuda.synchronize()
+        assert sort_kernels.column_width(n, d, g.element_size(), g.data_ptr(),
+                                         got.data_ptr()) == (2 if offset == 2 else 1)
+        _assert_exact(got, sort_kernels.colsort_plain(g))
+        _signed_zeros_in_order(got)
 
 
 @pytest.mark.gpu
@@ -695,7 +762,7 @@ def test_keyed_lower_median_and_trimmed_mean_every_form(cuda, n, dtype):
 @pytest.mark.gpu
 def test_keyed_lower_median_and_trimmed_mean_at_the_headline_shape(cuda):
     """[25, 1,310,922] in each dtype, as allocated (two columns a thread)
-    and one element off alignment (one), f = 5 and 11."""
+    and one element off alignment (one), f = 5 and 11; colsort too."""
     n, d = 25, 1_310_922
     gen = torch.Generator(device=cuda).manual_seed(13)
     g = torch.randn((n, d), generator=gen, device=cuda)
@@ -706,6 +773,7 @@ def test_keyed_lower_median_and_trimmed_mean_at_the_headline_shape(cuda):
         for xs in (x, _shifted(x, 1)):
             _assert_exact(sort_kernels.lower_median(xs),
                           sort_kernels.lower_median_plain(xs))
+            _assert_exact(sort_kernels.colsort(xs), sort_kernels.colsort_plain(xs))
             for f in (5, 11):
                 _assert_exact(sort_kernels.trimmed_mean(xs, f),
                               sort_kernels.trimmed_mean_plain(xs, f))

@@ -1,9 +1,9 @@
 """The keyed selection network of `csrc/batcher.cuh` and the window walk of
 `csrc/gar_kernels.cu::median_closest_mean`, modelled in torch on the CPU.
 
-The CUDA kernels of `lower_median`, `trimmed_mean`, `closest_mean` and
-`selected_median_mean` run on a card only (`tests/test_torch_gpu.py`);
-what they compute is held here:
+The CUDA kernels of `lower_median`, `trimmed_mean`, `closest_mean`,
+`selected_median_mean` and `colsort` run on a card only
+(`tests/test_torch_gpu.py`); what they compute is held here:
 
 * (a) `sort_kernels.selection_pairs(n, rank)`, the Batcher schedule
   pruned to one output rank, applied to order keys column by column
@@ -21,6 +21,13 @@ what they compute is held here:
   and for the median; the half trimmed means within the 2 ulps of XLA's
   fused f16 chains (`tests/test_torch_dtype.py`), and bit for bit
   against `sort_kernels.trimmed_mean_plain`;
+* (a'') a model of the `colsort` kernel (keys, the whole network: every
+  comparator of Batcher's two-sided, every rank decoded) equals the JAX
+  package's `pallas_sort.colsort` in interpret mode and
+  `sort_kernels.colsort_plain`, in f32, bf16 and f16, on values with
+  NaNs of both signs: NaN positions exactly, values with +-0 equal; every
+  -0 of a column comes before its +0, every other value comes back bit
+  for bit, and the half forms' pair keys give the one-column form's bits;
 * (b) the key maps (`value_keys`, `deviation_keys`, and `half_keys` in
   bf16 and f16, with negative NaNs and subnormals) order like
   `sort_nan_last` in f32, bf16 and f16;
@@ -246,6 +253,80 @@ def test_trimmed_mean_model_matches_pallas(n, dtype):
             else:
                 _within_ulps(got, want)
             _same(got, sort_kernels.trimmed_mean_plain(x, f))
+
+
+# --------------------------------------------------------------------------- #
+# (a'') the colsort kernel
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_full_sort_is_batcher_two_sided(n):
+    """`selection_pairs(n)` (every rank) keeps Batcher's every comparator,
+    two-sided: colsort's network."""
+    pairs = sort_kernels.batcher_pairs(n)
+    assert sort_kernels.selection_pairs(n) == tuple((i, j, "both") for i, j in pairs)
+    assert sort_kernels.selection_operations(n) == 2 * len(pairs)
+
+
+def _colsort_model(x, keys, decode):
+    """The kernel a column: keys, the whole network, every rank decoded."""
+    return torch.stack([decode(k) for k in sort_kernels.select_keys(list(keys(x)))])
+
+
+def _signed_nans(x, seed):
+    """x with a NaN whose sign bit is set (a payload too) at about 4% of
+    its entries: f32 0xffc00001, bf16 and f16 0xffc1."""
+    rng = np.random.default_rng(seed)
+    at = torch.from_numpy(rng.random(tuple(x.shape)) < 0.04)
+    if x.dtype == torch.float32:
+        x.view(torch.int32)[at] = -0x3FFFFF
+    else:
+        x.view(torch.int16)[at] = -63
+    return x
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16).to(torch.int64)
+
+
+def _value_bits(t):
+    """Each column's bit patterns, sorted, with every NaN as one pattern
+    above all."""
+    return torch.sort(torch.where(torch.isnan(t), 1 << 40, _bits(t)), dim=0).values
+
+
+def _signed_zeros_in_order(t):
+    """Assert that every -0 of a column comes before its +0; returns the
+    number of columns that hold both."""
+    rank = torch.arange(t.shape[0])[:, None]
+    zero = t.float() == 0
+    neg, pos = zero & torch.signbit(t.float()), zero & ~torch.signbit(t.float())
+    last_neg = torch.where(neg, rank, -1).max(dim=0).values
+    first_pos = torch.where(pos, rank, t.shape[0]).min(dim=0).values
+    assert bool((last_neg < first_pos).all())
+    return int((neg.any(dim=0) & pos.any(dim=0)).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", KERNEL_NS + (32, 33))
+def test_colsort_model_matches_pallas(n, dtype):
+    x = _signed_nans(_values(n, D, seed=600 + n).to(dtype), seed=600 + n)
+    assert bool((torch.isnan(x) & torch.signbit(x.float())).any())
+    want = _jax(x, pallas_sort.colsort)
+    forms = []
+    for keys, decode in _key_maps(dtype):
+        got = _colsort_model(x, keys, decode)
+        assert got.dtype == dtype
+        _same(got, want)
+        _same(got, sort_kernels.colsort_plain(x))
+        assert torch.equal(_value_bits(got), _value_bits(x))
+        both = _signed_zeros_in_order(got)
+        assert both > 0 or n < 9
+        forms.append(got)
+    if len(forms) == 2:  # the pair keys give the one-column form's bits
+        one, pair = forms
+        nan = torch.isnan(one)
+        assert torch.equal(nan, torch.isnan(pair))
+        assert torch.equal(_bits(one)[~nan], _bits(pair)[~nan])
 
 
 # --------------------------------------------------------------------------- #
