@@ -8,6 +8,11 @@ JAX driver that the port does not have yet (checkpoints, meshes, fault
 plans, diagnostics, health, telemetry, ...) are refused by the parser
 rather than ignored.
 
+Batches come from the device-resident splits (`data/device.py`), as in
+the JAX driver without `--mesh` and `--device-gar` (flags the port does
+not have). The honest phase is the grouped program unless
+`--no-grouped-workers`.
+
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
 prefixed with the line separator, values at the parameter dtype's
@@ -31,10 +36,11 @@ from byzantinemomentum_tpu_torch import losses as losses_mod
 from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import ops as ops_mod
 from byzantinemomentum_tpu_torch import optim, utils
+from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
     DTYPES, STUDY_COLUMNS, Engine, EngineConfig)
 
-__all__ = ["process_commandline", "sample_batches", "run", "main"]
+__all__ = ["process_commandline", "run", "main"]
 
 # The study row format of the JAX driver, by parameter dtype (bf16 has an
 # f16-like significand width, so it shares "%.4e")
@@ -73,6 +79,10 @@ def process_commandline(argv=None):
         help="Number of actually Byzantine workers")
     add("--gar", type=str, default="average", help="Aggregation rule")
     add("--gar-args", nargs="*", help="key:value args for the GAR")
+    add("--no-grouped-workers", action="store_true",
+        help="Disable the merged-batch grouped honest phase (always use the "
+             "vmapped per-worker path, even for models that provide the "
+             "grouped execution)")
     add("--attack", type=str, default="nan", help="Attack to use")
     add("--attack-args", nargs="*", help="key:value args for the attack")
     add("--model", type=str, default="simples-conv", help="Model to train")
@@ -105,6 +115,10 @@ def process_commandline(argv=None):
     add("--optimizer", type=str, default="sgd",
         help="Optimizer applying the final update")
     add("--optimizer-args", nargs="*", help="key:value args for the optimizer")
+    add("--l1-regularize", type=float, default=None,
+        help="L1 loss regularization factor")
+    add("--l2-regularize", type=float, default=None,
+        help="L2 loss regularization factor")
     add("--gradient-clip", type=float, default=None,
         help="Per-gradient L2 clip threshold")
     add("--result-directory", type=str, default=None,
@@ -225,13 +239,6 @@ class _ResultFiles:
             fd.close()
 
 
-def sample_batches(dataset, count, device):
-    """`count` batches of `dataset` stacked as `(xs, ys)` on `device`."""
-    batches = [dataset.sample() for _ in range(count)]
-    return (torch.from_numpy(np.stack([b[0] for b in batches])).to(device),
-            torch.from_numpy(np.stack([b[1] for b in batches])).to(device))
-
-
 def _study_row(metrics, steps, datapoints, float_format):
     """One study CSV row; the device values move to the host in one
     transfer (widened to float64, which holds every dtype's value
@@ -276,6 +283,7 @@ def _setup(args):
         momentum=args.momentum, dampening=args.dampening,
         nesterov=args.momentum_nesterov, momentum_at=args.momentum_at,
         weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
+        grouped_workers=not args.no_grouped_workers,
         dtype=args.dtype, compute_dtype=args.compute_dtype)
     # Parameters are drawn in f32 and rounded to the parameter dtype, as
     # the JAX package casts its f32 init
@@ -286,13 +294,18 @@ def _setup(args):
         args.dataset, args.batch_size, args.batch_size_test,
         no_transform=args.no_transform, seed=seed % 2**32)
     loss = losses_mod.Loss(args.loss, **args.loss_args)
+    if args.l1_regularize is not None:
+        loss = loss + args.l1_regularize * losses_mod.Loss("l1")
+    if args.l2_regularize is not None:
+        loss = loss + args.l2_regularize * losses_mod.Loss("l2")
     criterion = losses_mod.Criterion(args.criterion, **args.criterion_args)
     optimizer = optim.build(args.optimizer, weight_decay=args.weight_decay,
                             **args.optimizer_args)
     engine = Engine(cfg, model, loss, criterion, (gar, args.gar_args), attack,
                     args.attack_args, optimizer,
                     torch.Generator(device=device).manual_seed(seed + 1))
-    return device, engine, trainset, testset
+    engine.attach_data(*DeviceData.pair(trainset, testset, device))
+    return device, engine
 
 
 def _open_results(args):
@@ -323,11 +336,13 @@ def run(argv=None):
     """Run one experiment. Returns a summary dict: `steps`, `device`,
     `steps_per_s` (training steps per second after the first step, whose
     time includes one-time set-up such as the kernel build; evaluations
-    excluded; None under two steps) and `result_directory`."""
+    excluded; None under two steps), `result_directory` and `counts` (the
+    engine's counts of indexed steps and evaluations and of grouped and
+    vmapped honest phases)."""
     with utils.Context("cmdline"):
         args = _postprocess(process_commandline(argv))
     with utils.Context("setup"):
-        device, engine, trainset, testset = _setup(args)
+        device, engine = _setup(args)
         results = _open_results(args)
     state = engine.init()
     cfg = engine.cfg
@@ -352,9 +367,10 @@ def run(argv=None):
                 steps = state.steps
                 if args.evaluation_delta > 0 and steps % args.evaluation_delta == 0:
                     t_eval = time.perf_counter()
-                    xs, ys = sample_batches(testset, args.batch_size_test_reps, device)
-                    correct, total = engine.eval_many(
-                        state.theta, state.net_state, xs, ys).tolist()
+                    correct, total = engine.eval_many_indexed(
+                        state.theta, state.net_state,
+                        *engine.test_data.sample_indices(
+                            args.batch_size_test_reps)).tolist()
                     acc = correct / total
                     utils.info(f"Accuracy (step {steps}): {acc * 100.:.2f}%")
                     if fd_eval is not None:
@@ -366,9 +382,10 @@ def run(argv=None):
                 new_lr = args.compute_new_learning_rate(steps)
                 if new_lr is not None:
                     current_lr = new_lr
-                xs, ys = sample_batches(trainset, cfg.nb_sampled, device)
                 datapoints = state.datapoints
-                state, metrics = engine.train_step(state, xs, ys, current_lr)
+                state, metrics = engine.train_step_indexed(
+                    state, *engine.train_data.sample_indices(cfg.nb_sampled),
+                    current_lr)
                 # The previous step's row moves to the host once this one
                 # is enqueued
                 flush(pending)
@@ -388,7 +405,8 @@ def run(argv=None):
         utils.info(f"Throughput: {rate:.3f} steps/s over the last {timed} of "
                    f"{state.steps} steps on {device}")
     return {"steps": state.steps, "device": str(device), "steps_per_s": rate,
-            "result_directory": args.result_directory}
+            "result_directory": args.result_directory,
+            "counts": dict(engine.counts)}
 
 
 def main(argv=None):

@@ -48,6 +48,10 @@ class Dataset:
         self._cursor = 0
         self._order = self._rng.permutation(len(inputs)) if train else None
 
+    @property
+    def batch_size(self):
+        return self._batch
+
     def sample_indices(self):
         """Advance the sampler and return the next batch's indices."""
         n = len(self._inputs)
@@ -96,7 +100,9 @@ def _image_transform(name, no_transform):
             x = (x - np.asarray(norm[0], np.float32)) / np.asarray(norm[1], np.float32)
         return x
 
+    # Metadata for the device-resident path (`data/device.py`)
     transform.flip = not no_transform
+    transform.norm = None if no_transform else norm
     return transform
 
 

@@ -1,6 +1,6 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
 the fields of the training path ported so far: one local step, a single
-GAR)."""
+GAR, the grouped honest phase)."""
 
 import dataclasses
 
@@ -38,6 +38,9 @@ class EngineConfig:
     #                               None = same as `dtype` (bf16 with f32
     #                               parameters is mixed precision: f32
     #                               master weights, momentum and GAR space)
+    grouped_workers: bool = True  # merged-batch grouped honest phase for
+    #                               models with a grouped forward
+    #                               (--no-grouped-workers turns it off)
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):

@@ -4,8 +4,12 @@ One call to `Engine.train_step(state, xs, ys, lr)` performs one iteration
 of the reference's hot loop, in three phases as in the JAX package:
 
   honest  — the S per-worker losses and gradients as one batched program,
-            `torch.func.vmap(grad(functional_call))` over the worker axis,
-            with the Nesterov lookahead variants; per-row L2 clipping;
+            with the Nesterov lookahead variants: the grouped program
+            (`_worker_grads_grouped`, the JAX package's default) for
+            models with a grouped forward unless
+            `cfg.grouped_workers` is off, else
+            `torch.func.vmap(grad(functional_call))` over the worker axis;
+            per-row L2 clipping;
             the sequential-equivalent BatchNorm running-stat fold; the
             momentum placement on the honest rows;
   defense — Byzantine row synthesis, aggregation by the GAR, and the
@@ -29,12 +33,20 @@ honest rows' dtype. Python scalars (momentum, clip) enter half arithmetic
 as torch has them, at f32 before one rounding, where the JAX package
 rounds them to the half dtype first.
 
+Device-resident batches (`attach_data`, `data/device.py`): the driver's
+default path. `train_step_indexed(state, idx, flips, lr)` and
+`eval_many_indexed` take a step's host indices and flips, upload them
+and gather the batch on the device. `Engine.counts` counts indexed steps
+and evaluations and grouped and vmapped honest phases, so a run can show
+which path it took.
+
 Randomness: dropout masks come from the engine's `torch.Generator`. The
 JAX package draws them from its PRNG keys, so the two give different
 masks for the same seed; `train_step(..., masks=...)` takes them from the
 caller instead (the parity tests feed the JAX masks).
 """
 
+import collections
 import math
 
 import torch
@@ -42,7 +54,7 @@ from torch.func import functional_call, grad, vmap
 
 from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
 from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
-from byzantinemomentum_tpu_torch.models import FlatParams
+from byzantinemomentum_tpu_torch.models import FlatParams, grouped_forward
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
 
 __all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision"]
@@ -128,6 +140,18 @@ class Engine:
         self.optimizer = optimizer
         self.generator = generator
         self.device = next(model.parameters()).device
+        # The grouped honest phase where the JAX package takes it: the
+        # config asks for it and the model has a grouped forward (and one
+        # local step, the only count the port has)
+        self.grouped = (grouped_forward(model) if cfg.grouped_workers
+                        else None)
+        self.train_data = self.test_data = None
+        self.counts = collections.Counter()
+
+    def attach_data(self, train_data, test_data):
+        """Enable the device-resident input path (`data/device.py`)."""
+        self.train_data, self.test_data = train_data, test_data
+        return self
 
     def init(self):
         """Fresh state: the model's parameters and BatchNorm buffers as
@@ -176,6 +200,29 @@ class Engine:
                 theta_eff, xs, ys, masks)
         return losses, grads, states
 
+    def _worker_grads_grouped(self, theta_eff, net_state, xs, ys, masks):
+        """`_worker_grads` as one forward and backward over all S workers
+        (`forward_grouped`). `theta_eff` is `[d]` (broadcast over the
+        workers, which then share the forward's convolutions and
+        matmuls) or the per-worker lookahead `[S, d]`; its copy
+        `th_s [S, d]` is the leaf. Worker s's loss reads only row s, so the
+        gradient of the losses' sum is the stack of per-worker gradients.
+        Casts as `_worker_grads`: gradients in theta's dtype, losses in the
+        compute dtype."""
+        S = xs.shape[0]
+        cdtype = self.compute_dtype
+        if xs.is_floating_point():
+            xs = xs.to(cdtype)
+        th_s = theta_eff.detach().expand(S, self.d).clone().requires_grad_()
+        with torch.enable_grad():
+            params_s = self.flat.unflatten_stacked(th_s.to(cdtype))
+            out, states = self.grouped(params_s, net_state, xs, train=True,
+                                       masks=masks,
+                                       shared=theta_eff.dim() == 1)
+            losses = vmap(self.loss)(out, ys, th_s)
+            (grads,) = torch.autograd.grad(losses.sum(), th_s)
+        return losses.detach(), grads, states
+
     def phase_honest(self, state, xs, ys, lr, masks=None):
         """Honest gradients, clipping, BN fold and momentum placement on
         the honest rows. Returns (G_sampled, loss_avg, net_state, new_mw,
@@ -196,8 +243,14 @@ class Engine:
             theta_eff, theta_axis = state.theta - (mu * lr) * state.momentum_server, None
         else:
             theta_eff, theta_axis = state.theta, None
-        losses, grads, states = self._worker_grads(
-            theta_eff, theta_axis, state.net_state, xs, ys, masks)
+        if self.grouped is not None:
+            self.counts["grouped_phases"] += 1
+            losses, grads, states = self._worker_grads_grouped(
+                theta_eff, state.net_state, xs, ys, masks)
+        else:
+            self.counts["vmapped_phases"] += 1
+            losses, grads, states = self._worker_grads(
+                theta_eff, theta_axis, state.net_state, xs, ys, masks)
         with torch.no_grad():
             G_sampled = clip_rows(grads, cfg.gradient_clip)
             net_state = compose_bn_updates(state.net_state, states, S)
@@ -294,6 +347,15 @@ class Engine:
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
             G_attack, grad_defense, accept_ratio, lr, xs.shape[1])
 
+    def train_step_indexed(self, state, idx, flips, lr, masks=None):
+        """`train_step` on the batches `idx: i32[S, B]`, `flips:
+        bool[S, B]` (host arrays, `DeviceData.sample_indices`) of the
+        device-resident train split."""
+        self.counts["indexed_steps"] += 1
+        data = self.train_data
+        xs, ys = data.gather(*data.upload(idx, flips))
+        return self.train_step(state, xs, ys, lr, masks)
+
     # ----------------------------------------------------------------- #
     # Evaluation
 
@@ -311,3 +373,11 @@ class Engine:
             out, _ = functional_call(self.model, params, (x,), {"train": False})
             acc = acc + self.criterion(out, y)
         return acc
+
+    def eval_many_indexed(self, theta, net_state, idx, flips):
+        """`eval_many` on the batches `idx: i32[reps, B]`, `flips:
+        bool[reps, B]` of the device-resident test split."""
+        self.counts["indexed_evals"] += 1
+        data = self.test_data
+        xs, ys = data.gather(*data.upload(idx, flips))
+        return self.eval_many(theta, net_state, xs, ys)

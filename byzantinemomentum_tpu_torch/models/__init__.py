@@ -12,6 +12,10 @@ The flat order is `jax.flatten_util.ravel_pytree`'s: names compared
 component by component (`b1.beta < b1.gamma < ... < c1.b < c1.w < f1.b`),
 each leaf flattened row-major — so a gradient row of the port and of the
 JAX package compare coordinate for coordinate.
+
+A model may also have a merged-batch forward over S workers
+(`forward_grouped`, the JAX package's `ModelDef.apply_grouped`);
+`grouped_forward` tells the engine which do.
 """
 
 import pathlib
@@ -20,7 +24,7 @@ import torch
 
 from byzantinemomentum_tpu_torch import utils
 
-__all__ = ["models", "register", "build", "FlatParams"]
+__all__ = ["models", "register", "build", "grouped_forward", "FlatParams"]
 
 models = {}
 
@@ -40,6 +44,13 @@ def build(name, device, dtype=None, **model_args):
     if name not in models:
         utils.fatal_unavailable(models, name, what="model name")
     return models[name](device=device, dtype=dtype, **model_args)
+
+
+def grouped_forward(module):
+    """The model's merged-batch forward over S workers
+    (`forward_grouped(params_s, state, xs, train, masks, shared)`), or
+    None where it has none."""
+    return getattr(module, "forward_grouped", None)
 
 
 class FlatParams:
@@ -62,6 +73,13 @@ class FlatParams:
         """[d] -> `{name: view}` (in theta's dtype)."""
         chunks = torch.split(theta, self.sizes)
         return {name: chunk.view(shape) for name, chunk, shape
+                in zip(self.names, chunks, self.shapes)}
+
+    def unflatten_stacked(self, theta_s):
+        """[S, d] -> `{name: (S, ...) view}` (no copies)."""
+        S = theta_s.shape[0]
+        chunks = torch.split(theta_s, self.sizes, dim=1)
+        return {name: chunk.view(S, *shape) for name, chunk, shape
                 in zip(self.names, chunks, self.shapes)}
 
 

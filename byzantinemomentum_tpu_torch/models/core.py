@@ -21,6 +21,27 @@ Dtypes, as in the JAX package: layers are built in the parameter dtype
 `promote_types(x.dtype, float32)` and casts its output back to `x.dtype`
 and its running state back to the state's dtype; dropout and pooling
 stay in `x.dtype`.
+
+Worker-grouped layers (`grouped_*`, the JAX package's `grouped_*_apply`):
+the honest phase can run all S per-worker networks as one merged program
+(`EmpireCNN.forward_grouped`). Activations are worker-major batches,
+`(S*B, C, H, W)`, so BatchNorm takes per-(s, c) statistics over a
+`(S, B, C, H, W)` view (each worker's own, as in its own forward) and
+returns `(S, C)` running-stat leaves, and dropout takes the vmapped
+path's `(S, B, ...)` keep-masks as they are. A convolution and a dense
+layer compute what `torch.func.vmap` makes of the per-worker layer, with
+the same library calls: where every worker holds the same parameters
+(`shared`: theta broadcast, the honest phase without a per-worker
+lookahead) the forward and the input gradient are one convolution or
+matmul over all S*B inputs with worker 0's copy; otherwise the forward is
+one `groups=S` convolution on the worker-grouped layout `(B, S*C, H, W)`
+(a `bmm` for a dense layer). The weight gradients are always per worker:
+one `groups=S` convolution gradient, one `bmm`. (On an H100 in f32,
+grouped convolutions for the forward and the input gradient cost a third
+more than the vmapped program's, `PERF.md` §6.) The JAX package's worker
+and batch-slot packing (`BMT_WORKER_PAD`, `BMT_NO_WORKER_PACK`,
+`BMT_BATCH_PACK`) is not ported: it arranges channels for the TPU's
+128-wide lanes, which this card does not have.
 """
 
 import math
@@ -30,7 +51,10 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BN_MOMENTUM", "BN_EPS", "Conv", "Dense", "BatchNorm",
-           "dropout_mask", "dropout_apply", "max_pool", "log_softmax"]
+           "batchnorm_train", "batchnorm_eval", "fold_running_stats",
+           "grouped_conv", "grouped_dense", "grouped_batchnorm",
+           "dropout_mask", "dropout_apply", "max_pool",
+           "log_softmax"]
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -106,33 +130,175 @@ class BatchNorm(nn.Module):
         """Returns `(out, new_state)` with `new_state = {"mean", "var"}`
         folded from this batch in train mode, unchanged in eval mode.
         `out` has `x.dtype`, `new_state` the state's dtype."""
-        shape = (1, -1, 1, 1)
         if not train:
-            # With f32 running stats under a half compute dtype the
-            # arithmetic promotes; the activation comes back in x.dtype
-            inv = torch.rsqrt(self.var + BN_EPS)
-            out = (x - self.mean.view(shape)) * (inv * self.gamma).view(shape)
-            out = out + self.beta.view(shape)
-            return out.to(x.dtype), {"mean": self.mean, "var": self.var}
-        dims = (0, 2, 3)
-        count = x.numel() // x.shape[1]
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=dims)
-        var = xf.var(dim=dims, correction=0)
-        inv = torch.rsqrt(var + BN_EPS)
-        out = (x - mean.view(shape)) * (inv * self.gamma).view(shape)
-        out = (out + self.beta.view(shape)).to(x.dtype)
-        # The running stats are aux state: no gradient flows into them
-        mean, var = mean.detach(), var.detach()
-        unbiased = var * (count / max(count - 1, 1))
-        sdt = self.mean.dtype
-        new_state = {
-            "mean": ((1 - BN_MOMENTUM) * self.mean
-                     + BN_MOMENTUM * mean).to(sdt),
-            "var": ((1 - BN_MOMENTUM) * self.var
-                    + BN_MOMENTUM * unbiased).to(sdt),
-        }
-        return out, new_state
+            out = batchnorm_eval(x, self.gamma, self.beta, self.mean, self.var)
+            return out, {"mean": self.mean, "var": self.var}
+        out, mean, unbiased = batchnorm_train(x, self.gamma, self.beta)
+        return out, fold_running_stats(self.mean, self.var, mean, unbiased)
+
+
+def batchnorm_train(x, gamma, beta):
+    """Train-mode BatchNorm over the channel axis 1 of an NCHW activation:
+    `(out, batch mean, unbiased batch variance)`. The statistics are taken
+    at `promote_types(x.dtype, float32)` and detached (the running stats
+    are aux state: no gradient flows into them); `out` has x.dtype."""
+    return _batchnorm_train(x, gamma, beta, dims=(0, 2, 3),
+                            shape=(1, -1, 1, 1))
+
+
+def _batchnorm_train(x, gamma, beta, dims, shape):
+    """`batchnorm_train` with statistics over `dims` of x, shaped as
+    `gamma`, broadcast back to x as `shape`."""
+    count = x.numel() // gamma.numel()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=dims)
+    var = xf.var(dim=dims, correction=0)
+    inv = torch.rsqrt(var + BN_EPS)
+    out = (x - mean.view(shape)) * (inv * gamma).view(shape)
+    out = (out + beta.view(shape)).to(x.dtype)
+    mean, var = mean.detach(), var.detach()
+    return out, mean, var * (count / max(count - 1, 1))
+
+
+def batchnorm_eval(x, gamma, beta, mean, var, shape=(1, -1, 1, 1)):
+    """Eval-mode BatchNorm on the running stats, broadcast to x as `shape`
+    (the channel axis 1 by default). With f32 running stats under a half
+    compute dtype the arithmetic promotes; the activation comes back in
+    x.dtype."""
+    inv = torch.rsqrt(var + BN_EPS)
+    out = (x - mean.view(shape)) * (inv * gamma).view(shape)
+    return (out + beta.view(shape)).to(x.dtype)
+
+
+def fold_running_stats(mean0, var0, mean, unbiased):
+    """`r <- (1-m) r + m s` from the state `(mean0, var0)`, in the state's
+    dtype; `mean`, `unbiased` may carry a leading worker axis."""
+    sdt = mean0.dtype
+    return {"mean": ((1 - BN_MOMENTUM) * mean0 + BN_MOMENTUM * mean).to(sdt),
+            "var": ((1 - BN_MOMENTUM) * var0 + BN_MOMENTUM * unbiased).to(sdt)}
+
+
+def _to_groups(x, S):
+    """Worker-major `(S*B, C, ...)` -> worker-grouped `(B, S*C, ...)`."""
+    x = x.reshape(S, -1, *x.shape[1:]).transpose(0, 1)
+    return x.reshape(x.shape[0], -1, *x.shape[3:])
+
+
+def _from_groups(x, S):
+    """Worker-grouped `(B, S*C, ...)` -> worker-major `(S*B, C, ...)`."""
+    x = x.reshape(x.shape[0], S, -1, *x.shape[2:]).transpose(0, 1)
+    return x.reshape(-1, *x.shape[2:])
+
+
+class _WorkerConv(torch.autograd.Function):
+    """3x3 'SAME' convolutions of S workers on worker-major batches; see
+    `grouped_conv`. `w: (S, cout, cin, kh, kw)`, `b: (S, cout)`."""
+
+    @staticmethod
+    def forward(x, w, b, shared):
+        S = w.shape[0]
+        if shared:
+            return F.conv2d(x, w[0], b[0], padding=1)
+        out = _from_groups(F.conv2d(_to_groups(x, S),
+                                    w.reshape(-1, *w.shape[2:]),
+                                    padding=1, groups=S), S)
+        # The bias added after the convolution, as vmap adds a batched one
+        out = out.view(S, -1, *out.shape[1:]) + b[:, None, :, None, None]
+        return out.view(-1, *out.shape[2:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _, shared = inputs
+        ctx.save_for_backward(x, w)
+        ctx.shared = shared
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        S = w.shape[0]
+        one = [1, 1]
+        gy_g, x_g = _to_groups(gy, S), _to_groups(x, S)
+        w_g = w.reshape(-1, *w.shape[2:])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            if ctx.shared:
+                gx = torch.ops.aten.convolution_backward(
+                    gy, x, w[0], None, one, one, one, False, [0, 0], 1,
+                    [True, False, False])[0]
+            else:
+                gx = _from_groups(torch.ops.aten.convolution_backward(
+                    gy_g, x_g, w_g, None, one, one, one, False, [0, 0], S,
+                    [True, False, False])[0], S)
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(
+                gy_g, x_g, w_g, None, one, one, one, False, [0, 0], S,
+                [False, True, False])[1].view(w.shape)
+        gb = gy.reshape(S, -1, *gy.shape[1:]).sum(dim=(1, 3, 4))
+        return gx, gw, gb, None
+
+
+class _WorkerDense(torch.autograd.Function):
+    """Dense layers of S workers; see `grouped_dense`. `x: (S, B, din)`,
+    `w: (S, din, dout)`, `b: (S, dout)`."""
+
+    @staticmethod
+    def forward(x, w, b, shared):
+        if shared:
+            return x @ w[0] + b[0]
+        return torch.bmm(x, w) + b[:, None, :]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _, shared = inputs
+        ctx.save_for_backward(x, w)
+        ctx.shared = shared
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = (gy @ w[0].T if ctx.shared
+                  else torch.bmm(gy, w.transpose(1, 2)))
+        return gx, torch.bmm(x.transpose(1, 2), gy), gy.sum(dim=1), None
+
+
+def grouped_conv(x, w_s, b_s, shared=False):
+    """Per-worker 3x3 'SAME' convolutions: `x: (S*B, cin, H, W)` worker
+    by worker, stacked HWIO kernels `w_s: (S, kh, kw, cin, cout)` and
+    biases `b_s: (S, cout)` -> `(S*B, cout, H, W)`. `shared` says that
+    every worker's kernel and bias equal worker 0's: the forward and the
+    input gradient are then one convolution over the S*B inputs. The
+    kernel gradient is one `groups=S` convolution gradient on
+    `(B, S*C, H, W)`, the calls `torch.func.vmap` makes."""
+    return _WorkerConv.apply(x, w_s.permute(0, 4, 3, 1, 2), b_s, shared)
+
+
+def grouped_dense(x, w_s, b_s, shared=False):
+    """Per-worker dense layers: `x: (S, B, din)`, `w_s: (S, din, dout)`,
+    `b_s: (S, dout)` -> `(S, B, dout)`; `shared` as in
+    `grouped_conv` (one matmul over the S*B rows)."""
+    return _WorkerDense.apply(x, w_s, b_s, shared)
+
+
+def grouped_batchnorm(x, gamma_s, beta_s, mean, var, train):
+    """Per-worker BatchNorm on `x: (S*B, C, H, W)` with parameters
+    `(S, C)` and the shared running stats `mean`, `var: (C,)`. Train mode
+    returns the per-worker running-stat updates as `(S, C)` leaves (for
+    `engine/step.py::compose_bn_updates`); eval mode the shared state."""
+    S, C = gamma_s.shape
+    xs = x.view(S, -1, *x.shape[1:])
+    shape = (S, 1, C, 1, 1)
+    if not train:
+        out = batchnorm_eval(xs, gamma_s, beta_s, mean.expand(S, C),
+                             var.expand(S, C), shape)
+        return out.view(x.shape), {"mean": mean, "var": var}
+    out, batch_mean, unbiased = _batchnorm_train(
+        xs, gamma_s, beta_s, dims=(1, 3, 4), shape=shape)
+    return out.view(x.shape), fold_running_stats(mean, var, batch_mean,
+                                                 unbiased)
 
 
 def dropout_mask(generator, keep, shape, device):

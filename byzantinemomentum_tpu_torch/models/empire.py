@@ -11,6 +11,10 @@ Architecture (note the unusual conv -> relu -> BN order, kept for parity):
 Inputs arrive NHWC, as the JAX package's datasets give them, and are
 permuted to NCHW here. The flatten permutes back to (h, w, c) order before
 the reshape, so `f1` reads the rows the JAX model's NHWC flatten gives it.
+
+`forward_grouped` (the JAX model's `apply_grouped`) runs all S workers'
+forwards as one merged program on the `models/core.py` grouped layers;
+it is the same function as S calls of `forward`.
 """
 
 import torch
@@ -18,8 +22,8 @@ from torch import nn
 
 from byzantinemomentum_tpu_torch.models import register
 from byzantinemomentum_tpu_torch.models.core import (
-    BatchNorm, Conv, Dense, dropout_apply, dropout_mask, log_softmax,
-    max_pool)
+    BatchNorm, Conv, Dense, dropout_apply, dropout_mask, grouped_batchnorm,
+    grouped_conv, grouped_dense, log_softmax, max_pool)
 
 __all__ = ["EmpireCNN"]
 
@@ -78,6 +82,44 @@ class EmpireCNN(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # (h, w, c) rows
         x = dropout_apply(masks[2], torch.relu(self.f1(x)), _RATE)
         return log_softmax(self.f2(x)), new_state
+
+    def forward_grouped(self, params_s, state, xs, train=False, masks=None,
+                        shared=False):
+        """All S workers' forwards at once. `params_s` maps each parameter
+        name to its `(S, ...)` stack, `state` each buffer name to the
+        shared running stat, `xs: [S, B, 32, 32, 3]` (NHWC), `masks` the
+        `(S, B, ...)` keep-mask stacks of `Engine.draw_masks`; `shared`
+        says that every worker's parameters equal worker 0's ->
+        `(log-probabilities [S, B, classes], new BN state {"b1.mean":
+        (S, 64), ...})`; in eval mode the state comes back as given."""
+        if train and masks is None:
+            raise ValueError("empire-cnn needs dropout masks in train mode")
+        S, B = xs.shape[:2]
+        p = params_s
+        new_state = {}
+
+        def conv_relu_bn(x, conv, bn):
+            x = torch.relu(grouped_conv(x, p[f"{conv}.w"], p[f"{conv}.b"],
+                                        shared))
+            x, stats = grouped_batchnorm(
+                x, p[f"{bn}.gamma"], p[f"{bn}.beta"], state[f"{bn}.mean"],
+                state[f"{bn}.var"], train)
+            new_state[f"{bn}.mean"], new_state[f"{bn}.var"] = (
+                stats["mean"], stats["var"])
+            return x
+
+        keep = (tuple(m.flatten(0, 1) for m in masks[:2]) + (masks[2],)
+                if train else (None, None, None))
+        x = xs.flatten(0, 1).permute(0, 3, 1, 2)  # (S*B, 3, 32, 32)
+        x = conv_relu_bn(conv_relu_bn(x, "c1", "b1"), "c2", "b2")
+        x = dropout_apply(keep[0], max_pool(x), _RATE)
+        x = conv_relu_bn(conv_relu_bn(x, "c3", "b3"), "c4", "b4")
+        x = dropout_apply(keep[1], max_pool(x), _RATE)
+        x = x.permute(0, 2, 3, 1).reshape(S, B, -1)  # (h, w, c) rows
+        x = torch.relu(grouped_dense(x, p["f1.w"], p["f1.b"], shared))
+        x = dropout_apply(keep[2], x, _RATE)
+        return (log_softmax(grouped_dense(x, p["f2.w"], p["f2.b"], shared)),
+                new_state)
 
 
 register("empire-cnn", EmpireCNN)

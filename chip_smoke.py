@@ -51,6 +51,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (non-tensor-core) peak (the half forms compute in f32 too), counting
    2 operations per compare-exchange of a sorting network and 1 per
    one-sided comparator of a pruned one.
+   Then the device-resident path (`data/device.py`): `DeviceData.gather`
+   on the card gives the same bits as on the CPU (the train split with
+   flips, the test split, and both under `--no-transform`), and the
+   grouped honest phase on the card is held against the vmapped one at
+   the headline shape (same weights, batches and dropout masks): every
+   gradient row within 1e-2 relative L2 (the engine tests' max-pool
+   near-tie bound), the losses within rtol 1e-4 and the BatchNorm state
+   within rtol 1e-4, atol 1e-5; it prints how many rows agree
+   elementwise (rtol 1e-4, atol 1e-5).
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
@@ -62,14 +71,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `little`); `--dtype bfloat16` runs of Median, Trimmed mean, Phocas
    and MeaMed and `--dtype float16` runs of Phocas and MeaMed (f=11,
    `little`);
-   and the headline cell at `--dtype float32 --compute-dtype bfloat16`
-   (3 steps each). Launch counts are zeroed before each run and read
-   after it: each kernel of the run's GAR must rise by at least its step
-   count in the run's dtype. Each study CSV must carry the JAX package's
-   header and a finite "Defense gradient norm".
-5. Where a step's time goes, for the headline, `krum_f11`, brute and
-   mixed-precision headline cells: per-phase CUDA-event times, the
-   busiest kernels and the device's busy share (`torch.profiler`).
+   the headline cell at `--dtype float32 --compute-dtype bfloat16`, the
+   headline with `--no-grouped-workers`, and the paper's CIFAR-10 grid
+   cell `cifar10-empire-bulyan-f_5-lr_0.01-at_update` as `reproduce.py`
+   writes it (the headline with `--learning-rate-decay 167
+   --learning-rate-decay-delta 1500 --l2-regularize 1e-2
+   --nb-for-study-past 25 --evaluation-delta 100`) (3 steps each).
+   Launch counts are zeroed before each run and read after it: each
+   kernel of the run's GAR must rise by at least its step count in the
+   run's dtype. Each run must take every step and evaluation through the
+   device-resident path and every honest phase through the grouped
+   program (the vmapped one under `--no-grouped-workers`): the engine's
+   counts must equal the step and evaluation counts. Each study CSV must
+   carry the JAX package's header and a finite "Defense gradient norm".
+5. Where a step's time goes, for the headline, `krum_f11`, brute,
+   mixed-precision headline and vmapped headline cells, through the
+   driver's path: per-phase CUDA-event times (the index draw and upload,
+   the gather on the device, the honest, defense and update phases), the
+   busiest kernels and the device's busy share (`torch.profiler`; the
+   union of the kernels' intervals, their summed times beside it).
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type, launches summed over the runs of phase 4);
@@ -94,7 +114,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from byzantinemomentum_tpu_torch import data as data_mod
 from byzantinemomentum_tpu_torch.cli import attack as driver
+from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.ops import (
@@ -661,13 +683,74 @@ def kernels_vs_plain(smi):
     return records
 
 
+def device_paths(smi):
+    """Phase 3, the device-resident path: `DeviceData.gather` on the card
+    against the same gather on the CPU, bit for bit; the grouped honest
+    phase against the vmapped one on the card at the headline shape."""
+    dev = torch.device("cuda")
+    for no_transform in (False, True):
+        splits = data_mod.make_datasets("cifar10", 50, 100,
+                                        no_transform=no_transform, seed=1)
+        for split, count in zip(splits, (25, 5)):
+            cpu, card = DeviceData(split, "cpu"), DeviceData(split, dev)
+            idx, flips = cpu.sample_indices(count)
+            (x, y), (cx, cy) = (card.gather(*card.upload(idx, flips)),
+                                cpu.gather(*cpu.upload(idx, flips)))
+            if not (x.dtype == cx.dtype == torch.float32 and torch.equal(
+                    x.cpu().view(torch.int32), cx.view(torch.int32))
+                    and torch.equal(y.cpu(), cy)):
+                raise SystemExit(f"DeviceData.gather on the card differs from "
+                                 f"the CPU's (no_transform={no_transform}, "
+                                 f"{list(x.shape)})")
+    log("DeviceData.gather on the card equals the CPU's bit for bit (train "
+        "and test splits, with and without the transform)")
+
+    engines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for flags in ((), VMAPPED_RUN):
+            cell = CELLS[0][:6] + (flags,) + CELLS[0][7:]
+            args = driver._postprocess(driver.process_commandline(
+                cell_argv(cell, 1, tmp)))
+            engines.append(driver._setup(args)[1])
+    grouped, vmapped = engines
+    state = grouped.init()
+    S = grouped.cfg.nb_sampled
+    data = grouped.train_data
+    xs, ys = data.gather(*data.upload(*data.sample_indices(S)))
+    masks = grouped.draw_masks(S, xs.shape[1])
+    (G, loss, net, *_), (V, vloss, vnet, *_) = (
+        engine.phase_honest(state, xs, ys, args.learning_rate, masks)
+        for engine in (grouped, vmapped))
+    if (grouped.counts["grouped_phases"], vmapped.counts["vmapped_phases"]) != (1, 1):
+        raise SystemExit("the grouped and vmapped engines took another honest phase")
+    rel = (torch.linalg.vector_norm(G - V, dim=1)
+           / torch.linalg.vector_norm(V, dim=1))
+    exact = torch.isclose(G, V, rtol=1e-4, atol=1e-5).all(dim=1)
+    if not bool((rel < 1e-2).all()):
+        raise SystemExit(f"grouped honest rows off the vmapped ones: {rel.tolist()}")
+    compare("grouped honest loss", loss, vloss, atol=0.0, rtol=1e-4)
+    for name in vnet:
+        compare(f"grouped BatchNorm state {name}", net[name], vnet[name],
+                atol=1e-5, rtol=1e-4)
+    log(f"grouped honest phase against the vmapped one at f32{list(xs.shape)}, "
+        f"{S} workers: {int(exact.sum())} of {S} rows within rtol 1e-4, atol "
+        f"1e-5, the largest row distance {float(rel.max()):.3e} relative L2 "
+        f"on {smi}")
+
+
 # (name, GAR, f, attack and its arguments, steps, kernels the GAR launches,
-# dtype flags, the dtype those kernels must run in)
+# more flags, the dtype those kernels must run in)
 EMPIRE = ("empire", ("factor:1.1",))
 LITTLE = ("little", ("factor:1.5", "negative:true"))
 BF16_RUN = ("--dtype", "bfloat16")
 F16_RUN = ("--dtype", "float16")
 MIXED_RUN = ("--dtype", "float32", "--compute-dtype", "bfloat16")
+VMAPPED_RUN = ("--no-grouped-workers",)
+# `reproduce.py::submit_cifar`'s flags beyond the headline's
+GRID_RUN = ("--model-args", "cifar100:False", "--loss", "nll",
+            "--learning-rate-decay", "167", "--learning-rate-decay-delta",
+            "1500", "--l2-regularize", "1e-2", "--nb-for-study-past", "25",
+            "--evaluation-delta", "100")
 CELLS = (
     ("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean"), (), F32),
     ("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean"), (), F32),
@@ -690,7 +773,12 @@ CELLS = (
      F16_RUN, F16),
     ("headline_mixed", "bulyan", 5, EMPIRE, GAR_STEPS,
      ("sq_gram", "selected_median_mean"), MIXED_RUN, F32),
+    ("headline_vmapped", "bulyan", 5, EMPIRE, GAR_STEPS,
+     ("sq_gram", "selected_median_mean"), VMAPPED_RUN, F32),
+    ("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5, EMPIRE,
+     GAR_STEPS, ("sq_gram", "selected_median_mean"), GRID_RUN, F32),
 )
+PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped")
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
@@ -699,8 +787,9 @@ WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
 
 
 def cell_argv(cell, steps, resdir):
-    """The driver's command line for a cell of `CELLS`."""
-    _, gar, f, (attack, attack_args), _, _, dtype_flags, _ = cell
+    """The driver's command line for a cell of `CELLS` (its own flags
+    last, so they override the common ones)."""
+    _, gar, f, (attack, attack_args), _, _, flags, _ = cell
     return ["--device", "cuda", "--seed", "1", "--nb-steps", str(steps),
             "--dataset", "cifar10", "--model", "empire-cnn",
             "--nb-workers", "25", "--nb-decl-byz", str(f),
@@ -710,7 +799,7 @@ def cell_argv(cell, steps, resdir):
             "--evaluation-delta", str(steps), "--momentum", "0.99",
             "--momentum-at", "update", "--gradient-clip", "5",
             "--learning-rate", "0.01", "--nb-for-study", "1",
-            "--nb-for-study-past", "1", *dtype_flags,
+            "--nb-for-study-past", "1", *flags,
             "--result-directory", resdir]
 
 
@@ -740,6 +829,16 @@ def drive(cell, smi):
         if count < steps:
             raise SystemExit(f"{name}: {kernel} launched {count} times in "
                              f"{dtype} in {steps} steps: the path bypassed it")
+    # Every step and evaluation on the device-resident batches, every
+    # honest phase on the program asked for
+    args = driver.process_commandline(argv)
+    honest = "vmapped_phases" if args.no_grouped_workers else "grouped_phases"
+    want = {"indexed_steps": steps, honest: steps,
+            "indexed_evals": len(range(0, steps + 1, args.evaluation_delta))}
+    if summary["counts"] != want:
+        raise SystemExit(f"{name}: engine counts {summary['counts']}, expected "
+                         f"{want}: the run left the device-resident path or "
+                         f"took the other honest phase")
     rate = summary["steps_per_s"]
     if rate is None or not math.isfinite(rate):
         raise SystemExit(f"{name}: no throughput measured")
@@ -747,42 +846,50 @@ def drive(cell, smi):
     counts = {f"{kernel}[{DTYPE_NAMES[dt]}]": count
               for (kernel, dt), count in launches.items()}
     log(f"{name} cell: {steps} steps, {rate:.4f} steps/s after the first "
-        f"step, launches {counts}, defense norms {norms[0]:.4e} .. "
+        f"step, engine counts {summary['counts']}, "
+        f"launches {counts}, defense norms {norms[0]:.4e} .. "
         f"{norms[-1]:.4e}, acceptation ratio {ratio} on {smi}")
     return launches
 
 
 def step_profile(cell, smi, steps=3):
     """Phase 5: where the device time of a cell's step goes, over `steps`
-    warm steps with host batch sampling included, as in the driver. CUDA
-    events between the engine's three phases give each phase's time on
-    the device's clock; `torch.profiler` gives the busiest kernels and
-    the device's busy share of the wall time."""
+    warm steps on the driver's path: the host draws the step's indices and
+    flips, uploads them and the device gathers the batches. CUDA events
+    between the index draw, the gather and the engine's three phases give
+    each one's time on the device's clock; `torch.profiler` gives the
+    busiest kernels and the device's busy share of the wall time (the
+    union of the kernels' intervals; their summed times beside it)."""
     with tempfile.TemporaryDirectory() as tmp:
         args = driver._postprocess(driver.process_commandline(
             cell_argv(cell, steps, tmp)))
-        device, engine, trainset, _ = driver._setup(args)
+        _, engine = driver._setup(args)
     state = engine.init()
+    data = engine.train_data
     lr = args.learning_rate
-    phase_ms = {"sample": 0.0, "honest": 0.0, "defense": 0.0, "update": 0.0}
+    phase_ms = dict.fromkeys(("draw+upload", "gather", "honest", "defense",
+                              "update"), 0.0)
 
     def step(state):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         marks[0].record()
-        xs, ys = driver.sample_batches(trainset, engine.cfg.nb_sampled, device)
+        idx, flips = data.upload(*data.sample_indices(engine.cfg.nb_sampled))
         marks[1].record()
-        honest = engine.phase_honest(state, xs, ys, lr)
+        xs, ys = data.gather(idx, flips)
         marks[2].record()
-        defense = engine.phase_defense(honest[-1])
+        honest = engine.phase_honest(state, xs, ys, lr)
         marks[3].record()
+        defense = engine.phase_defense(honest[-1])
+        marks[4].record()
         state, _ = engine.phase_update(state, *honest, *defense, lr,
                                        xs.shape[1])
-        marks[4].record()
+        marks[5].record()
         return state, marks
 
     for _ in range(2):
         state, _ = step(state)
     torch.cuda.synchronize()
+    honest_path = "grouped" if engine.grouped is not None else "vmapped"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -805,10 +912,23 @@ def step_profile(cell, smi, steps=3):
             total = event.cuda_time_total
         return total / 1e3 / steps
 
-    busy_ms = sum(device_ms(e) for e in kernels)
-    log(f"{cell[0]} step profile over {steps} steps on {smi}: wall "
+    # Busy time is the union of the kernels' intervals: kernels that
+    # overlap on the device clock (cuDNN's engines may let one start
+    # before its predecessor ends) would count twice in a sum
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, -math.inf
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    busy_ms = busy_us / 1e3 / steps
+    summed_ms = sum(device_ms(e) for e in kernels)
+    log(f"{cell[0]} step profile ({honest_path} honest phase) over "
+        f"{steps} steps on {smi}: wall "
         f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
-        f"({100 * busy_ms / wall_ms:.1f}%), "
+        f"({100 * busy_ms / wall_ms:.1f}%; kernel times summed "
+        f"{summed_ms:.3f} ms/step), "
         f"{sum(e.count for e in kernels) // steps} device ops/step")
     log("  device clock per phase (ms/step): " + ", ".join(
         f"{name} {ms:.3f}" for name, ms in phase_ms.items()))
@@ -823,12 +943,13 @@ def main():
     smi = environment()
     build()
     records = kernels_vs_plain(smi)
+    device_paths(smi)
     totals = {}
     for cell in CELLS:
         for key, count in drive(cell, smi).items():
             totals[key] = totals.get(key, 0) + count
     for cell in CELLS:
-        if cell[0] in ("headline", "krum_f11", "brute", "headline_mixed"):
+        if cell[0] in PROFILED:
             step_profile(cell, smi)
     for record in records:
         record["launches"] = totals.get(split_record_name(record["name"]), 0)

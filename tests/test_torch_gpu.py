@@ -777,3 +777,179 @@ def test_keyed_lower_median_and_trimmed_mean_at_the_headline_shape(cuda):
             for f in (5, 11):
                 _assert_exact(sort_kernels.trimmed_mean(xs, f),
                               sort_kernels.trimmed_mean_plain(xs, f))
+
+
+# --------------------------------------------------------------------------- #
+# The device-resident path: the gather on the card, the grouped honest phase
+
+
+def _image_splits(no_transform):
+    """A 130-image train and test split (B = 10) with the CIFAR transform."""
+    from byzantinemomentum_tpu_torch import data
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (130, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, 130).astype(np.int32)
+    transform = data._image_transform("cifar10", no_transform)
+    return [data.Dataset(x, y, 10, train=train, transform=transform, seed=3)
+            for train in (True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("no_transform", (False, True))
+def test_device_gather_on_the_card_equals_the_cpu_gather(cuda, no_transform):
+    """Bit for bit, over an epoch boundary inside a call."""
+    from byzantinemomentum_tpu_torch.data.device import DeviceData
+    for split in _image_splits(no_transform):
+        cpu, card = DeviceData(split, "cpu"), DeviceData(split, cuda)
+        for _ in range(5):
+            idx, flips = cpu.sample_indices(4)
+            x, y = card.gather(*card.upload(idx, flips))
+            cx, cy = cpu.gather(*cpu.upload(idx, flips))
+            assert x.device.type == "cuda" and x.dtype == cx.dtype == torch.float32
+            assert torch.equal(x.cpu().view(torch.int32), cx.view(torch.int32))
+            assert torch.equal(y.cpu(), cy)
+
+
+def _honest_setup(device, momentum_at="update", nesterov=False, **dtypes):
+    """A grouped and a vmapped engine (n = 11, 2 real Byzantine workers,
+    batch 8, clip 5) and the state, inputs and dropout masks both take:
+    `(engines, state, xs, ys, masks)`."""
+    import dataclasses
+
+    from byzantinemomentum_tpu_torch import models, optim
+    from byzantinemomentum_tpu_torch.attacks import attacks
+    from byzantinemomentum_tpu_torch.engine import Engine, EngineConfig
+    from byzantinemomentum_tpu_torch.losses import Criterion, Loss
+    cfg = EngineConfig(nb_workers=11, nb_decl_byz=2, nb_real_byz=2,
+                       nb_for_study=11, momentum=0.99, gradient_clip=5.0,
+                       momentum_at=momentum_at, nesterov=nesterov, **dtypes)
+    engines = [Engine(c, models.build("empire-cnn", device=device,
+                                      dtype=cfg.torch_dtype),
+                      Loss("nll") + 1e-2 * Loss("l2"), Criterion("top-k"),
+                      (gars["bulyan"], {}), attacks["empire"], {"factor": 1.1},
+                      optim.build("sgd"),
+                      torch.Generator(device=device).manual_seed(2))
+               for c in (cfg, dataclasses.replace(cfg, grouped_workers=False))]
+    engines[0].model.reset(torch.Generator(device=device).manual_seed(1))
+    state = engines[0].init()
+    rng = np.random.default_rng(4)
+    S, h, d = cfg.nb_sampled, cfg.nb_honests, engines[0].d
+    state = dataclasses.replace(
+        state,
+        momentum_server=torch.from_numpy(0.01 * rng.standard_normal(d)).to(state.theta),
+        momentum_workers=torch.from_numpy(0.01 * rng.standard_normal(
+            (h if momentum_at == "worker" else 0, d))).to(state.theta))
+    xs = torch.from_numpy(rng.standard_normal((S, 8, 32, 32, 3)).astype(np.float32))
+    ys = torch.from_numpy(rng.integers(0, 10, size=(S, 8)))
+    masks = engines[0].draw_masks(S, 8)
+    return engines, state, xs.to(device), ys.to(device), masks
+
+
+def _honest_phases(device, momentum_at="update", nesterov=False, **dtypes):
+    """The grouped and the vmapped honest phase of `_honest_setup`."""
+    engines, *inputs = _honest_setup(device, momentum_at, nesterov, **dtypes)
+    state, xs, ys, masks = inputs
+    outs = [engine.phase_honest(state, xs, ys, 0.05, masks)
+            for engine in engines]
+    assert engines[0].counts == {"grouped_phases": 1}
+    assert engines[1].counts == {"vmapped_phases": 1}
+    return outs
+
+
+def _honest_phases_on_one_argmax(device, **dtypes):
+    """`_honest_phases`, then both phases again with every max-pool window
+    taking the input that the grouped phase's max-pool picked in its first
+    run: `(grouped, vmapped, grouped on that argmax, vmapped on it)`. The
+    grouped program's pools record their argmax (`(S*B, C, h, w)`,
+    worker-major) and take it back as it is; the vmapped program gets
+    each worker's own through `vmap`, beside its dropout masks. So the
+    two programs' second runs differ by no max-pool near tie."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from byzantinemomentum_tpu_torch.models import empire
+    (grouped, vmapped), state, xs, ys, masks = _honest_setup(device, **dtypes)
+    picked, given = [], []
+
+    def recording_pool(x, window=2):
+        out, idx = F.max_pool2d(x, window, return_indices=True)
+        picked.append(idx)
+        return out
+
+    def given_pool(x, window=2):
+        idx = given.pop(0)
+        return x.flatten(-2).gather(-1, idx.flatten(-2)).view(idx.shape)
+
+    forward = empire.EmpireCNN.forward
+
+    def forward_taking_argmax(self, x, train=False, masks=None):
+        given[:] = masks[3:]
+        return forward(self, x, train, masks[:3])
+
+    with mock.patch.object(empire, "max_pool", recording_pool):
+        G = grouped.phase_honest(state, xs, ys, 0.05, masks)
+    V = vmapped.phase_honest(state, xs, ys, 0.05, masks)
+    with mock.patch.object(empire, "max_pool", given_pool):
+        given[:] = picked
+        GA = grouped.phase_honest(state, xs, ys, 0.05, masks)
+        S = xs.shape[0]
+        argmax = tuple(idx.view(S, -1, *idx.shape[1:]) for idx in picked)
+        with mock.patch.object(empire.EmpireCNN, "forward",
+                               forward_taking_argmax):
+            VA = vmapped.phase_honest(state, xs, ys, 0.05,
+                                      tuple(masks) + argmax)
+    assert not given and len(argmax) == 2
+    assert grouped.counts == {"grouped_phases": 2}
+    assert vmapped.counts == {"vmapped_phases": 2}
+    return G, V, GA, VA
+
+
+def _row_distance(got, want):
+    return (torch.linalg.vector_norm((got - want).double(), dim=1)
+            / torch.linalg.vector_norm(want.double(), dim=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("momentum_at,nesterov",
+                         (("update", False), ("server", True), ("worker", True)))
+def test_grouped_honest_phase_on_the_card_matches_vmapped(cuda, momentum_at,
+                                                          nesterov):
+    """float64: every value within rtol 1e-9, atol 1e-12 (no ReLU input
+    within rounding of 0, so no max-pool near tie). f32: every gradient
+    row within 1e-2 relative L2 (the engine tests' near-tie bound), the
+    losses within rtol 1e-4, the BatchNorm state within rtol 1e-4, atol
+    1e-5."""
+    grouped, vmapped = _honest_phases(cuda, momentum_at, nesterov,
+                                      dtype="float64")
+    for got, want in zip(grouped, vmapped):
+        for name in (want if isinstance(want, dict) else (None,)):
+            g, w = (got[name], want[name]) if name else (got, want)
+            assert g.dtype == torch.float64
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+    (G, loss, net, *_), (V, vloss, vnet, *_) = _honest_phases(
+        cuda, momentum_at, nesterov)
+    assert bool((_row_distance(G, V) < 1e-2).all())
+    torch.testing.assert_close(loss, vloss, rtol=1e-4, atol=0.0)
+    for name in vnet:
+        torch.testing.assert_close(net[name], vnet[name], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mixed_grouped_honest_phase_on_the_card_matches_vmapped(cuda):
+    """bf16-mixed, as `tests/test_torch_grouped.py` holds it: each grouped
+    row within 0.5x the vmapped row's distance from its f32 row, unless a
+    max-pool near tie between the two programs moved it; then it is within
+    0.5x once both programs pool from one argmax
+    (`_honest_phases_on_one_argmax`), where every row is held so. The
+    grouped rows' mean distance from their f32 rows within 1.5x the
+    vmapped rows'; the losses within rtol 2e-2."""
+    mixed = {"dtype": "float32", "compute_dtype": "bfloat16"}
+    (G, loss, *_), (V, vloss, *_), (GA, *_), (VA, *_) = \
+        _honest_phases_on_one_argmax(cuda, **mixed)
+    (G32, *_), (V32, *_) = _honest_phases(cuda)
+    assert G.dtype == torch.float32 and loss.dtype == torch.float32
+    err = _row_distance(V, V32)
+    assert bool((_row_distance(GA, VA) <= 0.5 * _row_distance(VA, V32)).all())
+    assert float(_row_distance(G, G32).mean()) <= 1.5 * float(err.mean())
+    torch.testing.assert_close(loss, vloss, rtol=2e-2, atol=0.0)
