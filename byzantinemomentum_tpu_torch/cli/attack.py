@@ -92,6 +92,8 @@ def process_commandline(argv=None):
     add("--criterion", type=str, default="top-k", help="Criterion to use")
     add("--criterion-args", nargs="*", help="key:value args for the criterion")
     add("--dataset", type=str, default="mnist", help="Dataset to use")
+    add("--dataset-args", nargs="*",
+        help="key:value args for the dataset loader (e.g. split:balanced)")
     add("--batch-size", type=int, default=25, help="Training batch size")
     add("--batch-size-test", type=int, default=100, help="Test batch size")
     add("--batch-size-test-reps", type=int, default=100,
@@ -130,7 +132,8 @@ def process_commandline(argv=None):
 
 def _postprocess(args):
     """Derivations and checks (the JAX driver's `_postprocess`)."""
-    for name in ("gar", "attack", "model", "loss", "criterion", "optimizer"):
+    for name in ("gar", "attack", "model", "dataset", "loss", "criterion",
+                 "optimizer"):
         name = f"{name}_args"
         setattr(args, name, utils.parse_keyval(getattr(args, name)))
     args.nb_honests = args.nb_workers - args.nb_real_byz
@@ -292,7 +295,8 @@ def _setup(args):
     model.reset(torch.Generator(device=device).manual_seed(seed))
     trainset, testset = data_mod.make_datasets(
         args.dataset, args.batch_size, args.batch_size_test,
-        no_transform=args.no_transform, seed=seed % 2**32)
+        no_transform=args.no_transform, seed=seed % 2**32,
+        **args.dataset_args)
     loss = losses_mod.Loss(args.loss, **args.loss_args)
     if args.l1_regularize is not None:
         loss = loss + args.l1_regularize * losses_mod.Loss("l1")

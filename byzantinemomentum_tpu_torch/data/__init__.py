@@ -1,14 +1,16 @@
-"""Dataset registry and host-side sampler (`byzantinemomentum_tpu/data/`,
-the CIFAR subset).
+"""Dataset registry and host-side sampler (`byzantinemomentum_tpu/data/`).
 
 A dataset is a pair of in-memory numpy splits plus a sampler that yields
 fixed-shape `(B, ...)` batches forever. The train sampler shuffles per
 epoch and completes the last batch of an epoch from the next shuffle; the
-test sampler cycles in order. The transform is the JAX package's: uint8
-HWC -> f32 in [0, 1], a random horizontal flip for CIFAR, then the CIFAR
-normalization — applied to the test set too, as the reference does. The
-sampler's numpy RNG consumes draws in the same order as the JAX package's,
-so both drivers see the same batches for the same seed.
+test sampler cycles in order. The image transform is the JAX package's:
+uint8 HWC -> f32 in [0, 1], a random horizontal flip for the datasets of
+`flip_train`, then the normalization of `normalizations` where the
+dataset has one — applied to the test set too, as the reference does;
+`--no-transform` keeps only the scaling. A dataset of kind "raw"
+(`phishing`, `data/svm.py`) has no transform. The sampler's numpy RNG
+consumes draws in the same order as the JAX package's, so both drivers
+see the same batches for the same seed.
 """
 
 import numpy as np
@@ -16,17 +18,31 @@ import numpy as np
 from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.data import sources
 
-__all__ = ["datasets", "Dataset", "make_datasets", "normalizations"]
+__all__ = ["datasets", "register", "Dataset", "make_datasets",
+           "normalizations", "flip_train"]
 
-datasets = {
-    "cifar10": lambda: sources.load_cifar(10),
-    "cifar100": lambda: sources.load_cifar(100),
-}
+# name -> loader(**dataset_args) -> {"train_x", "train_y", "test_x",
+# "test_y"[, "kind", "synthetic"]}
+datasets = {}
 
+# Per-channel (mean, std) applied after the scaling to [0, 1]
 normalizations = {
+    "mnist": ((0.1307,), (0.3081,)),
+    "kmnist": ((0.1918,), (0.3483,)),
     "cifar10": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
     "cifar100": ((0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)),
 }
+
+# Datasets whose transform flips at random (train and test splits)
+flip_train = {"fashionmnist", "cifar10", "cifar100"}
+
+
+def register(name, loader):
+    """Register a dataset loader under `name`."""
+    if name in datasets:
+        utils.warning(f"Dataset {name!r} registered twice; keeping the last")
+    datasets[name] = loader
+    return loader
 
 
 class Dataset:
@@ -75,44 +91,53 @@ class Dataset:
         return select
 
     def sample_flips(self):
-        """Random horizontal-flip mask `bool[B]` of the next batch
-        (all-False when the transform has no flips)."""
-        if self._transform.flip:
+        """Random horizontal-flip mask `bool[B]` of the next batch; the RNG
+        draws only where the transform flips (all-False otherwise)."""
+        if self._transform is not None and self._transform.flip:
             return self._rng.random(self._batch) < 0.5
         return np.zeros(self._batch, bool)
 
     def sample(self):
-        """The next `(inputs f32[B, ...], labels i32[B])` batch."""
+        """The next `(inputs, labels)` batch: `f32[B, ...]` inputs from the
+        transform (as stored for a raw dataset)."""
         select = self.sample_indices()
-        return self._transform(self._inputs[select], self.sample_flips()), \
-            self._labels[select]
+        flips = self.sample_flips()
+        x = self._inputs[select]
+        if self._transform is not None:
+            x = self._transform(x, flips)
+        return x, self._labels[select]
 
 
 def _image_transform(name, no_transform):
     """uint8 HWC -> f32 in [0, 1], then (unless `no_transform`) the given
-    horizontal flips and the per-channel normalization."""
-    norm = normalizations[name]
+    horizontal flips where `name` is in `flip_train` and the per-channel
+    normalization where `name` has one."""
+    norm = None if no_transform else normalizations.get(name)
+    flip = name in flip_train and not no_transform
 
     def transform(batch, flips):
         x = batch.astype(np.float32) / 255.0
-        if not no_transform:
+        if flip:
             x[flips] = x[flips, :, ::-1, :]
+        if norm is not None:
             x = (x - np.asarray(norm[0], np.float32)) / np.asarray(norm[1], np.float32)
         return x
 
     # Metadata for the device-resident path (`data/device.py`)
-    transform.flip = not no_transform
-    transform.norm = None if no_transform else norm
+    transform.flip = flip
+    transform.norm = norm
     return transform
 
 
 def make_datasets(dataset, train_batch=None, test_batch=None, *,
-                  no_transform=False, seed=0):
-    """The (trainset, testset) pair of a registered dataset name."""
+                  no_transform=False, seed=0, **custom_args):
+    """The (trainset, testset) pair of a registered dataset name;
+    `custom_args` go to its loader (`--dataset-args`)."""
     if dataset not in datasets:
         utils.fatal_unavailable(datasets, dataset, what="dataset name")
-    raw = datasets[dataset]()
-    transform = _image_transform(dataset, no_transform)
+    raw = datasets[dataset](**custom_args)
+    transform = (_image_transform(dataset, no_transform)
+                 if raw.get("kind", "image") == "image" else None)
     trainset = Dataset(raw["train_x"], raw["train_y"], train_batch,
                        train=True, transform=transform, seed=seed,
                        name=dataset)
@@ -121,3 +146,16 @@ def make_datasets(dataset, train_batch=None, test_batch=None, *,
                       name=dataset)
     trainset.synthetic = testset.synthetic = bool(raw.get("synthetic", False))
     return trainset, testset
+
+
+register("mnist", lambda **kw: sources.load_mnist("mnist", **kw))
+register("fashionmnist", lambda **kw: sources.load_mnist("fashionmnist", **kw))
+register("kmnist", lambda **kw: sources.load_mnist("kmnist", **kw))
+# No normalization and no flips for these (plain [0, 1] scaling)
+register("emnist", sources.load_emnist)
+register("qmnist", sources.load_qmnist)
+register("svhn", sources.load_svhn)
+register("cifar10", lambda **kw: sources.load_cifar(10, **kw))
+register("cifar100", lambda **kw: sources.load_cifar(100, **kw))
+
+from byzantinemomentum_tpu_torch.data import svm as _svm  # noqa: E402,F401  (registers "phishing")

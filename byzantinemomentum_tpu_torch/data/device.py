@@ -21,8 +21,10 @@ Python number: torch on CUDA turns that into a product with a reciprocal
 of its own.
 
 The transform run here is the image transform of `data/__init__.py`
-(its `flip` and `norm`), the one every dataset of the port has, so the
-JAX `DeviceData.supports` check has no counterpart.
+(its `flip` and `norm`). A raw dataset (`phishing`) has none: its
+inputs are converted to f32 as they are, and its labels keep their
+trailing shape (float `(N, 1)`). Every dataset of the port has one of
+the two, so the JAX `DeviceData.supports` check has no counterpart.
 """
 
 import numpy as np
@@ -40,13 +42,14 @@ class DeviceData:
         self.inputs = torch.from_numpy(dataset._inputs).to(self.device)
         self.labels = torch.from_numpy(dataset._labels).to(self.device)
         transform = dataset._transform
-        self.flip = bool(transform.flip)
+        self.is_image = transform is not None
+        self.flip = self.is_image and transform.flip
         scale = np.float32(1.0) / np.float32(255.0)
         self._scale32 = torch.tensor(scale, device=self.device)
         self._scale64 = torch.tensor(float(scale), dtype=torch.float64,
                                      device=self.device)
         self.norm = None
-        if transform.norm is not None:
+        if self.is_image and transform.norm is not None:
             mean = np.asarray(transform.norm[0], np.float32)
             inv_std = np.float32(1.0) / np.asarray(transform.norm[1], np.float32)
             self.norm = (torch.from_numpy(mean.astype(np.float64)).to(self.device),
@@ -80,10 +83,14 @@ class DeviceData:
 
     def gather(self, idx, flips):
         """`idx: int[..., B]`, `flips: bool[..., B]` on the device ->
-        `(f32[..., B, H, W, C] inputs, labels[..., B])`."""
+        `(f32[..., B, H, W, C] inputs, labels[..., B])` (a raw dataset's
+        inputs and labels keep their trailing shapes)."""
         x = self.inputs.index_select(0, idx.reshape(-1))
         x = x.view(idx.shape + self.inputs.shape[1:])
-        y = self.labels.index_select(0, idx.reshape(-1)).view(idx.shape)
+        y = self.labels.index_select(0, idx.reshape(-1))
+        y = y.view(idx.shape + self.labels.shape[1:])
+        if not self.is_image:
+            return x.to(torch.float32), y
         if self.flip:  # the W axis of (..., H, W, C)
             x = torch.where(flips[..., None, None, None], x.flip(-2), x)
         if self.norm is None:

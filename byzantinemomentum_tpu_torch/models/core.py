@@ -1,5 +1,5 @@
 """Layer primitives of the model zoo (`byzantinemomentum_tpu/models/core.py`,
-the subset `empire-cnn` needs).
+the subset `empire-cnn` and the `simples-*` models need).
 
 Parameters keep the JAX package's layouts — HWIO convolution kernels and
 (din, dout) dense weights — so the flat parameter vector of the port and
@@ -67,10 +67,14 @@ def _uniform(generator, shape, bound, device):
 
 
 class Conv(nn.Module):
-    """3x3 'SAME' convolution with an HWIO kernel `w` and bias `b`."""
+    """A k x k stride-1 convolution with an HWIO kernel `w` and bias `b`;
+    `padding` is "same" (3x3 in `empire-cnn`) or "valid" (the 5x5
+    convolutions of `simples-conv`)."""
 
-    def __init__(self, cin, cout, k=3, device=None, dtype=None):
+    def __init__(self, cin, cout, k=3, padding="same", device=None,
+                 dtype=None):
         super().__init__()
+        self.padding = padding
         self.w = nn.Parameter(torch.empty((k, k, cin, cout), device=device,
                                           dtype=dtype))
         self.b = nn.Parameter(torch.empty((cout,), device=device, dtype=dtype))
@@ -84,7 +88,8 @@ class Conv(nn.Module):
         self.b.copy_(_uniform(generator, self.b.shape, bound, self.b.device))
 
     def forward(self, x):
-        return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b, padding="same")
+        return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b,
+                        padding=self.padding)
 
 
 class Dense(nn.Module):
@@ -191,51 +196,53 @@ def _from_groups(x, S):
 
 
 class _WorkerConv(torch.autograd.Function):
-    """3x3 'SAME' convolutions of S workers on worker-major batches; see
-    `grouped_conv`. `w: (S, cout, cin, kh, kw)`, `b: (S, cout)`."""
+    """Stride-1 convolutions of S workers on worker-major batches, with
+    `pad` zeros on each side; see `grouped_conv`. `w: (S, cout, cin, kh,
+    kw)`, `b: (S, cout)`."""
 
     @staticmethod
-    def forward(x, w, b, shared):
+    def forward(x, w, b, shared, pad):
         S = w.shape[0]
         if shared:
-            return F.conv2d(x, w[0], b[0], padding=1)
+            return F.conv2d(x, w[0], b[0], padding=pad)
         out = _from_groups(F.conv2d(_to_groups(x, S),
                                     w.reshape(-1, *w.shape[2:]),
-                                    padding=1, groups=S), S)
+                                    padding=pad, groups=S), S)
         # The bias added after the convolution, as vmap adds a batched one
         out = out.view(S, -1, *out.shape[1:]) + b[:, None, :, None, None]
         return out.view(-1, *out.shape[2:])
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, _, shared = inputs
+        x, w, _, shared, pad = inputs
         ctx.save_for_backward(x, w)
         ctx.shared = shared
+        ctx.pad = pad
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         S = w.shape[0]
-        one = [1, 1]
+        one, pad = [1, 1], [ctx.pad, ctx.pad]
         gy_g, x_g = _to_groups(gy, S), _to_groups(x, S)
         w_g = w.reshape(-1, *w.shape[2:])
         gx = gw = None
         if ctx.needs_input_grad[0]:
             if ctx.shared:
                 gx = torch.ops.aten.convolution_backward(
-                    gy, x, w[0], None, one, one, one, False, [0, 0], 1,
+                    gy, x, w[0], None, one, pad, one, False, [0, 0], 1,
                     [True, False, False])[0]
             else:
                 gx = _from_groups(torch.ops.aten.convolution_backward(
-                    gy_g, x_g, w_g, None, one, one, one, False, [0, 0], S,
+                    gy_g, x_g, w_g, None, one, pad, one, False, [0, 0], S,
                     [True, False, False])[0], S)
         if ctx.needs_input_grad[1]:
             gw = torch.ops.aten.convolution_backward(
-                gy_g, x_g, w_g, None, one, one, one, False, [0, 0], S,
+                gy_g, x_g, w_g, None, one, pad, one, False, [0, 0], S,
                 [False, True, False])[1].view(w.shape)
         gb = gy.reshape(S, -1, *gy.shape[1:]).sum(dim=(1, 3, 4))
-        return gx, gw, gb, None
+        return gx, gw, gb, None, None
 
 
 class _WorkerDense(torch.autograd.Function):
@@ -265,15 +272,17 @@ class _WorkerDense(torch.autograd.Function):
         return gx, torch.bmm(x.transpose(1, 2), gy), gy.sum(dim=1), None
 
 
-def grouped_conv(x, w_s, b_s, shared=False):
-    """Per-worker 3x3 'SAME' convolutions: `x: (S*B, cin, H, W)` worker
-    by worker, stacked HWIO kernels `w_s: (S, kh, kw, cin, cout)` and
-    biases `b_s: (S, cout)` -> `(S*B, cout, H, W)`. `shared` says that
+def grouped_conv(x, w_s, b_s, shared=False, padding="same"):
+    """Per-worker stride-1 convolutions (`padding` "same", for an odd
+    kernel, or "valid", as `Conv`): `x: (S*B, cin, H, W)` worker by
+    worker, stacked HWIO kernels `w_s: (S, kh, kw, cin, cout)` and
+    biases `b_s: (S, cout)` -> `(S*B, cout, H', W')`. `shared` says that
     every worker's kernel and bias equal worker 0's: the forward and the
     input gradient are then one convolution over the S*B inputs. The
     kernel gradient is one `groups=S` convolution gradient on
     `(B, S*C, H, W)`, the calls `torch.func.vmap` makes."""
-    return _WorkerConv.apply(x, w_s.permute(0, 4, 3, 1, 2), b_s, shared)
+    pad = (w_s.shape[1] - 1) // 2 if padding == "same" else 0
+    return _WorkerConv.apply(x, w_s.permute(0, 4, 3, 1, 2), b_s, shared, pad)
 
 
 def grouped_dense(x, w_s, b_s, shared=False):

@@ -14,7 +14,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    registers and spills, and fails on a spill; prints the SASS
    instruction counts of the redesigned kernels at the headline shapes
    (`cuobjdump -sass`; `lower_median`, `trimmed_mean` and `colsort` at
-   n = 25, f = 11, in each dtype).
+   n = 25, f = 11, in each dtype). The MNIST grid's f32 libraries too:
+   `lower_median` at n = 51 and 11, `trimmed_mean` at n = 51 for f = 24
+   and 12 and at n = 11 for f = 4, `closest_mean` at n = 51 for m = 27
+   and 39, `selected_median_mean` for Bulyan's 27 rounds at n = 51,
+   f = 12.
 3. Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
@@ -51,9 +55,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (non-tensor-core) peak (the half forms compute in f32 too), counting
    2 operations per compare-exchange of a sorting network and 1 per
    one-sided comparator of a pruned one.
+   The MNIST grid's shapes (`mnist_kernels`): at f32[51, 79,510]
+   (`simples-full`) with the last f rows all NaN (the `nan` attack), f =
+   24 and 12: Krum's w and Bulyan's W (f = 12) from `sq_gram` equal those
+   from `sq_gram_plain`, and `sq_gram`, `weighted_rows_mean` and
+   `selected_median_mean` (m2 = 1, 3 and the 27 rounds) agree with their
+   plain versions; on the same rows with +-inf entries and a +-0 column,
+   `lower_median` and `trimmed_mean` (f = 24: the window [24, 27) is the
+   top three finite ranks) exactly, `closest_mean` (m = 27: every finite
+   value, never a NaN) about the median and the trimmed mean; at
+   f32[11, 431,080] (`simples-conv`, f = 4) and f32[11, 69]
+   (`simples-logit`, the phishing cell) the same for Krum, `lower_median`
+   and `trimmed_mean`. Records `<kernel>_n51` time kernels 1, 2, 3, 6, 7
+   and 8 at the n = 51 shapes as above.
    Then the device-resident path (`data/device.py`): `DeviceData.gather`
-   on the card gives the same bits as on the CPU (the train split with
-   flips, the test split, and both under `--no-transform`), and the
+   on the card gives the same bits as on the CPU (CIFAR-10's train split
+   with flips, its test split, and both under `--no-transform`; MNIST
+   normalized without flips, FashionMNIST flipped without normalization,
+   and the raw phishing rows with float labels), and the
    grouped honest phase on the card is held against the vmapped one at
    the headline shape (same weights, batches and dropout masks): every
    gradient row within 1e-2 relative L2 (the engine tests' max-pool
@@ -77,6 +96,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    writes it (the headline with `--learning-rate-decay 167
    --learning-rate-decay-delta 1500 --l2-regularize 1e-2
    --nb-for-study-past 25 --evaluation-delta 100`) (3 steps each).
+   Then the MNIST half of the paper (synthetic MNIST and FashionMNIST,
+   phishing): the driver's defaults (`default`: `mnist`, `simples-conv`,
+   n = 11, `average`, `nan` with no real Byzantine worker; 10 steps, no
+   kernel); `BASELINE.md` configs 2-3 (`baseline_mnist_krum`, `_median`,
+   `_trmean`: `simples-conv`, n = 11, f = 4 real, `empire factor:1.1`);
+   seven cells of `reproduce.py::submit_mnist` with its flags unchanged
+   (`simples-full`, n = 51, batch 83); the grid's flags with `--attack
+   nan` for Krum, Median, Trimmed mean, Phocas and MeaMed at f = 24 and
+   Bulyan at f = 12; and `phishing-krum` (`simples-logit`, `bce`, the
+   `sigmoid` criterion, n = 11, f = 4, `empire`); 50 steps each but the
+   default's 10, each cut only in steps.
    Launch counts are zeroed before each run and read after it: each
    kernel of the run's GAR must rise by at least its step count in the
    run's dtype. Each run must take every step and evaluation through the
@@ -85,18 +115,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    counts must equal the step and evaluation counts. Each study CSV must
    carry the JAX package's header and a finite "Defense gradient norm".
 5. Where a step's time goes, for the headline, `krum_f11`, brute,
-   mixed-precision headline and vmapped headline cells, through the
+   mixed-precision headline, vmapped headline and
+   `mnist-empire-krum-f_24-lr_0.5-at_update` cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the honest, defense and update phases), the
    busiest kernels and the device's busy share (`torch.profiler`; the
    union of the kernels' intervals, their summed times beside it).
 
 The line before the last is the `{"kernels": [...]}` record (one record
-per kernel and element type, launches summed over the runs of phase 4);
+per kernel and element type at the headline shape, launches summed over
+the CIFAR runs of phase 4; one `<kernel>_n51` record per kernel of the
+MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
+at n = 51);
 the last line is `{"ok": true, "device": {...}}`. Needs one card; exits
 non-zero without one.
 """
 
+import collections
 import json
 import math
 import os
@@ -122,17 +157,27 @@ from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.ops import (
     _common, _cuda, brute, bulyan, gar_kernels, gars, krum, sort_kernels)
 
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 STEPS = 10        # steps of the headline and krum_f11 cells
 GAR_STEPS = 3     # steps of each other run
 # Row counts the sorting kernels meet below, each with the trims f of
 # `check_sort_kernels` (closest_mean's m = n - f)
 SORT_CASES = {2: (0,), 25: (5, 11), 64: (7, 31)}
+# The MNIST half's shapes: n = 51 at f = 24 and 12 (simples-full), n = 11
+# at f = 4 (simples-conv, and simples-logit on phishing); Bulyan at n = 51,
+# f = 12 runs 27 rounds
+MNIST_D, BASELINE_D, PHISHING_D = 79_510, 431_080, 69
+MNIST_SORT_BUILDS = (("lower_median", 51, F32), ("lower_median", 11, F32),
+                     ("trimmed_mean", 51, F32, None, 24),
+                     ("trimmed_mean", 51, F32, None, 12),
+                     ("trimmed_mean", 11, F32, None, 4),
+                     ("closest_mean", 51, F32, 27),
+                     ("closest_mean", 51, F32, 39))
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # tests/test_torch_ops.py's tolerances
 # Two ulps of each half dtype: the sorting kernels' half forms round after
 # every operation, as their plain versions do (tests/test_torch_gpu.py)
 HALF_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 DTYPE_NAMES = _cuda.DTYPE_NAMES
-F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # Published H100 peaks (NVIDIA data sheets): memory bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
@@ -253,12 +298,14 @@ def environment():
 def build():
     """Phase 2: the `sq_gram`/`weighted_rows_mean`/`masked_rows_mean`
     library, the `selected_median_mean` ones for the round counts this
-    script meets (13 at n=25, f=5; 5 at n=11, f=2) and the four sorting
+    script meets (13 at n=25, f=5; 5 at n=11, f=2; 27 at n=51, f=12), the
+    MNIST grid's f32 sorting kernels (`MNIST_SORT_BUILDS`) and the four sorting
     kernels at the row counts and element types it meets (`closest_mean`
     for each m, `trimmed_mean` for each f it meets), compiled side by
     side; prints each kernel's registers and spills, and fails on a
     spill."""
-    jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13)]
+    jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
+    jobs += [(sort_kernels.build, *job) for job in MNIST_SORT_BUILDS]
     jobs += [(sort_kernels.build, kernel, n, dtype)
              for kernel in ("lower_median", "colsort")
              for n in SORT_CASES for dtype in sort_kernels.DTYPES]
@@ -333,13 +380,55 @@ def kernel_name(mangled):
 
 
 def split_record_name(name):
-    """(kernel, dtype) of a record's name: the f32 form under the kernel's
-    name, the half forms as `<kernel>_bf16` and `<kernel>_f16`."""
+    """(kernel, dtype, family of runs) of a record's name: the f32 form at
+    the headline shape under the kernel's name, the half forms as
+    `<kernel>_bf16` and `<kernel>_f16` (family "cifar"); the MNIST
+    half's f32 form at n workers as `<kernel>_n<n>` (family "n<n>")."""
+    match = re.fullmatch(r"(\w+)_(n[0-9]+)", name)
+    if match:
+        return match.group(1), F32, match.group(2)
     for half in (BF16, F16):
         suffix = "_" + DTYPE_NAMES[half]
         if name.endswith(suffix):
-            return name[:-len(suffix)], half
-    return name, F32
+            return name[:-len(suffix)], half, "cifar"
+    return name, F32, "cifar"
+
+
+SOURCES = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
+           "weighted_rows_mean": "gar_kernels.cu",
+           "masked_rows_mean": "gar_kernels.cu"}
+REPLACES = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
+            "weighted_rows_mean": "pallas_gar.py:210",
+            "masked_rows_mean": "pallas_gar.py:258",
+            "colsort": "pallas_sort.py:189",
+            "lower_median": "pallas_sort.py:200",
+            "trimmed_mean": "pallas_sort.py:215",
+            "closest_mean": "pallas_sort.py:252"}
+
+
+def timed_record(name, kernel, fn, plain, library, nbytes, ops, err, smi):
+    """The `kernels` record of one kernel call `fn` (launches filled in
+    after phase 4): its times, its plain version's and its library
+    call's, and its bound from `nbytes` and f32 `ops`; logged."""
+    bandwidth, flops32 = card_peaks(smi)
+    t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
+    rec = {
+        "name": name, "route": "cuda",
+        "source": "byzantinemomentum_tpu_torch/csrc/"
+                  + SOURCES.get(kernel, "sort_kernels.cu"),
+        "replaces": "byzantinemomentum_tpu/ops/" + REPLACES[kernel],
+        "launches": None, "max_abs_err": err,
+        "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": cuda_ms(library) if library else None,
+        "queued_ms": queued_ms(fn),
+        "library_queued_ms": queued_ms(library) if library else None}
+    log(f"  {name}: {rec['ms']:.4f} ms ({rec['queued_ms']:.4f} queued), "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), library {rec['library_ms']} "
+        f"({rec['library_queued_ms']} queued)")
+    return rec
 
 
 def kernels_vs_plain(smi):
@@ -568,7 +657,6 @@ def kernels_vs_plain(smi):
             return None
         return call
 
-    bandwidth, flops32 = card_peaks(smi)
     exchanges = len(sort_kernels.batcher_pairs(n))
     # The keyed networks are pruned to the ranks read: one operation a
     # one-sided comparator, two a two-sided one
@@ -618,37 +706,12 @@ def kernels_vs_plain(smi):
              lambda x=x, c=median: sort_kernels.closest_mean(x, c, n - f11),
              lambda x=x, c=median: sort_kernels.closest_mean_plain(x, c, n - f11),
              None, (n * d + 2 * d) * size, (closest_ops + 2 * n) * d)]
-    sources = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
-               "weighted_rows_mean": "gar_kernels.cu",
-               "masked_rows_mean": "gar_kernels.cu"}
-    replaces = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
-                "weighted_rows_mean": "pallas_gar.py:210",
-                "masked_rows_mean": "pallas_gar.py:258",
-                "colsort": "pallas_sort.py:189",
-                "lower_median": "pallas_sort.py:200",
-                "trimmed_mean": "pallas_sort.py:215",
-                "closest_mean": "pallas_sort.py:252"}
     records = []
     for name, fn, plain, library, nbytes, ops in work:
-        kernel, dtype = split_record_name(name)
-        t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
-        records.append({
-            "name": name, "route": "cuda",
-            "source": "byzantinemomentum_tpu_torch/csrc/"
-                      + sources.get(kernel, "sort_kernels.cu"),
-            "replaces": "byzantinemomentum_tpu/ops/" + replaces[kernel],
-            "launches": None, "max_abs_err": errs[name],
-            "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": cuda_ms(library) if library else None,
-            "queued_ms": queued_ms(fn),
-            "library_queued_ms": queued_ms(library) if library else None})
-        rec = records[-1]
-        log(f"  {name}: {rec['ms']:.4f} ms ({rec['queued_ms']:.4f} queued), "
-            f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), library {rec['library_ms']} "
-            f"({rec['library_queued_ms']} queued)")
+        kernel, dtype, _ = split_record_name(name)
+        rec = timed_record(name, kernel, fn, plain, library, nbytes, ops,
+                           errs[name], smi)
+        records.append(rec)
         if kernel in ("lower_median", "trimmed_mean", "colsort"):
             # The one-column form at the same shape: `column_width` takes it
             # for an operand one element past an aligned allocation
@@ -683,13 +746,149 @@ def kernels_vs_plain(smi):
     return records
 
 
+def nan_attack_operand(n, f, d, seed, extremes=False, device="cuda"):
+    """f32[n, d] on `device` as the `nan` attack leaves a GAR's input:
+    n - f standard normal rows, then f rows all NaN. `extremes` adds +inf
+    and -inf entries to two honest rows and columns whose honest values
+    are +-0 only (0), end in three +inf (1: a median and a top window of
+    +inf), are all -inf (2) or mix +-inf (3)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    g[n - f:] = np.nan
+    if extremes:
+        h = n - f
+        g[0, rng.integers(4, d, 20)] = np.inf
+        g[1, rng.integers(4, d, 20)] = -np.inf
+        g[:h, 0] = np.where(rng.random(h) < 0.5, -0.0, 0.0)
+        g[:3, 1] = np.inf
+        g[:h, 2] = -np.inf
+        g[:h, 3] = np.where(np.arange(h) % 2 == 0, np.inf, -np.inf)
+    return torch.from_numpy(g).to(device)
+
+
+def mnist_kernels(smi):
+    """Phase 3 at the MNIST grid's shapes: kernels 1, 2, 3, 6, 7 and 8 on
+    the `nan` attack's rows at n = 51 (f = 24 and 12, d = 79,510) and
+    kernels 1, 3, 6 and 7 at n = 11 (f = 4, d = 431,080 and 69), against
+    their plain versions; returns the timed `<kernel>_n51` records."""
+    errs = collections.defaultdict(float)
+
+    def check(name, label, got, want, atol=TOL_ATOL, rtol=TOL_RTOL):
+        errs[name] = max(errs[name], compare(f"{name} {label}", got, want,
+                                             atol, rtol))
+
+    def same(label, got, want):
+        if not torch.equal(got, want):
+            raise SystemExit(f"{label} from sq_gram differs from the one "
+                             f"from sq_gram_plain")
+
+    operands = {}
+    for n, f, d in ((51, 24, MNIST_D), (51, 12, MNIST_D), (11, 4, BASELINE_D),
+                    (11, 4, PHISHING_D)):
+        label = f"n={n} f={f} d={d}"
+        h = n - f
+        g = operands[f] = nan_attack_operand(n, f, d, seed=n + f)
+        plain_gram = gar_kernels.sq_gram_plain(g)
+        diag = torch.diagonal(plain_gram)
+        check("sq_gram", label, gar_kernels.sq_gram(g), plain_gram,
+              atol=TOL_RTOL * float(diag[torch.isfinite(diag)].max()))
+        dist = _common.pairwise_distances(g)
+        plain_dist = _common.distances_from_sq_gram(plain_gram)
+        # Krum scores each row over its n - f - 1 nearest: the h finite
+        # rows see each other, the f NaN rows lie at +inf
+        w = krum.selection_weights(dist, f)
+        same(f"Krum's w at {label}", w, krum.selection_weights(plain_dist, f))
+        if bool((w[h:] > 0).any()) or int((w > 0).sum()) != n - f - 2:
+            raise SystemExit(f"Krum at {label} selected {w.tolist()}")
+        check("weighted_rows_mean", label, gar_kernels.weighted_rows_mean(w, g),
+              gar_kernels.select_rows(w, g))
+        if 4 * f + 3 <= n:
+            W = bulyan.selection_weights(dist, f)
+            same(f"Bulyan's W at {label}", W,
+                 bulyan.selection_weights(plain_dist, f))
+            rounds = W.shape[0]
+            operands["W"], operands["m2"] = W, rounds - 2 * f
+            for m2 in (1, rounds - 2 * f, rounds):
+                out = gar_kernels.selected_median_mean(W, g, m2)
+                check("selected_median_mean", f"{label} m2={m2}", out,
+                      gar_kernels.selected_median_mean_plain(W, g, m2))
+                if not bool(torch.isfinite(out).all()):
+                    raise SystemExit(f"Bulyan at {label} took a NaN row")
+        # Sorting kernels: exact (+-0 equal, NaN by position) for the
+        # median and the trimmed mean
+        x = nan_attack_operand(n, f, d, seed=n + f + 1, extremes=True)
+        finite = torch.isfinite(x[:h]).all(dim=0)
+        check("lower_median", label, sort_kernels.lower_median(x),
+              sort_kernels.lower_median_plain(x), atol=0.0, rtol=0.0)
+        trmean = sort_kernels.trimmed_mean(x, f)
+        check("trimmed_mean", label, trmean,
+              sort_kernels.trimmed_mean_plain(x, f), atol=0.0, rtol=0.0)
+        # NaN sorts last: the window [f, n - f) holds finite ranks only
+        top = torch.sort(x[:h, finite], dim=0).values[f:n - f].mean(dim=0)
+        compare(f"trimmed_mean {label} against the finite ranks",
+                trmean[finite], top)
+        if not (bool(trmean[1].isposinf()) and bool(trmean[2].isneginf())):
+            raise SystemExit(f"trimmed_mean at {label} lost an infinite window")
+        if n == 51:
+            for centre_name, c in (
+                    ("median", sort_kernels.lower_median_plain(x)),
+                    ("trmean", sort_kernels.trimmed_mean_plain(x, f))):
+                out = sort_kernels.closest_mean(x, c, h)
+                check("closest_mean", f"{label} m={h} about the {centre_name}",
+                      out, sort_kernels.closest_mean_plain(x, c, h))
+                # m = n - f takes every finite value and never a NaN key
+                compare(f"closest_mean {label} m={h} against the finite mean",
+                        out[finite], x[:h, finite].mean(dim=0))
+    log("MNIST grid shapes: kernels agree with their plain versions: "
+        + ", ".join(f"{name} max abs err {err:.3e}" for name, err in errs.items()))
+
+    n, g, g12, W, m2 = 51, operands[24], operands[12], operands["W"], operands["m2"]
+    d, rounds = MNIST_D, W.shape[0]
+    w = krum.selection_weights(_common.pairwise_distances(g), 24)
+    median = sort_kernels.lower_median_plain(g)
+    # (kernel, call, plain, library call, bytes, f32 operations), as in
+    # `kernels_vs_plain`
+    work = [
+        ("sq_gram", lambda: gar_kernels.sq_gram(g),
+         lambda: gar_kernels.sq_gram_plain(g), lambda: torch.matmul(g, g.T),
+         (n * d + n * n) * 4, 2 * (n * (n + 1) // 2) * d),
+        ("selected_median_mean",
+         lambda: gar_kernels.selected_median_mean(W, g12, m2),
+         lambda: gar_kernels.selected_median_mean_plain(W, g12, m2), None,
+         (n * d + rounds * n + d) * 4,
+         (2 * rounds * n + sort_kernels.selection_operations(rounds)) * d),
+        ("weighted_rows_mean", lambda: gar_kernels.weighted_rows_mean(w, g),
+         lambda: gar_kernels.select_rows(w, g), lambda: torch.matmul(w, g),
+         (n * d + n + d) * 4, 2 * n * d),
+        ("lower_median", lambda: sort_kernels.lower_median(g),
+         lambda: sort_kernels.lower_median_plain(g),
+         lambda: torch.kthvalue(g, (n - 1) // 2 + 1, dim=0), (n * d + d) * 4,
+         sort_kernels.selection_operations(n, (n - 1) // 2) * d),
+        ("trimmed_mean", lambda: sort_kernels.trimmed_mean(g, 24),
+         lambda: sort_kernels.trimmed_mean_plain(g, 24),
+         lambda: torch.sort(g, dim=0), (n * d + d) * 4,
+         (sort_kernels.selection_operations(n, range(24, n - 24)) + n - 48) * d),
+        ("closest_mean", lambda: sort_kernels.closest_mean(g, median, n - 24),
+         lambda: sort_kernels.closest_mean_plain(g, median, n - 24), None,
+         (n * d + 2 * d) * 4,
+         (sort_kernels.selection_operations(n, n - 24 - 1) + 2 * n) * d)]
+    return [timed_record(f"{kernel}_n51", kernel, fn, plain, library, nbytes,
+                         ops, errs[kernel], smi)
+            for kernel, fn, plain, library, nbytes, ops in work]
+
+
 def device_paths(smi):
     """Phase 3, the device-resident path: `DeviceData.gather` on the card
     against the same gather on the CPU, bit for bit; the grouped honest
     phase against the vmapped one on the card at the headline shape."""
     dev = torch.device("cuda")
-    for no_transform in (False, True):
-        splits = data_mod.make_datasets("cifar10", 50, 100,
+    # CIFAR-10 with and without its transform; MNIST normalized without
+    # flips, FashionMNIST flipped without normalization, the raw phishing
+    # rows
+    for name, no_transform in (("cifar10", False), ("cifar10", True),
+                               ("mnist", False), ("fashionmnist", False),
+                               ("phishing", False)):
+        splits = data_mod.make_datasets(name, 50, 100,
                                         no_transform=no_transform, seed=1)
         for split, count in zip(splits, (25, 5)):
             cpu, card = DeviceData(split, "cpu"), DeviceData(split, dev)
@@ -700,15 +899,16 @@ def device_paths(smi):
                     x.cpu().view(torch.int32), cx.view(torch.int32))
                     and torch.equal(y.cpu(), cy)):
                 raise SystemExit(f"DeviceData.gather on the card differs from "
-                                 f"the CPU's (no_transform={no_transform}, "
-                                 f"{list(x.shape)})")
+                                 f"the CPU's ({name}, no_transform="
+                                 f"{no_transform}, {list(x.shape)})")
     log("DeviceData.gather on the card equals the CPU's bit for bit (train "
-        "and test splits, with and without the transform)")
+        "and test splits of CIFAR-10 with and without the transform, MNIST, "
+        "FashionMNIST and phishing)")
 
     engines = []
     with tempfile.TemporaryDirectory() as tmp:
         for flags in ((), VMAPPED_RUN):
-            cell = CELLS[0][:6] + (flags,) + CELLS[0][7:]
+            cell = cifar_cell("headline", "bulyan", 5, EMPIRE, 1, (), flags)
             args = driver._postprocess(driver.process_commandline(
                 cell_argv(cell, 1, tmp)))
             engines.append(driver._setup(args)[1])
@@ -738,8 +938,11 @@ def device_paths(smi):
         f"on {smi}")
 
 
-# (name, GAR, f, attack and its arguments, steps, kernels the GAR launches,
-# more flags, the dtype those kernels must run in)
+# A phase-4 run: its driver flags but the common ones (`cell_argv`), its
+# steps, the kernels its GAR launches, the dtype they must run in, and
+# the family of records its launches count for ("cifar", or "n<n>" for the
+# MNIST half's runs at n workers)
+Cell = collections.namedtuple("Cell", "name argv steps kernels dtype family")
 EMPIRE = ("empire", ("factor:1.1",))
 LITTLE = ("little", ("factor:1.5", "negative:true"))
 BF16_RUN = ("--dtype", "bfloat16")
@@ -751,34 +954,137 @@ GRID_RUN = ("--model-args", "cifar100:False", "--loss", "nll",
             "--learning-rate-decay", "167", "--learning-rate-decay-delta",
             "1500", "--l2-regularize", "1e-2", "--nb-for-study-past", "25",
             "--evaluation-delta", "100")
+
+
+def cifar_cell(name, gar, f, attack, steps, kernels, flags=(), dtype=F32):
+    """A run on CIFAR-10, empire-cnn, n=25, f real Byzantine workers,
+    batch 50, momentum 0.99 at update, clip 5, nb-for-study 1 (its own
+    flags last, so they override these)."""
+    attack, attack_args = attack
+    return Cell(name, (
+        "--dataset", "cifar10", "--model", "empire-cnn",
+        "--nb-workers", "25", "--nb-decl-byz", str(f),
+        "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
+        "--attack-args", *attack_args, "--batch-size", "50",
+        "--batch-size-test", "100", "--batch-size-test-reps", "5",
+        "--evaluation-delta", str(steps), "--momentum", "0.99",
+        "--momentum-at", "update", "--gradient-clip", "5",
+        "--learning-rate", "0.01", "--nb-for-study", "1",
+        "--nb-for-study-past", "1", *flags), steps, kernels, dtype, "cifar")
+
+
+# `reproduce.py::submit_mnist`: its common flags in its order, and the
+# arguments of its attacks (with `nan`, which takes none)
+MNIST_GRID = ("--batch-size", "83", "--model", "simples-full", "--loss", "nll",
+              "--learning-rate-decay-delta", "300", "--momentum", "0.9",
+              "--l2-regularize", "0.0001", "--evaluation-delta", "5",
+              "--gradient-clip", "2", "--nb-steps", "300", "--nb-for-study",
+              "1", "--nb-for-study-past", "150")
+GRID_ATTACKS = {"little": ("factor:1.5", "negative:True"),
+                "empire": ("factor:1.1",), "nan": ()}
+MNIST_STEPS = 50
+
+
+def grid_argv(name):
+    """The flags of the run `name` of `reproduce.py::submit_mnist`, as it
+    writes them (`--nb-steps 300` included; `cell_argv` overrides it);
+    `<dataset>-nan-<gar>-...` is the same run against `nan`."""
+    match = re.fullmatch(r"(\w+)-average-n_(\d+)-lr_([\d.]+)(-nesterov)?", name)
+    if match:
+        dataset, n, lr, nesterov = match.groups()
+        return (*MNIST_GRID, "--nb-workers", n, "--dataset", dataset,
+                "--learning-rate", lr, *(("--momentum-nesterov",) * bool(nesterov)))
+    dataset, attack, gar, f, lr, at, nesterov = re.fullmatch(
+        r"(\w+)-(\w+)-(\w+)-f_(\d+)-lr_([\d.]+)-at_(update|worker)(-nesterov)?",
+        name).groups()
+    args = GRID_ATTACKS[attack]
+    return (*MNIST_GRID, "--nb-workers", "51", "--dataset", dataset,
+            "--learning-rate", lr, "--nb-decl-byz", f, "--nb-real-byz", f,
+            "--gar", gar, "--attack", attack,
+            *(("--attack-args", *args) if args else ()), "--momentum-at", at,
+            *(("--momentum-nesterov",) * bool(nesterov)))
+
+
+GAR_KERNELS = {"average": (), "krum": ("sq_gram", "weighted_rows_mean"),
+               "median": ("lower_median",), "trmean": ("trimmed_mean",),
+               "phocas": ("trimmed_mean", "closest_mean"),
+               "meamed": ("lower_median", "closest_mean"),
+               "bulyan": ("sq_gram", "selected_median_mean")}
+
+
+def mnist_cell(name, argv, gar, steps=MNIST_STEPS):
+    """A run of the MNIST half, in the family of its worker count (the
+    driver's default 11 where `argv` sets none)."""
+    argv = tuple(argv)
+    n = argv[argv.index("--nb-workers") + 1] if "--nb-workers" in argv else "11"
+    return Cell(name, argv, steps, GAR_KERNELS[gar], F32, f"n{n}")
+
+
+def grid_cell(name):
+    gar = name.split("-")[2] if "-average-" not in name else "average"
+    return mnist_cell(name, grid_argv(name), gar)
+
+
+def baseline_cell(gar):
+    """`BASELINE.md` configs 2-3: the driver's defaults (MNIST,
+    simples-conv, n = 11) with f = 4 real Byzantine workers against
+    `empire factor:1.1`."""
+    return mnist_cell(f"baseline_mnist_{gar}", (
+        "--nb-decl-byz", "4", "--nb-real-byz", "4", "--gar", gar,
+        "--attack", "empire", "--attack-args", "factor:1.1"), gar)
+
+
 CELLS = (
-    ("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean"), (), F32),
-    ("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean"), (), F32),
-    ("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",), (), F32),
-    ("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",), (), F32),
-    ("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"), (), F32),
-    ("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"), (), F32),
-    ("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",), (), F32),
-    ("brute", "brute", 11, EMPIRE, GAR_STEPS, ("sq_gram", "masked_rows_mean"), (), F32),
-    ("cge", "cge", 11, LITTLE, GAR_STEPS, (), (), F32),
-    ("median_bf16", "median", 11, LITTLE, GAR_STEPS, ("lower_median",), BF16_RUN, BF16),
-    ("trmean_bf16", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",), BF16_RUN, BF16),
-    ("phocas_bf16", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"),
-     BF16_RUN, BF16),
-    ("meamed_bf16", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"),
-     BF16_RUN, BF16),
-    ("phocas_f16", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean"),
-     F16_RUN, F16),
-    ("meamed_f16", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean"),
-     F16_RUN, F16),
-    ("headline_mixed", "bulyan", 5, EMPIRE, GAR_STEPS,
-     ("sq_gram", "selected_median_mean"), MIXED_RUN, F32),
-    ("headline_vmapped", "bulyan", 5, EMPIRE, GAR_STEPS,
-     ("sq_gram", "selected_median_mean"), VMAPPED_RUN, F32),
-    ("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5, EMPIRE,
-     GAR_STEPS, ("sq_gram", "selected_median_mean"), GRID_RUN, F32),
+    cifar_cell("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean")),
+    cifar_cell("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean")),
+    cifar_cell("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",)),
+    cifar_cell("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",)),
+    cifar_cell("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean")),
+    cifar_cell("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean")),
+    cifar_cell("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",)),
+    cifar_cell("brute", "brute", 11, EMPIRE, GAR_STEPS, ("sq_gram", "masked_rows_mean")),
+    cifar_cell("cge", "cge", 11, LITTLE, GAR_STEPS, ()),
+    cifar_cell("median_bf16", "median", 11, LITTLE, GAR_STEPS, ("lower_median",),
+               BF16_RUN, BF16),
+    cifar_cell("trmean_bf16", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",),
+               BF16_RUN, BF16),
+    cifar_cell("phocas_bf16", "phocas", 11, LITTLE, GAR_STEPS,
+               ("trimmed_mean", "closest_mean"), BF16_RUN, BF16),
+    cifar_cell("meamed_bf16", "meamed", 11, LITTLE, GAR_STEPS,
+               ("lower_median", "closest_mean"), BF16_RUN, BF16),
+    cifar_cell("phocas_f16", "phocas", 11, LITTLE, GAR_STEPS,
+               ("trimmed_mean", "closest_mean"), F16_RUN, F16),
+    cifar_cell("meamed_f16", "meamed", 11, LITTLE, GAR_STEPS,
+               ("lower_median", "closest_mean"), F16_RUN, F16),
+    cifar_cell("headline_mixed", "bulyan", 5, EMPIRE, GAR_STEPS,
+               ("sq_gram", "selected_median_mean"), MIXED_RUN),
+    cifar_cell("headline_vmapped", "bulyan", 5, EMPIRE, GAR_STEPS,
+               ("sq_gram", "selected_median_mean"), VMAPPED_RUN),
+    cifar_cell("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5, EMPIRE,
+               GAR_STEPS, ("sq_gram", "selected_median_mean"), GRID_RUN),
+    # The MNIST half: the driver's defaults (no kernel), BASELINE.md's
+    # MNIST configs, the paper's grid and its cells against `nan`, phishing
+    mnist_cell("default", (), "average", steps=STEPS),
+    *(baseline_cell(gar) for gar in ("krum", "median", "trmean")),
+    *(grid_cell(name) for name in (
+        "mnist-little-bulyan-f_12-lr_0.5-at_worker-nesterov",
+        "mnist-empire-krum-f_24-lr_0.5-at_update",
+        "fashionmnist-little-median-f_24-lr_0.02-at_worker",
+        "fashionmnist-empire-trmean-f_12-lr_0.5-at_update-nesterov",
+        "mnist-little-phocas-f_24-lr_0.02-at_update",
+        "mnist-empire-meamed-f_12-lr_0.5-at_worker",
+        "mnist-average-n_27-lr_0.5",
+        *(f"mnist-nan-{gar}-f_{f}-lr_0.5-at_update" for gar, f in (
+            ("krum", 24), ("median", 24), ("trmean", 24), ("phocas", 24),
+            ("meamed", 24), ("bulyan", 12))))),
+    mnist_cell("phishing-krum", (
+        "--dataset", "phishing", "--model", "simples-logit", "--loss", "bce",
+        "--criterion", "sigmoid", "--gar", "krum", "--nb-workers", "11",
+        "--nb-decl-byz", "4", "--nb-real-byz", "4", "--attack", "empire",
+        "--attack-args", "factor:1.1"), "krum"),
 )
-PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped")
+PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped",
+            "mnist-empire-krum-f_24-lr_0.5-at_update")
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
@@ -787,25 +1093,16 @@ WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
 
 
 def cell_argv(cell, steps, resdir):
-    """The driver's command line for a cell of `CELLS` (its own flags
-    last, so they override the common ones)."""
-    _, gar, f, (attack, attack_args), _, _, flags, _ = cell
-    return ["--device", "cuda", "--seed", "1", "--nb-steps", str(steps),
-            "--dataset", "cifar10", "--model", "empire-cnn",
-            "--nb-workers", "25", "--nb-decl-byz", str(f),
-            "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
-            "--attack-args", *attack_args, "--batch-size", "50",
-            "--batch-size-test", "100", "--batch-size-test-reps", "5",
-            "--evaluation-delta", str(steps), "--momentum", "0.99",
-            "--momentum-at", "update", "--gradient-clip", "5",
-            "--learning-rate", "0.01", "--nb-for-study", "1",
-            "--nb-for-study-past", "1", *flags,
-            "--result-directory", resdir]
+    """The driver's command line for a cell of `CELLS` (the common flags
+    first and `--nb-steps` after the cell's, so that it overrides a
+    grid line's `--nb-steps 300`)."""
+    return ["--device", "cuda", "--seed", "1", *cell.argv,
+            "--nb-steps", str(steps), "--result-directory", resdir]
 
 
 def drive(cell, smi):
     """Phase 4, one run; returns its launch counts by (kernel, dtype)."""
-    name, _, _, _, steps, kernels, _, dtype = cell
+    name, _, steps, kernels, dtype, _ = cell
     with tempfile.TemporaryDirectory() as tmp:
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
@@ -924,7 +1221,7 @@ def step_profile(cell, smi, steps=3):
             reach = end
     busy_ms = busy_us / 1e3 / steps
     summed_ms = sum(device_ms(e) for e in kernels)
-    log(f"{cell[0]} step profile ({honest_path} honest phase) over "
+    log(f"{cell.name} step profile ({honest_path} honest phase) over "
         f"{steps} steps on {smi}: wall "
         f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
         f"({100 * busy_ms / wall_ms:.1f}%; kernel times summed "
@@ -942,17 +1239,17 @@ def main():
     os.environ.setdefault("BMT_SYNTH_TEST", "500")
     smi = environment()
     build()
-    records = kernels_vs_plain(smi)
+    records = kernels_vs_plain(smi) + mnist_kernels(smi)
     device_paths(smi)
-    totals = {}
+    totals = collections.Counter()
     for cell in CELLS:
-        for key, count in drive(cell, smi).items():
-            totals[key] = totals.get(key, 0) + count
+        for (kernel, dtype), count in drive(cell, smi).items():
+            totals[kernel, dtype, cell.family] += count
     for cell in CELLS:
-        if cell[0] in PROFILED:
+        if cell.name in PROFILED:
             step_profile(cell, smi)
     for record in records:
-        record["launches"] = totals.get(split_record_name(record["name"]), 0)
+        record["launches"] = totals[split_record_name(record["name"])]
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import (
     _common, bulyan, gar_kernels, gars, sort_kernels)
+from chip_smoke import nan_attack_operand
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -953,3 +954,109 @@ def test_mixed_grouped_honest_phase_on_the_card_matches_vmapped(cuda):
     assert bool((_row_distance(GA, VA) <= 0.5 * _row_distance(VA, V32)).all())
     assert float(_row_distance(G, G32).mean()) <= 1.5 * float(err.mean())
     torch.testing.assert_close(loss, vloss, rtol=2e-2, atol=0.0)
+
+
+# The MNIST half of the paper's grid: n = 51 at f = 24 and 12 on
+# `simples-full` (d = 79,510), n = 11 at f = 4 on `simples-conv`
+# (d = 431,080) and `simples-logit` (d = 69, phishing); the last f rows all
+# NaN, as the `nan` attack sends them (`chip_smoke.nan_attack_operand`)
+MNIST_SHAPES = ((51, 24, 79_510), (51, 12, 79_510), (11, 4, 431_080),
+                (11, 4, 69))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,d", MNIST_SHAPES)
+def test_gar_kernels_at_the_mnist_grid_shapes(cuda, n, f, d):
+    """Krum's w (and Bulyan's W where n >= 4f + 3) from `sq_gram` equal
+    those from `sq_gram_plain` and never select a NaN row; `sq_gram`,
+    `weighted_rows_mean` and `selected_median_mean` agree with their plain
+    versions."""
+    from byzantinemomentum_tpu_torch.ops import krum
+    g = nan_attack_operand(n, f, d, seed=n + f, device=cuda)
+    gram = _launched(gar_kernels.sq_gram, lambda: gar_kernels.sq_gram(g))
+    plain = gar_kernels.sq_gram_plain(g)
+    diag = torch.diagonal(plain)
+    _assert_values(gram, plain, atol=RTOL * float(diag[torch.isfinite(diag)].max()))
+    dist = _common.distances_from_sq_gram(gram)
+    plain_dist = _common.distances_from_sq_gram(plain)
+    w = krum.selection_weights(dist, f)
+    assert torch.equal(w, krum.selection_weights(plain_dist, f))
+    assert not bool((w[n - f:] > 0).any()) and int((w > 0).sum()) == n - f - 2
+    got = _launched(gar_kernels.weighted_rows_mean,
+                    lambda: gar_kernels.weighted_rows_mean(w, g))
+    _assert_values(got, gar_kernels.select_rows(w, g))
+    if 4 * f + 3 <= n:
+        W = bulyan.selection_weights(dist, f)
+        assert torch.equal(W, bulyan.selection_weights(plain_dist, f))
+        rounds = W.shape[0]
+        for m2 in (1, rounds - 2 * f, rounds):
+            got = _launched(gar_kernels.selected_median_mean,
+                            lambda: gar_kernels.selected_median_mean(W, g, m2))
+            _assert_values(got, gar_kernels.selected_median_mean_plain(W, g, m2))
+            assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,d", MNIST_SHAPES)
+def test_sort_kernels_at_the_mnist_grid_shapes(cuda, n, f, d):
+    """`lower_median` and `trimmed_mean` (f) exactly, `closest_mean`
+    (m = n - f, n = 51: every finite value of a column, never a NaN)
+    about the median and the trimmed mean, on rows with NaN, +-inf and
+    +-0."""
+    h = n - f
+    g = nan_attack_operand(n, f, d, seed=n + f + 1, extremes=True,
+                           device=cuda)
+    finite = torch.isfinite(g[:h]).all(dim=0)
+    med = _launched(sort_kernels.lower_median, lambda: sort_kernels.lower_median(g))
+    _assert_exact(med, sort_kernels.lower_median_plain(g))
+    trmean = _launched(sort_kernels.trimmed_mean,
+                       lambda: sort_kernels.trimmed_mean(g, f))
+    _assert_exact(trmean, sort_kernels.trimmed_mean_plain(g, f))
+    # NaN sorts last: the window [f, n - f) holds finite ranks only
+    top = torch.sort(g[:h, finite], dim=0).values[f:n - f].mean(dim=0)
+    _assert_values(trmean[finite], top)
+    assert bool(trmean[1].isposinf()) and bool(trmean[2].isneginf())
+    if n != 51:
+        return
+    for c in (sort_kernels.lower_median_plain(g),
+              sort_kernels.trimmed_mean_plain(g, f)):
+        got = _launched(sort_kernels.closest_mean,
+                        lambda: sort_kernels.closest_mean(g, c, h))
+        _assert_values(got, sort_kernels.closest_mean_plain(g, c, h))
+        _assert_values(got[finite], g[:h, finite].mean(dim=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,d", MNIST_SHAPES)
+def test_mnist_grid_gars_on_card_match_cpu(cuda, n, f, d):
+    """Krum, Median, Trimmed mean, Phocas, MeaMed (and Bulyan where
+    n >= 4f + 3) on the `nan` attack's rows: the card's aggregate equals
+    the CPU's, and is finite."""
+    g = nan_attack_operand(n, f, d, seed=3 * n + f, device="cpu")
+    for name in ("krum", "median", "trmean", "phocas", "meamed", "bulyan"):
+        if name == "bulyan" and 4 * f + 3 > n:
+            continue
+        got = gars[name](g.to(cuda), f=f)
+        assert bool(torch.isfinite(got).all()), name
+        _assert_values(got, gars[name](g, f=f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("mnist", "fashionmnist", "phishing"))
+def test_mnist_device_gather_on_the_card_equals_the_cpu_gather(cuda, monkeypatch, name):
+    """MNIST (normalized, no flips), FashionMNIST (flipped, not
+    normalized) and phishing (raw rows, float (B, 1) labels), bit for
+    bit."""
+    from byzantinemomentum_tpu_torch import data
+    from byzantinemomentum_tpu_torch.data.device import DeviceData
+    monkeypatch.setenv("BMT_SYNTH_TRAIN", "130")
+    monkeypatch.setenv("BMT_SYNTH_TEST", "40")
+    for split in data.make_datasets(name, 10, 10, seed=3):
+        cpu, card = DeviceData(split, "cpu"), DeviceData(split, cuda)
+        for _ in range(5):
+            idx, flips = cpu.sample_indices(4)
+            x, y = card.gather(*card.upload(idx, flips))
+            cx, cy = cpu.gather(*cpu.upload(idx, flips))
+            assert x.device.type == "cuda" and x.dtype == cx.dtype == torch.float32
+            assert torch.equal(x.cpu().view(torch.int32), cx.view(torch.int32))
+            assert torch.equal(y.cpu(), cy)
