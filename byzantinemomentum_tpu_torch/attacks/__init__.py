@@ -7,18 +7,29 @@ An attack is a function
            defense: callable, **kwargs) -> f32[f_real, d]
 
 where `defense(gradients=f32[n, d], f=int) -> f32[d]` is the live
-aggregation rule. The result is a stacked (f_real, d) matrix. Registry:
-`attacks: name -> Attack`, each with `.checked`, `.unchecked`, `.check`.
-Stateful attacks (a `state_init` hook in the JAX package) are not ported
-yet.
+aggregation rule (the adaptive attacks line-search against it,
+`ops/linesearch.py`). The result is a stacked (f_real, d) matrix.
+Registry: `attacks: name -> Attack`, each with `.checked`, `.unchecked`,
+`.check`.
+
+Stateful attacks: an attack registered with a `state_init` hook threads
+history across steps. `state_init(f_real, d)` builds the initial state;
+the attack receives it as `state=` and returns `(rows, new_state)`
+instead of the bare rows. The engine carries it in
+`TrainState.attack_state` (`()` for a static attack, which takes no
+`state` and returns the bare rows). The port runs eagerly, so a state
+may be a host value (`attacks/warmup.py`'s step counter is an int).
 """
 
 import pathlib
 
+import torch
+
 from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.ops import as_matrix
 
-__all__ = ["attacks", "register", "Attack", "empty_byzantine"]
+__all__ = ["attacks", "register", "Attack", "empty_byzantine",
+           "search_dtype", "displacement"]
 
 attacks = {}
 
@@ -26,24 +37,41 @@ attacks = {}
 class Attack:
     """A registered attack; calling it runs the checked path."""
 
-    def __init__(self, name, unchecked, check):
+    def __init__(self, name, unchecked, check, state_init=None):
         self.name = name
         self.unchecked = unchecked
         self.check = check
+        self.state_init = state_init
 
-    def checked(self, grad_honests, f_decl, f_real, defense=None, **kwargs):
+    @property
+    def stateful(self):
+        """Whether the attack threads history (see the module docstring):
+        it takes `state=` and returns `(rows, new_state)`."""
+        return self.state_init is not None
+
+    def checked(self, grad_honests, f_decl, f_real, defense=None, state=None,
+                **kwargs):
+        """The checked call; a stateful attack returns `(rows, state)`
+        (from `state_init` where `state` is None)."""
         grad_honests = as_matrix(grad_honests)
         message = self.check(grad_honests=grad_honests, f_decl=f_decl,
                              f_real=f_real, defense=defense, **kwargs)
         if message is not None:
             raise utils.UserException(f"Attack {self.name!r} cannot be used: {message}")
-        result = self.unchecked(grad_honests, f_decl=f_decl, f_real=f_real,
-                                defense=defense, **kwargs)
+        if self.stateful:
+            if state is None:
+                state = self.state_init(f_real=f_real, d=grad_honests.shape[1])
+            result, state = self.unchecked(
+                grad_honests, f_decl=f_decl, f_real=f_real, defense=defense,
+                state=state, **kwargs)
+        else:
+            result = self.unchecked(grad_honests, f_decl=f_decl,
+                                    f_real=f_real, defense=defense, **kwargs)
         expected = (f_real, grad_honests.shape[1])
         if tuple(result.shape) != expected:
             raise utils.UserException(
                 f"Attack {self.name!r} returned shape {tuple(result.shape)}, expected {expected}")
-        return result
+        return (result, state) if self.stateful else result
 
     def __call__(self, grad_honests, f_decl, f_real, defense=None, **kwargs):
         return self.checked(grad_honests, f_decl, f_real, defense=defense, **kwargs)
@@ -52,11 +80,12 @@ class Attack:
         return f"Attack({self.name!r})"
 
 
-def register(name, unchecked, check):
-    """Register an attack under `name`."""
+def register(name, unchecked, check, state_init=None):
+    """Register an attack under `name`; `state_init(f_real, d)` marks it
+    stateful (see the module docstring)."""
     if name in attacks:
         utils.warning(f"Attack {name!r} registered twice; keeping the last")
-    atk = Attack(name, unchecked, check)
+    atk = Attack(name, unchecked, check, state_init=state_init)
     attacks[name] = atk
     return atk
 
@@ -64,6 +93,21 @@ def register(name, unchecked, check):
 def empty_byzantine(grad_honests):
     """The (0, d) result for f_real == 0."""
     return grad_honests.new_zeros((0, grad_honests.shape[1]))
+
+
+def search_dtype(grad_honests):
+    """The dtype of an adaptive attack's probes and rows: the JAX package's
+    searched factor is a float32 scalar (strongly typed), so a half
+    gradient meets it at float32, and a float64 one stays float64."""
+    return torch.promote_types(grad_honests.dtype, torch.float32)
+
+
+def displacement(defense, honests, byz, f_decl, f_real, grad_avg):
+    """The line search's objective: `||defense(honests + f_real copies of
+    byz) - grad_avg||^2`, a 0-d tensor on the operands' device."""
+    stacked = torch.cat([honests, byz[None, :].expand(f_real, -1)])
+    aggregated = defense(gradients=stacked, f=f_decl) - grad_avg
+    return torch.dot(aggregated, aggregated)
 
 
 utils.import_directory(__name__, pathlib.Path(__file__).parent)

@@ -2,16 +2,22 @@
 (`byzantinemomentum_tpu/attacks/identical.py`).
 
 Each attack submits f_real copies of `avg + factor * direction`, with an
-attack-specific direction and a fixed positive `factor`. The JAX package
-also accepts a negative factor, which line-searches the live defense
-(`ops/linesearch.py`); that search is not ported yet, so a negative factor
-raises a `UserException` naming the limit.
+attack-specific direction. A positive `factor` is fixed; a negative one
+line-searches the live defense's output displacement
+`||GAR(honest + byz) - avg||^2` with `ceil(-factor)` evaluations
+(`ops/linesearch.py`), each probe a call of the configured GAR, so its
+kernels. The searched factor is a float32 scalar, as in the JAX package:
+under a half dtype the probes and the returned rows are float32 (the
+engine casts the rows back).
 """
+
+import math
 
 import torch
 
-from byzantinemomentum_tpu_torch import utils
-from byzantinemomentum_tpu_torch.attacks import empty_byzantine, register
+from byzantinemomentum_tpu_torch.attacks import (
+    displacement, empty_byzantine, register, search_dtype)
+from byzantinemomentum_tpu_torch.ops.linesearch import line_maximize
 
 __all__ = ["make_attack"]
 
@@ -24,15 +30,23 @@ def make_attack(compute_direction):
                negative=False, **kwargs):
         if f_real == 0:
             return empty_byzantine(grad_honests)
-        if factor < 0:
-            raise utils.UserException(
-                f"Adaptive attack factor {factor!r} needs the defense line "
-                f"search (ops/linesearch.py), which the PyTorch port does "
-                f"not have yet; pass a positive factor")
         grad_avg = torch.mean(grad_honests, dim=0)
         grad_att = compute_direction(grad_honests, grad_avg, **kwargs)
-        factor_eff = -factor if negative else factor
-        byz_grad = grad_avg + factor_eff * grad_att
+        if factor < 0:
+            dtype = search_dtype(grad_honests)
+            honests, avg, att = (x.to(dtype) for x in (grad_honests, grad_avg, grad_att))
+
+            def eval_factor(x):
+                eff = -x if negative else x
+                return displacement(defense, honests, avg + float(eff) * att,
+                                    f_decl, f_real, avg)
+
+            factor_eff = line_maximize(eval_factor, evals=math.ceil(-factor))
+            factor_eff = -factor_eff if negative else factor_eff
+            byz_grad = avg + float(factor_eff) * att
+        else:
+            factor_eff = -factor if negative else factor
+            byz_grad = grad_avg + factor_eff * grad_att
         return byz_grad[None, :].expand(f_real, -1).clone()
 
     return attack

@@ -5,8 +5,14 @@ Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
 JAX driver that the port does not have yet (checkpoints, meshes, fault
-plans, diagnostics, health, telemetry, ...) are refused by the parser
-rather than ignored.
+plans, diagnostics, health, telemetry, the `--gars` mixture, ...) are
+refused by the parser rather than ignored.
+
+Every attack of the JAX registry runs, with the JAX defaults: `--attack
+empire` with no `--attack-args` is `factor:-16`, a line search of 16
+evaluations of the configured GAR a step (`ops/linesearch.py`); a
+stateful attack (`alie-warmup`) carries its history in the engine's
+state from step to step.
 
 Batches come from the device-resident splits (`data/device.py`), as in
 the JAX driver without `--mesh` and `--device-gar` (flags the port does

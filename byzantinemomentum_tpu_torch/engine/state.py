@@ -5,6 +5,8 @@ Parameters live as ONE flat `[d]` vector in the parameter dtype
 the momentum algebra, the GARs and the study stay in it, as in the JAX
 package. All of them work on flat vectors. Counters are host integers: the
 port runs eagerly, so nothing has to live on the device to be traced.
+`attack_state` is a stateful attack's history (`attacks/__init__.py`),
+`()` for a static attack.
 A step returns a new `TrainState` and writes none of the old one's
 tensors.
 """
@@ -30,10 +32,11 @@ class TrainState:
     past_count: int                 # number of valid past entries
     steps: int                      # step counter
     datapoints: int                 # training point counter
+    attack_state: typing.Any = ()   # the stateful attack's history
 
 
-def init_state(cfg, theta, net_state, opt_state=()):
-    """Fresh-run state."""
+def init_state(cfg, theta, net_state, opt_state=(), attack_state=()):
+    """Fresh-run state; `attack_state` from the attack's `state_init`."""
     d = theta.shape[0]
     h = cfg.nb_honests
     past = cfg.nb_for_study_past if cfg.study else 0
@@ -50,4 +53,5 @@ def init_state(cfg, theta, net_state, opt_state=()):
         past_count=0,
         steps=0,
         datapoints=0,
+        attack_state=attack_state,
     )

@@ -12,8 +12,9 @@ of the reference's hot loop, in three phases as in the JAX package:
             per-row L2 clipping;
             the sequential-equivalent BatchNorm running-stat fold; the
             momentum placement on the honest rows;
-  defense — Byzantine row synthesis, aggregation by the GAR, and the
-            attack acceptation ratio;
+  defense — Byzantine row synthesis (an adaptive attack line-searches
+            the GAR; a stateful one threads `TrainState.attack_state`),
+            aggregation by the GAR, and the attack acceptation ratio;
   update  — SGD with weight decay and the 24-column study metrics.
 
 Precision (`pin_precision`): TF32 is switched off for matmuls and for
@@ -156,13 +157,18 @@ class Engine:
     def init(self):
         """Fresh state: the model's parameters and BatchNorm buffers as
         they stand (`model.reset(generator)` draws new ones), in the
-        parameter dtype."""
+        parameter dtype, and a stateful attack's initial state."""
         theta = self.flat.flatten(dict(self.model.named_parameters()))
         net_state = {name: buf.detach().to(self.dtype, copy=True)
                      for name, buf in self.model.named_buffers()}
         theta = theta.detach().to(self.dtype, copy=True)
+        attack_state = ()
+        if self.attack is not None and self.attack.stateful:
+            attack_state = self.attack.state_init(
+                f_real=self.cfg.nb_real_byz, d=self.d)
         return init_state(self.cfg, theta, net_state,
-                          opt_state=self.optimizer.init(theta))
+                          opt_state=self.optimizer.init(theta),
+                          attack_state=attack_state)
 
     # ----------------------------------------------------------------- #
     # Phases
@@ -266,9 +272,14 @@ class Engine:
         return G_sampled, losses.mean(), net_state, new_mw, G_honest
 
     @torch.no_grad()
-    def phase_defense(self, G_honest):
+    def phase_defense(self, G_honest, attack_state):
         """Attack synthesis, aggregation and the attack acceptation ratio.
-        Returns (G_attack, grad_defense, accept_ratio)."""
+        The attack calls `defense`, the configured GAR (an adaptive attack
+        line-searches it); its rows are cast to the honest rows' dtype (a
+        searched factor makes them f32 under a half dtype). A stateful
+        attack takes `attack_state` (the `TrainState`'s) and returns the
+        next one; a stateless attack passes it through. Returns
+        (G_attack, grad_defense, accept_ratio, attack_state)."""
         cfg = self.cfg
         f = cfg.nb_decl_byz
 
@@ -276,9 +287,14 @@ class Engine:
             return self.gar.unchecked(gradients, f=f, **self.gar_kwargs)
 
         if cfg.nb_real_byz > 0:
-            G_attack = self.attack.unchecked(
-                G_honest, f_decl=f, f_real=cfg.nb_real_byz, defense=defense,
-                **self.attack_kwargs).to(G_honest.dtype)
+            kwargs = dict(f_decl=f, f_real=cfg.nb_real_byz, defense=defense,
+                          **self.attack_kwargs)
+            if self.attack.stateful:
+                G_attack, attack_state = self.attack.unchecked(
+                    G_honest, state=attack_state, **kwargs)
+            else:
+                G_attack = self.attack.unchecked(G_honest, **kwargs)
+            G_attack = G_attack.to(G_honest.dtype)
         else:
             G_attack = G_honest.new_zeros((0, self.d))
         grad_defense = defense(torch.cat([G_honest, G_attack]), f).to(
@@ -288,13 +304,14 @@ class Engine:
         else:
             accept_ratio = float(self.gar.influence(
                 G_honest, G_attack, f=f, **self.gar_kwargs))
-        return G_attack, grad_defense, accept_ratio
+        return G_attack, grad_defense, accept_ratio, attack_state
 
     @torch.no_grad()
     def phase_update(self, state, G_sampled, loss_avg, net_state, new_mw,
-                     G_honest, G_attack, grad_defense, accept_ratio, lr,
-                     batch):
-        """Model update and study metrics. Returns (new state, metrics)."""
+                     G_honest, G_attack, grad_defense, accept_ratio,
+                     attack_state, lr, batch):
+        """Model update and study metrics; the attack's next state goes
+        into the new state. Returns (new state, metrics)."""
         cfg = self.cfg
         mu, damp = cfg.momentum, cfg.dampening
         lr = self.round_lr(lr)
@@ -324,7 +341,8 @@ class Engine:
             momentum_server=new_ms, momentum_workers=new_mw,
             origin=state.origin, past_grads=pg, past_norms=pn, past_count=pc,
             steps=state.steps + 1,
-            datapoints=state.datapoints + batch * cfg.nb_honests)
+            datapoints=state.datapoints + batch * cfg.nb_honests,
+            attack_state=attack_state)
         return new_state, metrics
 
     def round_lr(self, lr):
@@ -342,10 +360,10 @@ class Engine:
         optionally gives the dropout keep-masks (else drawn here)."""
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
-        G_attack, grad_defense, accept_ratio = self.phase_defense(G_honest)
+        defense = self.phase_defense(G_honest, state.attack_state)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            G_attack, grad_defense, accept_ratio, lr, xs.shape[1])
+            *defense, lr, xs.shape[1])
 
     def train_step_indexed(self, state, idx, flips, lr, masks=None):
         """`train_step` on the batches `idx: i32[S, B]`, `flips:

@@ -72,7 +72,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    on the card gives the same bits as on the CPU (CIFAR-10's train split
    with flips, its test split, and both under `--no-transform`; MNIST
    normalized without flips, FashionMNIST flipped without normalization,
-   and the raw phishing rows with float labels), and the
+   and the raw phishing rows with float labels); the attacks' jitter
+   noise: `alie.row_key` of f32[20, 1,310,922] and `prng.normal` at
+   f32[5, 1,310,922] give the CPU's bits on the card; and the
    grouped honest phase on the card is held against the vmapped one at
    the headline shape (same weights, batches and dropout masks): every
    gradient row within 1e-2 relative L2 (the engine tests' max-pool
@@ -107,16 +109,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Bulyan at f = 12; and `phishing-krum` (`simples-logit`, `bce`, the
    `sigmoid` criterion, n = 11, f = 4, `empire`); 50 steps each but the
    default's 10, each cut only in steps.
+   Then the adaptive attacks, whose line search calls the GAR 16 times a
+   step inside the attack: `headline_adaptive` (the headline's flags with
+   `--attack empire` and no `--attack-args`, the JAX default
+   `factor:-16`; 10 steps), `krum_f11_strict` (Krum, f=11, `empire-strict
+   epsilon:-16`), `median_little_adaptive` (Median, f=11, `little
+   factor:-16 negative:true`), `median_bf16_adaptive` (the same under
+   `--dtype bfloat16`: f32 probes, a bf16 outer median) and `cge_anticge`
+   (CGE, f=11, `anticge`), 3 steps each; and the rest of the attack
+   registry on `baseline_mnist_krum`'s flags, 50 steps each:
+   `mnist-alie-krum`, `mnist-alie-warmup-krum` (`window:25`: the burst,
+   then the hidden phase), `mnist-framing-krum` (`victim:0 push:1.0
+   jitter:0.1`), `mnist-mimic-median` (`victim:0 jitter:0.1`).
    Launch counts are zeroed before each run and read after it: each
    kernel of the run's GAR must rise by at least its step count in the
-   run's dtype. Each run must take every step and evaluation through the
+   run's dtype; in the adaptive and attack cells every (kernel, dtype)
+   count must equal exactly the count a step worked out from the code
+   times the steps (`per_step`), and no other kernel may launch. Each
+   run must take every step and evaluation through the
    device-resident path and every honest phase through the grouped
    program (the vmapped one under `--no-grouped-workers`): the engine's
    counts must equal the step and evaluation counts. Each study CSV must
    carry the JAX package's header and a finite "Defense gradient norm".
 5. Where a step's time goes, for the headline, `krum_f11`, brute,
-   mixed-precision headline, vmapped headline and
-   `mnist-empire-krum-f_24-lr_0.5-at_update` cells, through the
+   mixed-precision headline, vmapped headline,
+   `mnist-empire-krum-f_24-lr_0.5-at_update` and `headline_adaptive`
+   cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the honest, defense and update phases), the
    busiest kernels and the device's busy share (`torch.profiler`; the
@@ -150,6 +168,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from byzantinemomentum_tpu_torch import data as data_mod
+from byzantinemomentum_tpu_torch import prng
+from byzantinemomentum_tpu_torch.attacks import alie
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
@@ -905,6 +925,20 @@ def device_paths(smi):
         "and test splits of CIFAR-10 with and without the transform, MNIST, "
         "FashionMNIST and phishing)")
 
+    # The attacks' jitter: the noise key (a hash of the honest rows'
+    # bits) and `prng.normal` at the headline shape, card against CPU
+    honest = torch.randn((20, 1310922), generator=torch.Generator().manual_seed(5))
+    key = alie.row_key(honest)
+    if not torch.equal(alie.row_key(honest.to(dev)).cpu(), key):
+        raise SystemExit("alie.row_key on the card differs from the CPU's")
+    noise = prng.normal(key.to(dev), (5, 1310922))
+    if not torch.equal(noise.cpu().view(torch.int32),
+                       prng.normal(key, (5, 1310922)).view(torch.int32)):
+        raise SystemExit("prng.normal on the card differs from the CPU's bits")
+    log(f"prng.normal f32[5, 1310922] on the card equals the CPU's bit for "
+        f"bit (key {key.tolist()} from alie.row_key of f32[20, 1310922], "
+        f"equal on both)")
+
     engines = []
     with tempfile.TemporaryDirectory() as tmp:
         for flags in ((), VMAPPED_RUN):
@@ -939,12 +973,20 @@ def device_paths(smi):
 
 
 # A phase-4 run: its driver flags but the common ones (`cell_argv`), its
-# steps, the kernels its GAR launches, the dtype they must run in, and
-# the family of records its launches count for ("cifar", or "n<n>" for the
-# MNIST half's runs at n workers)
-Cell = collections.namedtuple("Cell", "name argv steps kernels dtype family")
+# steps, the kernels its GAR launches, the dtype they must run in, the
+# family of records its launches count for ("cifar", or "n<n>" for the
+# MNIST half's runs at n workers) and, where given, the exact launches a
+# step of each (kernel, dtype)
+Cell = collections.namedtuple("Cell", "name argv steps kernels dtype family per_step",
+                              defaults=(None,))
 EMPIRE = ("empire", ("factor:1.1",))
 LITTLE = ("little", ("factor:1.5", "negative:true"))
+# The JAX default factor -16: a line search of 16 defense calls a step
+EMPIRE_ADAPTIVE = ("empire", ())
+LITTLE_ADAPTIVE = ("little", ("factor:-16", "negative:true"))
+STRICT_ADAPTIVE = ("empire-strict", ("epsilon:-16",))
+ANTICGE = ("anticge", ())
+PROBES = 16  # line-search evaluations a step at factor (epsilon) -16
 BF16_RUN = ("--dtype", "bfloat16")
 F16_RUN = ("--dtype", "float16")
 MIXED_RUN = ("--dtype", "float32", "--compute-dtype", "bfloat16")
@@ -956,21 +998,29 @@ GRID_RUN = ("--model-args", "cifar100:False", "--loss", "nll",
             "--evaluation-delta", "100")
 
 
-def cifar_cell(name, gar, f, attack, steps, kernels, flags=(), dtype=F32):
+def cifar_cell(name, gar, f, attack, steps, kernels=(), flags=(), dtype=F32,
+               per_step=None):
     """A run on CIFAR-10, empire-cnn, n=25, f real Byzantine workers,
     batch 50, momentum 0.99 at update, clip 5, nb-for-study 1 (its own
-    flags last, so they override these)."""
+    flags last, so they override these); an attack with no arguments
+    takes the JAX defaults (no `--attack-args`). `per_step`, where given,
+    is the exact launch count a step of each (kernel, dtype), and its
+    keys name the cell's kernels."""
     attack, attack_args = attack
+    if per_step is not None:
+        kernels = tuple(dict.fromkeys(kernel for kernel, _ in per_step))
     return Cell(name, (
         "--dataset", "cifar10", "--model", "empire-cnn",
         "--nb-workers", "25", "--nb-decl-byz", str(f),
         "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
-        "--attack-args", *attack_args, "--batch-size", "50",
+        *(("--attack-args", *attack_args) if attack_args else ()),
+        "--batch-size", "50",
         "--batch-size-test", "100", "--batch-size-test-reps", "5",
         "--evaluation-delta", str(steps), "--momentum", "0.99",
         "--momentum-at", "update", "--gradient-clip", "5",
         "--learning-rate", "0.01", "--nb-for-study", "1",
-        "--nb-for-study-past", "1", *flags), steps, kernels, dtype, "cifar")
+        "--nb-for-study-past", "1", *flags), steps, kernels, dtype, "cifar",
+        per_step)
 
 
 # `reproduce.py::submit_mnist`: its common flags in its order, and the
@@ -1012,12 +1062,12 @@ GAR_KERNELS = {"average": (), "krum": ("sq_gram", "weighted_rows_mean"),
                "bulyan": ("sq_gram", "selected_median_mean")}
 
 
-def mnist_cell(name, argv, gar, steps=MNIST_STEPS):
+def mnist_cell(name, argv, gar, steps=MNIST_STEPS, per_step=None):
     """A run of the MNIST half, in the family of its worker count (the
     driver's default 11 where `argv` sets none)."""
     argv = tuple(argv)
     n = argv[argv.index("--nb-workers") + 1] if "--nb-workers" in argv else "11"
-    return Cell(name, argv, steps, GAR_KERNELS[gar], F32, f"n{n}")
+    return Cell(name, argv, steps, GAR_KERNELS[gar], F32, f"n{n}", per_step)
 
 
 def grid_cell(name):
@@ -1032,6 +1082,22 @@ def baseline_cell(gar):
     return mnist_cell(f"baseline_mnist_{gar}", (
         "--nb-decl-byz", "4", "--nb-real-byz", "4", "--gar", gar,
         "--attack", "empire", "--attack-args", "factor:1.1"), gar)
+
+
+# Exact launches a step of the MNIST attack cells' GARs at n = 11 (no
+# attack calls the defense): Krum's Gram for the aggregate and for its
+# acceptation ratio, its weighted mean once; Median's median once
+MNIST_ATTACK_LAUNCHES = {"krum": {("sq_gram", F32): 2, ("weighted_rows_mean", F32): 1},
+                         "median": {("lower_median", F32): 1}}
+
+
+def attack_cell(name, attack, attack_args, gar="krum"):
+    """`baseline_cell`'s flags (MNIST, simples-conv, n = 11, f = 4 real)
+    against another attack, with exact launch counts."""
+    return mnist_cell(name, (
+        "--nb-decl-byz", "4", "--nb-real-byz", "4", "--gar", gar,
+        "--attack", attack, *(("--attack-args", *attack_args) if attack_args else ())),
+        gar, per_step=MNIST_ATTACK_LAUNCHES[gar])
 
 
 CELLS = (
@@ -1062,6 +1128,22 @@ CELLS = (
                ("sq_gram", "selected_median_mean"), VMAPPED_RUN),
     cifar_cell("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5, EMPIRE,
                GAR_STEPS, ("sq_gram", "selected_median_mean"), GRID_RUN),
+    # The adaptive attacks: each probe of the line search calls the GAR,
+    # and the outer aggregation once more (Bulyan and Median have no
+    # acceptation ratio; Krum's takes one more Gram). Under bf16 the
+    # probes are f32 and only the outer median is bf16
+    cifar_cell("headline_adaptive", "bulyan", 5, EMPIRE_ADAPTIVE, STEPS,
+               per_step={("sq_gram", F32): PROBES + 1,
+                         ("selected_median_mean", F32): PROBES + 1}),
+    cifar_cell("krum_f11_strict", "krum", 11, STRICT_ADAPTIVE, GAR_STEPS,
+               per_step={("sq_gram", F32): PROBES + 2,
+                         ("weighted_rows_mean", F32): PROBES + 1}),
+    cifar_cell("median_little_adaptive", "median", 11, LITTLE_ADAPTIVE, GAR_STEPS,
+               per_step={("lower_median", F32): PROBES + 1}),
+    cifar_cell("median_bf16_adaptive", "median", 11, LITTLE_ADAPTIVE, GAR_STEPS,
+               flags=BF16_RUN, dtype=BF16,
+               per_step={("lower_median", F32): PROBES, ("lower_median", BF16): 1}),
+    cifar_cell("cge_anticge", "cge", 11, ANTICGE, GAR_STEPS, per_step={}),
     # The MNIST half: the driver's defaults (no kernel), BASELINE.md's
     # MNIST configs, the paper's grid and its cells against `nan`, phishing
     mnist_cell("default", (), "average", steps=STEPS),
@@ -1082,9 +1164,16 @@ CELLS = (
         "--criterion", "sigmoid", "--gar", "krum", "--nb-workers", "11",
         "--nb-decl-byz", "4", "--nb-real-byz", "4", "--attack", "empire",
         "--attack-args", "factor:1.1"), "krum"),
+    # The rest of the attack registry on BASELINE.md's MNIST flags
+    attack_cell("mnist-alie-krum", "alie", ()),
+    attack_cell("mnist-alie-warmup-krum", "alie-warmup", ("window:25",)),
+    attack_cell("mnist-framing-krum", "framing",
+                ("victim:0", "push:1.0", "jitter:0.1")),
+    attack_cell("mnist-mimic-median", "mimic", ("victim:0", "jitter:0.1"),
+                gar="median"),
 )
 PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped",
-            "mnist-empire-krum-f_24-lr_0.5-at_update")
+            "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive")
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
@@ -1102,7 +1191,7 @@ def cell_argv(cell, steps, resdir):
 
 def drive(cell, smi):
     """Phase 4, one run; returns its launch counts by (kernel, dtype)."""
-    name, _, steps, kernels, dtype, _ = cell
+    name, _, steps, kernels, dtype, _, _ = cell
     with tempfile.TemporaryDirectory() as tmp:
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
@@ -1121,11 +1210,19 @@ def drive(cell, smi):
     norms = np.array([float(row[col]) for row in rows])
     if not np.all(np.isfinite(norms)):
         raise SystemExit(f"{name}: non-finite defense gradient norm: {norms}")
-    for kernel in kernels:
-        count = launches.get((kernel, dtype), 0)
-        if count < steps:
-            raise SystemExit(f"{name}: {kernel} launched {count} times in "
-                             f"{dtype} in {steps} steps: the path bypassed it")
+    if cell.per_step is not None:
+        # Exactly the counts worked out from the code, and no other kernel
+        want = {key: per * steps for key, per in cell.per_step.items()}
+        got = {key: count for key, count in launches.items() if count}
+        if got != want:
+            raise SystemExit(f"{name}: launches {got} in {steps} steps, "
+                             f"expected {want}")
+    else:
+        for kernel in kernels:
+            count = launches.get((kernel, dtype), 0)
+            if count < steps:
+                raise SystemExit(f"{name}: {kernel} launched {count} times in "
+                                 f"{dtype} in {steps} steps: the path bypassed it")
     # Every step and evaluation on the device-resident batches, every
     # honest phase on the program asked for
     args = driver.process_commandline(argv)
@@ -1176,7 +1273,7 @@ def step_profile(cell, smi, steps=3):
         marks[2].record()
         honest = engine.phase_honest(state, xs, ys, lr)
         marks[3].record()
-        defense = engine.phase_defense(honest[-1])
+        defense = engine.phase_defense(honest[-1], state.attack_state)
         marks[4].record()
         state, _ = engine.phase_update(state, *honest, *defense, lr,
                                        xs.shape[1])

@@ -261,14 +261,16 @@ def _step_matches_jax(gar, **dtypes):
         jstate, None, jG_sampled, jloss, jnet, jmw, jG_honest, jG_attack,
         jdef, jratio, LR, B)
     G_honest_t = _t(jG_honest).to(pdt)
-    G_attack, grad_def, ratio = engine.phase_defense(G_honest_t)
+    G_attack, grad_def, ratio, attack_state = engine.phase_defense(
+        G_honest_t, state.attack_state)
     assert G_attack.dtype == grad_def.dtype == pdt
     assert np.all(_rel(G_attack, jG_attack) < 5e-2)
     assert np.all(_rel(grad_def[None], jnp.asarray(jdef)[None]) < 5e-2)
     net_t = {name: _t(v).to(pdt) for name, v in convert.flat_items(jnet)}
     new, metrics = engine.phase_update(
         state, _t(jG_sampled).to(pdt), _t(jloss).to(loss_avg.dtype), net_t,
-        _t(jmw).to(pdt), G_honest_t, G_attack, grad_def, ratio, LR, B)
+        _t(jmw).to(pdt), G_honest_t, G_attack, grad_def, ratio, attack_state,
+        LR, B)
     assert new.theta.dtype == new.momentum_server.dtype == pdt
     _values_close(new.theta, jnew.theta, 2e-2)
     _values_close(new.momentum_server, jnew.momentum_server, 2e-2)

@@ -158,7 +158,8 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     jnew, jmetrics = jengine._phase_update(
         jstate, None, jG_sampled, jloss, jnet, jmw, jG_honest, jG_attack,
         jdef, jratio, LR, B)
-    G_attack, grad_def, ratio = engine.phase_defense(_t(jG_honest))
+    G_attack, grad_def, ratio, attack_state = engine.phase_defense(
+        _t(jG_honest), state.attack_state)
     _close(G_attack, jG_attack)
     _close(grad_def, jdef)
     # Krum, Aksel, Brute and CGE select rows, so they have an acceptation
@@ -168,7 +169,7 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     net_t = {name: _t(v) for name, v in convert.flat_items(jax.tree.map(np.asarray, jnet))}
     new, metrics = engine.phase_update(
         state, _t(jG_sampled), _t(jloss), net_t, _t(jmw), _t(jG_honest),
-        G_attack, grad_def, ratio, LR, B)
+        G_attack, grad_def, ratio, attack_state, LR, B)
     _close(new.theta, jnew.theta)
     _close(new.momentum_server, jnew.momentum_server)
     _close(new.momentum_workers, jnew.momentum_workers)

@@ -1060,3 +1060,97 @@ def test_mnist_device_gather_on_the_card_equals_the_cpu_gather(cuda, monkeypatch
             assert x.device.type == "cuda" and x.dtype == cx.dtype == torch.float32
             assert torch.equal(x.cpu().view(torch.int32), cx.view(torch.int32))
             assert torch.equal(y.cpu(), cy)
+
+
+# The attacks on the card against the same attacks on the CPU: (attack,
+# its arguments, the GAR it runs against, the kernels each probe of a
+# line search launches). h = 20 honest rows, f = 5, d = 20,001.
+ATTACK_CASES = (
+    ("empire", {"factor": -16}, "bulyan", ("sq_gram", "selected_median_mean")),
+    ("little", {"factor": -16, "negative": True}, "median", ("lower_median",)),
+    ("bulyan", {"factor": -16}, "krum", ("sq_gram", "weighted_rows_mean")),
+    ("empire-strict", {"epsilon": -16}, "trmean", ("trimmed_mean",)),
+    ("empire", {"factor": 1.1}, "bulyan", ()),
+    ("anticge", {}, "cge", ()),
+    ("alie", {}, "krum", ()),
+    ("alie", {"jitter": 0.1}, "krum", ()),
+    ("alie-warmup", {"window": 1, "jitter": 0.1}, "krum", ()),
+    ("framing", {"victim": 0, "push": 1.0, "jitter": 0.1}, "krum", ()),
+    ("mimic", {"victim": 3, "jitter": 0.1}, "median", ()),
+    ("nan", {}, "median", ()),
+)
+
+
+def _attack_rows(name, kwargs, gar, g, f):
+    """The attack's rows (a stateful attack's second step, past its
+    burst)."""
+    from byzantinemomentum_tpu_torch.attacks import attacks
+    atk = attacks[name]
+    defense = gars[gar].unchecked
+    if atk.stateful:
+        _, state = atk(g, f, f, defense=defense, **kwargs)
+        rows, _ = atk.checked(g, f, f, defense=defense, state=state, **kwargs)
+        return rows
+    return atk(g, f, f, defense=defense, **kwargs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kwargs,gar,kernels", ATTACK_CASES,
+                         ids=[f"{c[0]}-{c[2]}-{i}" for i, c in enumerate(ATTACK_CASES)])
+def test_attacks_on_card_match_cpu(cuda, monkeypatch, name, kwargs, gar, kernels):
+    """The rows on the card equal the CPU's (NaN by position; values
+    within rtol 1e-5, atol 1e-6 times the rows' largest magnitude: the
+    mean's last bits differ between the card's sum and the CPU's, and a
+    factor of up to 32767 scales them); a line search launches each
+    kernel of its GAR once a probe, 16 times, and finds the CPU's factor
+    or a near-tie of the CPU's objective (rtol 1e-6)."""
+    from byzantinemomentum_tpu_torch.attacks import empire, identical
+    factors = []
+    for module in (identical, empire):
+        original = module.line_maximize
+
+        def line_maximize(scape, *args, original=original, **kw):
+            best = original(scape, *args, **kw)
+            factors.append((best, scape))
+            return best
+        monkeypatch.setattr(module, "line_maximize", line_maximize)
+    h, f, d = 20, 5, 20_001
+    g = _mat(h, d, seed=11)
+    wrappers = {kernel: getattr(gar_kernels, kernel, None)
+                or getattr(sort_kernels, kernel) for kernel in kernels}
+    before = {kernel: w.launches for kernel, w in wrappers.items()}
+    got = _attack_rows(name, kwargs, gar, g.to(cuda), f)
+    for kernel, wrapper in wrappers.items():
+        assert wrapper.launches - before[kernel] == 16, kernel
+    want = _attack_rows(name, kwargs, gar, g, f)
+    assert got.device.type == "cuda" and got.shape == want.shape == (f, d)
+    if factors:
+        (card, _), (cpu, objective) = factors
+        if card != cpu:
+            a, b = float(objective(card)), float(objective(cpu))
+            assert abs(a - b) <= 1e-6 * max(abs(a), abs(b)), (card, cpu, a, b)
+            return
+    # The rows scale the honest mean's rounding by the factor: the
+    # absolute tolerance follows the rows' magnitude
+    finite = torch.isfinite(want)
+    scale = float(want[finite].abs().max()) if bool(finite.any()) else 1.0
+    _assert_values(got, want, atol=ATOL * max(1.0, scale))
+
+
+@pytest.mark.gpu
+def test_normal_on_card_equals_the_cpu_bits(cuda):
+    """`prng.normal` (and its key from `alie.row_key`) on the card gives
+    the CPU's bits."""
+    from byzantinemomentum_tpu_torch import prng
+    from byzantinemomentum_tpu_torch.attacks import alie
+    g = _mat(20, 100_003, seed=12)
+    key = alie.row_key(g)
+    assert torch.equal(alie.row_key(g.to(cuda)).cpu(), key)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = prng.normal(key.to(cuda), (5, 100_003), dtype)
+        want = prng.normal(key, (5, 100_003), dtype)
+        assert got.dtype == dtype
+        assert torch.equal(got.cpu().view(torch.int16 if dtype != torch.float32
+                                          else torch.int32),
+                           want.view(torch.int16 if dtype != torch.float32
+                                     else torch.int32))

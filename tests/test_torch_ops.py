@@ -161,8 +161,11 @@ def test_identical_attacks_match_jax(name, kwargs):
     want = np.asarray(jax_attacks[name](jnp.asarray(g), 2, 3, defense=defense, **kwargs))
     got = attacks[name](_t(g), 2, 3, defense=gars["average"].unchecked, **kwargs).numpy()
     _assert_values(got, want)
-    with pytest.raises(utils.UserException, match="line search"):
-        attacks[name](_t(g), 2, 3, defense=gars["average"].unchecked, factor=-4)
+    # A negative factor line-searches the defense (4 evaluations)
+    kwargs = {**kwargs, "factor": -4}
+    want = np.asarray(jax_attacks[name](jnp.asarray(g), 2, 3, defense=defense, **kwargs))
+    got = attacks[name](_t(g), 2, 3, defense=gars["average"].unchecked, **kwargs).numpy()
+    _assert_values(got, want)
 
 
 # --------------------------------------------------------------------------- #

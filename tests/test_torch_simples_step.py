@@ -115,7 +115,8 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
     jnew, jmetrics = jengine._phase_update(
         jstate, None, jG_sampled, jloss, jnet, jmw, jG_honest, jG_attack,
         jdef, jratio, LR, B)
-    G_attack, grad_def, ratio = engine.phase_defense(_t(jG_honest))
+    G_attack, grad_def, ratio, attack_state = engine.phase_defense(
+        _t(jG_honest), state.attack_state)
     _close(G_attack, jG_attack)
     assert bool(G_attack.isnan().all()) == (attack == "nan")
     _close(grad_def, jdef)
@@ -125,7 +126,7 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
         _close(ratio, jratio)
     new, metrics = engine.phase_update(
         state, _t(jG_sampled), _t(jloss), {}, _t(jmw), _t(jG_honest),
-        G_attack, grad_def, ratio, LR, B)
+        G_attack, grad_def, ratio, attack_state, LR, B)
     _close(new.theta, jnew.theta)
     _close(new.momentum_server, jnew.momentum_server)
     _close(new.momentum_workers, jnew.momentum_workers)
