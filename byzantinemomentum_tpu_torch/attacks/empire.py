@@ -14,6 +14,7 @@ import torch
 from byzantinemomentum_tpu_torch.attacks import (
     displacement, empty_byzantine, register, search_dtype)
 from byzantinemomentum_tpu_torch.ops.linesearch import line_maximize
+from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["attack"]
 
@@ -34,7 +35,7 @@ def attack(grad_honests, f_decl, f_real, defense, epsilon=1, **kwargs):
         epsilon_eff = line_maximize(eval_epsilon, evals=math.ceil(-epsilon))
         byz_grad = avg * float(-epsilon_eff)
     else:
-        byz_grad = grad_avg * (-epsilon)
+        byz_grad = grad_avg * weak_scalar(-epsilon, grad_avg.dtype)
     return byz_grad[None, :].expand(f_real, -1).clone()
 
 

@@ -8,7 +8,8 @@ line-searches the live defense's output displacement
 (`ops/linesearch.py`), each probe a call of the configured GAR, so its
 kernels. The searched factor is a float32 scalar, as in the JAX package:
 under a half dtype the probes and the returned rows are float32 (the
-engine casts the rows back).
+engine casts the rows back). A fixed factor is a weak-typed Python scalar
+there: it is rounded to the rows' dtype first (`utils.weak_scalar`).
 """
 
 import math
@@ -18,6 +19,7 @@ import torch
 from byzantinemomentum_tpu_torch.attacks import (
     displacement, empty_byzantine, register, search_dtype)
 from byzantinemomentum_tpu_torch.ops.linesearch import line_maximize
+from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["make_attack"]
 
@@ -45,7 +47,9 @@ def make_attack(compute_direction):
             factor_eff = -factor_eff if negative else factor_eff
             byz_grad = avg + float(factor_eff) * att
         else:
-            factor_eff = -factor if negative else factor
+            # The fixed factor rounded to the rows' dtype, as JAX applies it
+            factor_eff = weak_scalar(-factor if negative else factor,
+                                     grad_avg.dtype)
             byz_grad = grad_avg + factor_eff * grad_att
         return byz_grad[None, :].expand(f_real, -1).clone()
 

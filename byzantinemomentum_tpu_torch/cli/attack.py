@@ -4,9 +4,26 @@ of the training path ported so far).
 Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
-JAX driver that the port does not have yet (checkpoints, meshes, fault
-plans, diagnostics, health, telemetry, the `--gars` mixture, ...) are
-refused by the parser rather than ignored.
+JAX driver that the port does not have yet (meshes, fault plans,
+diagnostics, health and rollbacks, telemetry, the `--gars` mixture, ...)
+are refused by the parser rather than ignored.
+
+`--seed` gives the JAX run: the root key is `PRNGKey(seed)`, the model's
+weights come from `model.init(root key)` and the engine's step key from
+`fold_in(root key, 1)`, so the initial parameters, every step's keys and
+dropout masks, and the batches (`data/device.py`) are the JAX driver's.
+
+Checkpoints (`checkpoint.py`, the JAX file format): `--checkpoint-delta`
+saves the state and the samplers' snapshots every that many steps into
+the result directory (`--keep-checkpoints` keeps the newest N,
+`--checkpoint-mirror` writes a second copy); `--load-checkpoint` resumes
+from a file; `--auto-resume` restarts from the newest valid checkpoint
+of the result directory (or its mirror), keeps the CSV rows below the
+resume step, counts `--nb-steps` from step 0 and appends the JAX
+driver's `Rollbacks` and `Restarts` columns to the study CSV, so a
+killed and resumed run writes the uninterrupted run's rows.
+`BMT_CHAOS_KILL_AT_STEP=<step>` SIGKILLs the run when it reaches that
+step (the preemption stand-in of the kill-and-resume checks).
 
 Every attack of the JAX registry runs, with the JAX defaults: `--attack
 empire` with no `--attack-args` is `factor:-16`, a line search of 16
@@ -30,6 +47,7 @@ import json
 import math
 import os
 import pathlib
+import signal
 import sys
 import time
 
@@ -37,14 +55,15 @@ import numpy as np
 import torch
 
 from byzantinemomentum_tpu_torch import attacks as attacks_mod
+from byzantinemomentum_tpu_torch import checkpoint as checkpoint_mod
 from byzantinemomentum_tpu_torch import data as data_mod
 from byzantinemomentum_tpu_torch import losses as losses_mod
 from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import ops as ops_mod
-from byzantinemomentum_tpu_torch import optim, utils
+from byzantinemomentum_tpu_torch import optim, prng, utils
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    DTYPES, STUDY_COLUMNS, Engine, EngineConfig)
+    DTYPES, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine, EngineConfig)
 
 __all__ = ["process_commandline", "run", "main"]
 
@@ -129,10 +148,28 @@ def process_commandline(argv=None):
         help="L2 loss regularization factor")
     add("--gradient-clip", type=float, default=None,
         help="Per-gradient L2 clip threshold")
+    add("--load-checkpoint", type=str, default=None,
+        help="Checkpoint to resume from")
+    add("--auto-resume", action="store_true", default=False,
+        help="Restart from the newest VALID checkpoint found in the result "
+             "directory (torn/corrupt tails are skipped). The study/eval "
+             "CSVs are truncated to the resume step and appended to, so an "
+             "interrupted run's concatenated output equals an "
+             "uninterrupted run's. When a resume actually happens, "
+             "'--nb-steps' counts TOTAL steps from step 0; cold starts are "
+             "unaffected")
+    add("--keep-checkpoints", type=int, default=0,
+        help="Retention: keep only this run's newest N checkpoints, 0 to "
+             "keep all")
+    add("--checkpoint-mirror", type=str, default=None,
+        help="Second directory every checkpoint is also written to; "
+             "'--auto-resume' scans both for the newest valid checkpoint")
     add("--result-directory", type=str, default=None,
-        help="Directory for results (eval/study CSVs)")
+        help="Directory for results (eval/study CSVs, checkpoints)")
     add("--evaluation-delta", type=int, default=100,
         help="Steps between evaluations, 0 for none")
+    add("--checkpoint-delta", type=int, default=0,
+        help="Steps between checkpoints, 0 for none")
     return parser.parse_args(sys.argv[1:] if argv is None else argv)
 
 
@@ -164,6 +201,14 @@ def _postprocess(args):
                     and steps % args.learning_rate_decay_delta == 0):
                 return args.learning_rate / (steps / args.learning_rate_decay + 1)
             return None
+
+        def initial_lr(steps):
+            # The rate in effect at loop entry (a resume's first step):
+            # the one set at the last update boundary
+            if args.learning_rate_decay <= 0:
+                return args.learning_rate
+            last = steps - steps % args.learning_rate_decay_delta
+            return args.learning_rate / (last / args.learning_rate_decay + 1)
     else:
         numbers = args.learning_rate_schedule.split(",")
         try:
@@ -189,13 +234,41 @@ def _postprocess(args):
                 if steps == step:
                     return lr
             return None
+
+        def initial_lr(steps):
+            current = schedule[0][1]
+            for step, lr in schedule:
+                if step <= steps:
+                    current = lr
+            return current
     args.compute_new_learning_rate = compute_new_learning_rate
+    args.initial_lr = initial_lr
     for name in (args.dtype, args.compute_dtype):
         if name is not None and name not in DTYPES:
             utils.fatal_unavailable(sorted(set(DTYPES)), name, what="dtype")
     if args.momentum_at not in ("update", "server", "worker"):
         utils.fatal_unavailable(("update", "server", "worker"),
                                 args.momentum_at, what="momentum position")
+    # Checkpoint flags (the JAX driver's checks)
+    if args.auto_resume:
+        if args.load_checkpoint is not None:
+            utils.fatal("Invalid arguments: '--auto-resume' and "
+                        "'--load-checkpoint' are mutually exclusive "
+                        "(auto-resume scans the result directory itself)")
+        if args.result_directory is None:
+            utils.fatal("Invalid arguments: '--auto-resume' requires "
+                        "'--result-directory'")
+    if args.keep_checkpoints < 0:
+        utils.fatal(f"Invalid arguments: negative checkpoint retention "
+                    f"{args.keep_checkpoints}")
+    if args.checkpoint_mirror is not None and args.result_directory is None:
+        utils.warning("'--checkpoint-mirror' needs '--result-directory' "
+                      "(there is no primary to mirror); mirror disabled")
+        args.checkpoint_mirror = None
+    if args.result_directory is None and args.checkpoint_delta != 0:
+        utils.warning("Argument '--checkpoint-delta' ignored as no "
+                      "'--result-directory' was specified")
+        args.checkpoint_delta = 0
     # Study coercions (the JAX driver's)
     if args.result_directory is None:
         args.nb_for_study = 0
@@ -223,17 +296,50 @@ def _config_text(args):
 
 class _ResultFiles:
     """The JAX driver's result files: '# '-prefixed tab-separated header,
-    rows prefixed with the line separator (no trailing newline)."""
+    rows prefixed with the line separator (no trailing newline).
+    `make(..., resume_step=s)` keeps an existing file's rows strictly
+    below s (those a killed predecessor wrote before its last valid
+    checkpoint; rows of another header, torn rows and unparsable step
+    numbers go), so the rows on disk stay one trajectory."""
 
     def __init__(self, directory):
         self.directory = directory
         self._fds = {}
 
-    def make(self, name, *fields):
-        fd = (self.directory / name).open("w")
-        fd.write("# " + "\t".join(str(field) for field in fields))
+    def make(self, name, *fields, resume_step=None):
+        header = "# " + "\t".join(str(field) for field in fields)
+        path = self.directory / name
+        kept = ()
+        if resume_step is not None and path.is_file():
+            kept = self._surviving_rows(path, header, resume_step)
+        fd = path.open("w")
+        fd.write(header)
+        for row in kept:
+            fd.write(os.linesep + row)
         fd.flush()
         self._fds[name] = fd
+
+    @staticmethod
+    def _surviving_rows(path, header, limit_step):
+        try:
+            lines = path.read_text().split(os.linesep)
+        except OSError:
+            return ()
+        if not lines or lines[0] != header:
+            return ()
+        nb_fields = len(header[2:].split("\t"))
+        kept = []
+        for line in lines[1:]:
+            fields = line.split("\t")
+            if len(fields) != nb_fields:
+                continue
+            try:
+                step = int(fields[0])
+            except ValueError:
+                continue
+            if step < limit_step:
+                kept.append(line)
+        return tuple(kept)
 
     def get(self, name):
         return self._fds.get(name)
@@ -263,10 +369,14 @@ def _study_row(metrics, steps, datapoints, float_format):
 
 
 def _setup(args):
-    """Device, seeds, registries, data and engine of a parsed run."""
+    """Device, seeds, registries, data and engine of a parsed run; returns
+    `(device, engine, fresh state)`: the model's weights from
+    `model.init(PRNGKey(seed))` and the state from
+    `engine.init(PRNGKey(seed))`, the JAX driver's order."""
     device = utils.resolve_device(args.device)
     seed = args.seed if args.seed >= 0 else int.from_bytes(os.urandom(4), "little")
     np.random.seed(seed % 2**32)
+    root_key = prng.PRNGKey(seed, device=device)
 
     if args.gar not in ops_mod.gars:
         utils.fatal_unavailable(ops_mod.gars, args.gar, what="aggregation rule")
@@ -298,7 +408,7 @@ def _setup(args):
     # the JAX package casts its f32 init
     model = models_mod.build(args.model, device=device,
                              dtype=cfg.torch_dtype, **args.model_args)
-    model.reset(torch.Generator(device=device).manual_seed(seed))
+    model.init(root_key)
     trainset, testset = data_mod.make_datasets(
         args.dataset, args.batch_size, args.batch_size_test,
         no_transform=args.no_transform, seed=seed % 2**32,
@@ -312,25 +422,46 @@ def _setup(args):
     optimizer = optim.build(args.optimizer, weight_decay=args.weight_decay,
                             **args.optimizer_args)
     engine = Engine(cfg, model, loss, criterion, (gar, args.gar_args), attack,
-                    args.attack_args, optimizer,
-                    torch.Generator(device=device).manual_seed(seed + 1))
+                    args.attack_args, optimizer)
     engine.attach_data(*DeviceData.pair(trainset, testset, device))
-    return device, engine
+    return device, engine, engine.init(root_key)
 
 
 def _open_results(args):
-    """The result directory's `eval`/`study` files and `config` files, or
-    None without a result directory."""
+    """The result directory's `eval`/`study` files and `config` files
+    (None without a result directory), after the `--auto-resume` scan;
+    returns `(results, resume step or None, restart count)`. An actual
+    resume sets `args.load_checkpoint` to the checkpoint found."""
     if args.result_directory is None:
-        return None
+        return None, None, 0
     resdir = pathlib.Path(args.result_directory).resolve()
     resdir.mkdir(mode=0o755, parents=True, exist_ok=True)
     args.result_directory = resdir
+    if args.checkpoint_mirror is not None:
+        args.checkpoint_mirror = pathlib.Path(args.checkpoint_mirror).resolve()
+        args.checkpoint_mirror.mkdir(mode=0o755, parents=True, exist_ok=True)
+    resume_step, restarts = None, 0
+    if args.auto_resume:
+        found = checkpoint_mod.find_latest_valid_any(
+            (resdir, args.checkpoint_mirror))
+        if found is None:
+            utils.info(f"Auto-resume: no valid checkpoint in {str(resdir)!r}; "
+                       f"cold start")
+        else:
+            args.load_checkpoint = str(found)
+            resume_step = checkpoint_mod.checkpoint_step(found)
+            restarts = checkpoint_mod.bump_restarts(resdir)
+            utils.info(f"Auto-resume: restart #{restarts} from {found.name} "
+                       f"(step {resume_step})")
     results = _ResultFiles(resdir)
     if args.evaluation_delta > 0:
-        results.make("eval", "Step number", "Cross-accuracy")
+        results.make("eval", "Step number", "Cross-accuracy",
+                     resume_step=resume_step)
     if args.nb_for_study > 0:
-        results.make("study", *STUDY_COLUMNS)
+        # The JAX driver's recovery columns ride the study CSV only when
+        # crash recovery is on
+        columns = STUDY_COLUMNS + (RECOVERY_COLUMNS if args.auto_resume else ())
+        results.make("study", *columns, resume_step=resume_step)
     (resdir / "config").write_text(_config_text(args) + os.linesep)
     with (resdir / "config.json").open("w") as fd:
         def jsonable(x):
@@ -339,26 +470,63 @@ def _open_results(args):
         json.dump({k: jsonable(v) for k, v in vars(args).items()
                    if not k.startswith("_") and not callable(getattr(args, k))},
                   fd, ensure_ascii=False, indent="\t")
-    return results
+    return results, resume_step, restarts
+
+
+def _load(args, engine, state):
+    """The state of `--load-checkpoint` (and the samplers' snapshots it
+    carries, restored into the train and test samplers)."""
+    path = args.load_checkpoint
+    try:
+        state, data_state = checkpoint_mod.load(path, state, return_data=True)
+    except (OSError, ValueError, TypeError, KeyError) as err:
+        utils.fatal(f"Unable to load checkpoint {path!r}: {err}")
+    if data_state is None:
+        utils.warning("Checkpoint carries no sampler state; resumed batch "
+                      "order (seeded or not) will differ from the "
+                      "uninterrupted run")
+        return state
+    try:
+        engine.train_data.dataset.set_state(data_state["train"])
+        engine.test_data.dataset.set_state(data_state["test"])
+    except (KeyError, TypeError, ValueError) as err:
+        utils.warning(f"Checkpoint sampler state only partially or not "
+                      f"restored ({err}); resumed batch order may differ")
+    else:
+        if args.seed >= 0:
+            utils.info("Seed argument superseded by the checkpoint's RNG and "
+                       "sampler state (bit-exact resume)")
+    return state
 
 
 def run(argv=None):
     """Run one experiment. Returns a summary dict: `steps`, `device`,
     `steps_per_s` (training steps per second after the first step, whose
     time includes one-time set-up such as the kernel build; evaluations
-    excluded; None under two steps), `result_directory` and `counts` (the
-    engine's counts of indexed steps and evaluations and of grouped and
-    vmapped honest phases)."""
+    and checkpoints excluded; None under two steps), `result_directory`,
+    `resume_step` (None on a cold start) and `counts` (the engine's
+    counts of indexed steps and evaluations and of grouped and vmapped
+    honest phases)."""
     with utils.Context("cmdline"):
         args = _postprocess(process_commandline(argv))
     with utils.Context("setup"):
-        device, engine = _setup(args)
-        results = _open_results(args)
-    state = engine.init()
+        device, engine, state = _setup(args)
+        results, resume_step, restarts = _open_results(args)
+    if args.load_checkpoint is not None:
+        with utils.Context("load"):
+            state = _load(args, engine, state)
     cfg = engine.cfg
     float_format = FLOAT_FORMATS[cfg.torch_dtype]
     fd_eval = results.get("eval") if results else None
     fd_study = results.get("study") if results else None
+    recovery = (0, restarts) if args.auto_resume else ()
+    # An actual auto-resume counts --nb-steps from step 0: a supervisor
+    # re-issues the same command line
+    steps_limit = (None if args.nb_steps < 0
+                   else args.nb_steps if resume_step is not None
+                   else state.steps + args.nb_steps)
+    chaos_kill = os.environ.get("BMT_CHAOS_KILL_AT_STEP")
+    chaos_kill = int(chaos_kill) if chaos_kill else None
 
     def sync():
         if device.type == "cuda":
@@ -366,17 +534,37 @@ def run(argv=None):
 
     def flush(pending):
         if pending is not None and fd_study is not None:
-            results.store(fd_study, *_study_row(*pending, float_format))
+            results.store(fd_study, *_study_row(*pending, float_format),
+                          *recovery)
 
     pending = None          # the previous step's (metrics, step, points)
     clock = None            # (start, paused seconds) once step 1 is done
-    current_lr = args.learning_rate  # step 0 of a schedule sets its own
+    first_step = state.steps
+    current_lr = args.initial_lr(state.steps)
+    just_loaded = args.load_checkpoint is not None
     with utils.Context("training"):
         try:
             while True:
                 steps = state.steps
-                if args.evaluation_delta > 0 and steps % args.evaluation_delta == 0:
-                    t_eval = time.perf_counter()
+                if chaos_kill is not None and steps >= chaos_kill:
+                    os.kill(os.getpid(), signal.SIGKILL)
+                milestone_eval = (args.evaluation_delta > 0
+                                  and steps % args.evaluation_delta == 0)
+                milestone_checkpoint = (args.checkpoint_delta > 0
+                                        and steps % args.checkpoint_delta == 0
+                                        and not just_loaded)
+                t_pause = time.perf_counter()
+                if milestone_eval or milestone_checkpoint:
+                    # The rows before this step reach the disk before a
+                    # checkpoint can be taken
+                    flush(pending)
+                    pending = None
+                # The samplers' snapshot before the evaluation draws, so a
+                # resumed run replays this step's evaluation
+                data_snapshot = ({"train": engine.train_data.dataset.get_state(),
+                                  "test": engine.test_data.dataset.get_state()}
+                                 if milestone_checkpoint else None)
+                if milestone_eval:
                     correct, total = engine.eval_many_indexed(
                         state.theta, state.net_state,
                         *engine.test_data.sample_indices(
@@ -385,9 +573,21 @@ def run(argv=None):
                     utils.info(f"Accuracy (step {steps}): {acc * 100.:.2f}%")
                     if fd_eval is not None:
                         results.store(fd_eval, steps, acc)
-                    if clock is not None:
-                        clock[1] += time.perf_counter() - t_eval
-                if args.nb_steps >= 0 and steps >= args.nb_steps:
+                if milestone_checkpoint:
+                    try:
+                        checkpoint_mod.save(
+                            args.result_directory / f"checkpoint-{steps}",
+                            state, data_state=data_snapshot,
+                            keep=args.keep_checkpoints or None,
+                            mirror=args.checkpoint_mirror)
+                    except OSError as err:
+                        # A failed write (a full disk) does not end the
+                        # run; the next milestone tries again
+                        utils.warning(f"Checkpoint save failed: {err}")
+                just_loaded = False
+                if clock is not None:
+                    clock[1] += time.perf_counter() - t_pause
+                if steps_limit is not None and steps >= steps_limit:
                     break
                 new_lr = args.compute_new_learning_rate(steps)
                 if new_lr is not None:
@@ -408,7 +608,7 @@ def run(argv=None):
             if results is not None:
                 results.close()
     sync()
-    timed = state.steps - 1
+    timed = state.steps - first_step - 1
     rate = None
     if clock is not None and timed > 0:
         rate = timed / (time.perf_counter() - clock[0] - clock[1])
@@ -416,7 +616,7 @@ def run(argv=None):
                    f"{state.steps} steps on {device}")
     return {"steps": state.steps, "device": str(device), "steps_per_s": rate,
             "result_directory": args.result_directory,
-            "counts": dict(engine.counts)}
+            "resume_step": resume_step, "counts": dict(engine.counts)}
 
 
 def main(argv=None):

@@ -1,0 +1,165 @@
+// Hand-written Hopper (sm_90a) kernels of the port's key tree: the
+// threefry-2x32 hash (20 rounds) that `jax.random` computes, fused into
+// the two draws a training step makes on the device.
+//
+// Built by `byzantinemomentum_tpu_torch/ops/prng_kernels.py` at its first
+// use:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o <build>/lib...so prng_kernels.cu
+// and bound through the plain C entries at the bottom of this file
+// (ctypes). Every entry launches on the stream it is given, allocates
+// nothing and returns cudaGetLastError().
+//
+// These replace no `pl.pallas_call`: in the JAX package XLA generates the
+// threefry hash itself. The plain PyTorch form (`prng.py`) runs the hash
+// as some 170 eager int64 tensor operations; at the headline's masks
+// (24.7 M elements a step) that is ~80 GB of device-memory traffic, which
+// would double the step. Here the hash runs in 32-bit registers.
+//
+// ---------------------------------------------------------------------------
+// dropout_mask_kernel: the keep-masks of S workers' j-th dropout layer,
+// `byzantinemomentum_tpu/models/core.py::_dropout_mask` with an 8-bit
+// keep threshold, under worker s's key `split(wkeys[s], n)[j]` (for any
+// n > j: key j of a split hashes the counter j alone).
+//   Element (b, h, w, c) of the JAX (NHWC) mask hashes the counter
+//   ((b H + h) W + w) C + c and keeps the element iff the low byte of the
+//   xor of the two output words is below the threshold
+//   (`jax.random.bits(key, shape, uint8) < threshold`). The kernel writes
+//   the port's NCHW layout `bool[S, B, C, H, W]` directly: a thread takes
+//   consecutive output bytes, so a warp's stores are 32 consecutive bytes.
+//   Bound: integer issue. Each element costs the 20 rounds (an add, a
+//   funnel-shift rotation and an xor each) and 12 key additions, 72
+//   32-bit operations, then an xor and a compare; it writes one byte.
+//   At the headline (S = 20, B = 50: 24.7 M elements a step) that is
+//   1.8 G operations against 24.7 MB of stores.
+//   Design: blockIdx.y is the worker; one thread of each block derives
+//   the worker's layer key once into shared memory. Each thread then
+//   hashes kItems elements a block stride apart (consecutive threads on
+//   consecutive bytes). The output index is split into (b, c, h, w) by
+//   two 32-bit divisions by the plane size and the channel count.
+//
+// split_kernel: `jax.random.split` of K keys into n each: key (k, i) is
+//   the two output words of the hash of the counter i under key k
+//   (JAX's `_threefry_split_foldlike`). One thread a new key. A step
+//   splits its key into S + 2 (`engine/step.py::phase_honest`): one
+//   launch in place of ~170 eager int64 operations.
+// ---------------------------------------------------------------------------
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // threads a block, both kernels
+constexpr int kItems = 8;      // mask elements a thread
+constexpr uint32_t kParity = 0x1BD11BDAu;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+// Four threefry rounds with rotations R0..R3
+template <int R0, int R1, int R2, int R3>
+__device__ __forceinline__ void four_rounds(uint32_t& x0, uint32_t& x1) {
+  x0 += x1; x1 = rotl(x1, R0) ^ x0;
+  x0 += x1; x1 = rotl(x1, R1) ^ x0;
+  x0 += x1; x1 = rotl(x1, R2) ^ x0;
+  x0 += x1; x1 = rotl(x1, R3) ^ x0;
+}
+
+// threefry-2x32, 20 rounds, of the counter words (x0, x1) under the key
+// words (k0, k1): `prng.py::threefry2x32`
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
+                                              uint32_t x0, uint32_t x1) {
+  const uint32_t k2 = k0 ^ k1 ^ kParity;
+  x0 += k0; x1 += k1;
+  four_rounds<13, 15, 26, 6>(x0, x1);  x0 += k1; x1 += k2 + 1u;
+  four_rounds<17, 29, 16, 24>(x0, x1); x0 += k2; x1 += k0 + 2u;
+  four_rounds<13, 15, 26, 6>(x0, x1);  x0 += k0; x1 += k1 + 3u;
+  four_rounds<17, 29, 16, 24>(x0, x1); x0 += k1; x1 += k2 + 4u;
+  four_rounds<13, 15, 26, 6>(x0, x1);  x0 += k2; x1 += k0 + 5u;
+  return make_uint2(x0, x1);
+}
+
+// wkeys: int64[S, 2] (uint32 words); out: bool[S, count] with count =
+// B * c * hw, the NCHW mask of each worker
+__global__ void __launch_bounds__(kThreads)
+dropout_mask_kernel(const long long* __restrict__ wkeys,
+                    unsigned char* __restrict__ out, uint32_t j,
+                    uint32_t count, uint32_t hw, uint32_t c,
+                    uint32_t threshold) {
+  __shared__ uint2 layer_key;
+  const uint32_t s = blockIdx.y;
+  if (threadIdx.x == 0) {
+    layer_key = threefry2x32((uint32_t)wkeys[2 * s],
+                             (uint32_t)wkeys[2 * s + 1], 0u, j);
+  }
+  __syncthreads();
+  const uint2 key = layer_key;
+  unsigned char* dst = out + (size_t)s * count;
+  const uint32_t base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const uint32_t e = base + i * kThreads;
+    if (e < count) {
+      const uint32_t plane = e / hw;         // b * c + channel
+      const uint32_t p = e - plane * hw;     // h * W + w
+      const uint32_t b = plane / c;
+      const uint32_t ch = plane - b * c;
+      const unsigned long long counter =
+          ((unsigned long long)b * hw + p) * c + ch;
+      const uint2 r = threefry2x32(key.x, key.y, (uint32_t)(counter >> 32),
+                                   (uint32_t)counter);
+      dst[e] = ((r.x ^ r.y) & 0xFFu) < threshold;
+    }
+  }
+}
+
+// keys: int64[K, 2]; out: int64[K, n, 2]
+__global__ void __launch_bounds__(kThreads)
+split_kernel(const long long* __restrict__ keys, long long* __restrict__ out,
+             int k_count, int n) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= k_count * n) {
+    return;
+  }
+  const int k = t / n;
+  const uint2 r = threefry2x32((uint32_t)keys[2 * k], (uint32_t)keys[2 * k + 1],
+                               0u, (uint32_t)(t - k * n));
+  out[2 * t] = r.x;
+  out[2 * t + 1] = r.y;
+}
+
+}  // namespace
+
+extern "C" {
+
+int bmt_prng_threads() { return kThreads; }
+
+int bmt_prng_items() { return kItems; }
+
+// The masks of S >= 1 workers, count = B * c * hw >= 1 elements each
+// (count < 2^31), 0 < threshold < 256
+int bmt_dropout_masks(const long long* wkeys, unsigned char* out, int S,
+                      long long j, long long count, int hw, int c,
+                      int threshold, void* stream) {
+  const long long per_block = (long long)kThreads * kItems;
+  const dim3 grid((unsigned)((count + per_block - 1) / per_block),
+                  (unsigned)S);
+  dropout_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      wkeys, out, (uint32_t)j, (uint32_t)count, (uint32_t)hw, (uint32_t)c,
+      (uint32_t)threshold);
+  return (int)cudaGetLastError();
+}
+
+// K >= 1 keys into n >= 1 each (K * n < 2^31)
+int bmt_split_keys(const long long* keys, long long* out, int k_count, int n,
+                   void* stream) {
+  const int blocks = (k_count * n + kThreads - 1) / kThreads;
+  split_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(keys, out,
+                                                              k_count, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

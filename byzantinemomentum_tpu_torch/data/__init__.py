@@ -10,7 +10,9 @@ dataset has one — applied to the test set too, as the reference does;
 `--no-transform` keeps only the scaling. A dataset of kind "raw"
 (`phishing`, `data/svm.py`) has no transform. The sampler's numpy RNG
 consumes draws in the same order as the JAX package's, so both drivers
-see the same batches for the same seed.
+see the same batches for the same seed. `get_state`/`set_state` snapshot
+and restore a sampler (cursor, epoch order, PCG64 state) in the JAX
+package's checkpoint layout, so a resumed run replays the same batches.
 """
 
 import numpy as np
@@ -96,6 +98,52 @@ class Dataset:
         if self._transform is not None and self._transform.flip:
             return self._rng.random(self._batch) < 0.5
         return np.zeros(self._batch, bool)
+
+    def get_state(self):
+        """The sampler's mutable state (cursor, epoch order, RNG) as the
+        JAX package snapshots it for a checkpoint: msgpack/JSON-ready,
+        the PCG64 state's ints (wider than 64 bits) as strings."""
+        rng_state = self._rng.bit_generator.state
+        return {
+            "cursor": int(self._cursor),
+            "order": (None if self._order is None
+                      else np.asarray(self._order).tolist()),
+            "rng": {
+                "bit_generator": rng_state["bit_generator"],
+                "state": {k: str(v) for k, v in rng_state["state"].items()},
+                "has_uint32": int(rng_state["has_uint32"]),
+                "uinteger": int(rng_state["uinteger"]),
+            },
+        }
+
+    def set_state(self, snapshot):
+        """Restore a `get_state` snapshot. Everything is decoded and
+        checked (the bit generator validates its own state) before the
+        cursor and order are assigned, so a malformed snapshot raises and
+        leaves the sampler as it was."""
+        n = len(self._inputs)
+        cursor = int(snapshot["cursor"])
+        if not 0 <= cursor < n:
+            raise utils.UserException(
+                f"Sampler snapshot cursor {cursor} out of range for dataset "
+                f"{self.name!r} of size {n}")
+        order = snapshot["order"]
+        order = None if order is None else np.asarray(order, np.int64)
+        if order is not None and (len(order) != n or (order >= n).any()
+                                  or (order < 0).any()):
+            raise utils.UserException(
+                f"Sampler snapshot order is inconsistent with dataset "
+                f"{self.name!r} of size {n} (snapshot covers "
+                f"{len(order)} samples)")
+        rng = snapshot["rng"]
+        self._rng.bit_generator.state = {
+            "bit_generator": rng["bit_generator"],
+            "state": {k: int(v) for k, v in rng["state"].items()},
+            "has_uint32": int(rng["has_uint32"]),
+            "uinteger": int(rng["uinteger"]),
+        }
+        self._cursor = cursor
+        self._order = order
 
     def sample(self):
         """The next `(inputs, labels)` batch: `f32[B, ...]` inputs from the

@@ -63,6 +63,12 @@ class DeviceData:
     def batch_size(self):
         return self._host.batch_size
 
+    @property
+    def dataset(self):
+        """The host sampler (`data.Dataset`) the indices come from: its
+        `get_state`/`set_state` snapshot and restore the batch order."""
+        return self._host
+
     def sample_indices(self, count):
         """Host half: `(i32[count, B] indices, bool[count, B] flips)` of
         the next `count` batches, every index row drawn before any flip

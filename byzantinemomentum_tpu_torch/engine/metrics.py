@@ -20,7 +20,7 @@ one transfer.
 
 import torch
 
-__all__ = ["STUDY_COLUMNS", "avg_dev_max", "cosine", "push_past",
+__all__ = ["STUDY_COLUMNS", "RECOVERY_COLUMNS", "avg_dev_max", "cosine", "push_past",
            "study_metrics"]
 
 # CSV header, byte-identical to the JAX package's (and the reference's)
@@ -35,6 +35,11 @@ STUDY_COLUMNS = (
     "Sampled-prev cosine", "Sampled composite curvature",
     "Attack acceptation ratio",
 )
+
+# The crash-recovery columns the JAX driver appends under --auto-resume:
+# rollbacks (none in the port, which has no --rollback-budget) and the
+# run's restart count
+RECOVERY_COLUMNS = ("Rollbacks", "Restarts")
 
 _NAN = float("nan")
 

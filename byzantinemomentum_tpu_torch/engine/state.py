@@ -5,6 +5,8 @@ Parameters live as ONE flat `[d]` vector in the parameter dtype
 the momentum algebra, the GARs and the study stay in it, as in the JAX
 package. All of them work on flat vectors. Counters are host integers: the
 port runs eagerly, so nothing has to live on the device to be traced.
+`rng` is the step's PRNG key, the JAX `TrainState.rng`: an int64 `[2]`
+tensor of two uint32 words on the device (`prng.py`), split once a step.
 `attack_state` is a stateful attack's history (`attacks/__init__.py`),
 `()` for a static attack.
 A step returns a new `TrainState` and writes none of the old one's
@@ -32,11 +34,16 @@ class TrainState:
     past_count: int                 # number of valid past entries
     steps: int                      # step counter
     datapoints: int                 # training point counter
+    rng: torch.Tensor = None        # int64 [2] PRNG key on the device
     attack_state: typing.Any = ()   # the stateful attack's history
 
 
-def init_state(cfg, theta, net_state, opt_state=(), attack_state=()):
-    """Fresh-run state; `attack_state` from the attack's `state_init`."""
+def init_state(cfg, theta, net_state, rng=None, opt_state=(),
+               attack_state=()):
+    """Fresh-run state; `rng` the step key (`Engine.init` gives
+    `fold_in(root key, 1)`; None only for states that never draw, as in
+    tests that hand the masks in), `attack_state` from the attack's
+    `state_init`."""
     d = theta.shape[0]
     h = cfg.nb_honests
     past = cfg.nb_for_study_past if cfg.study else 0
@@ -53,5 +60,6 @@ def init_state(cfg, theta, net_state, opt_state=(), attack_state=()):
         past_count=0,
         steps=0,
         datapoints=0,
+        rng=rng,
         attack_state=attack_state,
     )

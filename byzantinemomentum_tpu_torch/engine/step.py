@@ -1,7 +1,8 @@
 """The training step (`byzantinemomentum_tpu/engine/step.py`).
 
 One call to `Engine.train_step(state, xs, ys, lr)` performs one iteration
-of the reference's hot loop, in three phases as in the JAX package:
+of the reference's hot loop, in three phases as in the JAX package (after
+the step's keys, `step_keys`):
 
   honest  — the S per-worker losses and gradients as one batched program,
             with the Nesterov lookahead variants: the grouped program
@@ -41,10 +42,16 @@ and gather the batch on the device. `Engine.counts` counts indexed steps
 and evaluations and grouped and vmapped honest phases, so a run can show
 which path it took.
 
-Randomness: dropout masks come from the engine's `torch.Generator`. The
-JAX package draws them from its PRNG keys, so the two give different
-masks for the same seed; `train_step(..., masks=...)` takes them from the
-caller instead (the parity tests feed the JAX masks).
+Randomness: the JAX package's key tree. `init(key)` sets
+`TrainState.rng` to `fold_in(key, 1)` (the driver's key is
+`PRNGKey(seed)`); each step splits it into `S + 2` keys (`step_keys`, the
+JAX step's `rng, mix_key, *wkeys = split(state.rng, S + 2)`), keeps the
+first as the next state's key and draws worker s's dropout keep-masks
+from `wkeys[s]` (`model.draw_masks`), so the same seed gives the JAX
+run's masks bit for bit. `mix_key` is drawn and set aside: it feeds the
+`--gars` mixture, which the port does not have yet.
+`train_step(..., masks=...)` takes the masks from the caller instead (the
+parity tests feed the JAX masks).
 """
 
 import collections
@@ -53,10 +60,13 @@ import math
 import torch
 from torch.func import functional_call, grad, vmap
 
+from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
 from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
 from byzantinemomentum_tpu_torch.models import FlatParams, grouped_forward
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
+from byzantinemomentum_tpu_torch.ops import prng_kernels
+from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision"]
 
@@ -72,9 +82,11 @@ def pin_precision():
 
 
 def clip_rows(G, clip):
-    """Per-row L2 clip: row *= clip/||row|| iff ||row|| > clip."""
+    """Per-row L2 clip: row *= clip/||row|| iff ||row|| > clip (the clip
+    rounded to G's dtype, as JAX applies the Python scalar)."""
     if clip is None:
         return G
+    clip = weak_scalar(clip, G.dtype)
     norms = torch.sqrt(torch.sum(G * G, dim=1, keepdim=True))
     return G * torch.where(norms > clip, clip / norms, 1.0)
 
@@ -113,8 +125,10 @@ class Engine:
     """The training and evaluation programs of one configuration."""
 
     def __init__(self, cfg, model, loss, criterion, defense, attack,
-                 attack_kwargs, optimizer, generator):
-        """
+                 attack_kwargs, optimizer):
+        """The engine draws no random number of its own: every draw of a
+        step comes from `TrainState.rng` (`init`, `step_keys`).
+
         Args:
           cfg: `EngineConfig`.
           model: the model `nn.Module` (`models.build`), on the run's device.
@@ -124,7 +138,6 @@ class Engine:
           attack: `attacks.Attack` (unused when no worker is Byzantine).
           attack_kwargs: the attack's arguments.
           optimizer: `optim.Optimizer` applying the final update.
-          generator: `torch.Generator` on the model's device, for dropout.
         """
         pin_precision()
         self.cfg = cfg
@@ -139,7 +152,6 @@ class Engine:
         self.attack = attack
         self.attack_kwargs = dict(attack_kwargs or {})
         self.optimizer = optimizer
-        self.generator = generator
         self.device = next(model.parameters()).device
         # The grouped honest phase where the JAX package takes it: the
         # config asks for it and the model has a grouped forward (and one
@@ -154,10 +166,12 @@ class Engine:
         self.train_data, self.test_data = train_data, test_data
         return self
 
-    def init(self):
+    def init(self, key):
         """Fresh state: the model's parameters and BatchNorm buffers as
-        they stand (`model.reset(generator)` draws new ones), in the
-        parameter dtype, and a stateful attack's initial state."""
+        they stand (`model.init(key)` draws the JAX model's), in the
+        parameter dtype, the step key `fold_in(key, 1)` on the model's
+        device (the JAX `Engine.init(key)`) and a stateful attack's
+        initial state."""
         theta = self.flat.flatten(dict(self.model.named_parameters()))
         net_state = {name: buf.detach().to(self.dtype, copy=True)
                      for name, buf in self.model.named_buffers()}
@@ -166,18 +180,20 @@ class Engine:
         if self.attack is not None and self.attack.stateful:
             attack_state = self.attack.state_init(
                 f_real=self.cfg.nb_real_byz, d=self.d)
-        return init_state(self.cfg, theta, net_state,
+        rng = prng.fold_in(key.to(self.device), 1)
+        return init_state(self.cfg, theta, net_state, rng,
                           opt_state=self.optimizer.init(theta),
                           attack_state=attack_state)
 
     # ----------------------------------------------------------------- #
     # Phases
 
-    def draw_masks(self, S, batch):
-        """Dropout keep-masks for S workers: one (S, ...) stack per mask."""
-        per_worker = [self.model.draw_masks(self.generator, batch)
-                      for _ in range(S)]
-        return tuple(torch.stack(m) for m in zip(*per_worker))
+    def step_keys(self, rng):
+        """`(next rng, mix_key, wkeys [S, 2])`: the JAX step's
+        `split(state.rng, S + 2)` (one launch of `prng_kernels.split_keys`
+        on the card)."""
+        keys = prng_kernels.split_keys(rng, self.cfg.nb_sampled + 2)
+        return keys[0], keys[1], keys[2:]
 
     def _worker_grads(self, theta_eff, theta_axis, net_state, xs, ys, masks):
         """(losses [S], grads [S, d], {buffer: (S, ...)}) — every worker's
@@ -231,22 +247,25 @@ class Engine:
 
     def phase_honest(self, state, xs, ys, lr, masks=None):
         """Honest gradients, clipping, BN fold and momentum placement on
-        the honest rows. Returns (G_sampled, loss_avg, net_state, new_mw,
-        G_honest)."""
+        the honest rows, on the dropout keep-masks `masks` (drawn from
+        the step's worker keys, `step_keys(state.rng)`, when None).
+        Returns (G_sampled, loss_avg, net_state, new_mw, G_honest)."""
         cfg = self.cfg
         S, h = cfg.nb_sampled, cfg.nb_honests
-        mu, damp = cfg.momentum, cfg.dampening
         lr = self.round_lr(lr)
+        mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
+        mu_lr = self.weak(mu * lr)
         if masks is None:
-            masks = self.draw_masks(S, xs.shape[1])
+            masks = self.model.draw_masks(self.step_keys(state.rng)[2],
+                                          xs.shape[1])
         if cfg.nesterov and cfg.momentum_at == "worker":
             # Per-worker lookahead theta - mu*lr*m_i; study extras beyond
             # the h buffers look ahead by zero
             pad = state.theta.new_zeros((S - h, self.d))
             buffers = torch.cat([state.momentum_workers, pad])
-            theta_eff, theta_axis = state.theta[None, :] - (mu * lr) * buffers, 0
+            theta_eff, theta_axis = state.theta[None, :] - mu_lr * buffers, 0
         elif cfg.nesterov:
-            theta_eff, theta_axis = state.theta - (mu * lr) * state.momentum_server, None
+            theta_eff, theta_axis = state.theta - mu_lr * state.momentum_server, None
         else:
             theta_eff, theta_axis = state.theta, None
         if self.grouped is not None:
@@ -261,11 +280,11 @@ class Engine:
             G_sampled = clip_rows(grads, cfg.gradient_clip)
             net_state = compose_bn_updates(state.net_state, states, S)
             if cfg.momentum_at == "worker":
-                new_mw = mu * state.momentum_workers + (1.0 - damp) * G_sampled[:h]
+                new_mw = mu * state.momentum_workers + one_damp * G_sampled[:h]
                 G_honest = new_mw
             elif cfg.momentum_at == "server":
                 new_mw = state.momentum_workers
-                G_honest = (1.0 - damp) * G_sampled[:h] + mu * state.momentum_server
+                G_honest = one_damp * G_sampled[:h] + mu * state.momentum_server
             else:
                 new_mw = state.momentum_workers
                 G_honest = G_sampled[:h]
@@ -309,18 +328,19 @@ class Engine:
     @torch.no_grad()
     def phase_update(self, state, G_sampled, loss_avg, net_state, new_mw,
                      G_honest, G_attack, grad_defense, accept_ratio,
-                     attack_state, lr, batch):
-        """Model update and study metrics; the attack's next state goes
+                     attack_state, lr, batch, rng=None):
+        """Model update and study metrics; the attack's next state and the
+        step's next key `rng` (`step_keys`; the state's own when None) go
         into the new state. Returns (new state, metrics)."""
         cfg = self.cfg
-        mu, damp = cfg.momentum, cfg.dampening
         lr = self.round_lr(lr)
+        mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
         if cfg.momentum_at == "worker":
             new_ms = state.momentum_server
         elif cfg.momentum_at == "server":
             new_ms = grad_defense
         else:
-            new_ms = mu * state.momentum_server + (1.0 - damp) * grad_defense
+            new_ms = mu * state.momentum_server + one_damp * grad_defense
         update_grad = new_ms if cfg.momentum_at == "update" else grad_defense
         theta, opt_state = self.optimizer.update(
             update_grad, state.opt_state, state.theta, lr)
@@ -332,7 +352,7 @@ class Engine:
                 G_honest=G_honest, G_attack=G_attack,
                 grad_defense=grad_defense, accept_ratio=accept_ratio,
                 past_grads=state.past_grads, past_norms=state.past_norms,
-                past_count=state.past_count, momentum=mu)
+                past_count=state.past_count, momentum=cfg.momentum)
         else:
             metrics = {}
             pg, pn, pc = state.past_grads, state.past_norms, state.past_count
@@ -342,6 +362,7 @@ class Engine:
             origin=state.origin, past_grads=pg, past_norms=pn, past_count=pc,
             steps=state.steps + 1,
             datapoints=state.datapoints + batch * cfg.nb_honests,
+            rng=state.rng if rng is None else rng,
             attack_state=attack_state)
         return new_state, metrics
 
@@ -355,15 +376,24 @@ class Engine:
             lr = lr.to(torch.float32)
         return float(lr.to(self.dtype))
 
+    def weak(self, x):
+        """A Python scalar rounded to the parameter dtype, as JAX applies
+        it (`utils.weak_scalar`)."""
+        return weak_scalar(x, self.dtype)
+
     def train_step(self, state, xs, ys, lr, masks=None):
-        """xs: f32[S, B, ...], ys: [S, B] on the engine's device; `masks`
-        optionally gives the dropout keep-masks (else drawn here)."""
+        """xs: f32[S, B, ...], ys: [S, B] on the engine's device. The
+        step splits `state.rng` (`step_keys`) and draws the dropout
+        keep-masks from the worker keys, unless `masks` gives them."""
+        rng, _, wkeys = self.step_keys(state.rng)
+        if masks is None:
+            masks = self.model.draw_masks(wkeys, xs.shape[1])
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
         defense = self.phase_defense(G_honest, state.attack_state)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            *defense, lr, xs.shape[1])
+            *defense, lr, xs.shape[1], rng=rng)
 
     def train_step_indexed(self, state, idx, flips, lr, masks=None):
         """`train_step` on the batches `idx: i32[S, B]`, `flips:

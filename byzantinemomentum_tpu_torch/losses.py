@@ -51,7 +51,13 @@ class Loss:
 
     def __mul__(self, factor):
         fn = self._fn
-        out = Loss(lambda o, t, p: fn(o, t, p) * factor)
+
+        def scaled(o, t, p):
+            # The factor rounded to the loss's dtype, as JAX applies it
+            value = fn(o, t, p)
+            return value * utils.weak_scalar(factor, value.dtype)
+
+        out = Loss(scaled)
         out.name = f"{factor}*{self.name}"
         return out
 

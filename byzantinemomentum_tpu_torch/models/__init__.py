@@ -1,8 +1,11 @@
 """Model registry and the flat parameter space
 (`byzantinemomentum_tpu/models/__init__.py`).
 
-A model is an `nn.Module` whose parameters keep the JAX package's layouts
-and whose `forward(x, train=..., masks=...)` returns
+A model is an `nn.Module` whose parameters keep the JAX package's layouts,
+whose `init(key)` draws the JAX model's `init(key)` parameters bit for
+bit (`models/core.py`), whose `draw_masks(wkeys, batch)` gives S workers'
+dropout keep-masks from their keys, and whose
+`forward(x, train=..., masks=...)` returns
 `(log-probabilities, new BatchNorm state)` without writing its buffers.
 The engine runs it through `torch.func.functional_call` on views of ONE
 flat parameter vector, as the JAX package runs `apply` on

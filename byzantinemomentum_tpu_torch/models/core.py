@@ -6,8 +6,12 @@ Parameters keep the JAX package's layouts — HWIO convolution kernels and
 of the JAX package compare coordinate for coordinate. Activations are
 PyTorch's NCHW; `conv_apply` views the HWIO kernel as OIHW.
 
-Initialization is torch's default for Linear/Conv2d, U(+-1/sqrt(fan_in))
-for weights and biases, drawn from an explicit `torch.Generator`.
+Initialization is the JAX package's (`dense_init`, `conv_init`): torch's
+default bounds for Linear/Conv2d, U(+-1/sqrt(fan_in)) for weights and
+biases, drawn with `prng.uniform` in float32 from the two keys of
+`prng.split(key)` in the JAX shapes, then rounded to the parameter dtype;
+the same key gives the JAX package's bits. Dropout keep-masks come from
+the JAX keys too (`dropout_mask`, `worker_dropout_masks`).
 
 BatchNorm has torch's train-mode semantics: batch statistics in train
 mode, running statistics in eval mode, and the running update
@@ -50,20 +54,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from byzantinemomentum_tpu_torch import prng
+from byzantinemomentum_tpu_torch.ops import prng_kernels
+
 __all__ = ["BN_MOMENTUM", "BN_EPS", "Conv", "Dense", "BatchNorm",
            "batchnorm_train", "batchnorm_eval", "fold_running_stats",
            "grouped_conv", "grouped_dense", "grouped_batchnorm",
-           "dropout_mask", "dropout_apply", "max_pool",
-           "log_softmax"]
+           "dropout_mask", "worker_dropout_masks", "dropout_apply",
+           "max_pool", "log_softmax"]
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-def _uniform(generator, shape, bound, device):
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device)
-    return (2.0 * u - 1.0) * bound
+@torch.no_grad()
+def _init_uniform(layer, key, fan_in):
+    """`w`, `b` of a layer ~ U(+-1/sqrt(fan_in)) from `prng.split(key)`,
+    drawn in float32 and rounded to the parameter dtype."""
+    bound = 1.0 / math.sqrt(fan_in)
+    for leaf, leaf_key in zip((layer.w, layer.b),
+                              prng.split(key.to(layer.w.device))):
+        leaf.copy_(prng.uniform(leaf_key, leaf.shape, torch.float32, -bound,
+                                bound))
 
 
 class Conv(nn.Module):
@@ -79,13 +91,10 @@ class Conv(nn.Module):
                                           dtype=dtype))
         self.b = nn.Parameter(torch.empty((cout,), device=device, dtype=dtype))
 
-    @torch.no_grad()
-    def reset(self, generator):
-        """torch-default Conv2d init: U(+-1/sqrt(cin*kh*kw))."""
+    def init(self, key):
+        """`conv_init(key, ...)`: U(+-1/sqrt(cin*kh*kw))."""
         kh, kw, cin, _ = self.w.shape
-        bound = 1.0 / math.sqrt(cin * kh * kw)
-        self.w.copy_(_uniform(generator, self.w.shape, bound, self.w.device))
-        self.b.copy_(_uniform(generator, self.b.shape, bound, self.b.device))
+        _init_uniform(self, key, cin * kh * kw)
 
     def forward(self, x):
         return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b,
@@ -101,12 +110,9 @@ class Dense(nn.Module):
                                           dtype=dtype))
         self.b = nn.Parameter(torch.empty((dout,), device=device, dtype=dtype))
 
-    @torch.no_grad()
-    def reset(self, generator):
-        """torch-default Linear init: W, b ~ U(+-1/sqrt(din))."""
-        bound = 1.0 / math.sqrt(self.w.shape[0])
-        self.w.copy_(_uniform(generator, self.w.shape, bound, self.w.device))
-        self.b.copy_(_uniform(generator, self.b.shape, bound, self.b.device))
+    def init(self, key):
+        """`dense_init(key, ...)`: W, b ~ U(+-1/sqrt(din))."""
+        _init_uniform(self, key, self.w.shape[0])
 
     def forward(self, x):
         return x @ self.w + self.b
@@ -125,7 +131,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones((c,), **like))
 
     @torch.no_grad()
-    def reset(self, generator=None):
+    def init(self):
+        """`batchnorm_init`: gamma 1, beta 0, mean 0, var 1."""
         self.gamma.fill_(1.0)
         self.beta.zero_()
         self.mean.zero_()
@@ -310,9 +317,38 @@ def grouped_batchnorm(x, gamma_s, beta_s, mean, var, train):
                                                  unbiased)
 
 
-def dropout_mask(generator, keep, shape, device):
-    """Bernoulli(keep) keep-mask drawn from an explicit generator."""
-    return torch.rand(shape, generator=generator, device=device) < keep
+def _threshold(keep):
+    """The 8-bit threshold `keep * 256` where it is an integer in
+    1..255, else None (`_dropout_mask`'s branch)."""
+    t = keep * 256.0
+    return int(t) if t == int(t) and 0 < t < 256 else None
+
+
+def dropout_mask(key, keep, shape):
+    """The JAX package's `_dropout_mask(key, keep, shape)`: where `keep`
+    is an 8-bit threshold t, `prng.bits8(key, shape) < t`, else
+    `prng.bernoulli(key, keep, shape)`; `shape` in the JAX layout (keys
+    `[..., 2]` give `[..., *shape]`)."""
+    t = _threshold(keep)
+    if t is not None:
+        return prng.bits8(key, shape) < t
+    return prng.bernoulli(key, keep, shape)
+
+
+def worker_dropout_masks(wkeys, j, keep, shape):
+    """The keep-masks of S workers' dropout layer j: worker s's is
+    `dropout_mask(split(wkeys[s], n)[j], keep, shape)` (any n > j), the
+    JAX shape `(B, H, W, C)` or `(B, F)` -> the port's layout
+    `bool[S, B, C, H, W]` or `bool[S, B, F]`. An 8-bit keep threshold
+    goes through `prng_kernels.dropout_masks` (the CUDA kernel on the
+    card), any other rate through `prng.bernoulli`."""
+    t = _threshold(keep)
+    if t is not None:
+        return prng_kernels.dropout_masks(wkeys, j, shape, t)
+    mask = dropout_mask(prng.split(wkeys, j + 1)[:, j], keep, tuple(shape))
+    if len(shape) == 4:
+        mask = mask.permute(0, 1, 4, 2, 3)
+    return mask.contiguous()
 
 
 def dropout_apply(mask, x, rate):

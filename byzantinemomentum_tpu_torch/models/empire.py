@@ -20,10 +20,11 @@ it is the same function as S calls of `forward`.
 import torch
 from torch import nn
 
+from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.models import register
 from byzantinemomentum_tpu_torch.models.core import (
-    BatchNorm, Conv, Dense, dropout_apply, dropout_mask, grouped_batchnorm,
-    grouped_conv, grouped_dense, log_softmax, max_pool)
+    BatchNorm, Conv, Dense, dropout_apply, grouped_batchnorm, grouped_conv,
+    grouped_dense, log_softmax, max_pool, worker_dropout_masks)
 
 __all__ = ["EmpireCNN"]
 
@@ -48,21 +49,35 @@ class EmpireCNN(nn.Module):
         self.f1 = Dense(8192, fc1_out, **like)
         self.f2 = Dense(fc1_out, 100 if cifar100 else 10, **like)
 
-    def reset(self, generator):
-        """Fresh torch-default parameters and BN state from `generator`."""
-        for layer in self.children():
-            layer.reset(generator)
+    def init(self, key):
+        """The JAX model's `init(key)`: the six weight layers from
+        `prng.split(key, 6)` in the order c1, c2, c3, c4, f1, f2; fresh
+        BatchNorm parameters and state."""
+        keys = prng.split(key, 6)
+        for layer, layer_key in zip((self.c1, self.c2, self.c3, self.c4,
+                                     self.f1, self.f2), keys):
+            layer.init(layer_key)
+        for bn in (self.b1, self.b2, self.b3, self.b4):
+            bn.init()
 
     def mask_shapes(self, batch):
         """Shapes of the three dropout keep-masks of one forward (NCHW)."""
         return ((batch, 64, 16, 16), (batch, 128, 8, 8),
                 (batch, self.f1.w.shape[1]))
 
-    def draw_masks(self, generator, batch):
-        """Three keep-masks for a train-mode forward over `batch` inputs."""
-        return tuple(dropout_mask(generator, 1.0 - _RATE, shape,
-                                  self.f1.w.device)
-                     for shape in self.mask_shapes(batch))
+    def jax_mask_shapes(self, batch):
+        """The same masks' shapes in the JAX model (NHWC), the order in
+        which their elements hash their counters."""
+        return ((batch, 16, 16, 64), (batch, 8, 8, 128),
+                (batch, self.f1.w.shape[1]))
+
+    def draw_masks(self, wkeys, batch):
+        """The three keep-mask stacks `(S, B, ...)` (NCHW) of S workers'
+        train-mode forwards over `batch` inputs, as the JAX model draws
+        them: mask j of worker s from key j of `split(wkeys[s], 3)`; the
+        same masks for the grouped and the vmapped honest phase."""
+        return tuple(worker_dropout_masks(wkeys, j, 1.0 - _RATE, shape)
+                     for j, shape in enumerate(self.jax_mask_shapes(batch)))
 
     def forward(self, x, train=False, masks=None):
         """`x: [B, 32, 32, 3]` (NHWC) -> `(log-probabilities, new BN
@@ -88,7 +103,7 @@ class EmpireCNN(nn.Module):
         """All S workers' forwards at once. `params_s` maps each parameter
         name to its `(S, ...)` stack, `state` each buffer name to the
         shared running stat, `xs: [S, B, 32, 32, 3]` (NHWC), `masks` the
-        `(S, B, ...)` keep-mask stacks of `Engine.draw_masks`; `shared`
+        `(S, B, ...)` keep-mask stacks of `draw_masks`; `shared`
         says that every worker's parameters equal worker 0's ->
         `(log-probabilities [S, B, classes], new BN state {"b1.mean":
         (S, 64), ...})`; in eval mode the state comes back as given."""

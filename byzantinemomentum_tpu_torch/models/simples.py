@@ -22,6 +22,7 @@ runs all S workers' forwards as one program on the grouped layers of
 import torch
 from torch import nn
 
+from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.models import register
 from byzantinemomentum_tpu_torch.models.core import (
     Conv, Dense, grouped_conv, grouped_dense, log_softmax, max_pool)
@@ -30,17 +31,21 @@ __all__ = ["SimplesFull", "SimplesConv", "SimplesLogit", "SimplesLinear"]
 
 
 class _Simple(nn.Module):
-    """What the simple models share: reset, and no dropout masks."""
+    """What the simple models share: the JAX init, no dropout masks."""
 
-    def reset(self, generator):
-        """Fresh torch-default parameters from `generator`."""
-        for layer in self.children():
-            layer.reset(generator)
+    def init(self, key):
+        """The JAX model's `init(key)`: its layers in order from
+        `prng.split(key, #layers)` (`split(key)` for two); a single
+        layer takes `key` itself (`simples-logit`, `-linear`)."""
+        layers = list(self.children())
+        keys = prng.split(key, len(layers)) if len(layers) > 1 else (key,)
+        for layer, layer_key in zip(layers, keys):
+            layer.init(layer_key)
 
     def mask_shapes(self, batch):
         return ()
 
-    def draw_masks(self, generator, batch):
+    def draw_masks(self, wkeys, batch):
         return ()
 
 

@@ -1,5 +1,6 @@
 """Build, binding and launch bookkeeping shared by the port's CUDA kernel
-modules (`ops/gar_kernels.py`, `ops/sort_kernels.py`).
+modules (`ops/gar_kernels.py`, `ops/sort_kernels.py`,
+`ops/prng_kernels.py`).
 
 A kernel source of `csrc/` is compiled by `nvcc` for `sm_90a` at first
 use into a shared library with a plain C interface under `build/kernels/`
@@ -35,9 +36,10 @@ __all__ = ["MAX_ROWS", "F32", "DTYPE_NAMES", "supported", "compile_library",
 
 MAX_ROWS = 64
 F32 = (torch.float32,)
-# Library-tag spelling of each element type a kernel is built for
+# Spelling of each operand type a kernel is built for or counted under
+# (`prng_kernels` counts its masks under bool, its split under int64)
 DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
-               torch.float16: "f16"}
+               torch.float16: "f16", torch.bool: "bool", torch.int64: "i64"}
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"

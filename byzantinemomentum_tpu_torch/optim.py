@@ -5,7 +5,8 @@ An optimizer is a pair of functions over the flat parameter vector,
 (new_theta, new_opt_state)`. `sgd` is torch.optim.SGD with momentum 0
 (the Byzantine-momentum algebra lives in `engine/step.py`):
 theta <- theta - lr * (grad + weight_decay * theta), in theta's dtype
-(the engine hands over a learning rate rounded to it).
+(the engine hands over a learning rate rounded to it; the weight decay is
+rounded to it as JAX applies the Python scalar, `utils.weak_scalar`).
 """
 
 from byzantinemomentum_tpu_torch import utils
@@ -36,7 +37,8 @@ def _plain_sgd(weight_decay=0.0, **kw):
         return ()
 
     def update(grad, opt_state, theta, lr):
-        return theta - lr * (grad + weight_decay * theta), opt_state
+        wd = utils.weak_scalar(weight_decay, theta.dtype)
+        return theta - lr * (grad + wd * theta), opt_state
 
     return Optimizer("sgd", init, update)
 

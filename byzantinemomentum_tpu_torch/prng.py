@@ -3,7 +3,10 @@ package's PRNG computes them (the threefry-2x32 implementation with
 `jax_threefry_partitionable` on, the default of JAX 0.9).
 
 A key is an int64 tensor `[2]` holding two uint32 words, on the device
-that will use it; nothing here moves a value to the host. Every uint32
+that will use it; nothing here moves a value to the host. `split`,
+`random_bits`, `bits8`, `uniform` and `bernoulli` also take a batch of
+keys `[..., 2]` (what `jax.vmap` over the keys computes): each key's
+draw comes out under its batch index, ahead of the requested shape. Every uint32
 operation runs on int64 tensors with the high bits masked off; products
 are split into 16-bit halves, so that no intermediate value leaves the
 signed 64-bit range.
@@ -11,13 +14,17 @@ signed 64-bit range.
 - `PRNGKey(seed)`: the key `[0, seed mod 2^32]` (JAX without x64 takes
   a seed as a 32-bit integer).
 - `fold_in(key, data)`: `threefry2x32(key, [0, data])`.
+- `split(key, n)`: `n` new keys, key i the two output words of the hash
+  of the counter i (JAX's `_threefry_split_foldlike`).
 - `random_bits(key, shape)`: 32-bit words; element i hashes the 64-bit
   counter i split into its two words and returns the xor of the two
-  output words.
+  output words. `bits8(key, shape)`: the low byte of each of those words
+  (`jax.random.bits(key, shape, uint8)`, which converts the 32-bit xor).
 - `uniform(key, shape, dtype, minval, maxval)`: the top mantissa bits of
   those words under the exponent of 1.0, minus 1, scaled and shifted (in
   one multiply-add for f32 and f16, as XLA on the CPU fuses it); f32,
   bf16, f16 (bf16 from 8 bits) and f64 (from two words).
+- `bernoulli(key, p, shape)`: `uniform(key, shape) < p` in float32.
 - `normal(key, shape, dtype)`: `sqrt(2) * erfinv(u)` for u uniform in
   (-1, 1), with XLA's polynomial for the inverse error function (its
   float32 form; the half dtypes compute it in float32 and round). Its
@@ -34,8 +41,9 @@ import math
 
 import torch
 
-__all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "normal", "mul32", "wrapping_sum32", "MASK32"]
+__all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
+           "bits8", "uniform", "bernoulli", "normal", "mul32",
+           "wrapping_sum32", "MASK32"]
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -106,19 +114,33 @@ def fold_in(key, data):
     return torch.stack([o1, o2])
 
 
+def split(key, n=2):
+    """`jax.random.split(key, n)`: `[n, 2]` keys, or `[..., n, 2]` for a
+    batch of keys `[..., 2]` (each key split on its own)."""
+    return torch.stack(_counter_hash(key, n), dim=-1)
+
+
 def _counter_hash(key, count):
     """The two output words of the hash of each counter 0 .. count - 1,
     which enters as its high and low 32-bit words (the partitionable
-    layout)."""
+    layout): `[..., count]` each for keys `[..., 2]`."""
     i = torch.arange(count, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[0], key[1], i >> 32, i & MASK32)
+    return threefry2x32(key[..., 0, None], key[..., 1, None], i >> 32,
+                        i & MASK32)
 
 
 def random_bits(key, shape):
     """`shape` uint32 words (int64 tensor): element i (row-major) is the
-    xor of the two words hashed from the counter i."""
+    xor of the two words hashed from the counter i; `[..., *shape]` for
+    keys `[..., 2]`."""
     b1, b2 = _counter_hash(key, math.prod(shape))
-    return (b1 ^ b2).view(shape)
+    return (b1 ^ b2).view(*key.shape[:-1], *shape)
+
+
+def bits8(key, shape):
+    """`jax.random.bits(key, shape, uint8)`: the low byte of each
+    `random_bits` word, as uint8; `[..., *shape]` for keys `[..., 2]`."""
+    return (random_bits(key, shape) & 0xFF).to(torch.uint8)
 
 
 def _unit_floats(key, shape, dtype):
@@ -130,7 +152,7 @@ def _unit_floats(key, shape, dtype):
     else:
         bits = (random_bits(key, shape) & ((1 << width) - 1)) >> (width - mantissa)
     ints = (bits | one).to(_INT_VIEW[dtype])
-    return (ints.view(dtype) - 1.0).view(shape)
+    return (ints.view(dtype) - 1.0).view(*key.shape[:-1], *shape)
 
 
 def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
@@ -145,6 +167,14 @@ def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
     # into one multiply-add; the product is exact in float64
     scaled = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.float().to(dtype))
+
+
+def bernoulli(key, p, shape):
+    """`jax.random.bernoulli(key, p, shape)` for a Python float p: a
+    float32 uniform below float32(p); `[..., *shape]` for keys
+    `[..., 2]`."""
+    threshold = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < threshold
 
 
 def _erfinv32(x):

@@ -9,7 +9,8 @@ import sys
 
 __all__ = ["UserException", "UnavailableException", "Context", "trace",
            "info", "warning", "error", "fatal", "fatal_unavailable",
-           "parse_keyval", "import_directory", "resolve_device"]
+           "parse_keyval", "import_directory", "resolve_device",
+           "weak_scalar"]
 
 
 class UserException(RuntimeError):
@@ -89,6 +90,20 @@ def resolve_device(name="cuda"):
         raise UserException(f"Unsupported device {name!r}; expected "
                             f"'cuda', 'cuda:<index>' or 'cpu'")
     return device
+
+
+def weak_scalar(x, dtype):
+    """A Python scalar as the JAX package applies it to an operand of
+    `dtype` (a weak-typed scalar): rounded to that dtype before the
+    operation (through float32, as JAX without x64 holds a Python float;
+    float64 keeps it whole), returned as a Python float that torch then
+    carries exactly (`1.1 -> 1.1015625` in bfloat16). torch would
+    otherwise apply the float32 scalar and round only the result."""
+    import torch
+
+    if dtype == torch.float64:
+        return float(x)
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
 def _auto_type(value):

@@ -5,7 +5,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. Environment: the card's name and power limit (`nvidia-smi`), torch and
    CUDA versions, the precision flags as the engine pins them.
-2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/gar_kernels.cu`
+2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/prng_kernels.cu`
+   (the key tree's dropout-mask and split kernels), `csrc/gar_kernels.cu`
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
    type) for the four sorting kernels, in f32, bf16 and f16), all side by
@@ -19,7 +20,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and 12 and at n = 11 for f = 4, `closest_mean` at n = 51 for m = 27
    and 39, `selected_median_mean` for Bulyan's 27 rounds at n = 51,
    f = 12.
-3. Kernels against their plain PyTorch versions on the card: the seven
+3. The key tree (`key_tree_kernels`): the dropout-mask kernel against its
+   plain version and the CPU's bits, bit for bit, for the three masks of
+   `empire-cnn` at the headline's (S, B) = (20, 50), at krum_f11's S = 14
+   and at a ragged (3, 5) that fills no whole block, and through the
+   model's draw (three launches); the split kernel and the init of
+   empire-cnn and simples-conv on the card against the CPU's bits; the
+   records of both at the headline: the three masks of a step (24.7 M
+   bytes written; bound by 32-bit integer issue, 74 operations an
+   element, at a quarter of the f32 rate) and the split of the step key
+   into S + 2, with the host's time a step of each against the eager
+   int64 threefry.
+   Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
    enumeration itself, the trimmed mean at f=5 and 11, the closest mean
@@ -85,7 +97,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
    Bulyan against `empire factor:1.1`, 10 steps), the `krum_f11` cell
-   (f=11, 11 real, Krum against `empire factor:1.1`, 10 steps), then 3
+   (f=11, 11 real, Krum against `empire factor:1.1`, 10 steps), then 10
    steps each of Median, Trimmed mean, Phocas, MeaMed and Aksel at f=11,
    11 real, against `little factor:1.5 negative:true`; the brute cell
    (f=11, 11 real, against `empire factor:1.1`) and CGE (f=11, against
@@ -97,7 +109,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    cell `cifar10-empire-bulyan-f_5-lr_0.01-at_update` as `reproduce.py`
    writes it (the headline with `--learning-rate-decay 167
    --learning-rate-decay-delta 1500 --l2-regularize 1e-2
-   --nb-for-study-past 25 --evaluation-delta 100`) (3 steps each).
+   --nb-for-study-past 25 --evaluation-delta 100`) (10 steps each).
    Then the MNIST half of the paper (synthetic MNIST and FashionMNIST,
    phishing): the driver's defaults (`default`: `mnist`, `simples-conv`,
    n = 11, `average`, `nan` with no real Byzantine worker; 10 steps, no
@@ -116,33 +128,47 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    epsilon:-16`), `median_little_adaptive` (Median, f=11, `little
    factor:-16 negative:true`), `median_bf16_adaptive` (the same under
    `--dtype bfloat16`: f32 probes, a bf16 outer median) and `cge_anticge`
-   (CGE, f=11, `anticge`), 3 steps each; and the rest of the attack
+   (CGE, f=11, `anticge`), 10 steps each; and the rest of the attack
    registry on `baseline_mnist_krum`'s flags, 50 steps each:
    `mnist-alie-krum`, `mnist-alie-warmup-krum` (`window:25`: the burst,
    then the hidden phase), `mnist-framing-krum` (`victim:0 push:1.0
    jitter:0.1`), `mnist-mimic-median` (`victim:0 jitter:0.1`).
-   Launch counts are zeroed before each run and read after it: each
-   kernel of the run's GAR must rise by at least its step count in the
-   run's dtype; in the adaptive and attack cells every (kernel, dtype)
-   count must equal exactly the count a step worked out from the code
-   times the steps (`per_step`), and no other kernel may launch. Each
-   run must take every step and evaluation through the
+   Every CIFAR cell runs 10 steps (9 timed). Every run starts from
+   `--seed 1` alone: the JAX key tree gives its weights, step keys and
+   dropout masks. Launch counts are zeroed before each run and read
+   after it: every (kernel, dtype) count must equal exactly the count a
+   step worked out from the code times the steps (`Cell.per_step`: the
+   GAR's calls, the split of the step key once a step, and on
+   empire-cnn the three dropout masks), and no other kernel may launch.
+   Each run must take every step and evaluation through the
    device-resident path and every honest phase through the grouped
    program (the vmapped one under `--no-grouped-workers`): the engine's
    counts must equal the step and evaluation counts. Each study CSV must
    carry the JAX package's header and a finite "Defense gradient norm".
+   Then kill and resume (`resume_check`): an 8-step headline run with
+   `--checkpoint-delta 2 --auto-resume` in child processes, twice
+   uninterrupted, then SIGKILLed at step 3 (after its second checkpoint)
+   and resumed with the same command line; the log says whether the two
+   uninterrupted runs are byte-equal, and the resumed CSVs must then
+   equal them byte for byte (up to the `Restarts` column), else lie
+   within SPREAD_FACTOR (16) times their spread, or SPREAD_FLOOR (1%) of
+   the column's largest magnitude, in every study column.
+   Where the default runs are not byte-equal, the same three runs again
+   with cuDNN's deterministic algorithms, held the same way.
 5. Where a step's time goes, for the headline, `krum_f11`, brute,
    mixed-precision headline, vmapped headline,
    `mnist-empire-krum-f_24-lr_0.5-at_update` and `headline_adaptive`
    cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
-   the gather on the device, the honest, defense and update phases), the
+   the gather on the device, the step keys and dropout masks, the honest,
+   defense and update phases), the
    busiest kernels and the device's busy share (`torch.profiler`; the
    union of the kernels' intervals, their summed times beside it).
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
-the CIFAR runs of phase 4; one `<kernel>_n51` record per kernel of the
+the CIFAR runs of phase 4, the two key-tree kernels' too; one
+`<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
 at n = 51);
 the last line is `{"ok": true, "device": {...}}`. Needs one card; exits
@@ -167,19 +193,24 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from byzantinemomentum_tpu_torch import checkpoint as checkpoint_mod
 from byzantinemomentum_tpu_torch import data as data_mod
+from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.attacks import alie
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
-from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
+from byzantinemomentum_tpu_torch.engine import RECOVERY_COLUMNS, STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.ops import (
-    _common, _cuda, brute, bulyan, gar_kernels, gars, krum, sort_kernels)
+    _common, _cuda, brute, bulyan, gar_kernels, gars, krum, prng_kernels,
+    sort_kernels)
 
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
-STEPS = 10        # steps of the headline and krum_f11 cells
-GAR_STEPS = 3     # steps of each other run
+BOOL, I64 = torch.bool, torch.int64  # the mask and split kernels' counts
+STEPS = 10        # steps of every CIFAR cell
+# The headline's workers and batch: its dropout masks and step keys
+HEADLINE_S, HEADLINE_B = 20, 50
 # Row counts the sorting kernels meet below, each with the trims f of
 # `check_sort_kernels` (closest_mean's m = n - f)
 SORT_CASES = {2: (0,), 25: (5, 11), 64: (7, 31)}
@@ -202,6 +233,10 @@ DTYPE_NAMES = _cuda.DTYPE_NAMES
 # outside the tensor cores
 PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
          "sxm": (3.35e12, 67e12)}
+# 32-bit integer operations a second: an SM has 64 INT32 lanes against
+# 128 FP32 lanes, and the f32 rate counts an FMA as 2 operations, so a
+# quarter of the f32 rate (16.75 T/s on the SXM part)
+INT32_SHARE = 0.25
 # Phase-3 times of the redesigned kernels before their redesign (one call
 # each, PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700.00 W), printed
 # beside this run's
@@ -324,7 +359,8 @@ def build():
     for each m, `trimmed_mean` for each f it meets), compiled side by
     side; prints each kernel's registers and spills, and fails on a
     spill."""
-    jobs = [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
+    jobs = [(prng_kernels.build,)]
+    jobs += [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
     jobs += [(sort_kernels.build, *job) for job in MNIST_SORT_BUILDS]
     jobs += [(sort_kernels.build, kernel, n, dtype)
              for kernel in ("lower_median", "colsort")
@@ -403,7 +439,11 @@ def split_record_name(name):
     """(kernel, dtype, family of runs) of a record's name: the f32 form at
     the headline shape under the kernel's name, the half forms as
     `<kernel>_bf16` and `<kernel>_f16` (family "cifar"); the MNIST
-    half's f32 form at n workers as `<kernel>_n<n>` (family "n<n>")."""
+    half's f32 form at n workers as `<kernel>_n<n>` (family "n<n>"); the
+    key-tree kernels under their names, in the operand types they count
+    (the masks' bool, the split's int64), family "cifar"."""
+    if name in ("dropout_masks", "split_keys"):
+        return name, BOOL if name == "dropout_masks" else I64, "cifar"
     match = re.fullmatch(r"(\w+)_(n[0-9]+)", name)
     if match:
         return match.group(1), F32, match.group(2)
@@ -416,8 +456,13 @@ def split_record_name(name):
 
 SOURCES = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
            "weighted_rows_mean": "gar_kernels.cu",
-           "masked_rows_mean": "gar_kernels.cu"}
-REPLACES = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
+           "masked_rows_mean": "gar_kernels.cu",
+           "dropout_masks": "prng_kernels.cu", "split_keys": "prng_kernels.cu"}
+# The two key-tree kernels replace no Pallas kernel: they stand where XLA
+# generates the threefry hash in the JAX package
+REPLACES = {"dropout_masks": "models/core.py:561",
+            "split_keys": "engine/step.py:598",
+            "sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
             "weighted_rows_mean": "pallas_gar.py:210",
             "masked_rows_mean": "pallas_gar.py:258",
             "colsort": "pallas_sort.py:189",
@@ -426,17 +471,22 @@ REPLACES = {"sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.
             "closest_mean": "pallas_sort.py:252"}
 
 
-def timed_record(name, kernel, fn, plain, library, nbytes, ops, err, smi):
+def timed_record(name, kernel, fn, plain, library, nbytes, ops, err, smi,
+                 integer=False):
     """The `kernels` record of one kernel call `fn` (launches filled in
     after phase 4): its times, its plain version's and its library
-    call's, and its bound from `nbytes` and f32 `ops`; logged."""
+    call's, and its bound from `nbytes` and `ops`, f32 operations or,
+    with `integer`, 32-bit integer ones; logged."""
     bandwidth, flops32 = card_peaks(smi)
-    t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / flops32 * 1e3
+    rate = flops32 * INT32_SHARE if integer else flops32
+    t_bytes, t_ops = nbytes / bandwidth * 1e3, ops / rate * 1e3
     rec = {
         "name": name, "route": "cuda",
         "source": "byzantinemomentum_tpu_torch/csrc/"
                   + SOURCES.get(kernel, "sort_kernels.cu"),
-        "replaces": "byzantinemomentum_tpu/ops/" + REPLACES[kernel],
+        "replaces": "byzantinemomentum_tpu/" + (
+            REPLACES[kernel] if "/" in REPLACES[kernel]
+            else "ops/" + REPLACES[kernel]),
         "launches": None, "max_abs_err": err,
         "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
         "bound_ms": max(t_bytes, t_ops),
@@ -766,6 +816,87 @@ def kernels_vs_plain(smi):
     return records
 
 
+def key_tree_kernels(smi):
+    """Phase 3, the key tree: `prng_kernels.dropout_masks` against its
+    plain version on the card and the CPU's bits for the three masks at
+    the headline's (S, B) = (20, 50), at krum_f11's S = 14 and at a ragged
+    (3, 5) that fills no whole block; the model's draw through it (three
+    launches); `split_keys` against the CPU's bits; `init` of empire-cnn
+    and simples-conv on the card against the CPU's bits. Returns the timed
+    records of the two kernels at the headline: the three masks of a step
+    (24.7 M bytes written, integer-issue bound) and the split of the
+    step's key into S + 2."""
+    dev = torch.device("cuda")
+    model = models_mod.build("empire-cnn", device=dev)
+    for S, B in ((HEADLINE_S, HEADLINE_B), (14, 50), (3, 5)):
+        wkeys = prng.split(prng.fold_in(prng.PRNGKey(S), B), S)
+        for j, shape in enumerate(model.jax_mask_shapes(B)):
+            got = prng_kernels.dropout_masks(wkeys.to(dev), j, shape, 192)
+            plain = prng_kernels.dropout_masks_plain(wkeys.to(dev), j, shape, 192)
+            cpu = prng_kernels.dropout_masks_plain(wkeys, j, shape, 192)
+            if not (torch.equal(got, plain) and torch.equal(got.cpu(), cpu)):
+                raise SystemExit(f"dropout_masks differs from its plain version "
+                                 f"or the CPU's bits at S={S} B={B} mask {j}")
+        _cuda.reset_launches()
+        card = model.draw_masks(wkeys.to(dev), B)
+        if prng_kernels.dropout_masks.launches != 3:
+            raise SystemExit("draw_masks did not launch the mask kernel 3 times")
+        for got, want in zip(card, model.draw_masks(wkeys, B)):
+            if not torch.equal(got.cpu(), want):
+                raise SystemExit(f"the card's masks differ from the CPU's at "
+                                 f"S={S} B={B}")
+        log(f"dropout_masks S={S} B={B}: the three masks equal the plain "
+            f"version and the CPU's bits (keep share "
+            f"{float(card[0].float().mean()):.4f})")
+    for n in (3, HEADLINE_S + 2, 53):
+        key = prng.fold_in(prng.PRNGKey(n), 1)
+        if not torch.equal(prng_kernels.split_keys(key.to(dev), n).cpu(),
+                           prng.split(key, n)):
+            raise SystemExit(f"split_keys into {n} differs from the CPU's bits")
+    for name in ("empire-cnn", "simples-conv"):
+        card, cpu = (models_mod.build(name, device=where) for where in (dev, "cpu"))
+        card.init(prng.PRNGKey(1, device=dev))
+        cpu.init(prng.PRNGKey(1))
+        for (key, a), (_, b) in zip(card.state_dict().items(),
+                                    cpu.state_dict().items()):
+            if not torch.equal(a.cpu(), b):
+                raise SystemExit(f"{name}.init on the card differs from the "
+                                 f"CPU's bits at {key}")
+    log("split_keys and the init of empire-cnn and simples-conv on the card "
+        "equal the CPU's bits")
+
+    wkeys = prng.split(prng.PRNGKey(0, device=dev), HEADLINE_S)
+    shapes = model.jax_mask_shapes(HEADLINE_B)
+    elements = HEADLINE_S * sum(math.prod(shape) for shape in shapes)
+
+    def masks():
+        return [prng_kernels.dropout_masks(wkeys, j, shape, 192)
+                for j, shape in enumerate(shapes)]
+
+    def masks_plain():
+        return [prng_kernels.dropout_masks_plain(wkeys, j, shape, 192)
+                for j, shape in enumerate(shapes)]
+
+    rng = prng.fold_in(prng.PRNGKey(1, device=dev), 1)
+    n = HEADLINE_S + 2
+    records = [
+        timed_record("dropout_masks", "dropout_masks", masks, masks_plain, None,
+                     HEADLINE_S * 16 + elements,
+                     prng_kernels.hash_operations(elements), 0.0, smi,
+                     integer=True),
+        timed_record("split_keys", "split_keys",
+                     lambda: prng_kernels.split_keys(rng, n),
+                     lambda: prng_kernels.split_keys_plain(rng, n), None,
+                     16 + n * 16, n * 72, 0.0, smi, integer=True)]
+    log(f"  dropout_masks: the three masks of a headline step, {elements} "
+        f"elements ({elements} bytes written): host time a step "
+        f"{host_us(masks):.2f} us (plain {host_us(masks_plain, calls=20):.2f} us)")
+    log(f"  split_keys into {n}: host time a step "
+        f"{host_us(lambda: prng_kernels.split_keys(rng, n)):.2f} us, the eager "
+        f"int64 threefry {host_us(lambda: prng.split(rng, n)):.2f} us")
+    return records
+
+
 def nan_attack_operand(n, f, d, seed, extremes=False, device="cuda"):
     """f32[n, d] on `device` as the `nan` attack leaves a GAR's input:
     n - f standard normal rows, then f rows all NaN. `extremes` adds +inf
@@ -942,16 +1073,15 @@ def device_paths(smi):
     engines = []
     with tempfile.TemporaryDirectory() as tmp:
         for flags in ((), VMAPPED_RUN):
-            cell = cifar_cell("headline", "bulyan", 5, EMPIRE, 1, (), flags)
+            cell = cifar_cell("headline", "bulyan", 5, EMPIRE, 1, flags)
             args = driver._postprocess(driver.process_commandline(
                 cell_argv(cell, 1, tmp)))
-            engines.append(driver._setup(args)[1])
-    grouped, vmapped = engines
-    state = grouped.init()
+            engines.append(driver._setup(args)[1:])
+    (grouped, state), (vmapped, _) = engines
     S = grouped.cfg.nb_sampled
     data = grouped.train_data
     xs, ys = data.gather(*data.upload(*data.sample_indices(S)))
-    masks = grouped.draw_masks(S, xs.shape[1])
+    masks = grouped.model.draw_masks(grouped.step_keys(state.rng)[2], xs.shape[1])
     (G, loss, net, *_), (V, vloss, vnet, *_) = (
         engine.phase_honest(state, xs, ys, args.learning_rate, masks)
         for engine in (grouped, vmapped))
@@ -973,12 +1103,10 @@ def device_paths(smi):
 
 
 # A phase-4 run: its driver flags but the common ones (`cell_argv`), its
-# steps, the kernels its GAR launches, the dtype they must run in, the
-# family of records its launches count for ("cifar", or "n<n>" for the
-# MNIST half's runs at n workers) and, where given, the exact launches a
+# steps, the family of records its launches count for ("cifar", or
+# "n<n>" for the MNIST half's runs at n workers) and the exact launches a
 # step of each (kernel, dtype)
-Cell = collections.namedtuple("Cell", "name argv steps kernels dtype family per_step",
-                              defaults=(None,))
+Cell = collections.namedtuple("Cell", "name argv steps family per_step")
 EMPIRE = ("empire", ("factor:1.1",))
 LITTLE = ("little", ("factor:1.5", "negative:true"))
 # The JAX default factor -16: a line search of 16 defense calls a step
@@ -996,19 +1124,40 @@ GRID_RUN = ("--model-args", "cifar100:False", "--loss", "nll",
             "--learning-rate-decay", "167", "--learning-rate-decay-delta",
             "1500", "--l2-regularize", "1e-2", "--nb-for-study-past", "25",
             "--evaluation-delta", "100")
+# Kernel launches of one outer call of each GAR and of its acceptation
+# ratio (Krum and Brute take a second Gram for it; Aksel a second median)
+GAR_CALLS = {"average": (), "cge": (),
+             "krum": (("sq_gram", 2), ("weighted_rows_mean", 1)),
+             "bulyan": (("sq_gram", 1), ("selected_median_mean", 1)),
+             "brute": (("sq_gram", 2), ("masked_rows_mean", 1)),
+             "median": (("lower_median", 1),),
+             "trmean": (("trimmed_mean", 1),),
+             "phocas": (("trimmed_mean", 1), ("closest_mean", 1)),
+             "meamed": (("lower_median", 1), ("closest_mean", 1)),
+             "aksel": (("lower_median", 2),)}
+# The key tree's launches a step: the step key's split, and on empire-cnn
+# the three dropout masks
+SPLIT_STEP = {("split_keys", I64): 1}
+MASKS_STEP = {("dropout_masks", BOOL): 3}
 
 
-def cifar_cell(name, gar, f, attack, steps, kernels=(), flags=(), dtype=F32,
+def gar_launches(gar, dtype=F32):
+    """The exact launches a step of `gar`'s kernels in `dtype` (the
+    sorting kernels run in the GAR stack's dtype, the others in f32)."""
+    return {(kernel, dtype if kernel in sort_kernels.KERNELS else F32): count
+            for kernel, count in GAR_CALLS[gar]}
+
+
+def cifar_cell(name, gar, f, attack, steps=STEPS, flags=(), dtype=F32,
                per_step=None):
     """A run on CIFAR-10, empire-cnn, n=25, f real Byzantine workers,
     batch 50, momentum 0.99 at update, clip 5, nb-for-study 1 (its own
     flags last, so they override these); an attack with no arguments
-    takes the JAX defaults (no `--attack-args`). `per_step`, where given,
-    is the exact launch count a step of each (kernel, dtype), and its
-    keys name the cell's kernels."""
+    takes the JAX defaults (no `--attack-args`). `per_step` is the exact
+    GAR launches a step (`gar_launches(gar, dtype)` when None); the key
+    tree's are added."""
     attack, attack_args = attack
-    if per_step is not None:
-        kernels = tuple(dict.fromkeys(kernel for kernel, _ in per_step))
+    per_step = gar_launches(gar, dtype) if per_step is None else per_step
     return Cell(name, (
         "--dataset", "cifar10", "--model", "empire-cnn",
         "--nb-workers", "25", "--nb-decl-byz", str(f),
@@ -1019,8 +1168,8 @@ def cifar_cell(name, gar, f, attack, steps, kernels=(), flags=(), dtype=F32,
         "--evaluation-delta", str(steps), "--momentum", "0.99",
         "--momentum-at", "update", "--gradient-clip", "5",
         "--learning-rate", "0.01", "--nb-for-study", "1",
-        "--nb-for-study-past", "1", *flags), steps, kernels, dtype, "cifar",
-        per_step)
+        "--nb-for-study-past", "1", *flags), steps, "cifar",
+        {**per_step, **SPLIT_STEP, **MASKS_STEP})
 
 
 # `reproduce.py::submit_mnist`: its common flags in its order, and the
@@ -1055,19 +1204,13 @@ def grid_argv(name):
             *(("--momentum-nesterov",) * bool(nesterov)))
 
 
-GAR_KERNELS = {"average": (), "krum": ("sq_gram", "weighted_rows_mean"),
-               "median": ("lower_median",), "trmean": ("trimmed_mean",),
-               "phocas": ("trimmed_mean", "closest_mean"),
-               "meamed": ("lower_median", "closest_mean"),
-               "bulyan": ("sq_gram", "selected_median_mean")}
-
-
-def mnist_cell(name, argv, gar, steps=MNIST_STEPS, per_step=None):
+def mnist_cell(name, argv, gar, steps=MNIST_STEPS):
     """A run of the MNIST half, in the family of its worker count (the
-    driver's default 11 where `argv` sets none)."""
+    driver's default 11 where `argv` sets none); the simple models draw
+    no dropout mask, so a step launches its GAR's kernels and the split."""
     argv = tuple(argv)
     n = argv[argv.index("--nb-workers") + 1] if "--nb-workers" in argv else "11"
-    return Cell(name, argv, steps, GAR_KERNELS[gar], F32, f"n{n}", per_step)
+    return Cell(name, argv, steps, f"n{n}", {**gar_launches(gar), **SPLIT_STEP})
 
 
 def grid_cell(name):
@@ -1084,66 +1227,46 @@ def baseline_cell(gar):
         "--attack", "empire", "--attack-args", "factor:1.1"), gar)
 
 
-# Exact launches a step of the MNIST attack cells' GARs at n = 11 (no
-# attack calls the defense): Krum's Gram for the aggregate and for its
-# acceptation ratio, its weighted mean once; Median's median once
-MNIST_ATTACK_LAUNCHES = {"krum": {("sq_gram", F32): 2, ("weighted_rows_mean", F32): 1},
-                         "median": {("lower_median", F32): 1}}
-
-
 def attack_cell(name, attack, attack_args, gar="krum"):
     """`baseline_cell`'s flags (MNIST, simples-conv, n = 11, f = 4 real)
-    against another attack, with exact launch counts."""
+    against another attack (none calls the defense)."""
     return mnist_cell(name, (
         "--nb-decl-byz", "4", "--nb-real-byz", "4", "--gar", gar,
         "--attack", attack, *(("--attack-args", *attack_args) if attack_args else ())),
-        gar, per_step=MNIST_ATTACK_LAUNCHES[gar])
+        gar)
 
 
 CELLS = (
-    cifar_cell("headline", "bulyan", 5, EMPIRE, STEPS, ("sq_gram", "selected_median_mean")),
-    cifar_cell("krum_f11", "krum", 11, EMPIRE, STEPS, ("sq_gram", "weighted_rows_mean")),
-    cifar_cell("median", "median", 11, LITTLE, GAR_STEPS, ("lower_median",)),
-    cifar_cell("trmean", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",)),
-    cifar_cell("phocas", "phocas", 11, LITTLE, GAR_STEPS, ("trimmed_mean", "closest_mean")),
-    cifar_cell("meamed", "meamed", 11, LITTLE, GAR_STEPS, ("lower_median", "closest_mean")),
-    cifar_cell("aksel", "aksel", 11, LITTLE, GAR_STEPS, ("lower_median",)),
-    cifar_cell("brute", "brute", 11, EMPIRE, GAR_STEPS, ("sq_gram", "masked_rows_mean")),
-    cifar_cell("cge", "cge", 11, LITTLE, GAR_STEPS, ()),
-    cifar_cell("median_bf16", "median", 11, LITTLE, GAR_STEPS, ("lower_median",),
-               BF16_RUN, BF16),
-    cifar_cell("trmean_bf16", "trmean", 11, LITTLE, GAR_STEPS, ("trimmed_mean",),
-               BF16_RUN, BF16),
-    cifar_cell("phocas_bf16", "phocas", 11, LITTLE, GAR_STEPS,
-               ("trimmed_mean", "closest_mean"), BF16_RUN, BF16),
-    cifar_cell("meamed_bf16", "meamed", 11, LITTLE, GAR_STEPS,
-               ("lower_median", "closest_mean"), BF16_RUN, BF16),
-    cifar_cell("phocas_f16", "phocas", 11, LITTLE, GAR_STEPS,
-               ("trimmed_mean", "closest_mean"), F16_RUN, F16),
-    cifar_cell("meamed_f16", "meamed", 11, LITTLE, GAR_STEPS,
-               ("lower_median", "closest_mean"), F16_RUN, F16),
-    cifar_cell("headline_mixed", "bulyan", 5, EMPIRE, GAR_STEPS,
-               ("sq_gram", "selected_median_mean"), MIXED_RUN),
-    cifar_cell("headline_vmapped", "bulyan", 5, EMPIRE, GAR_STEPS,
-               ("sq_gram", "selected_median_mean"), VMAPPED_RUN),
-    cifar_cell("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5, EMPIRE,
-               GAR_STEPS, ("sq_gram", "selected_median_mean"), GRID_RUN),
+    cifar_cell("headline", "bulyan", 5, EMPIRE),
+    cifar_cell("krum_f11", "krum", 11, EMPIRE),
+    *(cifar_cell(gar, gar, 11, LITTLE)
+      for gar in ("median", "trmean", "phocas", "meamed", "aksel")),
+    cifar_cell("brute", "brute", 11, EMPIRE),
+    cifar_cell("cge", "cge", 11, LITTLE),
+    *(cifar_cell(f"{gar}_bf16", gar, 11, LITTLE, flags=BF16_RUN, dtype=BF16)
+      for gar in ("median", "trmean", "phocas", "meamed")),
+    *(cifar_cell(f"{gar}_f16", gar, 11, LITTLE, flags=F16_RUN, dtype=F16)
+      for gar in ("phocas", "meamed")),
+    cifar_cell("headline_mixed", "bulyan", 5, EMPIRE, flags=MIXED_RUN),
+    cifar_cell("headline_vmapped", "bulyan", 5, EMPIRE, flags=VMAPPED_RUN),
+    cifar_cell("cifar10-empire-bulyan-f_5-lr_0.01-at_update", "bulyan", 5,
+               EMPIRE, flags=GRID_RUN),
     # The adaptive attacks: each probe of the line search calls the GAR,
     # and the outer aggregation once more (Bulyan and Median have no
     # acceptation ratio; Krum's takes one more Gram). Under bf16 the
     # probes are f32 and only the outer median is bf16
-    cifar_cell("headline_adaptive", "bulyan", 5, EMPIRE_ADAPTIVE, STEPS,
+    cifar_cell("headline_adaptive", "bulyan", 5, EMPIRE_ADAPTIVE,
                per_step={("sq_gram", F32): PROBES + 1,
                          ("selected_median_mean", F32): PROBES + 1}),
-    cifar_cell("krum_f11_strict", "krum", 11, STRICT_ADAPTIVE, GAR_STEPS,
+    cifar_cell("krum_f11_strict", "krum", 11, STRICT_ADAPTIVE,
                per_step={("sq_gram", F32): PROBES + 2,
                          ("weighted_rows_mean", F32): PROBES + 1}),
-    cifar_cell("median_little_adaptive", "median", 11, LITTLE_ADAPTIVE, GAR_STEPS,
+    cifar_cell("median_little_adaptive", "median", 11, LITTLE_ADAPTIVE,
                per_step={("lower_median", F32): PROBES + 1}),
-    cifar_cell("median_bf16_adaptive", "median", 11, LITTLE_ADAPTIVE, GAR_STEPS,
-               flags=BF16_RUN, dtype=BF16,
+    cifar_cell("median_bf16_adaptive", "median", 11, LITTLE_ADAPTIVE,
+               flags=BF16_RUN,
                per_step={("lower_median", F32): PROBES, ("lower_median", BF16): 1}),
-    cifar_cell("cge_anticge", "cge", 11, ANTICGE, GAR_STEPS, per_step={}),
+    cifar_cell("cge_anticge", "cge", 11, ANTICGE, per_step={}),
     # The MNIST half: the driver's defaults (no kernel), BASELINE.md's
     # MNIST configs, the paper's grid and its cells against `nan`, phishing
     mnist_cell("default", (), "average", steps=STEPS),
@@ -1178,7 +1301,8 @@ WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
     sort_kernels.colsort, sort_kernels.lower_median,
-    sort_kernels.trimmed_mean, sort_kernels.closest_mean)}
+    sort_kernels.trimmed_mean, sort_kernels.closest_mean,
+    prng_kernels.dropout_masks, prng_kernels.split_keys)}
 
 
 def cell_argv(cell, steps, resdir):
@@ -1191,14 +1315,14 @@ def cell_argv(cell, steps, resdir):
 
 def drive(cell, smi):
     """Phase 4, one run; returns its launch counts by (kernel, dtype)."""
-    name, _, steps, kernels, dtype, _, _ = cell
+    name, _, steps, _, per_step = cell
     with tempfile.TemporaryDirectory() as tmp:
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
         summary = driver.run(argv)
         torch.cuda.synchronize()
         launches = {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
-                    for dt, count in wrapper.launches_by_dtype.items()}
+                    for dt, count in wrapper.launches_by_dtype.items() if count}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
     header = lines[0]
     if header != "# " + "\t".join(STUDY_COLUMNS):
@@ -1210,19 +1334,11 @@ def drive(cell, smi):
     norms = np.array([float(row[col]) for row in rows])
     if not np.all(np.isfinite(norms)):
         raise SystemExit(f"{name}: non-finite defense gradient norm: {norms}")
-    if cell.per_step is not None:
-        # Exactly the counts worked out from the code, and no other kernel
-        want = {key: per * steps for key, per in cell.per_step.items()}
-        got = {key: count for key, count in launches.items() if count}
-        if got != want:
-            raise SystemExit(f"{name}: launches {got} in {steps} steps, "
-                             f"expected {want}")
-    else:
-        for kernel in kernels:
-            count = launches.get((kernel, dtype), 0)
-            if count < steps:
-                raise SystemExit(f"{name}: {kernel} launched {count} times in "
-                                 f"{dtype} in {steps} steps: the path bypassed it")
+    # Exactly the counts worked out from the code, and no other kernel
+    want = {key: per * steps for key, per in per_step.items()}
+    if launches != want:
+        raise SystemExit(f"{name}: launches {launches} in {steps} steps, "
+                         f"expected {want}")
     # Every step and evaluation on the device-resident batches, every
     # honest phase on the program asked for
     args = driver.process_commandline(argv)
@@ -1257,27 +1373,29 @@ def step_profile(cell, smi, steps=3):
     with tempfile.TemporaryDirectory() as tmp:
         args = driver._postprocess(driver.process_commandline(
             cell_argv(cell, steps, tmp)))
-        _, engine = driver._setup(args)
-    state = engine.init()
+        _, engine, state = driver._setup(args)
     data = engine.train_data
     lr = args.learning_rate
-    phase_ms = dict.fromkeys(("draw+upload", "gather", "honest", "defense",
-                              "update"), 0.0)
+    phase_ms = dict.fromkeys(("draw+upload", "gather", "keys+masks", "honest",
+                              "defense", "update"), 0.0)
 
     def step(state):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         marks[0].record()
         idx, flips = data.upload(*data.sample_indices(engine.cfg.nb_sampled))
         marks[1].record()
         xs, ys = data.gather(idx, flips)
         marks[2].record()
-        honest = engine.phase_honest(state, xs, ys, lr)
+        rng, _, wkeys = engine.step_keys(state.rng)
+        masks = engine.model.draw_masks(wkeys, xs.shape[1])
         marks[3].record()
-        defense = engine.phase_defense(honest[-1], state.attack_state)
+        honest = engine.phase_honest(state, xs, ys, lr, masks)
         marks[4].record()
-        state, _ = engine.phase_update(state, *honest, *defense, lr,
-                                       xs.shape[1])
+        defense = engine.phase_defense(honest[-1], state.attack_state)
         marks[5].record()
+        state, _ = engine.phase_update(state, *honest, *defense, lr,
+                                       xs.shape[1], rng=rng)
+        marks[6].record()
         return state, marks
 
     for _ in range(2):
@@ -1331,17 +1449,156 @@ def step_profile(cell, smi, steps=3):
             f"{event.key[:90]}")
 
 
+# Phase 4's kill-and-resume cell: a short headline run with checkpoints
+RESUME_CELL = cifar_cell("headline_resume", "bulyan", 5, EMPIRE, 8,
+                         ("--evaluation-delta", "2", "--checkpoint-delta", "2",
+                          "--auto-resume"))
+RESUME_KILL_STEP = 3  # after its second checkpoint (steps 0 and 2)
+# How far a resumed run may lie from an uninterrupted one where the card
+# is not deterministic: SPREAD_FACTOR times two uninterrupted runs'
+# spread, or SPREAD_FLOOR of the column's largest magnitude, whichever is
+# larger. The two differences are draws of the same noise, so their ratio
+# scatters widely (up to 8.2 seen); the drift stays within 1e-3 of the
+# columns' magnitudes, and a wrong resume (another key, batch or state)
+# moves them by far more
+SPREAD_FACTOR = 16
+SPREAD_FLOOR = 1e-2
+# A child run with cuDNN's deterministic algorithms (and PyTorch's,
+# where it has them), to hold a resume byte for byte on the card
+DETERMINISTIC = ("import sys, torch; "
+                 "torch.backends.cudnn.deterministic = True; "
+                 "torch.use_deterministic_algorithms(True, warn_only=True); "
+                 "from byzantinemomentum_tpu_torch.cli.attack import main; "
+                 "sys.exit(main(sys.argv[1:]))")
+
+
+def resume_runs(tmp, deterministic):
+    """RESUME_CELL through the driver in child processes: twice
+    uninterrupted (A, B), then SIGKILLed at step RESUME_KILL_STEP
+    (`BMT_CHAOS_KILL_AT_STEP`) and `--auto-resume`d with the same command
+    line (R). Returns each run's `(eval file, study rows without the
+    recovery columns)` and checks the kill, the restart and the
+    `Restarts` column."""
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    entry = (["-c", DETERMINISTIC] if deterministic
+             else ["-m", "byzantinemomentum_tpu_torch"])
+    strip = len(RECOVERY_COLUMNS)
+    header = "# " + "\t".join(STUDY_COLUMNS + RECOVERY_COLUMNS)
+    out = {}
+    for name, extra, code in (("A", {}, 0), ("B", {}, 0),
+                              ("R", {"BMT_CHAOS_KILL_AT_STEP": RESUME_KILL_STEP}, -9),
+                              ("R", {}, 0)):
+        resdir = tmp / name
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, *entry,
+             *cell_argv(RESUME_CELL, RESUME_CELL.steps, str(resdir))],
+            env={**env, **{k: str(v) for k, v in extra.items()}},
+            capture_output=True, text=True, timeout=600, check=False)
+        if proc.returncode != code:
+            raise SystemExit(f"resume run {name} {extra} exited "
+                             f"{proc.returncode}, expected {code}:\n"
+                             f"{proc.stderr[-3000:]}")
+        log(f"  resume run {name}{' (killed)' if code else ''}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        if code:
+            found = checkpoint_mod.find_latest_valid(resdir)
+            if found is None or found.name != "checkpoint-2":
+                raise SystemExit(f"the killed run left {found} as its newest "
+                                 f"checkpoint, expected checkpoint-2")
+            continue
+        study = (resdir / "study").read_text().split(os.linesep)
+        if study[0] != header:
+            raise SystemExit(f"run {name}: study header {study[0]!r}")
+        restarts = [row.split("\t")[-1] for row in study[1:]]
+        if restarts != (["0", "0"] + ["1"] * 6 if name == "R" else ["0"] * 8):
+            raise SystemExit(f"run {name}: Restarts column {restarts}")
+        out[name] = ((resdir / "eval").read_text(),
+                     [row.rsplit("\t", strip)[0] for row in study[1:]])
+    if "Auto-resume: restart #1 from checkpoint-2" not in proc.stdout:
+        raise SystemExit("the resumed run did not restart from checkpoint-2")
+    return out
+
+
+def resume_verdict(runs, label, smi):
+    """Byte-equal resumed CSVs where A and B are byte-equal, else R within
+    SPREAD_FACTOR times the spread of A and B (or SPREAD_FLOOR of the
+    column's largest magnitude) in every study column, NaN positions
+    equal; logs which held, fails otherwise. Returns whether A and B
+    were byte-equal."""
+    (eval_a, rows_a), (eval_b, rows_b), (eval_r, rows_r) = (
+        runs[name] for name in "ABR")
+    same = eval_a == eval_b and rows_a == rows_b
+    log(f"resume check ({label}): two uninterrupted card runs of "
+        f"{RESUME_CELL.steps} steps are {'byte-equal' if same else 'NOT byte-equal'} "
+        f"(eval {eval_a == eval_b}, study {rows_a == rows_b})")
+    if same:
+        if eval_r != eval_a or rows_r != rows_a:
+            raise SystemExit(f"resume check ({label}): the killed and resumed "
+                             f"run's CSVs differ from the uninterrupted run's "
+                             f"on a deterministic card")
+        log(f"resume check ({label}): the killed (step {RESUME_KILL_STEP}) and "
+            f"resumed (from checkpoint-2) run wrote the uninterrupted run's "
+            f"eval file and study rows byte for byte (Restarts 0, 0, then 1) "
+            f"on {smi}")
+        return True
+
+    def values(rows):
+        return np.array([[float(v) for v in row.split("\t")] for row in rows])
+
+    a, b, r = values(rows_a), values(rows_b), values(rows_r)
+    if not np.array_equal(np.isnan(r), np.isnan(a)):
+        raise SystemExit(f"resume check ({label}): NaN positions differ")
+    finite = ~np.isnan(a).all(axis=0)
+    a, b, r = (x[:, finite] for x in (a, b, r))
+    spread = np.nanmax(np.abs(b - a), axis=0)
+    off = np.nanmax(np.abs(r - a), axis=0)
+    bound = np.maximum(SPREAD_FACTOR * spread,
+                       SPREAD_FLOOR * np.nanmax(np.abs(a), axis=0))
+    log(f"resume check ({label}): largest |R - A| a column {off.tolist()}; "
+        f"spread |B - A| {spread.tolist()}; |R - A| / |B - A| "
+        f"{(off / np.where(spread > 0, spread, np.inf)).tolist()}")
+    if not bool((off <= bound).all()):
+        raise SystemExit(f"resume check ({label}): the killed and resumed run "
+                         f"left {SPREAD_FACTOR} times the spread of two "
+                         f"uninterrupted runs (and {SPREAD_FLOOR} of the "
+                         f"columns' magnitudes) in columns "
+                         f"{np.nonzero(off > bound)[0].tolist()}")
+    log(f"resume check ({label}): the resumed run lies within {SPREAD_FACTOR} "
+        f"times the spread of two uninterrupted runs or {SPREAD_FLOOR} of the "
+        f"column's magnitude in every study column (largest |R - A| over "
+        f"the bound {float((off / np.where(bound > 0, bound, np.inf)).max()):.3f}) "
+        f"on {smi}")
+    return False
+
+
+def resume_check(smi):
+    """Phase 4, kill and resume (`resume_runs`, `resume_verdict`) on the
+    driver's default settings; where those runs are not byte-equal, once
+    more with deterministic cuDNN algorithms, which must then hold the
+    resume byte for byte (or, if even they are not byte-equal, within the
+    spread)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        deterministic = resume_verdict(
+            resume_runs(pathlib.Path(tmp) / "default", False), "default", smi)
+        if not deterministic:
+            resume_verdict(resume_runs(pathlib.Path(tmp) / "deterministic", True),
+                           "cudnn.deterministic", smi)
+
+
 def main():
     os.environ.setdefault("BMT_SYNTH_TRAIN", "5000")
     os.environ.setdefault("BMT_SYNTH_TEST", "500")
     smi = environment()
     build()
-    records = kernels_vs_plain(smi) + mnist_kernels(smi)
+    records = key_tree_kernels(smi) + kernels_vs_plain(smi) + mnist_kernels(smi)
     device_paths(smi)
     totals = collections.Counter()
     for cell in CELLS:
         for (kernel, dtype), count in drive(cell, smi).items():
             totals[kernel, dtype, cell.family] += count
+    resume_check(smi)
     for cell in CELLS:
         if cell.name in PROFILED:
             step_profile(cell, smi)

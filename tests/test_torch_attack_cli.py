@@ -1,11 +1,11 @@
 """The port's driver against the JAX driver on the adaptive and stateful
 attacks, in process on the CPU (small synthetic MNIST).
 
-Both drivers run the same command line from the same initial weights
-(the JAX model's `init(PRNGKey(seed))`, loaded into the port's model
-before its first step; the batches are the same by construction,
-`data/device.py`) on `simples-full` (no dropout), n = 11, f = 4 real
-Byzantine workers:
+Both drivers run the same command line from `--seed` alone: the port's
+model draws the JAX model's `init(PRNGKey(seed))` weights itself
+(`models/core.py`), and the batches are the same by construction
+(`data/device.py`); `simples-full`, n = 11, f = 4 real Byzantine
+workers:
 
 * `--attack empire` with no `--attack-args` (the JAX default
   `factor:-16`: a line search of 16 Median evaluations a step);
@@ -21,14 +21,10 @@ accuracies must be equal.
 
 import os
 
-import jax
 import numpy as np
 import pytest
-import torch
 
-from byzantinemomentum_tpu import models as jax_models
 from byzantinemomentum_tpu.cli.attack import main as jax_main
-from byzantinemomentum_tpu_torch import convert
 from byzantinemomentum_tpu_torch.cli import attack as driver
 
 SEED = 2
@@ -54,30 +50,18 @@ def _rows(resdir, name):
     return [line.split("\t") for line in lines[1:] if line]
 
 
-def _port_run(monkeypatch, resdir, argv):
-    """The port's driver, its model starting from the JAX weights."""
-    params, _ = jax_models.build("simples-full").init(jax.random.PRNGKey(SEED))
-    theta, _ = convert.params_from_jax(jax.tree.map(np.asarray, params), {})
-    setup = driver._setup
-
-    def setup_from_jax(args):
-        device, engine = setup(args)
-        with torch.no_grad():
-            for name, value in engine.flat.unflatten(theta).items():
-                engine.model.get_parameter(name).copy_(value)
-        return device, engine
-
-    monkeypatch.setattr(driver, "_setup", setup_from_jax)
+def _port_run(resdir, argv):
+    """The port's driver from the command line alone."""
     return driver.run(["--device", "cpu", *argv, "--result-directory",
                        str(resdir)])
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
-def test_adaptive_attacks_track_the_jax_driver(monkeypatch, tmp_path, run):
+def test_adaptive_attacks_track_the_jax_driver(tmp_path, run):
     argv = [*COMMON, *RUNS[run]]
     assert jax_main(["--device", "cpu", *argv, "--result-directory",
                      str(tmp_path / "jax")]) == 0
-    summary = _port_run(monkeypatch, tmp_path / "port", argv)
+    summary = _port_run(tmp_path / "port", argv)
     assert summary["steps"] == 4
     want, got = _rows(tmp_path / "jax", "study"), _rows(tmp_path / "port", "study")
     assert [row[:2] for row in got] == [row[:2] for row in want]

@@ -146,14 +146,14 @@ def _engines():
     engine = Engine(cfg, models.build("empire-cnn", device="cpu"),
                     Loss("nll"), Criterion("top-k"), (gars["bulyan"], {}),
                     attacks["empire"], {"factor": 1.1},
-                    optim.build("sgd", weight_decay=cfg.weight_decay),
-                    torch.Generator())
+                    optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
     (train, test), (jtrain, jtest) = _splits(batch=4)
     engine.attach_data(*DeviceData.pair(train, test, "cpu"))
     jengine.attach_data(*JaxDeviceData.pair(jtrain, jtest))
-    return jengine, jstate, engine, init_state(cfg, theta, bn)
+    rng = torch.from_numpy(np.asarray(jstate.rng).astype(np.int64))
+    return jengine, jstate, engine, init_state(cfg, theta, bn, rng)
 
 
 def test_train_step_and_eval_indexed_match_jax():

@@ -129,8 +129,7 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     model = models.build("empire-cnn", device="cpu")
     engine = Engine(cfg, model, Loss("nll"), Criterion("top-k"),
                     (gars[gar], {}), attacks["empire"], {"factor": 1.1},
-                    optim.build("sgd", weight_decay=cfg.weight_decay),
-                    torch.Generator())
+                    optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
     state = init_state(cfg, theta, bn)

@@ -817,7 +817,7 @@ def _honest_setup(device, momentum_at="update", nesterov=False, **dtypes):
     `(engines, state, xs, ys, masks)`."""
     import dataclasses
 
-    from byzantinemomentum_tpu_torch import models, optim
+    from byzantinemomentum_tpu_torch import models, optim, prng
     from byzantinemomentum_tpu_torch.attacks import attacks
     from byzantinemomentum_tpu_torch.engine import Engine, EngineConfig
     from byzantinemomentum_tpu_torch.losses import Criterion, Loss
@@ -828,11 +828,10 @@ def _honest_setup(device, momentum_at="update", nesterov=False, **dtypes):
                                       dtype=cfg.torch_dtype),
                       Loss("nll") + 1e-2 * Loss("l2"), Criterion("top-k"),
                       (gars["bulyan"], {}), attacks["empire"], {"factor": 1.1},
-                      optim.build("sgd"),
-                      torch.Generator(device=device).manual_seed(2))
+                      optim.build("sgd"))
                for c in (cfg, dataclasses.replace(cfg, grouped_workers=False))]
-    engines[0].model.reset(torch.Generator(device=device).manual_seed(1))
-    state = engines[0].init()
+    engines[0].model.init(prng.PRNGKey(1, device=device))
+    state = engines[0].init(prng.PRNGKey(1, device=device))
     rng = np.random.default_rng(4)
     S, h, d = cfg.nb_sampled, cfg.nb_honests, engines[0].d
     state = dataclasses.replace(
@@ -842,7 +841,7 @@ def _honest_setup(device, momentum_at="update", nesterov=False, **dtypes):
             (h if momentum_at == "worker" else 0, d))).to(state.theta))
     xs = torch.from_numpy(rng.standard_normal((S, 8, 32, 32, 3)).astype(np.float32))
     ys = torch.from_numpy(rng.integers(0, 10, size=(S, 8)))
-    masks = engines[0].draw_masks(S, 8)
+    masks = engines[0].model.draw_masks(engines[0].step_keys(state.rng)[2], 8)
     return engines, state, xs.to(device), ys.to(device), masks
 
 
@@ -1154,3 +1153,58 @@ def test_normal_on_card_equals_the_cpu_bits(cuda):
                                           else torch.int32),
                            want.view(torch.int16 if dtype != torch.float32
                                      else torch.int32))
+
+
+# The masks of the headline (S = 20, B = 50), of krum_f11 (S = 14), and a
+# ragged S = 3, B = 5 (75 elements a worker at the dense layer, 12,800 at
+# the first: neither a multiple of a block's 2,048)
+MASK_CASES = ((20, 50), (14, 50), (3, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,B", MASK_CASES)
+def test_dropout_mask_kernel_equals_its_plain_version(cuda, S, B):
+    """`prng_kernels.dropout_masks` on the card against its plain version
+    on the CPU, bit for bit, for the three masks of `empire-cnn`; the
+    model's draw (`draw_masks`) takes the kernel, three launches."""
+    from byzantinemomentum_tpu_torch import models, prng
+    from byzantinemomentum_tpu_torch.ops import _cuda, prng_kernels
+    wkeys = prng.split(prng.PRNGKey(S * 100 + B), S)
+    shapes = ((B, 16, 16, 64), (B, 8, 8, 128), (B, 128))
+    for j, shape in enumerate(shapes):
+        got = prng_kernels.dropout_masks(wkeys.to(cuda), j, shape, 192)
+        want = prng_kernels.dropout_masks_plain(wkeys, j, shape, 192)
+        assert got.dtype == torch.bool and got.is_cuda
+        assert torch.equal(got.cpu(), want)
+    model = models.build("empire-cnn", device=cuda)
+    _cuda.reset_launches()
+    masks = model.draw_masks(wkeys.to(cuda), B)
+    assert prng_kernels.dropout_masks.launches == 3
+    for got, want in zip(masks, model.draw_masks(wkeys, B)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (3, 22, 27, 53))
+def test_split_kernel_equals_the_cpu_bits(cuda, n):
+    from byzantinemomentum_tpu_torch import prng
+    from byzantinemomentum_tpu_torch.ops import prng_kernels
+    key = prng.fold_in(prng.PRNGKey(n), 1)
+    got = prng_kernels.split_keys(key.to(cuda), n)
+    assert torch.equal(got.cpu(), prng.split(key, n))
+    keys = prng.split(key, 5)
+    assert torch.equal(prng_kernels.split_keys(keys.to(cuda), n).cpu(),
+                       prng.split(keys, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("empire-cnn", "simples-conv"))
+def test_init_on_the_card_equals_the_cpu_bits(cuda, name):
+    from byzantinemomentum_tpu_torch import models, prng
+    card = models.build(name, device=cuda)
+    card.init(prng.PRNGKey(7, device=cuda))
+    cpu = models.build(name, device="cpu")
+    cpu.init(prng.PRNGKey(7))
+    for (key, a), (_, b) in zip(card.state_dict().items(),
+                                cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b), key

@@ -55,7 +55,7 @@ from byzantinemomentum_tpu import models as jax_models
 from byzantinemomentum_tpu import ops as jax_ops
 from byzantinemomentum_tpu.engine import EngineConfig as JaxConfig
 from byzantinemomentum_tpu.engine import build_engine
-from byzantinemomentum_tpu_torch import convert, models, optim
+from byzantinemomentum_tpu_torch import convert, models, optim, prng
 from byzantinemomentum_tpu_torch.attacks import attacks
 from byzantinemomentum_tpu_torch.engine import Engine, EngineConfig
 from byzantinemomentum_tpu_torch.engine.state import init_state
@@ -195,8 +195,7 @@ def _port_phases(momentum_at, nesterov, params, net_state, ms, mw, xs, ys,
         engine = Engine(c, models.build("empire-cnn", device="cpu", dtype=pdt),
                         Loss("nll"), Criterion("top-k"), (gars["bulyan"], {}),
                         attacks["empire"], {"factor": 1.1},
-                        optim.build("sgd", weight_decay=c.weight_decay),
-                        torch.Generator())
+                        optim.build("sgd", weight_decay=c.weight_decay))
         outs.append(engine.phase_honest(state, torch.from_numpy(xs),
                                         torch.from_numpy(ys), LR, masks))
         assert engine.counts == {path: 1}
@@ -282,7 +281,7 @@ def test_mixed_grouped_and_vmapped_phases_match_jax():
 def test_forward_grouped_shared_equals_per_worker(dtype, rtol, atol, train):
     S, B = 3, 4
     model = models.build("empire-cnn", device="cpu", dtype=dtype)
-    model.reset(torch.Generator().manual_seed(3))
+    model.init(prng.PRNGKey(3))
     flat = FlatParams(model)
     theta = flat.flatten(dict(model.named_parameters())).detach()
     bn = {name: buf.detach() for name, buf in model.named_buffers()}

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from byzantinemomentum_tpu.losses import Loss as JaxLoss
-from byzantinemomentum_tpu_torch import models
+from byzantinemomentum_tpu_torch import models, prng
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.losses import Loss
@@ -115,7 +115,7 @@ def test_driver_regularizers_and_no_grouped_workers_on_cpu(tmp_path,
         for row in rows:
             assert np.isfinite(float(row["Defense gradient norm"])), (name, row)
     model = models.build("empire-cnn", device="cpu")
-    model.reset(torch.Generator().manual_seed(1))
+    model.init(prng.PRNGKey(1))
     theta0 = FlatParams(model).flatten(dict(model.named_parameters())).detach()
     l2 = float(torch.sqrt(torch.sum(theta0 * theta0)))
     l1 = float(torch.sum(torch.abs(theta0)))

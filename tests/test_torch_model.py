@@ -20,7 +20,7 @@ from byzantinemomentum_tpu import models as jax_models
 from byzantinemomentum_tpu.losses import Criterion as JaxCriterion
 from byzantinemomentum_tpu.losses import Loss as JaxLoss
 from byzantinemomentum_tpu.models.core import _dropout_mask
-from byzantinemomentum_tpu_torch import convert, models
+from byzantinemomentum_tpu_torch import convert, models, prng
 from byzantinemomentum_tpu_torch.losses import Criterion, Loss
 from byzantinemomentum_tpu_torch.models import FlatParams
 
@@ -66,7 +66,7 @@ def test_flat_order_and_param_count_match_jax():
 
 def test_init_bounds_are_torch_default():
     module = models.build("empire-cnn", device="cpu")
-    module.reset(torch.Generator().manual_seed(3))
+    module.init(prng.PRNGKey(3))
     for name, bound in (("c1", 1 / np.sqrt(27)), ("c4", 1 / np.sqrt(1152)),
                         ("f1", 1 / np.sqrt(8192))):
         layer = getattr(module, name)

@@ -29,7 +29,7 @@ from torch.func import functional_call
 
 from byzantinemomentum_tpu import losses as jax_losses
 from byzantinemomentum_tpu import models as jax_models
-from byzantinemomentum_tpu_torch import convert, models
+from byzantinemomentum_tpu_torch import convert, models, prng
 from byzantinemomentum_tpu_torch.losses import Loss
 from byzantinemomentum_tpu_torch.models import FlatParams
 
@@ -69,7 +69,7 @@ def test_flat_order_and_widths_match_jax(name):
     assert flat.d == jax_models.build(name).param_count() == MODELS[name][0]
     assert flat.names == [n for n, _ in convert.flat_items(params)]
     assert bn == {} and module.mask_shapes(B) == ()
-    assert module.draw_masks(torch.Generator(), B) == ()
+    assert module.draw_masks(prng.split(prng.PRNGKey(0), 3), B) == ()
     np.testing.assert_array_equal(theta.numpy(), np.asarray(theta_jax))
 
 

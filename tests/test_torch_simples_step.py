@@ -92,11 +92,11 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
     engine = Engine(cfg, models.build(model_name, device="cpu"), Loss("nll"),
                     Criterion("top-k"), (gars[gar], {}), attacks[attack],
                     ATTACKS[attack],
-                    optim.build("sgd", weight_decay=cfg.weight_decay),
-                    torch.Generator())
+                    optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
-    state = init_state(cfg, theta, bn)
+    state = init_state(cfg, theta, bn,
+                       torch.from_numpy(np.asarray(jstate.rng).astype(np.int64)))
     state = type(state)(**{**state.__dict__, "momentum_server": _t(ms),
                            "momentum_workers": _t(mw), "past_grads": _t(past),
                            "past_norms": _t(past_norms), "past_count": 1})
