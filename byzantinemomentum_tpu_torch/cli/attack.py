@@ -31,6 +31,10 @@ evaluations of the configured GAR a step (`ops/linesearch.py`); a
 stateful attack (`alie-warmup`) carries its history in the engine's
 state from step to step.
 
+`--nb-local-steps k` has each worker take k local SGD steps on k batches
+a step and submit its displacement over the learning rate, as the JAX
+engine does (the honest phase is then the vmapped one).
+
 Batches come from the device-resident splits (`data/device.py`), as in
 the JAX driver without `--mesh` and `--device-gar` (flags the port does
 not have). The honest phase is the grouped program unless
@@ -148,6 +152,9 @@ def process_commandline(argv=None):
         help="L2 loss regularization factor")
     add("--gradient-clip", type=float, default=None,
         help="Per-gradient L2 clip threshold")
+    add("--nb-local-steps", type=int, default=1,
+        help="Local SGD steps per global step (implemented here; the "
+             "reference advertises but disables it)")
     add("--load-checkpoint", type=str, default=None,
         help="Checkpoint to resume from")
     add("--auto-resume", action="store_true", default=False,
@@ -249,6 +256,9 @@ def _postprocess(args):
     if args.momentum_at not in ("update", "server", "worker"):
         utils.fatal_unavailable(("update", "server", "worker"),
                                 args.momentum_at, what="momentum position")
+    if args.nb_local_steps < 1:
+        utils.fatal(f"Invalid arguments: non-positive number of local steps "
+                    f"{args.nb_local_steps}")
     # Checkpoint flags (the JAX driver's checks)
     if args.auto_resume:
         if args.load_checkpoint is not None:
@@ -403,6 +413,7 @@ def _setup(args):
         nesterov=args.momentum_nesterov, momentum_at=args.momentum_at,
         weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
         grouped_workers=not args.no_grouped_workers,
+        nb_local_steps=args.nb_local_steps,
         dtype=args.dtype, compute_dtype=args.compute_dtype)
     # Parameters are drawn in f32 and rounded to the parameter dtype, as
     # the JAX package casts its f32 init
@@ -594,8 +605,7 @@ def run(argv=None):
                     current_lr = new_lr
                 datapoints = state.datapoints
                 state, metrics = engine.train_step_indexed(
-                    state, *engine.train_data.sample_indices(cfg.nb_sampled),
-                    current_lr)
+                    state, *engine.sample_indices(), current_lr)
                 # The previous step's row moves to the host once this one
                 # is enqueued
                 flush(pending)

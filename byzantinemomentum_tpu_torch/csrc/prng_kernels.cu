@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the port's key tree: the
 // threefry-2x32 hash (20 rounds) that `jax.random` computes, fused into
-// the two draws a training step makes on the device.
+// the draws a training step makes on the device.
 //
 // Built by `byzantinemomentum_tpu_torch/ops/prng_kernels.py` at its first
 // use:
@@ -32,6 +32,14 @@
 //   32-bit operations, then an xor and a compare; it writes one byte.
 //   At the headline (S = 20, B = 50: 24.7 M elements a step) that is
 //   1.8 G operations against 24.7 MB of stores.
+//   The Bernoulli form (`kTopBits`) is `jax.random.bernoulli(key, p,
+//   shape)` for a keep rate that is no 8-bit threshold (WRN-28-10's 0.7):
+//   JAX draws the float32 uniform u = bitcast((w >> 9) | 0x3F800000) - 1,
+//   which is exactly (w >> 9) * 2^-23, and keeps the element iff
+//   u < float32(p), that is iff (w >> 9) < T with T = ceil(float32(p) *
+//   2^23), an integer the host works out once. Same hash, same walk; a
+//   shift takes the place of the mask. A WRN-28-10 step at S = 9, B = 20
+//   draws 12 such masks, 206.4 M elements: 15.3 G operations.
 //   Design: blockIdx.y is the worker; one thread of each block derives
 //   the worker's layer key once into shared memory. Each thread then
 //   hashes kItems elements a block stride apart (consecutive threads on
@@ -83,7 +91,9 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
 }
 
 // wkeys: int64[S, 2] (uint32 words); out: bool[S, count] with count =
-// B * c * hw, the NCHW mask of each worker
+// B * c * hw, the NCHW mask of each worker. The compared value of a word
+// w is its low byte, or with kTopBits its top 23 bits (w >> 9)
+template <bool kTopBits>
 __global__ void __launch_bounds__(kThreads)
 dropout_mask_kernel(const long long* __restrict__ wkeys,
                     unsigned char* __restrict__ out, uint32_t j,
@@ -111,7 +121,8 @@ dropout_mask_kernel(const long long* __restrict__ wkeys,
           ((unsigned long long)b * hw + p) * c + ch;
       const uint2 r = threefry2x32(key.x, key.y, (uint32_t)(counter >> 32),
                                    (uint32_t)counter);
-      dst[e] = ((r.x ^ r.y) & 0xFFu) < threshold;
+      const uint32_t w = r.x ^ r.y;
+      dst[e] = (kTopBits ? (w >> 9) : (w & 0xFFu)) < threshold;
     }
   }
 }
@@ -131,6 +142,19 @@ split_kernel(const long long* __restrict__ keys, long long* __restrict__ out,
   out[2 * t + 1] = r.y;
 }
 
+template <bool kTopBits>
+int launch_masks(const long long* wkeys, unsigned char* out, int S,
+                 long long j, long long count, int hw, int c,
+                 long long threshold, void* stream) {
+  const long long per_block = (long long)kThreads * kItems;
+  const dim3 grid((unsigned)((count + per_block - 1) / per_block),
+                  (unsigned)S);
+  dropout_mask_kernel<kTopBits><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      wkeys, out, (uint32_t)j, (uint32_t)count, (uint32_t)hw, (uint32_t)c,
+      (uint32_t)threshold);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,13 +168,16 @@ int bmt_prng_items() { return kItems; }
 int bmt_dropout_masks(const long long* wkeys, unsigned char* out, int S,
                       long long j, long long count, int hw, int c,
                       int threshold, void* stream) {
-  const long long per_block = (long long)kThreads * kItems;
-  const dim3 grid((unsigned)((count + per_block - 1) / per_block),
-                  (unsigned)S);
-  dropout_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      wkeys, out, (uint32_t)j, (uint32_t)count, (uint32_t)hw, (uint32_t)c,
-      (uint32_t)threshold);
-  return (int)cudaGetLastError();
+  return launch_masks<false>(wkeys, out, S, j, count, hw, c, threshold,
+                             stream);
+}
+
+// The Bernoulli masks, the same layout, 0 <= threshold <= 2^23
+int bmt_bernoulli_masks(const long long* wkeys, unsigned char* out, int S,
+                        long long j, long long count, int hw, int c,
+                        long long threshold, void* stream) {
+  return launch_masks<true>(wkeys, out, S, j, count, hw, c, threshold,
+                            stream);
 }
 
 // K >= 1 keys into n >= 1 each (K * n < 2^31)

@@ -3,7 +3,8 @@
 The driver's default path, as in the JAX package: each split's uint8
 inputs and labels go to the engine's device once (CIFAR-10's train split
 is 150 MB), and a step ships only its `(S, B)` int32 indices and bool
-flip mask, one small tensor each; the gather, the flips, the conversion
+flip mask (`(S, k, B)` at k local steps: `Engine.sample_indices`), one
+small tensor each; the gather, the flips, the conversion
 and the normalization run on the device. The host `Dataset` keeps drawing
 the indices and flips, in the JAX `DeviceData`'s order: all `count` index
 rows of a call first, then all `count` flip rows. (`Dataset.sample`

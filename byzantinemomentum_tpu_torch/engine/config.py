@@ -1,5 +1,5 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
-the fields of the training path ported so far: one local step, a single
+the fields of the training path ported so far: local steps, a single
 GAR, the grouped honest phase)."""
 
 import dataclasses
@@ -41,6 +41,7 @@ class EngineConfig:
     grouped_workers: bool = True  # merged-batch grouped honest phase for
     #                               models with a grouped forward
     #                               (--no-grouped-workers turns it off)
+    nb_local_steps: int = 1       # --nb-local-steps (multi-local-step SGD)
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):
@@ -57,6 +58,9 @@ class EngineConfig:
             raise ValueError(
                 f"More real Byzantine workers ({self.nb_real_byz}) than total "
                 f"workers ({self.nb_workers})")
+        if self.nb_local_steps < 1:
+            raise ValueError(
+                f"Non-positive number of local steps {self.nb_local_steps}")
 
     @property
     def nb_honests(self):

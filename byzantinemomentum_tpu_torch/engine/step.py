@@ -10,6 +10,10 @@ the step's keys, `step_keys`):
             models with a grouped forward unless
             `cfg.grouped_workers` is off, else
             `torch.func.vmap(grad(functional_call))` over the worker axis;
+            with `cfg.nb_local_steps` k > 1 each worker takes k local SGD
+            steps on k batches and submits its displacement over the
+            learning rate (`_local_steps`, always vmapped, as in the JAX
+            package);
             per-row L2 clipping;
             the sequential-equivalent BatchNorm running-stat fold; the
             momentum placement on the honest rows;
@@ -48,8 +52,9 @@ Randomness: the JAX package's key tree. `init(key)` sets
 JAX step's `rng, mix_key, *wkeys = split(state.rng, S + 2)`), keeps the
 first as the next state's key and draws worker s's dropout keep-masks
 from `wkeys[s]` (`model.draw_masks`), so the same seed gives the JAX
-run's masks bit for bit. `mix_key` is drawn and set aside: it feeds the
-`--gars` mixture, which the port does not have yet.
+run's masks bit for bit (at k local steps, local step t's from key t of
+`split(wkeys[s], k)`, `draw_masks`). `mix_key` is drawn and set aside:
+it feeds the `--gars` mixture, which the port does not have yet.
 `train_step(..., masks=...)` takes the masks from the caller instead (the
 parity tests feed the JAX masks).
 """
@@ -91,33 +96,41 @@ def clip_rows(G, clip):
     return G * torch.where(norms > clip, clip / norms, 1.0)
 
 
-def compose_bn_updates(net_state0, per_worker_states, count):
+def compose_bn_updates(net_state0, per_worker_states, count, local_steps=1):
     """Sequential-equivalent composition of per-worker BatchNorm running
     stats.
 
     The reference runs workers one after the other through one module, so
     the stats fold as r_k = (1-m) r_{k-1} + m s_k over the k-th worker's
-    batch stats. Batched, every worker computed an r0-based update instead;
-    inverting each for its batch stats and refolding in worker order gives
-    the sequential result
-      r_T = (1-m)^T r0 + m * sum_t (1-m)^(T-1-t) s_t,  T = count.
-    `per_worker_states` maps each buffer name to its (count, ...) stack.
-    The inversion is precision-sensitive: it runs at
-    `promote_types(dtype, float32)` and the result is cast back to the
-    state's dtype.
+    batch stats. Batched, every worker computed an r0-based chain instead;
+    inverting each for its batch stats and refolding in worker-major order
+    gives the sequential result
+      r_T = (1-m)^T r0 + m * sum_t (1-m)^(T-1-t) s_t,  T = count*local_steps.
+    `per_worker_states` maps each buffer name to its (count, ...) stack,
+    or with local steps to its (count, local_steps, ...) stack of each
+    worker's chain of running states (all rooted at r0). The inversion is
+    precision-sensitive: it runs at `promote_types(dtype, float32)` and
+    the result is cast back to the state's dtype.
     """
     m = BN_MOMENTUM
+    total = count * local_steps
     out = {}
     for name, r0 in net_state0.items():
         acc = torch.promote_types(r0.dtype, torch.float32)
         stack = per_worker_states[name].to(acc)
         weights = (torch.tensor(1.0 - m, dtype=acc, device=r0.device)
-                   ** torch.arange(count - 1, -1, -1, dtype=acc,
+                   ** torch.arange(total - 1, -1, -1, dtype=acc,
                                    device=r0.device))
         r0a = r0.to(acc)
-        s = (stack - (1.0 - m) * r0a) / m  # per-worker batch stats
+        if local_steps == 1:
+            s = (stack - (1.0 - m) * r0a) / m  # per-worker batch stats
+        else:
+            # Invert each worker's chain: new[j] = (1-m) new[j-1] + m s[j]
+            prev = torch.cat([r0a.expand_as(stack[:, :1]), stack[:, :-1]],
+                             dim=1)
+            s = ((stack - (1.0 - m) * prev) / m).reshape(total, *r0.shape)
         contrib = torch.tensordot(weights, s, dims=1)
-        out[name] = ((1.0 - m) ** count * r0a + m * contrib).to(r0.dtype)
+        out[name] = ((1.0 - m) ** total * r0a + m * contrib).to(r0.dtype)
     return out
 
 
@@ -154,9 +167,10 @@ class Engine:
         self.optimizer = optimizer
         self.device = next(model.parameters()).device
         # The grouped honest phase where the JAX package takes it: the
-        # config asks for it and the model has a grouped forward (and one
-        # local step, the only count the port has)
-        self.grouped = (grouped_forward(model) if cfg.grouped_workers
+        # config asks for it, the model has a grouped forward and a worker
+        # takes one local step
+        self.grouped = (grouped_forward(model)
+                        if cfg.grouped_workers and cfg.nb_local_steps == 1
                         else None)
         self.train_data = self.test_data = None
         self.counts = collections.Counter()
@@ -195,9 +209,24 @@ class Engine:
         keys = prng_kernels.split_keys(rng, self.cfg.nb_sampled + 2)
         return keys[0], keys[1], keys[2:]
 
-    def _worker_grads(self, theta_eff, theta_axis, net_state, xs, ys, masks):
+    def draw_masks(self, wkeys, batch):
+        """The dropout keep-masks of a step from the worker keys `wkeys
+        [S, 2]`: the model's (`draw_masks`); at k > 1 local steps a list
+        of k, local step t's from key t of `split(wkeys[s], k)` (one more
+        launch of `prng_kernels.split_keys`), the keys the JAX
+        `_local_steps` gives each local step's `apply`."""
+        k = self.cfg.nb_local_steps
+        if k == 1:
+            return self.model.draw_masks(wkeys, batch)
+        keys = prng_kernels.split_keys(wkeys, k)
+        return [self.model.draw_masks(keys[:, t].contiguous(), batch)
+                for t in range(k)]
+
+    def _worker_grads(self, theta_eff, theta_axis, net_state, xs, ys, masks,
+                      state_axis=None):
         """(losses [S], grads [S, d], {buffer: (S, ...)}) — every worker's
-        forward/backward from the same pre-step state. Inputs and
+        forward/backward from the pre-step state `net_state` (shared, or
+        each worker's own along axis 0 with `state_axis` 0). Inputs and
         parameters are cast to the compute dtype inside, so the gradients
         come back in theta's dtype and the losses in the compute dtype;
         the BatchNorm state stays in the parameter dtype."""
@@ -206,7 +235,7 @@ class Engine:
         if xs.is_floating_point():
             xs = xs.to(cdtype)
 
-        def worker_loss(theta, x, y, mask):
+        def worker_loss(theta, net_state, x, y, mask):
             out, new_state = functional_call(
                 model, {**flat.unflatten(theta.to(cdtype)), **net_state},
                 (x,), {"train": True, "masks": mask})
@@ -218,9 +247,30 @@ class Engine:
 
         grads, (losses, states) = vmap(
             grad(worker_loss, has_aux=True),
-            in_dims=(theta_axis, 0, 0, 0), randomness="error")(
-                theta_eff, xs, ys, masks)
+            in_dims=(theta_axis, state_axis, 0, 0, 0), randomness="error")(
+                theta_eff, net_state, xs, ys, masks)
         return losses, grads, states
+
+    def _local_steps(self, theta_eff, theta_axis, net_state, xs, ys, masks,
+                     lr):
+        """The JAX `_local_steps` of every worker: k local steps of
+        `th - lr * grad` (lr in theta's dtype) on the batches `xs: [S, k,
+        B, ...]` with the masks of `draw_masks`, each from the previous
+        step's parameters and BatchNorm state; returns (local step 0's
+        losses [S], the displacements `(theta_eff - theta_k) / lr` [S, d],
+        each worker's chain of running states {buffer: (S, k, ...)})."""
+        theta, axis, state, state_axis = theta_eff, theta_axis, net_state, None
+        chain = []
+        for t, masks_t in enumerate(masks):
+            losses_t, grads, state = self._worker_grads(
+                theta, axis, state, xs[:, t], ys[:, t], masks_t, state_axis)
+            if t == 0:
+                losses = losses_t
+            theta, axis, state_axis = theta - lr * grads, 0, 0
+            chain.append(state)
+        states = {name: torch.stack([c[name] for c in chain], dim=1)
+                  for name in chain[0]}
+        return losses, (theta_eff - theta) / lr, states
 
     def _worker_grads_grouped(self, theta_eff, net_state, xs, ys, masks):
         """`_worker_grads` as one forward and backward over all S workers
@@ -256,8 +306,8 @@ class Engine:
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
         mu_lr = self.weak(mu * lr)
         if masks is None:
-            masks = self.model.draw_masks(self.step_keys(state.rng)[2],
-                                          xs.shape[1])
+            masks = self.draw_masks(self.step_keys(state.rng)[2],
+                                    self._batch_of(xs))
         if cfg.nesterov and cfg.momentum_at == "worker":
             # Per-worker lookahead theta - mu*lr*m_i; study extras beyond
             # the h buffers look ahead by zero
@@ -272,13 +322,18 @@ class Engine:
             self.counts["grouped_phases"] += 1
             losses, grads, states = self._worker_grads_grouped(
                 theta_eff, state.net_state, xs, ys, masks)
+        elif cfg.nb_local_steps > 1:
+            self.counts["vmapped_phases"] += 1
+            losses, grads, states = self._local_steps(
+                theta_eff, theta_axis, state.net_state, xs, ys, masks, lr)
         else:
             self.counts["vmapped_phases"] += 1
             losses, grads, states = self._worker_grads(
                 theta_eff, theta_axis, state.net_state, xs, ys, masks)
         with torch.no_grad():
             G_sampled = clip_rows(grads, cfg.gradient_clip)
-            net_state = compose_bn_updates(state.net_state, states, S)
+            net_state = compose_bn_updates(state.net_state, states, S,
+                                           cfg.nb_local_steps)
             if cfg.momentum_at == "worker":
                 new_mw = mu * state.momentum_workers + one_damp * G_sampled[:h]
                 G_honest = new_mw
@@ -361,7 +416,8 @@ class Engine:
             momentum_server=new_ms, momentum_workers=new_mw,
             origin=state.origin, past_grads=pg, past_norms=pn, past_count=pc,
             steps=state.steps + 1,
-            datapoints=state.datapoints + batch * cfg.nb_honests,
+            datapoints=(state.datapoints
+                        + batch * cfg.nb_honests * cfg.nb_local_steps),
             rng=state.rng if rng is None else rng,
             attack_state=attack_state)
         return new_state, metrics
@@ -381,24 +437,42 @@ class Engine:
         it (`utils.weak_scalar`)."""
         return weak_scalar(x, self.dtype)
 
+    def _batch_of(self, xs):
+        """The per-worker batch of `xs: [S, B, ...]` or, at k > 1 local
+        steps, `[S, k, B, ...]`."""
+        return xs.shape[2] if self.cfg.nb_local_steps > 1 else xs.shape[1]
+
     def train_step(self, state, xs, ys, lr, masks=None):
-        """xs: f32[S, B, ...], ys: [S, B] on the engine's device. The
-        step splits `state.rng` (`step_keys`) and draws the dropout
-        keep-masks from the worker keys, unless `masks` gives them."""
+        """xs: f32[S, B, ...], ys: [S, B] on the engine's device (at k > 1
+        local steps `[S, k, B, ...]`, `[S, k, B]`). The step splits
+        `state.rng` (`step_keys`) and draws the dropout keep-masks from
+        the worker keys (`draw_masks`), unless `masks` gives them."""
         rng, _, wkeys = self.step_keys(state.rng)
+        batch = self._batch_of(xs)
         if masks is None:
-            masks = self.model.draw_masks(wkeys, xs.shape[1])
+            masks = self.draw_masks(wkeys, batch)
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
         defense = self.phase_defense(G_honest, state.attack_state)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            *defense, lr, xs.shape[1], rng=rng)
+            *defense, lr, batch, rng=rng)
+
+    def sample_indices(self):
+        """The host indices and flips of a step's batches
+        (`DeviceData.sample_indices` of S * k batches, in the JAX
+        driver's order and layout): `[S, B]`, or `[S, k, B]` at k > 1
+        local steps."""
+        S, k = self.cfg.nb_sampled, self.cfg.nb_local_steps
+        idx, flips = self.train_data.sample_indices(S * k)
+        if k == 1:
+            return idx, flips
+        return idx.reshape(S, k, -1), flips.reshape(S, k, -1)
 
     def train_step_indexed(self, state, idx, flips, lr, masks=None):
         """`train_step` on the batches `idx: i32[S, B]`, `flips:
-        bool[S, B]` (host arrays, `DeviceData.sample_indices`) of the
-        device-resident train split."""
+        bool[S, B]` (`[S, k, B]` at k > 1 local steps; host arrays,
+        `sample_indices`) of the device-resident train split."""
         self.counts["indexed_steps"] += 1
         data = self.train_data
         xs, ys = data.gather(*data.upload(idx, flips))

@@ -1,5 +1,5 @@
 """Layer primitives of the model zoo (`byzantinemomentum_tpu/models/core.py`,
-the subset `empire-cnn` and the `simples-*` models need).
+the subset `empire-cnn`, the `simples-*` models and `wide_resnet` need).
 
 Parameters keep the JAX package's layouts — HWIO convolution kernels and
 (din, dout) dense weights — so the flat parameter vector of the port and
@@ -11,7 +11,13 @@ default bounds for Linear/Conv2d, U(+-1/sqrt(fan_in)) for weights and
 biases, drawn with `prng.uniform` in float32 from the two keys of
 `prng.split(key)` in the JAX shapes, then rounded to the parameter dtype;
 the same key gives the JAX package's bits. Dropout keep-masks come from
-the JAX keys too (`dropout_mask`, `worker_dropout_masks`).
+the JAX keys too (`worker_dropout_masks`).
+
+Padding: a strided "same" convolution pads as XLA's SAME does, the
+total `(out - 1) * stride + k - size` split `total // 2` before and the
+rest after (`same_pads`): on 32 pixels a 3x3 stride-2 window pads 0
+before and 1 after, where torch's symmetric `padding=1` would shift
+every window by a pixel with the right output shape.
 
 BatchNorm has torch's train-mode semantics: batch statistics in train
 mode, running statistics in eval mode, and the running update
@@ -24,7 +30,9 @@ Dtypes, as in the JAX package: layers are built in the parameter dtype
 (`dtype=`); BatchNorm accumulates its statistics at
 `promote_types(x.dtype, float32)` and casts its output back to `x.dtype`
 and its running state back to the state's dtype; dropout and pooling
-stay in `x.dtype`.
+stay in `x.dtype`; dropout divides by the keep rate rounded to
+`x.dtype`, as JAX applies the weak Python scalar (bf16(0.7) =
+0.69921875).
 
 Worker-grouped layers (`grouped_*`, the JAX package's `grouped_*_apply`):
 the honest phase can run all S per-worker networks as one merged program
@@ -56,12 +64,13 @@ from torch import nn
 
 from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.ops import prng_kernels
+from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["BN_MOMENTUM", "BN_EPS", "Conv", "Dense", "BatchNorm",
            "batchnorm_train", "batchnorm_eval", "fold_running_stats",
-           "grouped_conv", "grouped_dense", "grouped_batchnorm",
-           "dropout_mask", "worker_dropout_masks", "dropout_apply",
-           "max_pool", "log_softmax"]
+           "same_pads", "grouped_conv", "grouped_dense", "grouped_batchnorm",
+           "worker_dropout_masks", "dropout_apply",
+           "max_pool", "global_avg_pool", "log_softmax"]
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -78,15 +87,44 @@ def _init_uniform(layer, key, fan_in):
                                 bound))
 
 
-class Conv(nn.Module):
-    """A k x k stride-1 convolution with an HWIO kernel `w` and bias `b`;
-    `padding` is "same" (3x3 in `empire-cnn`) or "valid" (the 5x5
-    convolutions of `simples-conv`)."""
+def same_pads(size, k, stride):
+    """XLA's SAME padding of one spatial axis: `(before, after)` for an
+    input of `size`, a window of `k` and `stride` (output
+    `ceil(size / stride)`)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, cin, cout, k=3, padding="same", device=None,
+
+def _pads(x, k, padding, stride):
+    """`(top, bottom, left, right)` pads of an NCHW `x` for a k x k window
+    ("same" as XLA's SAME, "valid" none)."""
+    if padding == "valid":
+        return (0, 0, 0, 0)
+    return same_pads(x.shape[-2], k, stride) + same_pads(x.shape[-1], k, stride)
+
+
+def _conv2d(x, w, b, pads, stride, groups=1):
+    """`F.conv2d` with the `(top, bottom, left, right)` pads: symmetric
+    ones as its `padding`, others by `F.pad` first."""
+    top, bottom, left, right = pads
+    if top == bottom and left == right:
+        return F.conv2d(x, w, b, stride=stride, padding=(top, left),
+                        groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, stride=stride,
+                    groups=groups)
+
+
+class Conv(nn.Module):
+    """A k x k convolution with an HWIO kernel `w` and bias `b`; `padding`
+    is "same" (3x3 in `empire-cnn` and `wide_resnet`, XLA's SAME at a
+    stride) or "valid" (the 5x5 convolutions of `simples-conv`, the 1x1
+    shortcuts of `wide_resnet`)."""
+
+    def __init__(self, cin, cout, k=3, padding="same", stride=1, device=None,
                  dtype=None):
         super().__init__()
         self.padding = padding
+        self.stride = stride
         self.w = nn.Parameter(torch.empty((k, k, cin, cout), device=device,
                                           dtype=dtype))
         self.b = nn.Parameter(torch.empty((cout,), device=device, dtype=dtype))
@@ -97,8 +135,10 @@ class Conv(nn.Module):
         _init_uniform(self, key, cin * kh * kw)
 
     def forward(self, x):
-        return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b,
-                        padding=self.padding)
+        w = self.w.permute(3, 2, 0, 1)
+        return _conv2d(x, w, self.b,
+                       _pads(x, w.shape[-1], self.padding, self.stride),
+                       self.stride)
 
 
 class Dense(nn.Module):
@@ -203,53 +243,63 @@ def _from_groups(x, S):
 
 
 class _WorkerConv(torch.autograd.Function):
-    """Stride-1 convolutions of S workers on worker-major batches, with
-    `pad` zeros on each side; see `grouped_conv`. `w: (S, cout, cin, kh,
-    kw)`, `b: (S, cout)`."""
+    """Convolutions of S workers on worker-major batches at `stride`, with
+    `pads` `(top, bottom, left, right)`; see `grouped_conv`. `w: (S, cout,
+    cin, kh, kw)`, `b: (S, cout)`. Symmetric pads are the convolutions'
+    own padding; others pad the input first, and the input gradient is
+    taken on the padded input and cropped."""
 
     @staticmethod
-    def forward(x, w, b, shared, pad):
+    def forward(x, w, b, shared, stride, pads):
         S = w.shape[0]
         if shared:
-            return F.conv2d(x, w[0], b[0], padding=pad)
-        out = _from_groups(F.conv2d(_to_groups(x, S),
-                                    w.reshape(-1, *w.shape[2:]),
-                                    padding=pad, groups=S), S)
+            return _conv2d(x, w[0], b[0], pads, stride)
+        out = _from_groups(_conv2d(_to_groups(x, S),
+                                   w.reshape(-1, *w.shape[2:]), None, pads,
+                                   stride, groups=S), S)
         # The bias added after the convolution, as vmap adds a batched one
         out = out.view(S, -1, *out.shape[1:]) + b[:, None, :, None, None]
         return out.view(-1, *out.shape[2:])
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, _, shared, pad = inputs
+        x, w, _, shared, stride, pads = inputs
         ctx.save_for_backward(x, w)
         ctx.shared = shared
-        ctx.pad = pad
+        ctx.stride = stride
+        ctx.pads = pads
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         S = w.shape[0]
-        one, pad = [1, 1], [ctx.pad, ctx.pad]
-        gy_g, x_g = _to_groups(gy, S), _to_groups(x, S)
+        one, stride = [1, 1], [ctx.stride, ctx.stride]
+        top, bottom, left, right = ctx.pads
+        if top == bottom and left == right:
+            pad, xp = [top, left], x
+        else:
+            pad, xp = [0, 0], F.pad(x, (left, right, top, bottom))
+        gy_g, x_g = _to_groups(gy, S), _to_groups(xp, S)
         w_g = w.reshape(-1, *w.shape[2:])
         gx = gw = None
         if ctx.needs_input_grad[0]:
             if ctx.shared:
                 gx = torch.ops.aten.convolution_backward(
-                    gy, x, w[0], None, one, pad, one, False, [0, 0], 1,
+                    gy, xp, w[0], None, stride, pad, one, False, [0, 0], 1,
                     [True, False, False])[0]
             else:
                 gx = _from_groups(torch.ops.aten.convolution_backward(
-                    gy_g, x_g, w_g, None, one, pad, one, False, [0, 0], S,
+                    gy_g, x_g, w_g, None, stride, pad, one, False, [0, 0], S,
                     [True, False, False])[0], S)
+            if xp is not x:
+                gx = gx[..., top:top + x.shape[-2], left:left + x.shape[-1]]
         if ctx.needs_input_grad[1]:
             gw = torch.ops.aten.convolution_backward(
-                gy_g, x_g, w_g, None, one, pad, one, False, [0, 0], S,
+                gy_g, x_g, w_g, None, stride, pad, one, False, [0, 0], S,
                 [False, True, False])[1].view(w.shape)
         gb = gy.reshape(S, -1, *gy.shape[1:]).sum(dim=(1, 3, 4))
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None
 
 
 class _WorkerDense(torch.autograd.Function):
@@ -279,17 +329,17 @@ class _WorkerDense(torch.autograd.Function):
         return gx, torch.bmm(x.transpose(1, 2), gy), gy.sum(dim=1), None
 
 
-def grouped_conv(x, w_s, b_s, shared=False, padding="same"):
-    """Per-worker stride-1 convolutions (`padding` "same", for an odd
-    kernel, or "valid", as `Conv`): `x: (S*B, cin, H, W)` worker by
-    worker, stacked HWIO kernels `w_s: (S, kh, kw, cin, cout)` and
-    biases `b_s: (S, cout)` -> `(S*B, cout, H', W')`. `shared` says that
-    every worker's kernel and bias equal worker 0's: the forward and the
-    input gradient are then one convolution over the S*B inputs. The
+def grouped_conv(x, w_s, b_s, shared=False, padding="same", stride=1):
+    """Per-worker convolutions at `stride` (`padding` "same", XLA's SAME
+    for a square kernel, or "valid", as `Conv`): `x: (S*B, cin, H, W)`
+    worker by worker, stacked HWIO kernels `w_s: (S, kh, kw, cin, cout)`
+    and biases `b_s: (S, cout)` -> `(S*B, cout, H', W')`. `shared` says
+    that every worker's kernel and bias equal worker 0's: the forward and
+    the input gradient are then one convolution over the S*B inputs. The
     kernel gradient is one `groups=S` convolution gradient on
     `(B, S*C, H, W)`, the calls `torch.func.vmap` makes."""
-    pad = (w_s.shape[1] - 1) // 2 if padding == "same" else 0
-    return _WorkerConv.apply(x, w_s.permute(0, 4, 3, 1, 2), b_s, shared, pad)
+    return _WorkerConv.apply(x, w_s.permute(0, 4, 3, 1, 2), b_s, shared,
+                             stride, _pads(x, w_s.shape[1], padding, stride))
 
 
 def grouped_dense(x, w_s, b_s, shared=False):
@@ -324,44 +374,40 @@ def _threshold(keep):
     return int(t) if t == int(t) and 0 < t < 256 else None
 
 
-def dropout_mask(key, keep, shape):
-    """The JAX package's `_dropout_mask(key, keep, shape)`: where `keep`
-    is an 8-bit threshold t, `prng.bits8(key, shape) < t`, else
-    `prng.bernoulli(key, keep, shape)`; `shape` in the JAX layout (keys
-    `[..., 2]` give `[..., *shape]`)."""
-    t = _threshold(keep)
-    if t is not None:
-        return prng.bits8(key, shape) < t
-    return prng.bernoulli(key, keep, shape)
-
-
 def worker_dropout_masks(wkeys, j, keep, shape):
-    """The keep-masks of S workers' dropout layer j: worker s's is
-    `dropout_mask(split(wkeys[s], n)[j], keep, shape)` (any n > j), the
-    JAX shape `(B, H, W, C)` or `(B, F)` -> the port's layout
+    """The keep-masks of S workers' dropout layer j: worker s's is the JAX
+    package's `_dropout_mask(split(wkeys[s], n)[j], keep, shape)` (any
+    n > j: `bits8 < keep * 256` where that is an 8-bit threshold, else
+    `bernoulli(keep)`), the JAX shape `(B, H, W, C)` or `(B, F)` -> the
+    port's layout
     `bool[S, B, C, H, W]` or `bool[S, B, F]`. An 8-bit keep threshold
-    goes through `prng_kernels.dropout_masks` (the CUDA kernel on the
-    card), any other rate through `prng.bernoulli`."""
+    goes through `prng_kernels.dropout_masks`, any other rate through
+    `prng_kernels.bernoulli_masks` (each the CUDA kernel on the card,
+    `prng.bits8` or `prng.bernoulli` on the CPU)."""
     t = _threshold(keep)
     if t is not None:
         return prng_kernels.dropout_masks(wkeys, j, shape, t)
-    mask = dropout_mask(prng.split(wkeys, j + 1)[:, j], keep, tuple(shape))
-    if len(shape) == 4:
-        mask = mask.permute(0, 1, 4, 2, 3)
-    return mask.contiguous()
+    return prng_kernels.bernoulli_masks(wkeys, j, shape, keep)
 
 
 def dropout_apply(mask, x, rate):
     """Inverted dropout with a given keep-mask (torch semantics: scale by
-    1/(1-p) at train time); `mask=None` is the eval-mode identity."""
+    1/(1-p) at train time, p rounded to x's dtype as JAX applies it);
+    `mask=None` is the eval-mode identity."""
     if mask is None:
         return x
-    keep = 1.0 - rate
+    keep = weak_scalar(1.0 - rate, x.dtype)
     return torch.where(mask, x / keep, 0.0)
 
 
 def max_pool(x, window=2):
     return F.max_pool2d(x, window)
+
+
+def global_avg_pool(x):
+    """The mean over the spatial axes of an NCHW activation, `(N, C)`
+    (`jnp.mean(x, axis=(1, 2))` on NHWC: a half dtype sums in f32)."""
+    return x.mean(dim=(2, 3))
 
 
 def log_softmax(x):

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the port's key tree and their plain
-PyTorch versions: the workers' dropout keep-masks (`dropout_masks`) and
-the split of a step's key (`split_keys`), on the threefry-2x32 hash that
-`prng.py` computes and `jax.random` draws from.
+PyTorch versions: the workers' dropout keep-masks (`dropout_masks` for a
+keep rate that is an 8-bit threshold, `bernoulli_masks` for any other)
+and the split of a step's key (`split_keys`), on the threefry-2x32 hash
+that `prng.py` computes and `jax.random` draws from.
 
 They replace no Pallas kernel: in the JAX package XLA generates the hash
 (`byzantinemomentum_tpu/models/core.py::_dropout_mask`, the step's
@@ -9,28 +10,32 @@ They replace no Pallas kernel: in the JAX package XLA generates the hash
 tensor operations (`prng.split`, `prng.bits8`), some 170 of them a draw:
 at the headline's 24.7 M mask elements a step that traffic would double
 the step, and a split of the step's key would cost as many launches as
-the step's convolutions. The kernels (`csrc/prng_kernels.cu`, CUDA C++
+the step's convolutions; WRN-28-10's keep 0.7 (`prng.bernoulli`, an
+int64 hash and a float32 uniform) draws 206 M elements a step at S = 9,
+B = 20. The kernels (`csrc/prng_kernels.cu`, CUDA C++
 for `sm_90a`, built and bound as `ops/_cuda.py` describes, one library)
 hash in 32-bit registers.
 
 Dispatch, as every kernel of the port: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. Each wrapper counts
 its launches (`<wrapper>.launches`, per operand dtype in
-`launches_by_dtype`: the masks under `torch.bool`, the split under
+`launches_by_dtype`: both masks under `torch.bool`, the split under
 `torch.int64`); `_cuda.reset_launches()` zeroes them.
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.ops import _cuda
 
-__all__ = ["build", "dropout_masks", "dropout_masks_plain", "split_keys",
-           "split_keys_plain", "mask_layout", "hash_operations", "THREADS",
-           "ITEMS"]
+__all__ = ["build", "dropout_masks", "dropout_masks_plain",
+           "bernoulli_masks", "bernoulli_masks_plain", "bernoulli_threshold",
+           "split_keys", "split_keys_plain", "mask_layout", "hash_operations",
+           "THREADS", "ITEMS"]
 
 THREADS = 256  # kThreads in csrc/prng_kernels.cu
 ITEMS = 8      # kItems: mask elements a thread
@@ -52,6 +57,9 @@ def _library():
     lib.bmt_dropout_masks.argtypes = [ptr, ptr, i32, i64, i64, i32, i32, i32,
                                       ptr]
     lib.bmt_dropout_masks.restype = i32
+    lib.bmt_bernoulli_masks.argtypes = [ptr, ptr, i32, i64, i64, i32, i32,
+                                        i64, ptr]
+    lib.bmt_bernoulli_masks.restype = i32
     lib.bmt_split_keys.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.bmt_split_keys.restype = i32
     if (lib.bmt_prng_threads(), lib.bmt_prng_items()) != (THREADS, ITEMS):
@@ -139,31 +147,74 @@ def dropout_masks(wkeys, j, shape, threshold):
     CPU one."""
     if wkeys.device.type == "cpu":
         return dropout_masks_plain(wkeys, j, shape, threshold)
-    _check_keys("dropout_masks", wkeys)
-    B, H, W, C = mask_layout(shape)
-    count = B * H * W * C
     if not (isinstance(threshold, int) and 0 < threshold < 256):
         raise ValueError(f"dropout_masks: threshold {threshold!r} must be an "
                          f"int in 1..255")
+    return _launch_masks(dropout_masks, "bmt_dropout_masks", wkeys, j, shape,
+                         threshold)
+
+
+def bernoulli_threshold(p):
+    """T with `uniform < float32(p)` iff `bits >> 9 < T` for the 23-bit
+    significand `bits >> 9` of a `prng.uniform` draw u = (bits >> 9) *
+    2^-23: T = ceil(float32(p) * 2^23) (exact in float64), clamped to
+    [0, 2^23]; 0 for a NaN p, which no draw is below."""
+    p32 = float(torch.tensor(p, dtype=torch.float32))
+    if math.isnan(p32):
+        return 0
+    return min(max(math.ceil(p32 * 2.0**23), 0), 2**23)
+
+
+def bernoulli_masks_plain(wkeys, j, shape, p):
+    """Worker s's keep-mask `prng.bernoulli(split(wkeys[s], j + 1)[j], p,
+    shape)` for each s of `wkeys: int64[S, 2]`, in the port's layout
+    (`dropout_masks_plain`'s)."""
+    keys = prng.split(wkeys, j + 1)[:, j]
+    mask = prng.bernoulli(keys, p, tuple(shape))
+    if len(shape) == 4:
+        mask = mask.permute(0, 1, 4, 2, 3)
+    return mask.contiguous()
+
+
+@_cuda.counted
+def bernoulli_masks(wkeys, j, shape, p):
+    """`bernoulli_masks_plain(wkeys, j, shape, p)` (0 <= j < 2^32, p a
+    Python float); kernel on a CUDA tensor, comparing the hash's top 23
+    bits with `bernoulli_threshold(p)`, the plain version on a CPU one."""
+    if wkeys.device.type == "cpu":
+        return bernoulli_masks_plain(wkeys, j, shape, p)
+    if not isinstance(p, (int, float)):
+        raise ValueError(f"bernoulli_masks: p = {p!r} must be a Python number")
+    return _launch_masks(bernoulli_masks, "bmt_bernoulli_masks", wkeys, j,
+                         shape, bernoulli_threshold(p))
+
+
+def _launch_masks(wrapper, entry, wkeys, j, shape, threshold):
+    """One launch of a mask kernel (`entry` of the library) for S workers'
+    layer j of JAX shape `shape`, counted on `wrapper`."""
+    name = wrapper.__name__
+    _check_keys(name, wkeys)
+    B, H, W, C = mask_layout(shape)
+    count = B * H * W * C
     if not (isinstance(j, int) and 0 <= j < 2**32 and count < 2**31):
-        raise ValueError(f"dropout_masks: j = {j!r} or a mask of {count} "
-                         f"elements out of range")
+        raise ValueError(f"{name}: j = {j!r} or a mask of {count} elements "
+                         f"out of range")
     S = wkeys.shape[0]
     out = torch.empty(_port_shape(S, tuple(shape)), dtype=torch.bool,
                       device=wkeys.device)
     if S == 0 or count == 0:
         return out
-    _cuda.raise_on("dropout_masks", _library().bmt_dropout_masks(
+    _cuda.raise_on(name, getattr(_library(), entry)(
         wkeys.data_ptr(), out.data_ptr(), S, j, count, H * W, C, threshold,
         _cuda.stream(wkeys)))
-    _cuda.launched(dropout_masks, torch.bool)
+    _cuda.launched(wrapper, torch.bool)
     return out
 
 
 def hash_operations(elements):
-    """32-bit operations the kernel's arithmetic needs for `elements`
-    mask elements: the 20 threefry rounds (an add, a rotation and an xor
-    each) and 12 key additions, then the xor of the words and the
-    compare."""
+    """32-bit operations the mask kernels' arithmetic needs for
+    `elements` mask elements: the 20 threefry rounds (an add, a rotation
+    and an xor each) and 12 key additions, then the xor of the words and
+    the compare (the mask or shift of the word rides in the compare)."""
     return elements * (20 * 3 + 12 + 2)
 

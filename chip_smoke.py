@@ -6,7 +6,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. Environment: the card's name and power limit (`nvidia-smi`), torch and
    CUDA versions, the precision flags as the engine pins them.
 2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/prng_kernels.cu`
-   (the key tree's dropout-mask and split kernels), `csrc/gar_kernels.cu`
+   (the key tree's dropout-mask, Bernoulli-mask and split kernels),
+   `csrc/gar_kernels.cu`
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
    type) for the four sorting kernels, in f32, bf16 and f16), all side by
@@ -80,6 +81,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (`simples-logit`, the phishing cell) the same for Krum, `lower_median`
    and `trimmed_mean`. Records `<kernel>_n51` time kernels 1, 2, 3, 6, 7
    and 8 at the n = 51 shapes as above.
+   WRN-28-10's shapes (`wrn_kernels`): the Bernoulli keep-mask kernel
+   (keep 0.7, `bernoulli_masks`) against its plain version (the eager
+   `prng.bernoulli`) bit for bit at the 12 masks of a step at (S, B) =
+   (9, 20) and at (3, 2), against the CPU's bits at (3, 2) and at one
+   mask of each width at (9, 20), and through the model's draw (12
+   launches, no `dropout_masks`); its record times the 12 masks of a step
+   (206.4 M elements; integer-issue bound as for `dropout_masks`).
+   Kernels 1, 2, 3 and 6 at f32[11, 36,489,290] (Bulyan's W at f = 2,
+   Krum's w at f = 2) against their plain versions at the tolerances
+   above (6 exactly); records `<kernel>_wrn` time them as above.
    Then the device-resident path (`data/device.py`): `DeviceData.gather`
    on the card gives the same bits as on the CPU (CIFAR-10's train split
    with flips, its test split, and both under `--no-transform`; MNIST
@@ -92,7 +103,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    gradient row within 1e-2 relative L2 (the engine tests' max-pool
    near-tie bound), the losses within rtol 1e-4 and the BatchNorm state
    within rtol 1e-4, atol 1e-5; it prints how many rows agree
-   elementwise (rtol 1e-4, atol 1e-5).
+   elementwise (rtol 1e-4, atol 1e-5). The same at WRN-28-10's width for
+   the appendix's Bulyan line (S = 9, shared weights) and its
+   `at_worker` Median line (S = 7, per-worker lookaheads from random
+   momentum buffers: `groups=7` convolutions), each phase timed on the
+   device clock (median of 3).
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
@@ -133,7 +148,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `mnist-alie-krum`, `mnist-alie-warmup-krum` (`window:25`: the burst,
    then the hidden phase), `mnist-framing-krum` (`victim:0 push:1.0
    jitter:0.1`), `mnist-mimic-median` (`victim:0 jitter:0.1`).
-   Every CIFAR cell runs 10 steps (9 timed). Every run starts from
+   Then the paper's appendix grid on WRN-28-10 at full width (depth 28,
+   widen 10, d = 36,489,290; n = 11, batch 20, `crossentropy`, dropout
+   0.3, Nesterov, the schedule `0.02,8000,0.004,16000,0.0008`, clip 5,
+   `--l2-regularize 5e-4`), its flags as `reproduce-appendix.py::submit`
+   writes them: `cifar10-empire-bulyan-f_2-lr_pow-at_update-nesterov`
+   (also `bench.py`'s `wrn28x10` f32 cell), `wrn28x10_mixed` (the same
+   at `--dtype float32 --compute-dtype bfloat16`),
+   `cifar10-little-median-f_4-lr_pow-at_worker-nesterov` (per-worker
+   lookaheads, `groups=7`), `cifar10-empire-krum-f_4-lr_pow-at_update-nesterov`,
+   and `baseline_wrn_aksel` (`BASELINE.md` config 5: the Bulyan line with
+   `--gar aksel --nb-local-steps 2`, the vmapped honest phase); a WRN
+   step launches the split of the step key and 12 Bernoulli masks a local
+   step (and at two local steps one more split, of the workers' keys).
+   Every CIFAR and WRN cell runs 10 steps (9 timed). Every run starts from
    `--seed 1` alone: the JAX key tree gives its weights, step keys and
    dropout masks. Launch counts are zeroed before each run and read
    after it: every (kernel, dtype) count must equal exactly the count a
@@ -142,7 +170,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    empire-cnn the three dropout masks), and no other kernel may launch.
    Each run must take every step and evaluation through the
    device-resident path and every honest phase through the grouped
-   program (the vmapped one under `--no-grouped-workers`): the engine's
+   program (the vmapped one under `--no-grouped-workers` or at two local
+   steps): the engine's
    counts must equal the step and evaluation counts. Each study CSV must
    carry the JAX package's header and a finite "Defense gradient norm".
    Then kill and resume (`resume_check`): an 8-step headline run with
@@ -155,10 +184,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the column's largest magnitude, in every study column.
    Where the default runs are not byte-equal, the same three runs again
    with cuDNN's deterministic algorithms, held the same way.
-5. Where a step's time goes, for the headline, `krum_f11`, brute,
+5. Where a step's time goes (over 3 warm steps, brute's over 1), for the
+   headline, `krum_f11`, brute,
    mixed-precision headline, vmapped headline,
-   `mnist-empire-krum-f_24-lr_0.5-at_update` and `headline_adaptive`
-   cells, through the
+   `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive` and
+   the appendix's Bulyan WRN-28-10 cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the step keys and dropout masks, the honest,
    defense and update phases), the
@@ -170,12 +200,15 @@ per kernel and element type at the headline shape, launches summed over
 the CIFAR runs of phase 4, the two key-tree kernels' too; one
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
-at n = 51);
-the last line is `{"ok": true, "device": {...}}`. Needs one card; exits
-non-zero without one.
+at n = 51; `bernoulli_masks` and one `<kernel>_wrn` record per kernel at
+WRN-28-10's width, launches summed over the WRN runs);
+the last line is `{"ok": true, "device": {...}}`. Before them it logs
+the seconds each phase (and each WRN cell and profile) took. Needs one
+card; exits non-zero without one.
 """
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -218,6 +251,12 @@ SORT_CASES = {2: (0,), 25: (5, 11), 64: (7, 31)}
 # at f = 4 (simples-conv, and simples-logit on phishing); Bulyan at n = 51,
 # f = 12 runs 27 rounds
 MNIST_D, BASELINE_D, PHISHING_D = 79_510, 431_080, 69
+# WRN-28-10 as `reproduce-appendix.py::submit` runs it: n = 11 workers,
+# batch 20; at f = 2 the S = 9 honest workers draw the step's 12 dropout
+# masks (keep 0.7: `bernoulli_masks`)
+WRN_ARGS = {"depth": 28, "widen_factor": 10, "dropout_rate": 0.3,
+            "num_classes": 10}
+WRN_N, WRN_S, WRN_B, WRN_D = 11, 9, 20, 36_489_290
 MNIST_SORT_BUILDS = (("lower_median", 51, F32), ("lower_median", 11, F32),
                      ("trimmed_mean", 51, F32, None, 24),
                      ("trimmed_mean", 51, F32, None, 12),
@@ -440,11 +479,15 @@ def split_record_name(name):
     the headline shape under the kernel's name, the half forms as
     `<kernel>_bf16` and `<kernel>_f16` (family "cifar"); the MNIST
     half's f32 form at n workers as `<kernel>_n<n>` (family "n<n>"); the
+    f32 form at WRN-28-10's width as `<kernel>_wrn` (family "wrn"); the
     key-tree kernels under their names, in the operand types they count
-    (the masks' bool, the split's int64), family "cifar"."""
+    (the masks' bool, the split's int64), family "cifar", but the
+    Bernoulli masks, which only WRN draws (family "wrn")."""
     if name in ("dropout_masks", "split_keys"):
         return name, BOOL if name == "dropout_masks" else I64, "cifar"
-    match = re.fullmatch(r"(\w+)_(n[0-9]+)", name)
+    if name == "bernoulli_masks":
+        return name, BOOL, "wrn"
+    match = re.fullmatch(r"(\w+)_(n[0-9]+|wrn)", name)
     if match:
         return match.group(1), F32, match.group(2)
     for half in (BF16, F16):
@@ -457,10 +500,12 @@ def split_record_name(name):
 SOURCES = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu",
            "weighted_rows_mean": "gar_kernels.cu",
            "masked_rows_mean": "gar_kernels.cu",
-           "dropout_masks": "prng_kernels.cu", "split_keys": "prng_kernels.cu"}
-# The two key-tree kernels replace no Pallas kernel: they stand where XLA
+           "dropout_masks": "prng_kernels.cu", "split_keys": "prng_kernels.cu",
+           "bernoulli_masks": "prng_kernels.cu"}
+# The key-tree kernels replace no Pallas kernel: they stand where XLA
 # generates the threefry hash in the JAX package
 REPLACES = {"dropout_masks": "models/core.py:561",
+            "bernoulli_masks": "models/core.py:577",
             "split_keys": "engine/step.py:598",
             "sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
             "weighted_rows_mean": "pallas_gar.py:210",
@@ -1028,6 +1073,122 @@ def mnist_kernels(smi):
             for kernel, fn, plain, library, nbytes, ops in work]
 
 
+def wrn_kernels(smi):
+    """Phase 3 at WRN-28-10's shapes: `prng_kernels.bernoulli_masks`
+    (keep 0.7) against its plain version on the card, bit for bit, at the
+    12 masks of a step at (S, B) = (9, 20) and at (3, 2), and against the
+    CPU's bits at (3, 2) and at one mask of each width at (9, 20); the
+    model's draw through it (12 launches, no `dropout_masks`); kernels 1,
+    2, 3 and 6 at f32[11, 36,489,290] (Bulyan's W at f = 2, Krum's w at
+    f = 2) against their plain versions. Returns the timed records: the
+    12 masks of a step (206.4 M elements, integer-issue bound) and
+    `<kernel>_wrn`."""
+    dev = torch.device("cuda")
+    model = models_mod.build("wide_resnet-Wide_ResNet", device="meta", **WRN_ARGS)
+    keep = 1.0 - WRN_ARGS["dropout_rate"]
+    t0 = time.perf_counter()
+    for S, B, cpu_masks in ((WRN_S, WRN_B, (0, 4, 8)), (3, 2, range(12))):
+        wkeys = prng.split(prng.fold_in(prng.PRNGKey(S), B), S)
+        for j, shape in enumerate(model.jax_mask_shapes(B)):
+            got = prng_kernels.bernoulli_masks(wkeys.to(dev), j, shape, keep)
+            if not torch.equal(got, prng_kernels.bernoulli_masks_plain(
+                    wkeys.to(dev), j, shape, keep)):
+                raise SystemExit(f"bernoulli_masks differs from its plain "
+                                 f"version at S={S} B={B} mask {j}")
+            if j in cpu_masks and not torch.equal(
+                    got.cpu(), prng_kernels.bernoulli_masks_plain(
+                        wkeys, j, shape, keep)):
+                raise SystemExit(f"bernoulli_masks differs from the CPU's bits "
+                                 f"at S={S} B={B} mask {j}")
+        _cuda.reset_launches()
+        card = model.draw_masks(wkeys.to(dev), B)
+        if (prng_kernels.bernoulli_masks.launches,
+                prng_kernels.dropout_masks.launches) != (12, 0):
+            raise SystemExit("WRN's draw_masks did not launch the Bernoulli "
+                             "kernel 12 times (and the 8-bit one never)")
+        log(f"bernoulli_masks S={S} B={B}: the 12 masks of a WRN-28-10 step "
+            f"equal the plain version (masks {list(cpu_masks)} the CPU's bits "
+            f"too; keep share {float(card[0].float().mean()):.5f})")
+        del card, got
+    log(f"  the Bernoulli checks took {time.perf_counter() - t0:.1f} s")
+
+    shapes = model.jax_mask_shapes(WRN_B)
+    wkeys = prng.split(prng.PRNGKey(0, device=dev), WRN_S)
+    elements = WRN_S * sum(math.prod(shape) for shape in shapes)
+
+    def masks():
+        return [prng_kernels.bernoulli_masks(wkeys, j, shape, keep)
+                for j, shape in enumerate(shapes)]
+
+    def masks_plain():
+        return [prng_kernels.bernoulli_masks_plain(wkeys, j, shape, keep)
+                for j, shape in enumerate(shapes)]
+
+    records = [timed_record("bernoulli_masks", "bernoulli_masks", masks,
+                            masks_plain, None, WRN_S * 16 + elements,
+                            prng_kernels.hash_operations(elements), 0.0, smi,
+                            integer=True)]
+    log(f"  bernoulli_masks: the 12 masks of a WRN-28-10 step, {elements} "
+        f"elements ({elements} bytes written), threshold "
+        f"{prng_kernels.bernoulli_threshold(keep)} of 2^23: host time a step "
+        f"{host_us(masks, calls=50):.2f} us")
+
+    n, d, f = WRN_N, WRN_D, 2
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = torch.randn((n, d), generator=gen, device=dev)
+    errs = {}
+    plain_gram = gar_kernels.sq_gram_plain(g)
+    errs["sq_gram"] = compare("sq_gram at WRN width", gar_kernels.sq_gram(g),
+                              plain_gram,
+                              atol=TOL_RTOL * float(torch.diagonal(plain_gram).max()))
+    dist = _common.pairwise_distances(g)
+    plain_dist = _common.distances_from_sq_gram(plain_gram)
+    W, w = bulyan.selection_weights(dist, f), krum.selection_weights(dist, f)
+    if not (torch.equal(W, bulyan.selection_weights(plain_dist, f))
+            and torch.equal(w, krum.selection_weights(plain_dist, f))):
+        raise SystemExit("Bulyan's W or Krum's w at WRN width differ from "
+                         "those from sq_gram_plain")
+    rounds = W.shape[0]
+    m2 = rounds - 2 * f
+    errs["selected_median_mean"] = compare(
+        "selected_median_mean at WRN width",
+        gar_kernels.selected_median_mean(W, g, m2),
+        gar_kernels.selected_median_mean_plain(W, g, m2))
+    errs["weighted_rows_mean"] = compare(
+        "weighted_rows_mean at WRN width", gar_kernels.weighted_rows_mean(w, g),
+        gar_kernels.select_rows(w, g))
+    errs["lower_median"] = compare(
+        "lower_median at WRN width", sort_kernels.lower_median(g),
+        sort_kernels.lower_median_plain(g), atol=0.0, rtol=0.0)
+    log(f"WRN width f32[{n}, {d}] ({g.numel() * 4 / 1e9:.2f} GB): kernels 1, "
+        f"2, 3 and 6 agree with their plain versions (Bulyan {rounds} rounds, "
+        f"m2 {m2}): " + ", ".join(f"{name} max abs err {err:.3e}"
+                                  for name, err in errs.items()))
+    del plain_gram, dist, plain_dist
+    work = [
+        ("sq_gram", lambda: gar_kernels.sq_gram(g),
+         lambda: gar_kernels.sq_gram_plain(g), lambda: torch.matmul(g, g.T),
+         (n * d + n * n) * 4, 2 * (n * (n + 1) // 2) * d),
+        ("selected_median_mean",
+         lambda: gar_kernels.selected_median_mean(W, g, m2),
+         lambda: gar_kernels.selected_median_mean_plain(W, g, m2), None,
+         (n * d + rounds * n + d) * 4,
+         (2 * rounds * n + sort_kernels.selection_operations(rounds)) * d),
+        ("weighted_rows_mean", lambda: gar_kernels.weighted_rows_mean(w, g),
+         lambda: gar_kernels.select_rows(w, g), lambda: torch.matmul(w, g),
+         (n * d + n + d) * 4, 2 * n * d),
+        ("lower_median", lambda: sort_kernels.lower_median(g),
+         lambda: sort_kernels.lower_median_plain(g),
+         lambda: torch.kthvalue(g, (n - 1) // 2 + 1, dim=0), (n * d + d) * 4,
+         sort_kernels.selection_operations(n, (n - 1) // 2) * d)]
+    records += [timed_record(f"{kernel}_wrn", kernel, fn, plain, library,
+                             nbytes, ops, errs[kernel], smi)
+                for kernel, fn, plain, library, nbytes, ops in work]
+    del g, work
+    torch.cuda.empty_cache()
+    return records
+
+
 def device_paths(smi):
     """Phase 3, the device-resident path: `DeviceData.gather` on the card
     against the same gather on the CPU, bit for bit; the grouped honest
@@ -1070,36 +1231,66 @@ def device_paths(smi):
         f"bit (key {key.tolist()} from alie.row_key of f32[20, 1310922], "
         f"equal on both)")
 
+    grouped_vs_vmapped(cifar_cell("headline", "bulyan", 5, EMPIRE, 1), smi)
+
+
+def grouped_vs_vmapped(cell, smi, worker_momentum=False, timed=False):
+    """The grouped honest phase against the vmapped one on the card for a
+    cell's first step (same weights, batches and dropout masks): every
+    gradient row within 1e-2 relative L2 (a near tie: a max-pool window or
+    a ReLU input within rounding of 0), the losses within rtol 1e-4 and
+    the BatchNorm state within rtol 1e-4, atol 1e-5; logs how many rows
+    agree elementwise (rtol 1e-4, atol 1e-5). `worker_momentum` gives the
+    workers random momentum buffers, so that their Nesterov lookaheads
+    (the weights of the `groups=S` convolutions) differ; `timed` logs the
+    device time of each phase (median of 3 CUDA-event times)."""
     engines = []
     with tempfile.TemporaryDirectory() as tmp:
         for flags in ((), VMAPPED_RUN):
-            cell = cifar_cell("headline", "bulyan", 5, EMPIRE, 1, flags)
             args = driver._postprocess(driver.process_commandline(
-                cell_argv(cell, 1, tmp)))
+                cell_argv(cell._replace(argv=cell.argv + flags), 1, tmp)))
             engines.append(driver._setup(args)[1:])
     (grouped, state), (vmapped, _) = engines
+    if worker_momentum:
+        gen = torch.Generator(device=state.theta.device).manual_seed(3)
+        state = dataclasses.replace(state, momentum_workers=1e-2 * torch.randn(
+            state.momentum_workers.shape, generator=gen,
+            device=state.theta.device))
     S = grouped.cfg.nb_sampled
     data = grouped.train_data
-    xs, ys = data.gather(*data.upload(*data.sample_indices(S)))
-    masks = grouped.model.draw_masks(grouped.step_keys(state.rng)[2], xs.shape[1])
+    xs, ys = data.gather(*data.upload(*grouped.sample_indices()))
+    masks = grouped.draw_masks(grouped.step_keys(state.rng)[2], xs.shape[1])
+    lr = args.initial_lr(0)
+
+    def phase(engine):
+        return engine.phase_honest(state, xs, ys, lr, masks)
+
     (G, loss, net, *_), (V, vloss, vnet, *_) = (
-        engine.phase_honest(state, xs, ys, args.learning_rate, masks)
-        for engine in (grouped, vmapped))
+        phase(engine) for engine in (grouped, vmapped))
     if (grouped.counts["grouped_phases"], vmapped.counts["vmapped_phases"]) != (1, 1):
         raise SystemExit("the grouped and vmapped engines took another honest phase")
     rel = (torch.linalg.vector_norm(G - V, dim=1)
            / torch.linalg.vector_norm(V, dim=1))
     exact = torch.isclose(G, V, rtol=1e-4, atol=1e-5).all(dim=1)
     if not bool((rel < 1e-2).all()):
-        raise SystemExit(f"grouped honest rows off the vmapped ones: {rel.tolist()}")
+        raise SystemExit(f"{cell.name}: grouped honest rows off the vmapped "
+                         f"ones: {rel.tolist()}")
     compare("grouped honest loss", loss, vloss, atol=0.0, rtol=1e-4)
     for name in vnet:
         compare(f"grouped BatchNorm state {name}", net[name], vnet[name],
                 atol=1e-5, rtol=1e-4)
-    log(f"grouped honest phase against the vmapped one at f32{list(xs.shape)}, "
-        f"{S} workers: {int(exact.sum())} of {S} rows within rtol 1e-4, atol "
-        f"1e-5, the largest row distance {float(rel.max()):.3e} relative L2 "
-        f"on {smi}")
+    log(f"{cell.name}: grouped honest phase against the vmapped one at "
+        f"f32{list(xs.shape)}, {S} workers "
+        f"({'per-worker' if worker_momentum else 'shared'} weights): "
+        f"{int(exact.sum())} of {S} rows within rtol 1e-4, atol 1e-5, the "
+        f"largest row distance {float(rel.max()):.3e} relative L2 on {smi}")
+    if timed:
+        del G, V, net, vnet
+        times = [cuda_ms(lambda engine=engine: phase(engine), reps=3, warmup=1)
+                 for engine in (grouped, vmapped)]
+        log(f"  {cell.name}: honest phase on the device clock, grouped "
+            f"{times[0]:.3f} ms, vmapped {times[1]:.3f} ms (median of 3) on "
+            f"{smi}")
 
 
 # A phase-4 run: its driver flags but the common ones (`cell_argv`), its
@@ -1136,7 +1327,7 @@ GAR_CALLS = {"average": (), "cge": (),
              "meamed": (("lower_median", 1), ("closest_mean", 1)),
              "aksel": (("lower_median", 2),)}
 # The key tree's launches a step: the step key's split, and on empire-cnn
-# the three dropout masks
+# the three dropout masks (WRN-28-10's: `wrn_cell`)
 SPLIT_STEP = {("split_keys", I64): 1}
 MASKS_STEP = {("dropout_masks", BOOL): 3}
 
@@ -1202,6 +1393,46 @@ def grid_argv(name):
             "--gar", gar, "--attack", attack,
             *(("--attack-args", *args) if args else ()), "--momentum-at", at,
             *(("--momentum-nesterov",) * bool(nesterov)))
+
+
+# `reproduce-appendix.py::submit`: its common flags in its order (WRN-28-10
+# at full width), and the arguments of its attacks
+APPENDIX = ("--batch-size", "20", "--model", "wide_resnet-Wide_ResNet",
+            "--model-args", "depth:28", "widen_factor:10", "dropout_rate:0.3",
+            "num_classes:10", "--learning-rate-schedule",
+            "0.02,8000,0.004,16000,0.0008", "--gradient-clip", "5", "--loss",
+            "crossentropy", "--momentum", "0.99", "--momentum-nesterov",
+            "--l2-regularize", "0.0005", "--evaluation-delta", "100",
+            "--nb-steps", "20000", "--nb-for-study", "1", "--nb-for-study-past",
+            "1", "--nb-workers", "11")
+APPENDIX_ATTACKS = {"little": ("factor:1.5", "negative:True"),
+                    "empire": ("factor:1.1",)}
+
+
+APPENDIX_BULYAN = "cifar10-empire-bulyan-f_2-lr_pow-at_update-nesterov"
+
+
+def appendix_argv(name):
+    """The flags of the run `name` of `reproduce-appendix.py::submit`, as
+    it writes them (`--nb-steps 20000` included; `cell_argv` overrides
+    it)."""
+    dataset, attack, gar, f, at = re.fullmatch(
+        r"(\w+)-(\w+)-(\w+)-f_(\d+)-lr_pow-at_(update|worker)-nesterov",
+        name).groups()
+    return (*APPENDIX, "--dataset", dataset, "--nb-decl-byz", f,
+            "--nb-real-byz", f, "--gar", gar, "--attack", attack,
+            "--attack-args", *APPENDIX_ATTACKS[attack], "--momentum-at", at)
+
+
+def wrn_cell(name, line, gar, flags=(), local_steps=1):
+    """A WRN-28-10 run (family "wrn", `STEPS` steps): the appendix line
+    `line` with `flags` after it; a step launches its GAR's kernels and,
+    at `local_steps` k, k + 1 key splits (the step key's, and the workers'
+    keys into k when k > 1) and 12 k Bernoulli masks."""
+    per_step = {**gar_launches(gar),
+                ("split_keys", I64): 1 + (local_steps > 1),
+                ("bernoulli_masks", BOOL): 12 * local_steps}
+    return Cell(name, (*appendix_argv(line), *flags), STEPS, "wrn", per_step)
 
 
 def mnist_cell(name, argv, gar, steps=MNIST_STEPS):
@@ -1294,15 +1525,29 @@ CELLS = (
                 ("victim:0", "push:1.0", "jitter:0.1")),
     attack_cell("mnist-mimic-median", "mimic", ("victim:0", "jitter:0.1"),
                 gar="median"),
+    # The paper's appendix grid on WRN-28-10 (`bench.py`'s wrn28x10 cell in
+    # f32 and bf16-mixed) and BASELINE.md config 5 (two local steps, the
+    # vmapped honest phase)
+    wrn_cell(APPENDIX_BULYAN, APPENDIX_BULYAN, "bulyan"),
+    wrn_cell("wrn28x10_mixed", APPENDIX_BULYAN, "bulyan", MIXED_RUN),
+    wrn_cell("cifar10-little-median-f_4-lr_pow-at_worker-nesterov",
+             "cifar10-little-median-f_4-lr_pow-at_worker-nesterov", "median"),
+    wrn_cell("cifar10-empire-krum-f_4-lr_pow-at_update-nesterov",
+             "cifar10-empire-krum-f_4-lr_pow-at_update-nesterov", "krum"),
+    wrn_cell("baseline_wrn_aksel", APPENDIX_BULYAN, "aksel",
+             ("--gar", "aksel", "--nb-local-steps", "2"), local_steps=2),
 )
+CELLS_BY_NAME = {cell.name: cell for cell in CELLS}
 PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped",
-            "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive")
+            "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive",
+            APPENDIX_BULYAN)
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
     sort_kernels.colsort, sort_kernels.lower_median,
     sort_kernels.trimmed_mean, sort_kernels.closest_mean,
-    prng_kernels.dropout_masks, prng_kernels.split_keys)}
+    prng_kernels.dropout_masks, prng_kernels.bernoulli_masks,
+    prng_kernels.split_keys)}
 
 
 def cell_argv(cell, steps, resdir):
@@ -1342,7 +1587,8 @@ def drive(cell, smi):
     # Every step and evaluation on the device-resident batches, every
     # honest phase on the program asked for
     args = driver.process_commandline(argv)
-    honest = "vmapped_phases" if args.no_grouped_workers else "grouped_phases"
+    honest = ("vmapped_phases" if args.no_grouped_workers or args.nb_local_steps > 1
+              else "grouped_phases")
     want = {"indexed_steps": steps, honest: steps,
             "indexed_evals": len(range(0, steps + 1, args.evaluation_delta))}
     if summary["counts"] != want:
@@ -1375,26 +1621,27 @@ def step_profile(cell, smi, steps=3):
             cell_argv(cell, steps, tmp)))
         _, engine, state = driver._setup(args)
     data = engine.train_data
-    lr = args.learning_rate
+    lr = args.initial_lr(0)
     phase_ms = dict.fromkeys(("draw+upload", "gather", "keys+masks", "honest",
                               "defense", "update"), 0.0)
 
     def step(state):
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         marks[0].record()
-        idx, flips = data.upload(*data.sample_indices(engine.cfg.nb_sampled))
+        idx, flips = data.upload(*engine.sample_indices())
         marks[1].record()
         xs, ys = data.gather(idx, flips)
         marks[2].record()
+        batch = engine._batch_of(xs)
         rng, _, wkeys = engine.step_keys(state.rng)
-        masks = engine.model.draw_masks(wkeys, xs.shape[1])
+        masks = engine.draw_masks(wkeys, batch)
         marks[3].record()
         honest = engine.phase_honest(state, xs, ys, lr, masks)
         marks[4].record()
         defense = engine.phase_defense(honest[-1], state.attack_state)
         marks[5].record()
-        state, _ = engine.phase_update(state, *honest, *defense, lr,
-                                       xs.shape[1], rng=rng)
+        state, _ = engine.phase_update(state, *honest, *defense, lr, batch,
+                                       rng=rng)
         marks[6].record()
         return state, marks
 
@@ -1590,20 +1837,46 @@ def resume_check(smi):
 def main():
     os.environ.setdefault("BMT_SYNTH_TRAIN", "5000")
     os.environ.setdefault("BMT_SYNTH_TEST", "500")
+    t0 = time.perf_counter()
+    phases = {}
+
+    def lap(name):
+        phases[name] = time.perf_counter() - t0 - sum(phases.values())
+
     smi = environment()
     build()
+    lap("build")
     records = key_tree_kernels(smi) + kernels_vs_plain(smi) + mnist_kernels(smi)
+    lap("kernels")
+    records += wrn_kernels(smi)
+    lap("WRN kernels")
     device_paths(smi)
+    grouped_vs_vmapped(CELLS_BY_NAME[APPENDIX_BULYAN], smi, timed=True)
+    grouped_vs_vmapped(CELLS_BY_NAME[
+        "cifar10-little-median-f_4-lr_pow-at_worker-nesterov"], smi,
+        worker_momentum=True, timed=True)
+    lap("device paths")
     totals = collections.Counter()
     for cell in CELLS:
+        if cell.family == "wrn" and "cells" not in phases:
+            lap("cells")  # the WRN cells come last, each timed
         for (kernel, dtype), count in drive(cell, smi).items():
             totals[kernel, dtype, cell.family] += count
+        if cell.family == "wrn":
+            lap(cell.name)
     resume_check(smi)
+    lap("resume")
     for cell in CELLS:
         if cell.name in PROFILED:
-            step_profile(cell, smi)
+            # brute's step is 95k device operations: one step is enough
+            # for the profile and keeps its trace's processing short
+            step_profile(cell, smi, steps=1 if cell.name == "brute" else 3)
+            lap(f"profile {cell.name}")
     for record in records:
         record["launches"] = totals[split_record_name(record["name"])]
+    log(f"seconds by phase: " + ", ".join(
+        f"{name} {seconds:.1f}" for name, seconds in phases.items())
+        + f"; {time.perf_counter() - t0:.1f} in all")
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1208,3 +1208,92 @@ def test_init_on_the_card_equals_the_cpu_bits(cuda, name):
     for (key, a), (_, b) in zip(card.state_dict().items(),
                                 cpu.state_dict().items()):
         assert torch.equal(a.cpu(), b), key
+
+
+# WRN's keep 0.7 and a sweep of other rates that are no 8-bit threshold;
+# 0 and 1 keep nothing and everything, 2^-23 only the draws whose top 23
+# bits are 0
+BERNOULLI_KEEPS = (0.7, 0.3, 0.9, 0.123456, 2.0**-23, 0.0, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep", BERNOULLI_KEEPS)
+@pytest.mark.parametrize("S,B", ((3, 5), (9, 2)))
+def test_bernoulli_mask_kernel_equals_its_plain_version(cuda, keep, S, B):
+    """`prng_kernels.bernoulli_masks` on the card against
+    `prng.bernoulli` on the CPU, bit for bit: WRN-28-10's three mask
+    shapes at (S, B) and a dense (B, F) mask; one launch each."""
+    from byzantinemomentum_tpu_torch import prng
+    from byzantinemomentum_tpu_torch.ops import prng_kernels
+    wkeys = prng.split(prng.PRNGKey(S * 100 + B), S)
+    shapes = ((B, 32, 32, 160), (B, 16, 16, 320), (B, 8, 8, 640), (B, 129))
+    for j, shape in enumerate(shapes):
+        before = prng_kernels.bernoulli_masks.launches
+        got = prng_kernels.bernoulli_masks(wkeys.to(cuda), j, shape, keep)
+        assert prng_kernels.bernoulli_masks.launches == before + 1
+        want = prng_kernels.bernoulli_masks_plain(wkeys, j, shape, keep)
+        assert got.dtype == torch.bool and got.is_cuda
+        assert torch.equal(got.cpu(), want), (keep, shape)
+    if keep in (0.0, 1.0):
+        assert bool((got == bool(keep)).all())
+
+
+@pytest.mark.gpu
+def test_wide_resnet_draws_its_masks_through_the_kernel(cuda):
+    from byzantinemomentum_tpu_torch import models, prng
+    from byzantinemomentum_tpu_torch.ops import _cuda, prng_kernels
+    args = {"depth": 16, "widen_factor": 2, "dropout_rate": 0.3,
+            "num_classes": 10}
+    card = models.build("wide_resnet-Wide_ResNet", device=cuda, **args)
+    cpu = models.build("wide_resnet-Wide_ResNet", device="cpu", **args)
+    card.init(prng.PRNGKey(5, device=cuda))
+    cpu.init(prng.PRNGKey(5))
+    for (key, a), (_, b) in zip(card.state_dict().items(),
+                                cpu.state_dict().items()):
+        assert torch.equal(a.cpu(), b), key
+    wkeys = prng.split(prng.PRNGKey(4), 3)
+    _cuda.reset_launches()
+    masks = card.draw_masks(wkeys.to(cuda), 4)
+    assert prng_kernels.bernoulli_masks.launches == 6
+    assert prng_kernels.dropout_masks.launches == 0
+    for got, want in zip(masks, cpu.draw_masks(wkeys, 4)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", (32, 16, 7))
+@pytest.mark.parametrize("k,padding", ((3, "same"), (1, "valid")))
+@pytest.mark.parametrize("shared", (False, True))
+def test_strided_grouped_conv_matches_the_vmapped_one(cuda, size, k, padding,
+                                                      shared):
+    """`grouped_conv` at stride 2 (XLA's SAME, 0 before and 1 after on an
+    even width) against `torch.func.vmap` of the per-worker `Conv` on the
+    card: the output and the input, kernel and bias gradients within rtol
+    1e-4, atol 1e-5 (cuDNN's algorithms sum in other orders; TF32 off)."""
+    from byzantinemomentum_tpu_torch.engine.step import pin_precision
+    from byzantinemomentum_tpu_torch.models.core import Conv, grouped_conv
+    pin_precision()
+    S, Bc, cin, cout = 3, 4, 16, 32
+    gen = torch.Generator(device=cuda).manual_seed(size * k)
+    x = torch.randn((S, Bc, cin, size, size), generator=gen, device=cuda)
+    w = torch.randn((S, k, k, cin, cout), generator=gen, device=cuda) / k
+    b = torch.randn((S, cout), generator=gen, device=cuda)
+    if shared:
+        w, b = w[:1].expand_as(w).contiguous(), b[:1].expand_as(b).contiguous()
+    out_size = -(-size // 2) if padding == "same" else (size - 1) // 2 + 1
+    gy = torch.randn((S, Bc, cout, out_size, out_size), generator=gen,
+                     device=cuda)
+    conv = Conv(cin, cout, k, padding, stride=2, device=cuda)
+
+    def one(x, w, b):
+        return torch.func.functional_call(conv, {"w": w, "b": b}, (x,))
+
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = torch.func.vmap(one)(*leaves)
+    want.backward(gy)
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+    got = grouped_conv(xg.flatten(0, 1), wg, bg, shared, padding, stride=2)
+    got.backward(gy.flatten(0, 1))
+    torch.testing.assert_close(got.view(want.shape), want, rtol=1e-4, atol=1e-5)
+    for mine, theirs in zip((xg, wg, bg), leaves):
+        torch.testing.assert_close(mine.grad, theirs.grad, rtol=1e-4, atol=1e-5)

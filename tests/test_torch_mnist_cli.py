@@ -153,8 +153,8 @@ def test_dataset_args_reach_the_loader(tmp_path, capsys):
         driver.run(["--device", "cpu", "--dataset", "emnist", "--dataset-args",
                     "split:nope", "--nb-steps", "1"])
     with pytest.raises(SystemExit):
-        driver.process_commandline(["--nb-local-steps", "2"])
-    assert "unrecognized arguments: --nb-local-steps" in capsys.readouterr().err
+        driver.process_commandline(["--user-input-delta", "2"])
+    assert "unrecognized arguments: --user-input-delta" in capsys.readouterr().err
 
 
 def test_chip_smoke_grid_cells_are_the_reproduce_lines():
