@@ -17,8 +17,10 @@ history across steps. `state_init(f_real, d)` builds the initial state;
 the attack receives it as `state=` and returns `(rows, new_state)`
 instead of the bare rows. The engine carries it in
 `TrainState.attack_state` (`()` for a static attack, which takes no
-`state` and returns the bare rows). The port runs eagerly, so a state
-may be a host value (`attacks/warmup.py`'s step counter is an int).
+`state` and returns the bare rows). A state is a tensor on the rows'
+device (`attacks/warmup.py`'s step counter is an i32 0-d tensor), so a
+step reads nothing on the host; the engine moves `state_init`'s to its
+device.
 """
 
 import pathlib
@@ -102,12 +104,21 @@ def search_dtype(grad_honests):
     return torch.promote_types(grad_honests.dtype, torch.float32)
 
 
-def displacement(defense, honests, byz, f_decl, f_real, grad_avg):
-    """The line search's objective: `||defense(honests + f_real copies of
-    byz) - grad_avg||^2`, a 0-d tensor on the operands' device."""
-    stacked = torch.cat([honests, byz[None, :].expand(f_real, -1)])
-    aggregated = defense(gradients=stacked, f=f_decl) - grad_avg
-    return torch.dot(aggregated, aggregated)
+def displacement(defense, honests, f_decl, f_real, grad_avg):
+    """The line search's objective: `byz -> ||defense(honests + f_real
+    copies of byz) - grad_avg||^2`, a 0-d tensor on the operands' device.
+    The stacked matrix is written once, and each call rewrites only its
+    f_real Byzantine rows (the defense reads the stack and writes none
+    of it, so every call sees the matrix a concatenation would build)."""
+    h = honests.shape[0]
+    stacked = torch.cat([honests, honests.new_empty((f_real, honests.shape[1]))])
+
+    def objective(byz):
+        stacked[h:] = byz
+        aggregated = defense(gradients=stacked, f=f_decl) - grad_avg
+        return torch.dot(aggregated, aggregated)
+
+    return objective
 
 
 utils.import_directory(__name__, pathlib.Path(__file__).parent)

@@ -36,9 +36,12 @@ def attack(grad_honests, f_decl, f_real, **kwargs):
     order = torch.argsort(norms, stable=True)
     maxpos = h - f_decl
     dtype = search_dtype(grad_honests)
-    target = norms[order[maxpos]].to(dtype)
+    # Rows picked with `index_select`: indexing with a 0-d tensor would
+    # read it on the host
+    target = norms.index_select(0, order[maxpos:maxpos + 1])[0].to(dtype)
     maxnorm = torch.nextafter(target, torch.zeros_like(target))
-    vec = grad_honests[order[0]] + torch.sum(grad_honests[order[:maxpos]], dim=0)
+    vec = (grad_honests.index_select(0, order[:1])[0]
+           + torch.sum(grad_honests[order[:maxpos]], dim=0))
     attnorm = torch.sqrt(torch.sum(vec * vec))
     scale = torch.where(attnorm > 0, -maxnorm / attnorm.to(dtype), 1.0)
     byz_grad = vec.to(dtype) * scale

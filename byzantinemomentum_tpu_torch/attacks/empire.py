@@ -27,13 +27,14 @@ def attack(grad_honests, f_decl, f_real, defense, epsilon=1, **kwargs):
     if epsilon < 0:
         dtype = search_dtype(grad_honests)
         honests, avg = grad_honests.to(dtype), grad_avg.to(dtype)
+        objective = displacement(defense, honests, f_decl, f_real, avg)
 
         def eval_epsilon(x):
-            return displacement(defense, honests, avg * float(-x), f_decl,
-                                f_real, avg)
+            return objective(avg * -x)
 
-        epsilon_eff = line_maximize(eval_epsilon, evals=math.ceil(-epsilon))
-        byz_grad = avg * float(-epsilon_eff)
+        epsilon_eff = line_maximize(eval_epsilon, evals=math.ceil(-epsilon),
+                                    device=avg.device)
+        byz_grad = avg * -epsilon_eff
     else:
         byz_grad = grad_avg * weak_scalar(-epsilon, grad_avg.dtype)
     return byz_grad[None, :].expand(f_real, -1).clone()

@@ -6,7 +6,9 @@ attack-specific direction. A positive `factor` is fixed; a negative one
 line-searches the live defense's output displacement
 `||GAR(honest + byz) - avg||^2` with `ceil(-factor)` evaluations
 (`ops/linesearch.py`), each probe a call of the configured GAR, so its
-kernels. The searched factor is a float32 scalar, as in the JAX package:
+kernels. The searched factor is a float32 0-d tensor on the rows' device
+(`avg + x * att` is one f32 multiply and one add, as with the scalar),
+as the JAX package's is a float32 scalar:
 under a half dtype the probes and the returned rows are float32 (the
 engine casts the rows back). A fixed factor is a weak-typed Python scalar
 there: it is rounded to the rows' dtype first (`utils.weak_scalar`).
@@ -37,15 +39,15 @@ def make_attack(compute_direction):
         if factor < 0:
             dtype = search_dtype(grad_honests)
             honests, avg, att = (x.to(dtype) for x in (grad_honests, grad_avg, grad_att))
+            objective = displacement(defense, honests, f_decl, f_real, avg)
 
             def eval_factor(x):
-                eff = -x if negative else x
-                return displacement(defense, honests, avg + float(eff) * att,
-                                    f_decl, f_real, avg)
+                return objective(avg + (-x if negative else x) * att)
 
-            factor_eff = line_maximize(eval_factor, evals=math.ceil(-factor))
+            factor_eff = line_maximize(eval_factor, evals=math.ceil(-factor),
+                                       device=avg.device)
             factor_eff = -factor_eff if negative else factor_eff
-            byz_grad = avg + float(factor_eff) * att
+            byz_grad = avg + factor_eff * att
         else:
             # The fixed factor rounded to the rows' dtype, as JAX applies it
             factor_eff = weak_scalar(-factor if negative else factor,

@@ -3,9 +3,12 @@ attack (`byzantinemomentum_tpu/attacks/warmup.py`, `alie-warmup`).
 
 For the first `window` steps the rows burst at `-burst * mean` (the Fall
 of Empires direction); from then on they hide inside the honest variance
-envelope, as ALIE rows at a small `z`. The state is the step counter, a
-host int here (the port's `TrainState.steps` is one too); a call with no
-Byzantine row returns it unchanged, as the JAX package does.
+envelope, as ALIE rows at a small `z`. The state is the step counter,
+an i32 0-d tensor as in the JAX package (the engine moves it to its
+device), and the rows are `torch.where(step < window, burst, hidden)`
+with both computed, as JAX computes them, so the schedule reads nothing
+on the host; a call with no Byzantine row returns the state unchanged,
+as the JAX package does.
 """
 
 import torch
@@ -16,8 +19,9 @@ __all__ = ["attack", "state_init"]
 
 
 def state_init(f_real, d):
-    """The step counter (the only history the schedule needs)."""
-    return 0
+    """The step counter (the only history the schedule needs), on the
+    CPU: `Engine.init` moves it to the engine's device."""
+    return torch.zeros((), dtype=torch.int32)
 
 
 def attack(grad_honests, f_decl, f_real, defense, state=None, window=12,
@@ -26,13 +30,12 @@ def attack(grad_honests, f_decl, f_real, defense, state=None, window=12,
     `(rows, step + 1)`."""
     if f_real == 0:
         return empty_byzantine(grad_honests), state
-    step = 0 if state is None else state
-    if step < window:
-        hot = -float(burst) * torch.mean(grad_honests, dim=0)
-        rows = hot[None, :].expand(f_real, -1).clone()
-    else:
-        rows = alie.attack(grad_honests, f_decl, f_real, defense,
-                           z=float(z), jitter=jitter)
+    step = (torch.zeros((), dtype=torch.int32, device=grad_honests.device)
+            if state is None else state)
+    hot = -float(burst) * torch.mean(grad_honests, dim=0)
+    hidden = alie.attack(grad_honests, f_decl, f_real, defense, z=float(z),
+                         jitter=jitter)
+    rows = torch.where(step < window, hot[None, :].expand(f_real, -1), hidden)
     return rows.to(grad_honests.dtype), step + 1
 
 

@@ -16,9 +16,11 @@ msgpack-python chooses; bfloat16 arrays travel as their 16-bit words.
 
 The port's `TrainState` (`engine/state.py`) maps onto the JAX layout:
 `net_state` `{"b1.mean": ...}` nests as `{"b1": {"mean": ...}}`; `rng`
-(int64 words) is written as uint32 `[2]`; `steps`, `datapoints` and
-`past_count` (host ints) as int32 0-d arrays, as is an integer attack
-state (`alie-warmup`'s step counter); the JAX `fault_buffer`, which the
+(int64 words) is written as uint32 `[2]`; `steps`, `datapoints` (host
+ints) and `past_count` (an i32 0-d tensor) as int32 0-d arrays, as is an
+integer attack state (`alie-warmup`'s step counter, an i32 0-d tensor),
+and each comes back as the template holds it (a tensor on the
+template's device, or an int); the JAX `fault_buffer`, which the
 port has no use for, as the empty `(0, d)` array a run without a fault
 plan holds. Arrays above flax's chunk size (`MAX_CHUNK_SIZE` bytes),
 which flax splits into chunks, are refused.
@@ -323,13 +325,20 @@ def _to_state_dict(value):
     return value
 
 
+def _int32(value):
+    """A counter (an int or a 0-d tensor) as the int32 0-d array the JAX
+    file holds."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.int32)
+
+
 def state_dict(state):
     """The JAX `TrainState`'s state dict of a port `TrainState` (host
     arrays), as `save` writes it."""
     theta = state.theta.detach().cpu()
     out = {name: getattr(state, name).detach().cpu() for name in _ARRAYS}
-    out.update({name: np.asarray(getattr(state, name), np.int32)
-                for name in _COUNTERS})
+    out.update({name: _int32(getattr(state, name)) for name in _COUNTERS})
     out["net_state"] = _nest({name: value.detach().cpu()
                               for name, value in state.net_state.items()})
     out["opt_state"] = _to_state_dict(state.opt_state)
@@ -350,7 +359,8 @@ def _tensor(value):
     value = np.asarray(value)
     if value.dtype == np.uint32:
         value = value.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(value))
+    # (`np.ascontiguousarray` would make a 0-d array 1-d)
+    return torch.from_numpy(value.copy(order="C"))
 
 
 def _restore_like(path, name, ref, value):
@@ -505,7 +515,10 @@ def load(path, template, *, return_data=False):
                             f"expected ()")
             if name != "past_count" and int(count) < 0:
                 _fail(path, f"invalid {name} counter {int(count)!r}")
-            out[name] = int(count)
+            ref = getattr(template, name)
+            out[name] = (torch.tensor(int(count), dtype=ref.dtype,
+                                      device=ref.device)
+                         if isinstance(ref, torch.Tensor) else int(count))
         elif name == "rng":
             key = _tensor(np.asarray(value).astype(np.uint32))
             if tuple(key.shape) != (2,):

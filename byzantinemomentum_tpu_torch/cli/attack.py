@@ -5,8 +5,24 @@ Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
 JAX driver that the port does not have yet (meshes, fault plans,
-diagnostics, health and rollbacks, telemetry, the `--gars` mixture, ...)
-are refused by the parser rather than ignored.
+diagnostics, health and rollbacks, telemetry, the `--gars` mixture,
+`--user-input-delta`, ...) are refused by the parser rather than
+ignored.
+
+Fused dispatch, as in the JAX driver: `--steps-per-program M` (default
+8) runs up to M steps a dispatch (`Engine.train_multi_indexed`), each
+chunk ending at the next evaluation, checkpoint or `--nb-steps` limit; a
+chunk's batches are one draw of its M * S * k batches (so on a flipped
+split they depend on M where an epoch ends inside a chunk, as in the
+JAX driver), its learning rates are worked out per step from the
+schedule (an f32 array, `jnp.asarray(lrs, jnp.float32)`), and nothing of
+a step is read on the host: the driver keeps its own step and point
+counters, and a chunk's study rows reach the host in one transfer once
+the next chunk is queued. `--device-gar <device>` places the defense
+phase (the attack with its line search, the GAR, the influence) on
+another device, the honest rows hopping there and the results back every
+step (`engine/program.py::device_gar_step`); it forces
+`--steps-per-program 1`, as the JAX driver does.
 
 `--seed` gives the JAX run: the root key is `PRNGKey(seed)`, the model's
 weights come from `model.init(root key)` and the engine's step key from
@@ -36,8 +52,11 @@ a step and submit its displacement over the learning rate, as the JAX
 engine does (the honest phase is then the vmapped one).
 
 Batches come from the device-resident splits (`data/device.py`), as in
-the JAX driver without `--mesh` and `--device-gar` (flags the port does
-not have). The honest phase is the grouped program unless
+the JAX driver without `--mesh` (a flag the port does not have). Under
+`--device-gar` the JAX driver samples on the host (`Dataset.sample`,
+each batch's indices, then its flips); the port draws the indices and
+flips in that order (`DeviceData.sample_batches`) and gathers them on
+the device. The honest phase is the grouped program unless
 `--no-grouped-workers`.
 
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
@@ -68,6 +87,7 @@ from byzantinemomentum_tpu_torch import optim, prng, utils
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
     DTYPES, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine, EngineConfig)
+from byzantinemomentum_tpu_torch.engine import program
 
 __all__ = ["process_commandline", "run", "main"]
 
@@ -87,6 +107,12 @@ def process_commandline(argv=None):
         help="Fixed seed for reproducibility, negative for random seed")
     add("--device", type=str, default="cuda",
         help="Device to run on: 'cuda' (default), 'cuda:<index>' or 'cpu'")
+    add("--device-gar", type=str, default="same",
+        help="Device/platform on which to run the defense phase (attack + "
+             "GAR), 'same' to fuse it into the training program (the fast "
+             "default). E.g. 'cpu': the honest gradients hop to the CPU "
+             "every step and the defense gradient hops back — the "
+             "reference's heterogeneous placement")
     add("--dtype", type=str, default="float32",
         help="Parameter/gradient dtype: float32, bfloat16, float16, float64 "
              "(the reference Configuration's dtype, configuration.py:26-101)")
@@ -177,6 +203,13 @@ def process_commandline(argv=None):
         help="Steps between evaluations, 0 for none")
     add("--checkpoint-delta", type=int, default=0,
         help="Steps between checkpoints, 0 for none")
+    add("--steps-per-program", type=int, default=8,
+        help="Training steps fused into one compiled dispatch (lax.scan); "
+             "milestones always force a boundary, so the per-step trajectory "
+             "and CSV output are identical to 1 (which disables fusion). "
+             "Each distinct residual window (when a milestone delta is not a "
+             "multiple of this) compiles a separate program — pick a divisor "
+             "of the evaluation/checkpoint deltas to avoid extra compiles")
     return parser.parse_args(sys.argv[1:] if argv is None else argv)
 
 
@@ -364,18 +397,17 @@ class _ResultFiles:
             fd.close()
 
 
-def _study_row(metrics, steps, datapoints, float_format):
-    """One study CSV row; the device values move to the host in one
-    transfer (widened to float64, which holds every dtype's value
-    exactly)."""
-    values = [metrics[column] for column in STUDY_COLUMNS[2:]]
-    tensors = [v.double() for v in values if isinstance(v, torch.Tensor)]
-    host = iter(torch.stack(tensors).tolist() if tensors else ())
-    values = [next(host) if isinstance(v, torch.Tensor) else v
-              for v in values]
-    return ([steps, datapoints]
-            + [float_format % float(v) for v in values[:-1]]
-            + [float(values[-1])])
+def _study_rows(metrics, steps, datapoints, increment, count, float_format):
+    """The study CSV rows of a chunk of `count` steps from `steps` (its
+    first step's point count `datapoints`, `increment` points a step):
+    the chunk's stacked device columns (`stack_metrics`) move to the host
+    in one transfer, widened to float64, which holds every dtype's value
+    exactly."""
+    columns = STUDY_COLUMNS[2:]
+    host = torch.stack([metrics[column].double() for column in columns]).tolist()
+    return [[steps + i, datapoints + i * increment]
+            + [float_format % values[i] for values in host[:-1]]
+            + [float(host[-1][i])] for i in range(count)]
 
 
 def _setup(args):
@@ -384,6 +416,19 @@ def _setup(args):
     `model.init(PRNGKey(seed))` and the state from
     `engine.init(PRNGKey(seed))`, the JAX driver's order."""
     device = utils.resolve_device(args.device)
+    # The defense's placement, `args.gar_device` (the JAX driver's
+    # checks and message)
+    device_gar = (args.device_gar or "same").lower()
+    args.gar_device = None
+    if device_gar not in ("same", ""):
+        try:
+            args.gar_device = utils.resolve_device(device_gar)
+        except (RuntimeError, utils.UserException) as err:
+            utils.fatal(f"Invalid '--device-gar {args.device_gar}': {err}")
+        if args.steps_per_program > 1:
+            utils.info("'--device-gar' hops devices every step; "
+                       "multi-step fusion disabled")
+            args.steps_per_program = 1
     seed = args.seed if args.seed >= 0 else int.from_bytes(os.urandom(4), "little")
     np.random.seed(seed % 2**32)
     root_key = prng.PRNGKey(seed, device=device)
@@ -512,12 +557,14 @@ def _load(args, engine, state):
 
 def run(argv=None):
     """Run one experiment. Returns a summary dict: `steps`, `device`,
-    `steps_per_s` (training steps per second after the first step, whose
-    time includes one-time set-up such as the kernel build; evaluations
-    and checkpoints excluded; None under two steps), `result_directory`,
-    `resume_step` (None on a cold start) and `counts` (the engine's
-    counts of indexed steps and evaluations and of grouped and vmapped
-    honest phases)."""
+    `steps_per_s` (training steps per second over the steps after the
+    first chunk, whose time includes one-time set-up such as the kernel
+    build; evaluations and checkpoints excluded; None when the first
+    chunk is the last), `result_directory`, `resume_step` (None on a
+    cold start) and `counts` (the engine's counts of indexed steps and
+    evaluations, of grouped and vmapped honest phases, of multi-step
+    dispatches (chunks of more than one step) and of `--device-gar` hop
+    steps)."""
     with utils.Context("cmdline"):
         args = _postprocess(process_commandline(argv))
     with utils.Context("setup"):
@@ -531,13 +578,20 @@ def run(argv=None):
     fd_eval = results.get("eval") if results else None
     fd_study = results.get("study") if results else None
     recovery = (0, restarts) if args.auto_resume else ()
+    hop = (program.build_step(engine, gar_device=args.gar_device)
+           if args.gar_device is not None else None)
+    # The host's own step and point counters (the JAX driver's mirrors):
+    # they advance by the chunk's arithmetic, so the state is never read
+    steps_host, datapoints_host = int(state.steps), int(state.datapoints)
+    increment = args.batch_size * cfg.nb_honests * cfg.nb_local_steps
     # An actual auto-resume counts --nb-steps from step 0: a supervisor
     # re-issues the same command line
     steps_limit = (None if args.nb_steps < 0
                    else args.nb_steps if resume_step is not None
-                   else state.steps + args.nb_steps)
+                   else steps_host + args.nb_steps)
     chaos_kill = os.environ.get("BMT_CHAOS_KILL_AT_STEP")
     chaos_kill = int(chaos_kill) if chaos_kill else None
+    per_program = max(args.steps_per_program, 1)
 
     def sync():
         if device.type == "cuda":
@@ -545,18 +599,18 @@ def run(argv=None):
 
     def flush(pending):
         if pending is not None and fd_study is not None:
-            results.store(fd_study, *_study_row(*pending, float_format),
-                          *recovery)
+            for row in _study_rows(*pending, float_format):
+                results.store(fd_study, *row, *recovery)
 
-    pending = None          # the previous step's (metrics, step, points)
-    clock = None            # (start, paused seconds) once step 1 is done
-    first_step = state.steps
-    current_lr = args.initial_lr(state.steps)
+    pending = None          # the previous chunk's (metrics, step, points, M)
+    clock = None            # (start, paused seconds) once chunk 1 is done
+    timed_from = None       # the step count the throughput counts from
+    current_lr = args.initial_lr(steps_host)
     just_loaded = args.load_checkpoint is not None
     with utils.Context("training"):
         try:
             while True:
-                steps = state.steps
+                steps = steps_host
                 if chaos_kill is not None and steps >= chaos_kill:
                     os.kill(os.getpid(), signal.SIGKILL)
                 milestone_eval = (args.evaluation_delta > 0
@@ -600,31 +654,50 @@ def run(argv=None):
                     clock[1] += time.perf_counter() - t_pause
                 if steps_limit is not None and steps >= steps_limit:
                     break
-                new_lr = args.compute_new_learning_rate(steps)
-                if new_lr is not None:
-                    current_lr = new_lr
-                datapoints = state.datapoints
-                state, metrics = engine.train_step_indexed(
-                    state, *engine.sample_indices(), current_lr)
-                # The previous step's row moves to the host once this one
-                # is enqueued
+                # The chunk runs to the next milestone boundary, at most
+                # --steps-per-program steps (the JAX driver's horizon)
+                bounds = [(steps // delta + 1) * delta
+                          for delta in (args.evaluation_delta,
+                                        args.checkpoint_delta) if delta > 0]
+                if steps_limit is not None:
+                    bounds.append(steps_limit)
+                horizon = min(bounds, default=steps + per_program)
+                M = max(1, min(per_program, horizon - steps))
+                # Per-step learning rates over the chunk, as an f32 array
+                lrs = []
+                for step in range(steps, steps + M):
+                    new_lr = args.compute_new_learning_rate(step)
+                    if new_lr is not None:
+                        current_lr = new_lr
+                    lrs.append(current_lr)
+                # One draw of the chunk's batches (under --device-gar in
+                # the order of the JAX driver's host-staged batches)
+                idx, flips = engine.sample_indices(M, batchwise=hop is not None)
+                state, metrics = engine.train_multi_indexed(
+                    state, idx, flips, np.asarray(lrs, np.float32), step=hop)
+                steps_host += M
+                datapoints_host += M * increment
+                # The previous chunk's rows move to the host once this
+                # one is queued
                 flush(pending)
-                pending = (metrics, steps, datapoints) if cfg.study else None
+                pending = ((metrics, steps, datapoints_host - M * increment,
+                            increment, M) if cfg.study else None)
                 if clock is None:
                     sync()
                     clock = [time.perf_counter(), 0.0]
+                    timed_from = steps_host
         finally:
             flush(pending)
             if results is not None:
                 results.close()
     sync()
-    timed = state.steps - first_step - 1
+    timed = 0 if timed_from is None else steps_host - timed_from
     rate = None
-    if clock is not None and timed > 0:
+    if timed > 0:
         rate = timed / (time.perf_counter() - clock[0] - clock[1])
         utils.info(f"Throughput: {rate:.3f} steps/s over the last {timed} of "
-                   f"{state.steps} steps on {device}")
-    return {"steps": state.steps, "device": str(device), "steps_per_s": rate,
+                   f"{steps_host} steps on {device}")
+    return {"steps": steps_host, "device": str(device), "steps_per_s": rate,
             "result_directory": args.result_directory,
             "resume_step": resume_step, "counts": dict(engine.counts)}
 

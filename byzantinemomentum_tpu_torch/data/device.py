@@ -3,13 +3,17 @@
 The driver's default path, as in the JAX package: each split's uint8
 inputs and labels go to the engine's device once (CIFAR-10's train split
 is 150 MB), and a step ships only its `(S, B)` int32 indices and bool
-flip mask (`(S, k, B)` at k local steps: `Engine.sample_indices`), one
-small tensor each; the gather, the flips, the conversion
+flip mask (`(S, k, B)` at k local steps: `Engine.sample_indices`; a
+chunk of M fused steps ships its `[M, ...]` arrays, one draw and one copy
+each), one small tensor each; the gather, the flips, the conversion
 and the normalization run on the device. The host `Dataset` keeps drawing
 the indices and flips, in the JAX `DeviceData`'s order: all `count` index
 rows of a call first, then all `count` flip rows. (`Dataset.sample`
 interleaves them batch by batch, so the two paths see other batches once
-a train epoch ends inside a call.)
+a train epoch ends inside a call. Under `--device-gar` the JAX driver
+samples on the host, in that order; `sample_batches` draws it, and the
+gather stays on the device, so only the transform's last-bit rounding
+differs from the JAX host transform there.)
 
 Rounding, as XLA compiles the JAX gather: `x / 255` becomes a product
 with the f32 reciprocal, `x * (1/255) - mean` one fused multiply-add, and
@@ -31,7 +35,20 @@ the two, so the JAX `DeviceData.supports` check has no counterpart.
 import numpy as np
 import torch
 
-__all__ = ["DeviceData"]
+__all__ = ["DeviceData", "to_device"]
+
+
+def to_device(array, device):
+    """A host array as a tensor on `device`: one copy, from pinned memory
+    and asynchronous on a card (the caching host allocator keeps a pinned
+    block until its copy has run), so the host never waits on it."""
+    array = np.asarray(array)
+    tensor = torch.from_numpy(array if array.flags.c_contiguous
+                              else array.copy(order="C"))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tensor
+    return tensor.pin_memory().to(device, non_blocking=True)
 
 
 class DeviceData:
@@ -78,15 +95,20 @@ class DeviceData:
         flips = np.stack([self._host.sample_flips() for _ in range(count)])
         return idx.astype(np.int32), flips
 
+    def sample_batches(self, count):
+        """`sample_indices` drawn batch by batch, each index row then its
+        flip row: the order of `Dataset.sample`, the JAX driver's
+        host-staged batches. It differs from `sample_indices` only on a
+        flipped split where an epoch ends inside the draw."""
+        rows = [(self._host.sample_indices(), self._host.sample_flips())
+                for _ in range(count)]
+        idx, flips = (np.stack(column) for column in zip(*rows))
+        return idx.astype(np.int32), flips
+
     def upload(self, idx, flips):
-        """The host half's arrays as tensors on the device: one copy each,
-        from pinned memory and asynchronous on a card (the caching host
-        allocator keeps a pinned block until its copy has run)."""
-        idx, flips = torch.from_numpy(idx), torch.from_numpy(flips)
-        if self.device.type != "cuda":
-            return idx, flips
-        return (idx.pin_memory().to(self.device, non_blocking=True),
-                flips.pin_memory().to(self.device, non_blocking=True))
+        """The host half's arrays (a step's, or a chunk's `[M, ...]`) as
+        tensors on the device: one copy each (`to_device`)."""
+        return to_device(idx, self.device), to_device(flips, self.device)
 
     def gather(self, idx, flips):
         """`idx: int[..., B]`, `flips: bool[..., B]` on the device ->

@@ -14,8 +14,11 @@ its operands (the parameter dtype; the average loss in the compute
 dtype), and the curvature's f32 momentum weights promote it to at least
 f32.
 
-Values stay on the device; the driver moves one step's row to the host in
-one transfer.
+Values stay on the device, and nothing here reads one on the host:
+`past_count` is an i32 0-d tensor, and the curvature is computed over
+every past slot weighted by `arange(P) < past_count`, the JAX package's
+own masked sum. The driver moves a chunk's rows to the host in one
+transfer.
 """
 
 import torch
@@ -70,12 +73,15 @@ def cosine(a, na, b, nb):
 
 
 def push_past(past_grads, past_norms, past_count, grad, norm):
-    """`deque.appendleft` on the past-gradient ring."""
-    if past_grads.shape[0] == 0:
+    """`deque.appendleft` on the past-gradient ring; the count saturates
+    at P on the device."""
+    P = past_grads.shape[0]
+    if P == 0:
         return past_grads, past_norms, past_count
     past_grads = torch.cat([grad[None, :], past_grads[:-1]])
     past_norms = torch.cat([norm[None], past_norms[:-1]])
-    return past_grads, past_norms, min(past_count + 1, past_grads.shape[0])
+    past_count = torch.minimum(past_count + 1, torch.full_like(past_count, P))
+    return past_grads, past_norms, past_count
 
 
 def study_metrics(*, loss_avg, l2_origin, G_sampled, G_honest, G_attack,
@@ -90,13 +96,19 @@ def study_metrics(*, loss_avg, l2_origin, G_sampled, G_honest, G_attack,
     defense_mx = torch.max(torch.abs(grad_defense))
 
     P = past_grads.shape[0]
-    if P > 0 and past_count > 0:
-        cosin_sampled = torch.dot(sampled_avg, past_grads[0]) / sampled_na / past_norms[0]
+    if P > 0:
+        has_past = past_count > 0
+        cosin_sampled = torch.where(
+            has_past,
+            torch.dot(sampled_avg, past_grads[0]) / sampled_na / past_norms[0],
+            _NAN)
         # mu * sum_i mu^i <sampled_avg, past_i> over the valid entries
-        weights = momentum ** torch.arange(past_count, dtype=torch.float32,
-                                           device=past_grads.device)
-        dots = past_grads[:past_count] @ sampled_avg
-        curv_sampled = momentum * torch.sum(weights * dots)
+        device = past_grads.device
+        weights = momentum ** torch.arange(P, dtype=torch.float32, device=device)
+        valid = (torch.arange(P, device=device) < past_count).to(torch.float32)
+        dots = past_grads @ sampled_avg
+        curv_sampled = torch.where(
+            has_past, momentum * torch.sum(weights * valid * dots), _NAN)
     else:
         cosin_sampled = _NAN
         curv_sampled = _NAN

@@ -3,12 +3,17 @@
 Parameters live as ONE flat `[d]` vector in the parameter dtype
 (`cfg.dtype`); every other tensor of the state takes theta's dtype, so
 the momentum algebra, the GARs and the study stay in it, as in the JAX
-package. All of them work on flat vectors. Counters are host integers: the
-port runs eagerly, so nothing has to live on the device to be traced.
+package. All of them work on flat vectors. `past_count`, the number of valid
+past-gradient slots, is an i32 0-d tensor on theta's device, as in the
+JAX package: the study metrics weight the slots by it instead of
+slicing, so no step reads it on the host. `steps` and `datapoints` are
+host integers that advance by the step's own arithmetic (the driver
+keeps its own copies, as the JAX driver does), so they need no read
+either.
 `rng` is the step's PRNG key, the JAX `TrainState.rng`: an int64 `[2]`
 tensor of two uint32 words on the device (`prng.py`), split once a step.
-`attack_state` is a stateful attack's history (`attacks/__init__.py`),
-`()` for a static attack.
+`attack_state` is a stateful attack's history (`attacks/__init__.py`,
+tensors on theta's device), `()` for a static attack.
 A step returns a new `TrainState` and writes none of the old one's
 tensors.
 """
@@ -31,7 +36,7 @@ class TrainState:
     origin: torch.Tensor            # [d] initial params (empty if no study)
     past_grads: torch.Tensor        # [P, d] ring of past sampled averages
     past_norms: torch.Tensor        # [P] their norms ('appendleft' order)
-    past_count: int                 # number of valid past entries
+    past_count: torch.Tensor        # i32 0-d: valid past entries
     steps: int                      # step counter
     datapoints: int                 # training point counter
     rng: torch.Tensor = None        # int64 [2] PRNG key on the device
@@ -57,7 +62,7 @@ def init_state(cfg, theta, net_state, rng=None, opt_state=(),
         origin=theta.clone() if cfg.study else zeros((0,)),
         past_grads=zeros((past, d)),
         past_norms=zeros((past,)),
-        past_count=0,
+        past_count=torch.zeros((), dtype=torch.int32, device=theta.device),
         steps=0,
         datapoints=0,
         rng=rng,

@@ -2,7 +2,9 @@
 
 One call to `Engine.train_step(state, xs, ys, lr)` performs one iteration
 of the reference's hot loop, in three phases as in the JAX package (after
-the step's keys, `step_keys`):
+the step's keys, `step_keys`); `Engine.train_multi(state, xs, ys, lrs)`
+runs M of them on a chunk's batches and learning rates, the JAX
+`lax.scan` program (see "Fused dispatch" below):
 
   honest  — the S per-worker losses and gradients as one batched program,
             with the Nesterov lookahead variants: the grouped program
@@ -33,18 +35,31 @@ parameters, state, gradients and so the GAR stack are in the parameter
 dtype; the forward and backward run in the compute dtype (inputs and
 parameters cast on entry, so a mixed-precision gradient comes back in the
 parameter dtype); the BatchNorm running-stat fold runs at
-`promote_types(dtype, float32)`; the learning rate is rounded to the
-parameter dtype; the attack rows and the aggregate are cast back to the
-honest rows' dtype. Python scalars (momentum, clip) enter half arithmetic
-as torch has them, at f32 before one rounding, where the JAX package
-rounds them to the half dtype first.
+`promote_types(dtype, float32)`; the learning rate is a 0-d tensor on
+the engine's device rounded to the parameter dtype (`round_lr`); the
+attack rows and the aggregate are cast back to the honest rows' dtype.
+Python scalars (momentum, dampening, clip, weight decay) are rounded to
+the parameter dtype before they meet a tensor (`weak`,
+`utils.weak_scalar`), as JAX applies a weak-typed scalar.
+
+Fused dispatch (`byzantinemomentum_tpu/engine/step.py:285-303`): a step
+reads nothing on the host, so M of them queue back to back. The
+acceptation ratio is an f32 0-d tensor (NaN for a GAR without
+influence), `TrainState.past_count` and a stateful attack's state are
+device tensors, the line search keeps its state on the device
+(`ops/linesearch.py`) and the learning rate is a device tensor.
+`train_multi(state, xs, ys, lrs)` and `train_multi_indexed(state, idx,
+flips, lrs)` take a chunk of M steps (`[M, S, B, ...]` batches or host
+indices, `lrs f32[M]` on the host), upload the chunk's indices, flips and
+rates once and return the state and every study column stacked as a
+device tensor `[M]` (`stack_metrics`), the JAX scan's outputs.
 
 Device-resident batches (`attach_data`, `data/device.py`): the driver's
 default path. `train_step_indexed(state, idx, flips, lr)` and
 `eval_many_indexed` take a step's host indices and flips, upload them
 and gather the batch on the device. `Engine.counts` counts indexed steps
-and evaluations and grouped and vmapped honest phases, so a run can show
-which path it took.
+and evaluations, grouped and vmapped honest phases and multi-step
+dispatches (`multi_dispatches`), so a run can show which path it took.
 
 Randomness: the JAX package's key tree. `init(key)` sets
 `TrainState.rng` to `fold_in(key, 1)` (the driver's key is
@@ -62,18 +77,22 @@ parity tests feed the JAX masks).
 import collections
 import math
 
+import numpy as np
 import torch
 from torch.func import functional_call, grad, vmap
 
 from byzantinemomentum_tpu_torch import prng
+from byzantinemomentum_tpu_torch.data.device import to_device
 from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
+from byzantinemomentum_tpu_torch.engine.program import tree_to
 from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
 from byzantinemomentum_tpu_torch.models import FlatParams, grouped_forward
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
 from byzantinemomentum_tpu_torch.ops import prng_kernels
 from byzantinemomentum_tpu_torch.utils import weak_scalar
 
-__all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision"]
+__all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision",
+           "stack_metrics"]
 
 
 def pin_precision():
@@ -118,7 +137,7 @@ def compose_bn_updates(net_state0, per_worker_states, count, local_steps=1):
     for name, r0 in net_state0.items():
         acc = torch.promote_types(r0.dtype, torch.float32)
         stack = per_worker_states[name].to(acc)
-        weights = (torch.tensor(1.0 - m, dtype=acc, device=r0.device)
+        weights = (torch.full((), 1.0 - m, dtype=acc, device=r0.device)
                    ** torch.arange(total - 1, -1, -1, dtype=acc,
                                    device=r0.device))
         r0a = r0.to(acc)
@@ -131,6 +150,24 @@ def compose_bn_updates(net_state0, per_worker_states, count, local_steps=1):
             s = ((stack - (1.0 - m) * prev) / m).reshape(total, *r0.shape)
         contrib = torch.tensordot(weights, s, dims=1)
         out[name] = ((1.0 - m) ** total * r0a + m * contrib).to(r0.dtype)
+    return out
+
+
+def stack_metrics(steps):
+    """The study columns of M steps' metric dicts as device tensors `[M]`;
+    `{}` where the steps computed none. A column is a tensor in every step
+    or a Python NaN in every step (the attack columns without a Byzantine
+    row, a deviation over one row): the latter becomes an f32 NaN
+    column."""
+    if not steps or not steps[0]:
+        return {}
+    device = next(value.device for value in steps[0].values()
+                  if isinstance(value, torch.Tensor))
+    out = {}
+    for column, first in steps[0].items():
+        out[column] = (torch.stack([metrics[column] for metrics in steps])
+                       if isinstance(first, torch.Tensor)
+                       else torch.full((len(steps),), math.nan, device=device))
     return out
 
 
@@ -192,8 +229,8 @@ class Engine:
         theta = theta.detach().to(self.dtype, copy=True)
         attack_state = ()
         if self.attack is not None and self.attack.stateful:
-            attack_state = self.attack.state_init(
-                f_real=self.cfg.nb_real_byz, d=self.d)
+            attack_state = tree_to(self.attack.state_init(
+                f_real=self.cfg.nb_real_byz, d=self.d), self.device)
         rng = prng.fold_in(key.to(self.device), 1)
         return init_state(self.cfg, theta, net_state, rng,
                           opt_state=self.optimizer.init(theta),
@@ -304,7 +341,7 @@ class Engine:
         S, h = cfg.nb_sampled, cfg.nb_honests
         lr = self.round_lr(lr)
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
-        mu_lr = self.weak(mu * lr)
+        mu_lr = mu * lr  # in the parameter dtype, as JAX's weak mu * lr
         if masks is None:
             masks = self.draw_masks(self.step_keys(state.rng)[2],
                                     self._batch_of(xs))
@@ -373,11 +410,16 @@ class Engine:
             G_attack = G_honest.new_zeros((0, self.d))
         grad_defense = defense(torch.cat([G_honest, G_attack]), f).to(
             G_honest.dtype)
+        # An f32 0-d tensor, the JAX package's `jnp.float32(influence)`
         if self.gar.influence is None:
-            accept_ratio = math.nan
+            accept_ratio = G_honest.new_full((), math.nan, dtype=torch.float32)
         else:
-            accept_ratio = float(self.gar.influence(
-                G_honest, G_attack, f=f, **self.gar_kwargs))
+            ratio = self.gar.influence(G_honest, G_attack, f=f,
+                                       **self.gar_kwargs)
+            accept_ratio = (ratio.to(torch.float32)
+                            if isinstance(ratio, torch.Tensor)
+                            else G_honest.new_full((), ratio,
+                                                   dtype=torch.float32))
         return G_attack, grad_defense, accept_ratio, attack_state
 
     @torch.no_grad()
@@ -422,15 +464,22 @@ class Engine:
             attack_state=attack_state)
         return new_state, metrics
 
+    def lr_dtype(self):
+        """The dtype a Python learning rate takes in the JAX engine: f32,
+        or f64 in a float64 run (x64 mode)."""
+        return (torch.float64 if torch.float64 in (self.dtype, self.compute_dtype)
+                else torch.float32)
+
     def round_lr(self, lr):
-        """The learning rate as the JAX package has it (an f32 scalar, or
-        f64 in a float64 run) rounded to the parameter dtype, as a Python
-        float; the momentum and update algebra then stays in that
-        dtype."""
-        lr = torch.tensor(lr, dtype=torch.float64)
-        if self.dtype != torch.float64:
-            lr = lr.to(torch.float32)
-        return float(lr.to(self.dtype))
+        """The learning rate rounded to the parameter dtype as a 0-d
+        tensor on the engine's device (`jnp.asarray(lr).astype(theta
+        .dtype)`): a tensor (a chunk's `lrs[i]`) as it is, a Python
+        number first as the JAX engine holds it (`lr_dtype`). The
+        momentum and update algebra then stays in that dtype, and a 0-d
+        tensor on the operands' device never goes through the host."""
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), lr, dtype=self.lr_dtype(), device=self.device)
+        return lr.to(self.dtype)
 
     def weak(self, x):
         """A Python scalar rounded to the parameter dtype, as JAX applies
@@ -458,16 +507,26 @@ class Engine:
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
             *defense, lr, batch, rng=rng)
 
-    def sample_indices(self):
+    def sample_indices(self, chunk=None, batchwise=False):
         """The host indices and flips of a step's batches
         (`DeviceData.sample_indices` of S * k batches, in the JAX
         driver's order and layout): `[S, B]`, or `[S, k, B]` at k > 1
-        local steps."""
+        local steps; with `chunk` M, one draw of the M steps' M * S * k
+        batches, `[M, S, B]` or `[M, S, k, B]` (the JAX driver's chunk:
+        every index row before any flip row, so a flipped split's batches
+        depend on M where an epoch ends inside a chunk). `batchwise`
+        draws each batch's index row, then its flip row
+        (`DeviceData.sample_batches`): the order of the JAX driver's
+        host-staged batches, which `--device-gar` takes."""
         S, k = self.cfg.nb_sampled, self.cfg.nb_local_steps
-        idx, flips = self.train_data.sample_indices(S * k)
-        if k == 1:
-            return idx, flips
-        return idx.reshape(S, k, -1), flips.reshape(S, k, -1)
+        M = 1 if chunk is None else chunk
+        data = self.train_data
+        draw = data.sample_batches if batchwise else data.sample_indices
+        idx, flips = draw(M * S * k)
+        shape = (S,) if k == 1 else (S, k)
+        if chunk is not None:
+            shape = (M, *shape)
+        return idx.reshape(*shape, -1), flips.reshape(*shape, -1)
 
     def train_step_indexed(self, state, idx, flips, lr, masks=None):
         """`train_step` on the batches `idx: i32[S, B]`, `flips:
@@ -477,6 +536,44 @@ class Engine:
         data = self.train_data
         xs, ys = data.gather(*data.upload(idx, flips))
         return self.train_step(state, xs, ys, lr, masks)
+
+    def train_multi(self, state, xs, ys, lrs):
+        """M steps of `train_step` on `xs: [M, S, B, ...]`, `ys: [M, S,
+        B]` with the learning rates `lrs: f32[M]` (a host array, as the
+        JAX `_train_multi` takes them); returns the state after the M
+        steps and the study metrics stacked per column, device tensors
+        `[M]` (`stack_metrics`)."""
+        return self._chunk(state, lrs, lambda i: (xs[i], ys[i]))
+
+    def train_multi_indexed(self, state, idx, flips, lrs, step=None):
+        """`train_multi` on the host indices and flips of a chunk, `idx:
+        i32[M, S, B]`, `flips: bool[M, S, B]` (`[M, S, k, B]` at k > 1
+        local steps; `sample_indices(M)`): one upload of each, then each
+        step gathers its batches on the device (the JAX
+        `_train_multi_indexed`). `step` replaces `train_step` (a drop-in
+        such as `program.device_gar_step`'s)."""
+        data = self.train_data
+        idx, flips = data.upload(idx, flips)
+
+        def batches(i):
+            self.counts["indexed_steps"] += 1
+            return data.gather(idx[i], flips[i])
+
+        return self._chunk(state, lrs, batches, step)
+
+    def _chunk(self, state, lrs, batches, step=None):
+        """The steps of a chunk: step i on `batches(i)` at `lrs[i]`, the
+        learning rates uploaded in one copy; a chunk of more than one step
+        counts one `multi_dispatches`."""
+        lrs = to_device(np.asarray(lrs, np.float32), self.device)
+        if lrs.shape[0] > 1:
+            self.counts["multi_dispatches"] += 1
+        step = step or self.train_step
+        rows = []
+        for i in range(lrs.shape[0]):
+            state, metrics = step(state, *batches(i), lrs[i])
+            rows.append(metrics)
+        return state, stack_metrics(rows)
 
     # ----------------------------------------------------------------- #
     # Evaluation

@@ -12,8 +12,9 @@ is: at the paper's n=25, f=11 cell that is C(25, 14) = 4,457,400 subsets
 in 137 chunks. Lexicographic rank order is `itertools.combinations`
 order, and the winner is the first minimum in it: `torch.argmin` takes
 the lowest rank inside a chunk, and a strict `<` keeps the earliest
-chunk's winner across chunks. The running best stays on the device, so
-the enumeration never waits for the host.
+chunk's winner across chunks. The running best stays on the device, and
+the binomial table goes up in one asynchronous copy, so the enumeration
+never waits for the host.
 
 The enumeration is stock torch ops, as it is XLA work in the JAX package;
 the subset mean of a `gar_kernels.supported` operand is the
@@ -26,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from byzantinemomentum_tpu_torch.data.device import to_device
 from byzantinemomentum_tpu_torch.ops import gar_kernels, register
 from byzantinemomentum_tpu_torch.ops._common import (
     pairwise_distances, selection_influence)
@@ -84,7 +86,7 @@ def best_subset_mask_from_dist(dist, f):
             f"int32 rank space; the reference's Python loop is equally "
             f"infeasible at this scale)")
     device = dist.device
-    tbl = torch.from_numpy(np.array(tbl_np)).to(device)
+    tbl = to_device(np.array(tbl_np), device)  # a writable copy
     # The diagonal is +inf by convention (for per-row sorts); the diameter
     # wants it excluded instead
     offdiag = ~torch.eye(n, dtype=torch.bool, device=device)
@@ -99,10 +101,13 @@ def best_subset_mask_from_dist(dist, f):
         masks = _unrank_masks(ranks, n, k, tbl)
         pair = masks[:, :, None] & masks[:, None, :] & offdiag
         diam = torch.where(pair, dist, -torch.inf).amax(dim=(1, 2))
-        i = torch.argmin(diam)  # first minimum within the chunk
-        better = diam[i] < best_diam  # strict: earlier chunks win ties
-        best_diam = torch.where(better, diam[i], best_diam)
-        best_rank = torch.where(better, ranks[i], best_rank)
+        # The first minimum within the chunk (taken with `index_select`:
+        # indexing with a 0-d tensor would read it on the host)
+        i = torch.argmin(diam).view(1)
+        low = diam.index_select(0, i)[0]
+        better = low < best_diam  # strict: earlier chunks win ties
+        best_diam = torch.where(better, low, best_diam)
+        best_rank = torch.where(better, ranks.index_select(0, i)[0], best_rank)
     return _unrank_masks(best_rank[None], n, k, tbl)[0]
 
 

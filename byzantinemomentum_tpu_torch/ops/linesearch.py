@@ -7,60 +7,45 @@ shrinking steps around the incumbent), under a fixed evaluation budget,
 with the negative-x guard (halve toward the previous probe while the
 probe is negative). Its arithmetic on x is float32, as XLA's
 `lax.while_loop` carries it: every step, product and halving rounds to
-float32 (`numpy.float32` on the host), so the probes are the JAX
-package's probes bit for bit wherever the objective's values are. The
-objective's values are compared at their own precision (a Python float
-holds an f32 or f64 value exactly).
+float32, with subnormals flushed to zero as XLA's CPU flushes them
+(`ops/search_kernels.py`), so the probes are the JAX package's probes bit
+for bit wherever the objective's values are. The objective's values are compared at their
+own precision (f32, or f64 in a float64 run).
 
-The search runs on the host and reads one scalar a probe (the
-objective's value, a 0-d tensor on the operand's device, through
-`float()`); each probe's work stays on the objective's device.
+The search's state lives on the objective's device, as the JAX loop's
+carry does (`ops/search_kernels.py`): each probe is the objective's work
+on a 0-d f32 tensor x, then one launch of `linesearch_step` (on the card;
+its plain version on the CPU) that updates the state and writes the next
+probe. The budget is fixed, as the JAX loop always spends it, so the host
+queues the whole search and reads nothing.
 """
 
-import numpy as np
+import torch
+
+from byzantinemomentum_tpu_torch.ops import search_kernels
 
 __all__ = ["line_maximize"]
 
 
-# The JAX package's schedule: the search starts at 0 with a step of 1,
-# and a failed probe shrinks the step by 0.8
-START, DELTA, RATIO = np.float32(0.0), np.float32(1.0), np.float32(0.8)
-
-
-def line_maximize(scape, evals):
+def line_maximize(scape, evals, device=None):
     """Best-effort arg-maximize `scape: R+ -> R` under an evaluation budget.
 
     Args:
-      scape: the objective; called with a `numpy.float32` x, returns a
-        value that `float()` reads (a 0-d tensor or a number).
+      scape: the objective; called with an f32 0-d tensor x on `device`,
+        returns a 0-d f32 or f64 tensor on the same device.
       evals: positive int, total evaluation budget.
+      device: where the search runs (the objective's operands' device).
     Returns:
-      The best x found, a `numpy.float32`.
+      The best x found, an f32 0-d tensor on `device`.
     """
-    two = np.float32(2.0)
-    best_x = prop_x = START
-    delta = DELTA
-    best_y = float(scape(best_x))
-    evals -= 1
-    expanding = True
-    while evals > 0:
-        if expanding:
-            prop_x = best_x + delta
-        elif prop_x < best_x:
-            prop_x = prop_x + delta
-        else:
-            x = prop_x - delta
-            while x < 0:
-                x = (x + prop_x) / two
-            prop_x = x
-        prop_y = float(scape(prop_x))
-        evals -= 1
-        better = prop_y > best_y
-        if better:
-            best_x, best_y = prop_x, prop_y
-        if expanding and better:
-            delta = delta * two
-        else:
-            expanding = False
-            delta = delta * RATIO
-    return best_x
+    # The JAX schedule: start at 0 with a step of 1, so the first probe
+    # after the start is 0 + 1
+    xs = torch.arange(3, dtype=torch.float32, device=device).clamp_(max=1.0)
+    # (phase 0, evals - 1 left), made on the device: assigning a Python
+    # number to an element would copy it from the host and wait
+    ints = torch.arange(2, dtype=torch.int32, device=device) * (evals - 1)
+    best_y = scape(xs[0])
+    for _ in range(evals - 1):
+        xs, best_y, ints = search_kernels.linesearch_step(
+            xs, best_y, ints, scape(xs[1]))
+    return xs[0]

@@ -27,6 +27,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from byzantinemomentum_tpu_torch import prng
@@ -159,7 +160,7 @@ def bernoulli_threshold(p):
     significand `bits >> 9` of a `prng.uniform` draw u = (bits >> 9) *
     2^-23: T = ceil(float32(p) * 2^23) (exact in float64), clamped to
     [0, 2^23]; 0 for a NaN p, which no draw is below."""
-    p32 = float(torch.tensor(p, dtype=torch.float32))
+    p32 = float(np.float32(p))
     if math.isnan(p32):
         return 0
     return min(max(math.ceil(p32 * 2.0**23), 0), 2**23)

@@ -326,7 +326,7 @@ def trimmed_mean_plain(g, f):
     # A divisor on g's device: torch on CUDA turns a division by a Python
     # number into a product with its reciprocal, which may round the
     # quotient one ulp away from the kernels' division
-    count = torch.tensor(n - 2 * f, dtype=g.dtype, device=g.device)
+    count = torch.full((), n - 2 * f, dtype=g.dtype, device=g.device)
     return _sum_rows(ranks[1:], ranks[0]) / count
 
 

@@ -102,14 +102,17 @@ def threefry2x32(k1, k2, x1, x2):
 def PRNGKey(seed, device=None):
     """`jax.random.PRNGKey(seed)` for an integer seed, as JAX without x64
     computes it: `[2]` int64 words."""
-    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
-                        device=device)
+    # [0, seed] made on the device: no copy from the host to wait on
+    return torch.arange(2, dtype=torch.int64, device=device) * (int(seed) & MASK32)
 
 
 def fold_in(key, data):
     """`jax.random.fold_in(key, data)`; `data` a Python int or a 0-d
     integer tensor (taken modulo 2^32), on the key's device."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
+    data = (data.to(device=key.device, dtype=torch.int64)
+            if isinstance(data, torch.Tensor)
+            else torch.full((), int(data), dtype=torch.int64, device=key.device))
+    data = data & MASK32
     o1, o2 = threefry2x32(key[0], key[1], torch.zeros_like(data), data)
     return torch.stack([o1, o2])
 
@@ -159,8 +162,8 @@ def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
     """`jax.random.uniform`: `max(minval, u * (maxval - minval) + minval)`
     in `dtype`, u in [0, 1)."""
     floats = _unit_floats(key, tuple(shape), dtype)
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
     if dtype in (torch.float64, torch.bfloat16):
         return torch.maximum(lo, floats * (hi - lo) + lo)
     # XLA on the CPU fuses the scale and shift of f32 (and of f16, at f32)
@@ -173,7 +176,7 @@ def bernoulli(key, p, shape):
     """`jax.random.bernoulli(key, p, shape)` for a Python float p: a
     float32 uniform below float32(p); `[..., *shape]` for keys
     `[..., 2]`."""
-    threshold = torch.tensor(p, dtype=torch.float32, device=key.device)
+    threshold = torch.full((), p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < threshold
 
 
@@ -196,10 +199,10 @@ def _erfinv32(x):
 def normal(key, shape, dtype=torch.float32):
     """`jax.random.normal`: `sqrt(2) * erfinv(u)`, u uniform in
     [nextafter(-1, 0), 1)."""
-    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
-                         torch.tensor(0.0, dtype=dtype)).item()
+    # nextafter(-1, 0) = -1 + eps / 2 in every binary float type
+    lo = -1.0 + torch.finfo(dtype).eps / 2
     u = uniform(key, shape, dtype, lo, 1.0)
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=key.device)
+    sqrt2 = torch.full((), math.sqrt(2.0), dtype=dtype, device=key.device)
     if dtype == torch.float64:
         return sqrt2 * torch.erfinv(u)
     return sqrt2 * _erfinv32(u.float()).to(dtype)

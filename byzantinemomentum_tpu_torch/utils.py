@@ -7,6 +7,8 @@ import importlib
 import pathlib
 import sys
 
+import numpy as np
+
 __all__ = ["UserException", "UnavailableException", "Context", "trace",
            "info", "warning", "error", "fatal", "fatal_unavailable",
            "parse_keyval", "import_directory", "resolve_device",
@@ -98,12 +100,23 @@ def weak_scalar(x, dtype):
     operation (through float32, as JAX without x64 holds a Python float;
     float64 keeps it whole), returned as a Python float that torch then
     carries exactly (`1.1 -> 1.1015625` in bfloat16). torch would
-    otherwise apply the float32 scalar and round only the result."""
+    otherwise apply the float32 scalar and round only the result. The
+    rounding runs on the host's numbers (numpy's float32 and float16, and
+    bfloat16 as the top half of the float32 bits rounded to nearest even,
+    torch's own conversion), so a step that calls it reads no tensor."""
     import torch
 
     if dtype == torch.float64:
         return float(x)
-    return float(torch.tensor(x, dtype=torch.float32).to(dtype))
+    with np.errstate(over="ignore"):  # out of range rounds to +-inf
+        x32 = np.float32(x)
+        if dtype == torch.float16:
+            return float(np.float16(x32))
+    if dtype == torch.bfloat16 and not np.isnan(x32):
+        bits = int(x32.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return float(np.uint32(bits).view(np.float32))
+    return float(x32)
 
 
 def _auto_type(value):

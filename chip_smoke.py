@@ -7,6 +7,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    CUDA versions, the precision flags as the engine pins them.
 2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/prng_kernels.cu`
    (the key tree's dropout-mask, Bernoulli-mask and split kernels),
+   `csrc/search_kernels.cu` (the line search's `linesearch_step`),
    `csrc/gar_kernels.cu`
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
@@ -32,6 +33,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    element, at a quarter of the f32 rate) and the split of the step key
    into S + 2, with the host's time a step of each against the eager
    int64 threefry.
+   The line search's state update (`search_kernel`): `linesearch_step`
+   against its plain version on the card and the CPU's, bit for bit, on
+   swept states (expansion, contraction, the negative-x guard with prop_x
+   > 0 and with prop_x = 0 down to -0 from the largest f32 step; f32 and
+   f64 values, NaN values); its record times one probe's update (52
+   bytes: launch-bound).
    Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
@@ -111,8 +118,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. Cells through the port's driver, CIFAR-10 (synthetic fallback),
    empire-cnn, n=25, batch 50, momentum 0.99 at update, clip 5,
    nb-for-study 1: the headline cell (f=5, 5 real Byzantine workers,
-   Bulyan against `empire factor:1.1`, 10 steps), the `krum_f11` cell
-   (f=11, 11 real, Krum against `empire factor:1.1`, 10 steps), then 10
+   Bulyan against `empire factor:1.1`, 16 steps), the `krum_f11` cell
+   (f=11, 11 real, Krum against `empire factor:1.1`, 16 steps), then 16
    steps each of Median, Trimmed mean, Phocas, MeaMed and Aksel at f=11,
    11 real, against `little factor:1.5 negative:true`; the brute cell
    (f=11, 11 real, against `empire factor:1.1`) and CGE (f=11, against
@@ -124,10 +131,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    cell `cifar10-empire-bulyan-f_5-lr_0.01-at_update` as `reproduce.py`
    writes it (the headline with `--learning-rate-decay 167
    --learning-rate-decay-delta 1500 --l2-regularize 1e-2
-   --nb-for-study-past 25 --evaluation-delta 100`) (10 steps each).
+   --nb-for-study-past 25 --evaluation-delta 100`) (16 steps each).
    Then the MNIST half of the paper (synthetic MNIST and FashionMNIST,
    phishing): the driver's defaults (`default`: `mnist`, `simples-conv`,
-   n = 11, `average`, `nan` with no real Byzantine worker; 10 steps, no
+   n = 11, `average`, `nan` with no real Byzantine worker; 16 steps, no
    kernel); `BASELINE.md` configs 2-3 (`baseline_mnist_krum`, `_median`,
    `_trmean`: `simples-conv`, n = 11, f = 4 real, `empire factor:1.1`);
    seven cells of `reproduce.py::submit_mnist` with its flags unchanged
@@ -135,15 +142,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    nan` for Krum, Median, Trimmed mean, Phocas and MeaMed at f = 24 and
    Bulyan at f = 12; and `phishing-krum` (`simples-logit`, `bce`, the
    `sigmoid` criterion, n = 11, f = 4, `empire`); 50 steps each but the
-   default's 10, each cut only in steps.
+   default's 16, each cut only in steps.
    Then the adaptive attacks, whose line search calls the GAR 16 times a
    step inside the attack: `headline_adaptive` (the headline's flags with
    `--attack empire` and no `--attack-args`, the JAX default
-   `factor:-16`; 10 steps), `krum_f11_strict` (Krum, f=11, `empire-strict
+   `factor:-16`; 16 steps), `krum_f11_strict` (Krum, f=11, `empire-strict
    epsilon:-16`), `median_little_adaptive` (Median, f=11, `little
    factor:-16 negative:true`), `median_bf16_adaptive` (the same under
    `--dtype bfloat16`: f32 probes, a bf16 outer median) and `cge_anticge`
-   (CGE, f=11, `anticge`), 10 steps each; and the rest of the attack
+   (CGE, f=11, `anticge`), 16 steps each; and the rest of the attack
    registry on `baseline_mnist_krum`'s flags, 50 steps each:
    `mnist-alie-krum`, `mnist-alie-warmup-krum` (`window:25`: the burst,
    then the hidden phase), `mnist-framing-krum` (`victim:0 push:1.0
@@ -161,18 +168,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `--gar aksel --nb-local-steps 2`, the vmapped honest phase); a WRN
    step launches the split of the step key and 12 Bernoulli masks a local
    step (and at two local steps one more split, of the workers' keys).
-   Every CIFAR and WRN cell runs 10 steps (9 timed). Every run starts from
+   Every run takes the driver's default `--steps-per-program` 8: chunks
+   of up to 8 steps cut at every evaluation and checkpoint (`chunks`).
+   Every CIFAR and WRN cell runs 16 steps, two chunks of 8 (the
+   evaluation at step 16 ends the second), so the throughput, which
+   counts the steps after the first chunk, times one whole chunk of 8.
+   Every run starts from
    `--seed 1` alone: the JAX key tree gives its weights, step keys and
    dropout masks. Launch counts are zeroed before each run and read
    after it: every (kernel, dtype) count must equal exactly the count a
    step worked out from the code times the steps (`Cell.per_step`: the
    GAR's calls, the split of the step key once a step, and on
    empire-cnn the three dropout masks), and no other kernel may launch.
-   Each run must take every step and evaluation through the
-   device-resident path and every honest phase through the grouped
-   program (the vmapped one under `--no-grouped-workers` or at two local
-   steps): the engine's
-   counts must equal the step and evaluation counts. Each study CSV must
+   A searching cell launches `linesearch_step` 15 times a step (after
+   each of its 16 probes but the first). Each run must take every step
+   and evaluation through the device-resident path and every honest phase
+   through the grouped program (the vmapped one under
+   `--no-grouped-workers` or at two local steps): the engine's counts
+   must equal the step and evaluation counts, and its multi-step
+   dispatches the chunks of more than one step worked out from the
+   horizon. Each study CSV must
    carry the JAX package's header and a finite "Defense gradient norm".
    Then kill and resume (`resume_check`): an 8-step headline run with
    `--checkpoint-delta 2 --auto-resume` in child processes, twice
@@ -181,9 +196,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    uninterrupted runs are byte-equal, and the resumed CSVs must then
    equal them byte for byte (up to the `Restarts` column), else lie
    within SPREAD_FACTOR (16) times their spread, or SPREAD_FLOOR (1%) of
-   the column's largest magnitude, in every study column.
+   the column's largest magnitude, in every study column (a cosine in
+   the rows where its two vectors' norms lie beyond that bound from
+   zero: a vector the bound cannot tell from zero has no direction).
    Where the default runs are not byte-equal, the same three runs again
    with cuDNN's deterministic algorithms, held the same way.
+   Then no host read inside a step (`no_host_reads`): after a warm-up
+   step, one chunk of `Engine.train_multi_indexed` (its draw, uploads,
+   gathers and steps) under `torch.cuda.set_sync_debug_mode("error")`,
+   which fails on any synchronizing call, for the headline,
+   `headline_adaptive`, `krum_f11_strict`, `median_bf16_adaptive`,
+   `cge_anticge`, `mnist-alie-warmup-krum` and `default` (8 steps each),
+   brute (1 step), the WRN Bulyan cell (2 steps) and `baseline_wrn_aksel`
+   (2 steps at k = 2). Then `fused_vs_single`: the headline,
+   `headline_adaptive` and `default` at `--steps-per-program` 1 and 8
+   inside one call (16 steps; 20,000 synthetic CIFAR-10 train images, so
+   no epoch boundary falls inside the window: a chunk that held one
+   would draw its flips after the reshuffle), with steps/s of each; their
+   CSVs must be byte-equal under deterministic cuDNN, and in the default
+   mode within the resume check's bound (`spread_verdict`) of an M = 1
+   run, the spread taken over 2 to FUSED_SINGLE_RUNS (8) M = 1 runs,
+   drawn until it holds the M = 8 run: the default mode's runs part ways
+   after a few steps, and two runs on one branch say nothing of the
+   other. Then
+   `--device-gar cpu` on `default`, Krum against `alie-warmup` (window
+   8) and Krum against the default `empire` search (16 steps each): the
+   defense, its line search and the attack's state on the CPU, its study
+   CSV byte-equal to (or within the kernels' tolerance of) the all-card
+   run's, all under deterministic cuDNN, so that only the placement
+   differs (where the placement's last-bit differences grow past the
+   kernels' tolerance over the 16 steps, as in the curvature column,
+   within the resume check's bound of two card runs); no GAR-kernel or
+   `linesearch_step` launch, one hop a step.
 5. Where a step's time goes (over 3 warm steps, brute's over 1), for the
    headline, `krum_f11`, brute,
    mixed-precision headline, vmapped headline,
@@ -193,11 +237,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the gather on the device, the step keys and dropout masks, the honest,
    defense and update phases), the
    busiest kernels and the device's busy share (`torch.profiler`; the
-   union of the kernels' intervals, their summed times beside it).
+   union of the kernels' intervals, their summed times beside it); and
+   each of them but brute at the driver's default M = 8
+   (`chunk_profile`): wall and device-busy ms a step over one warm chunk
+   of 8.
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
-the CIFAR runs of phase 4, the two key-tree kernels' too; one
+the CIFAR runs of phase 4, the two key-tree kernels' and
+`linesearch_step`'s too; one
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
 at n = 51; `bernoulli_masks` and one `<kernel>_wrn` record per kernel at
@@ -209,6 +257,7 @@ card; exits non-zero without one.
 
 import collections
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -237,11 +286,16 @@ from byzantinemomentum_tpu_torch.engine import RECOVERY_COLUMNS, STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.ops import (
     _common, _cuda, brute, bulyan, gar_kernels, gars, krum, prng_kernels,
-    sort_kernels)
+    search_kernels, sort_kernels)
 
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 BOOL, I64 = torch.bool, torch.int64  # the mask and split kernels' counts
-STEPS = 10        # steps of every CIFAR cell
+# Steps of every CIFAR and WRN cell: two chunks of the driver's default
+# `--steps-per-program` 8 (the evaluation at the last step ends the
+# second), so the throughput, which counts the steps after the first
+# chunk, times one whole chunk
+STEPS = 16
+M_DEFAULT = 8     # the driver's --steps-per-program
 # The headline's workers and batch: its dropout masks and step keys
 HEADLINE_S, HEADLINE_B = 20, 50
 # Row counts the sorting kernels meet below, each with the trims f of
@@ -398,7 +452,7 @@ def build():
     for each m, `trimmed_mean` for each f it meets), compiled side by
     side; prints each kernel's registers and spills, and fails on a
     spill."""
-    jobs = [(prng_kernels.build,)]
+    jobs = [(prng_kernels.build,), (search_kernels.build,)]
     jobs += [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
     jobs += [(sort_kernels.build, *job) for job in MNIST_SORT_BUILDS]
     jobs += [(sort_kernels.build, kernel, n, dtype)
@@ -501,10 +555,12 @@ SOURCES = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu"
            "weighted_rows_mean": "gar_kernels.cu",
            "masked_rows_mean": "gar_kernels.cu",
            "dropout_masks": "prng_kernels.cu", "split_keys": "prng_kernels.cu",
-           "bernoulli_masks": "prng_kernels.cu"}
+           "bernoulli_masks": "prng_kernels.cu",
+           "linesearch_step": "search_kernels.cu"}
 # The key-tree kernels replace no Pallas kernel: they stand where XLA
 # generates the threefry hash in the JAX package
 REPLACES = {"dropout_masks": "models/core.py:561",
+            "linesearch_step": "ops/linesearch.py:92",
             "bernoulli_masks": "models/core.py:577",
             "split_keys": "engine/step.py:598",
             "sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
@@ -942,6 +998,77 @@ def key_tree_kernels(smi):
     return records
 
 
+def search_states():
+    """Line-search states through expansion, contraction and the guard:
+    prop_x above and below best_x, prop_x = 0 with deltas up to the
+    largest f32 (the guard halves down to -0), a subnormal step, and 48
+    random states whose values lie within 8 times the smallest normal
+    (the flushes of subnormal operands and results); better, worse,
+    equal, NaN and subnormal values (1 + 2^-40 beats 1 only in f64, 1e-40
+    is subnormal in f32 and 1e-310 in f64). Yields `(xs, best_y, ints,
+    y)` as Python values."""
+    big, tiny = float(np.finfo(np.float32).max), 1e-45
+    normal = float(np.finfo(np.float32).tiny)
+    xs = [(0.0, 1.0, 1.0), (3.0, 7.0, 4.0), (7.0, 3.0, 0.8), (5.5, 5.5, 2.25),
+          (1.0, 0.0, big), (0.0, 0.0, big), (2.0, tiny, big), (0.2, 0.2, 0.64),
+          (1e30, 1e-30, 3e38), (0.0, -0.0, 0.5), (4.0, 4.0, tiny),
+          (0.0, 2.0 ** -125, 2.0 ** -123), (0.0, normal, normal / 0.8)]
+    rng = np.random.default_rng(0)
+    xs += [tuple(float(v) for v in row)
+           for row in np.float32(rng.uniform(0, 8, (48, 3)) * normal)]
+    ys = [(0.0, 1.0), (1.0, 0.0), (2.0, 2.0), (0.0, math.nan), (math.nan, 1.0),
+          (1.0, 1.0 + 2.0 ** -40), (0.0, 1e-40), (0.0, 1e-310)]
+    for x in xs:
+        for best_y, y in ys:
+            for phase in (0, 1):
+                yield x, best_y, (phase, 9), y
+
+
+def search_kernel(smi):
+    """Phase 3, the line search's state update: `search_kernels.
+    linesearch_step` against its plain version on the card and the CPU's,
+    bit for bit (signed zeros included), on `search_states()` with f32
+    and f64 values; its record: one probe's update (52 bytes in and out
+    of the f32 form, a dozen scalar operations: launch-bound)."""
+    dev = torch.device("cuda")
+
+    def bits(t):
+        view = {torch.float32: torch.int32, torch.float64: torch.int64,
+                torch.int32: torch.int32}[t.dtype]
+        return t.contiguous().view(view).cpu()
+
+    cases = 0
+    for ydt in (torch.float32, torch.float64):
+        for x, best_y, ints, y in search_states():
+            cpu = (torch.tensor(x, dtype=torch.float32),
+                   torch.tensor(best_y, dtype=ydt),
+                   torch.tensor(ints, dtype=torch.int32),
+                   torch.tensor(y, dtype=ydt))
+            card = tuple(t.to(dev) for t in cpu)
+            got = search_kernels.linesearch_step(*card)
+            for want in (search_kernels.linesearch_step_plain(*card),
+                         search_kernels.linesearch_step_plain(*cpu)):
+                if not all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(got, want)):
+                    raise SystemExit(f"linesearch_step differs from its plain "
+                                     f"version at {x}, {best_y}, {ints}, {y} "
+                                     f"({ydt}): {[t.tolist() for t in got]} "
+                                     f"against {[t.tolist() for t in want]}")
+            cases += 1
+    log(f"linesearch_step equals its plain version on the card and the "
+        f"CPU's bit for bit in {cases} states (f32 and f64 values, the guard "
+        f"to -0, NaN values)")
+    state = (torch.tensor([0.0, 1.0, 1.0], device=dev),
+             torch.tensor(0.0, device=dev),
+             torch.tensor([0, 15], dtype=torch.int32, device=dev),
+             torch.tensor(1.0, device=dev))
+    return [timed_record(
+        "linesearch_step", "linesearch_step",
+        lambda: search_kernels.linesearch_step(*state),
+        lambda: search_kernels.linesearch_step_plain(*state), None,
+        28 + 24, 12, 0.0, smi)]
+
+
 def nan_attack_operand(n, f, d, seed, extremes=False, device="cuda"):
     """f32[n, d] on `device` as the `nan` attack leaves a GAR's input:
     n - f standard normal rows, then f rows all NaN. `extremes` adds +inf
@@ -1306,6 +1433,9 @@ LITTLE_ADAPTIVE = ("little", ("factor:-16", "negative:true"))
 STRICT_ADAPTIVE = ("empire-strict", ("epsilon:-16",))
 ANTICGE = ("anticge", ())
 PROBES = 16  # line-search evaluations a step at factor (epsilon) -16
+# The search's state update after each probe but the first, on the
+# device: `linesearch_step` counts under the objective's f32
+SEARCH_STEP = {("linesearch_step", F32): PROBES - 1}
 BF16_RUN = ("--dtype", "bfloat16")
 F16_RUN = ("--dtype", "float16")
 MIXED_RUN = ("--dtype", "float32", "--compute-dtype", "bfloat16")
@@ -1488,15 +1618,18 @@ CELLS = (
     # probes are f32 and only the outer median is bf16
     cifar_cell("headline_adaptive", "bulyan", 5, EMPIRE_ADAPTIVE,
                per_step={("sq_gram", F32): PROBES + 1,
-                         ("selected_median_mean", F32): PROBES + 1}),
+                         ("selected_median_mean", F32): PROBES + 1,
+                         **SEARCH_STEP}),
     cifar_cell("krum_f11_strict", "krum", 11, STRICT_ADAPTIVE,
                per_step={("sq_gram", F32): PROBES + 2,
-                         ("weighted_rows_mean", F32): PROBES + 1}),
+                         ("weighted_rows_mean", F32): PROBES + 1,
+                         **SEARCH_STEP}),
     cifar_cell("median_little_adaptive", "median", 11, LITTLE_ADAPTIVE,
-               per_step={("lower_median", F32): PROBES + 1}),
+               per_step={("lower_median", F32): PROBES + 1, **SEARCH_STEP}),
     cifar_cell("median_bf16_adaptive", "median", 11, LITTLE_ADAPTIVE,
                flags=BF16_RUN,
-               per_step={("lower_median", F32): PROBES, ("lower_median", BF16): 1}),
+               per_step={("lower_median", F32): PROBES, ("lower_median", BF16): 1,
+                         **SEARCH_STEP}),
     cifar_cell("cge_anticge", "cge", 11, ANTICGE, per_step={}),
     # The MNIST half: the driver's defaults (no kernel), BASELINE.md's
     # MNIST configs, the paper's grid and its cells against `nan`, phishing
@@ -1547,7 +1680,7 @@ WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     sort_kernels.colsort, sort_kernels.lower_median,
     sort_kernels.trimmed_mean, sort_kernels.closest_mean,
     prng_kernels.dropout_masks, prng_kernels.bernoulli_masks,
-    prng_kernels.split_keys)}
+    prng_kernels.split_keys, search_kernels.linesearch_step)}
 
 
 def cell_argv(cell, steps, resdir):
@@ -1556,6 +1689,20 @@ def cell_argv(cell, steps, resdir):
     grid line's `--nb-steps 300`)."""
     return ["--device", "cuda", "--seed", "1", *cell.argv,
             "--nb-steps", str(steps), "--result-directory", resdir]
+
+
+def chunks(steps, evaluation_delta, checkpoint_delta, per_program=M_DEFAULT):
+    """The chunk lengths the driver's horizon cuts a run of `steps` steps
+    into: up to `per_program` steps, ending at every evaluation and
+    checkpoint boundary and at the last step."""
+    sizes, step = [], 0
+    while step < steps:
+        bounds = [(step // delta + 1) * delta
+                  for delta in (evaluation_delta, checkpoint_delta) if delta > 0]
+        size = max(1, min(per_program, min([*bounds, steps]) - step))
+        sizes.append(size)
+        step += size
+    return sizes
 
 
 def drive(cell, smi):
@@ -1589,8 +1736,12 @@ def drive(cell, smi):
     args = driver.process_commandline(argv)
     honest = ("vmapped_phases" if args.no_grouped_workers or args.nb_local_steps > 1
               else "grouped_phases")
+    sizes = chunks(steps, args.evaluation_delta, args.checkpoint_delta,
+                   args.steps_per_program)
+    multi = sum(size > 1 for size in sizes)
     want = {"indexed_steps": steps, honest: steps,
-            "indexed_evals": len(range(0, steps + 1, args.evaluation_delta))}
+            "indexed_evals": len(range(0, steps + 1, args.evaluation_delta)),
+            **({"multi_dispatches": multi} if multi else {})}
     if summary["counts"] != want:
         raise SystemExit(f"{name}: engine counts {summary['counts']}, expected "
                          f"{want}: the run left the device-resident path or "
@@ -1601,11 +1752,36 @@ def drive(cell, smi):
     ratio = rows[-1][STUDY_COLUMNS.index("Attack acceptation ratio")]
     counts = {f"{kernel}[{DTYPE_NAMES[dt]}]": count
               for (kernel, dt), count in launches.items()}
-    log(f"{name} cell: {steps} steps, {rate:.4f} steps/s after the first "
-        f"step, engine counts {summary['counts']}, "
+    log(f"{name} cell: {steps} steps in chunks {sizes}, {rate:.4f} steps/s "
+        f"after the first chunk, engine counts {summary['counts']}, "
         f"launches {counts}, defense norms {norms[0]:.4e} .. "
         f"{norms[-1]:.4e}, acceptation ratio {ratio} on {smi}")
     return launches
+
+
+def union_busy_us(prof):
+    """The device's busy time under a `torch.profiler` window: the union
+    of the kernels' intervals on the device clock (kernels that overlap,
+    as cuDNN's engines may, would count twice in a sum)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, -math.inf
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us
+
+
+def setup_cell(cell, steps=None):
+    """A cell's engine and fresh state through the driver's own set-up
+    (`_postprocess`, `_setup`), with its study metrics on; returns
+    `(args, engine, state)`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        args = driver._postprocess(driver.process_commandline(
+            cell_argv(cell, steps or cell.steps, tmp)))
+        _, engine, state = driver._setup(args)
+    return args, engine, state
 
 
 def step_profile(cell, smi, steps=3):
@@ -1616,10 +1792,7 @@ def step_profile(cell, smi, steps=3):
     each one's time on the device's clock; `torch.profiler` gives the
     busiest kernels and the device's busy share of the wall time (the
     union of the kernels' intervals; their summed times beside it)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        args = driver._postprocess(driver.process_commandline(
-            cell_argv(cell, steps, tmp)))
-        _, engine, state = driver._setup(args)
+    args, engine, state = setup_cell(cell, steps)
     data = engine.train_data
     lr = args.initial_lr(0)
     phase_ms = dict.fromkeys(("draw+upload", "gather", "keys+masks", "honest",
@@ -1671,17 +1844,7 @@ def step_profile(cell, smi, steps=3):
             total = event.cuda_time_total
         return total / 1e3 / steps
 
-    # Busy time is the union of the kernels' intervals: kernels that
-    # overlap on the device clock (cuDNN's engines may let one start
-    # before its predecessor ends) would count twice in a sum
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, -math.inf
-    for start, end in spans:
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    busy_ms = busy_us / 1e3 / steps
+    busy_ms = union_busy_us(prof) / 1e3 / steps
     summed_ms = sum(device_ms(e) for e in kernels)
     log(f"{cell.name} step profile ({honest_path} honest phase) over "
         f"{steps} steps on {smi}: wall "
@@ -1791,33 +1954,77 @@ def resume_verdict(runs, label, smi):
             f"on {smi}")
         return True
 
-    def values(rows):
-        return np.array([[float(v) for v in row.split("\t")] for row in rows])
-
-    a, b, r = values(rows_a), values(rows_b), values(rows_r)
-    if not np.array_equal(np.isnan(r), np.isnan(a)):
-        raise SystemExit(f"resume check ({label}): NaN positions differ")
-    finite = ~np.isnan(a).all(axis=0)
-    a, b, r = (x[:, finite] for x in (a, b, r))
-    spread = np.nanmax(np.abs(b - a), axis=0)
-    off = np.nanmax(np.abs(r - a), axis=0)
-    bound = np.maximum(SPREAD_FACTOR * spread,
-                       SPREAD_FLOOR * np.nanmax(np.abs(a), axis=0))
-    log(f"resume check ({label}): largest |R - A| a column {off.tolist()}; "
-        f"spread |B - A| {spread.tolist()}; |R - A| / |B - A| "
-        f"{(off / np.where(spread > 0, spread, np.inf)).tolist()}")
-    if not bool((off <= bound).all()):
-        raise SystemExit(f"resume check ({label}): the killed and resumed run "
-                         f"left {SPREAD_FACTOR} times the spread of two "
-                         f"uninterrupted runs (and {SPREAD_FLOOR} of the "
-                         f"columns' magnitudes) in columns "
-                         f"{np.nonzero(off > bound)[0].tolist()}")
+    ratio = spread_verdict(f"resume check ({label})", (rows_a, rows_b),
+                           rows_r)
     log(f"resume check ({label}): the resumed run lies within {SPREAD_FACTOR} "
         f"times the spread of two uninterrupted runs or {SPREAD_FLOOR} of the "
         f"column's magnitude in every study column (largest |R - A| over "
-        f"the bound {float((off / np.where(bound > 0, bound, np.inf)).max()):.3f}) "
-        f"on {smi}")
+        f"the bound {ratio:.3f}) on {smi}")
     return False
+
+
+# Each study cosine and the norm columns of its two vectors. A cosine is
+# compared only in the rows where both norms, in R and in A, lie beyond
+# their columns' bounds from zero: a vector the bound cannot tell from
+# zero has no direction to hold (the adaptive attacks' rows are (1 - x)
+# times the honest mean, and their cosines change sign as the searched x
+# crosses 1)
+COSINE_NORMS = {
+    STUDY_COLUMNS.index(f"{u}-{v.lower()} cosine"): (
+        STUDY_COLUMNS.index(f"{u} gradient norm"),
+        STUDY_COLUMNS.index(f"{v} gradient norm"))
+    for u, v in itertools.combinations(
+        ("Sampled", "Honest", "Attack", "Defense"), 2)}
+
+
+def spread_verdict(label, refs, rows_r, final=True):
+    """Study rows R against A = `refs[0]`, two runs that should agree,
+    where `refs` are runs of the same thing on a card that is not
+    deterministic: NaN positions equal and every column of R within
+    SPREAD_FACTOR times the spread (the largest difference between two of
+    `refs`) or SPREAD_FLOOR of the column's largest magnitude, the
+    cosines where their vectors' norms are beyond that bound from zero
+    (`COSINE_NORMS`); logs the spread and returns the largest |R - A|
+    over its bound. Where R lies outside, fails if `final`, else returns
+    that ratio (above 1) for the caller to draw another reference run."""
+    def values(rows):
+        return np.array([[float(v) for v in row.split("\t")] for row in rows])
+
+    runs = [values(rows) for rows in refs]
+    a, r = runs[0], values(rows_r)
+    if not np.array_equal(np.isnan(r), np.isnan(a)):
+        raise SystemExit(f"{label}: NaN positions differ")
+    kept = np.nonzero(~np.isnan(a).all(axis=0))[0]
+    runs = [x[:, kept] for x in runs]
+    a, r = runs[0], r[:, kept]
+    spread = np.max([np.nanmax(np.abs(x - y), axis=0)
+                     for i, x in enumerate(runs) for y in runs[i + 1:]],
+                    axis=0)
+    bound = np.maximum(SPREAD_FACTOR * spread,
+                       SPREAD_FLOOR * np.nanmax(np.abs(a), axis=0))
+    diff = np.abs(r - a)
+    at = {column: i for i, column in enumerate(kept)}
+    masked = 0
+    for cosine, norms in COSINE_NORMS.items():
+        if cosine in at:
+            rows = np.zeros(len(a), dtype=bool)
+            for norm in (at[n] for n in norms):
+                rows |= (np.minimum(a[:, norm], r[:, norm]) <= bound[norm])
+            diff[rows, at[cosine]] = 0.0
+            masked += int(rows.sum())
+    off = np.nanmax(diff, axis=0)
+    log(f"{label}: largest |R - A| a column {off.tolist()}; "
+        f"spread of {len(runs)} runs {spread.tolist()}; |R - A| / spread "
+        f"{(off / np.where(spread > 0, spread, np.inf)).tolist()}; "
+        f"{masked} cosine entries of a vector within its bound of zero")
+    ratio = float(np.where(bound > 0, off / np.where(bound > 0, bound, 1),
+                           np.where(off > 0, np.inf, 0.0)).max())
+    if final and ratio > 1:
+        outside = [STUDY_COLUMNS[kept[i]] for i in np.nonzero(off > bound)[0]]
+        raise SystemExit(f"{label}: R left {SPREAD_FACTOR} times the spread "
+                         f"of {len(runs)} runs (and {SPREAD_FLOOR} of the "
+                         f"columns' magnitudes) in {outside}")
+    return ratio
 
 
 def resume_check(smi):
@@ -1834,6 +2041,240 @@ def resume_check(smi):
                            "cudnn.deterministic", smi)
 
 
+# The paths whose chunk runs under `set_sync_debug_mode("error")`, each
+# with its chunk length: the default 8 steps, brute's one, WRN's two
+NO_READ_CELLS = (("headline", M_DEFAULT), ("headline_adaptive", M_DEFAULT),
+                 ("krum_f11_strict", M_DEFAULT),
+                 ("median_bf16_adaptive", M_DEFAULT),
+                 ("cge_anticge", M_DEFAULT),
+                 ("mnist-alie-warmup-krum", M_DEFAULT),
+                 ("default", M_DEFAULT), ("brute", 1), (APPENDIX_BULYAN, 2),
+                 ("baseline_wrn_aksel", 2))
+
+
+def no_host_reads(smi):
+    """Phase 4, no host read inside a step: for each path of
+    `NO_READ_CELLS`, after a warm-up step, one chunk of
+    `Engine.train_multi_indexed` (the index draw, the uploads, the gathers
+    and the steps) runs under `torch.cuda.set_sync_debug_mode("error")`,
+    so any synchronizing call (`.item()`, a blocking copy, a 0-d index)
+    fails the run; the chunk's stacked columns must be `[M]` with a
+    finite defense norm."""
+    for name, M in NO_READ_CELLS:
+        cell = CELLS_BY_NAME[name]
+        args, engine, state = setup_cell(cell)
+        lrs = np.full(M, args.initial_lr(0), np.float32)
+        state, _ = engine.train_multi_indexed(state, *engine.sample_indices(1),
+                                              lrs[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = engine.train_multi_indexed(
+                state, *engine.sample_indices(M), lrs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        norms = metrics["Defense gradient norm"]
+        if norms.shape != (M,) or not bool(torch.isfinite(norms).all()):
+            raise SystemExit(f"no_host_reads {name}: defense norms {norms}")
+        log(f"no_host_reads {name}: a chunk of {M} steps queued with no "
+            f"synchronizing call in {issued * 1e3:.1f} ms of host time, done "
+            f"after {done * 1e3:.1f} ms on {smi}")
+        del engine, state, metrics
+        torch.cuda.empty_cache()
+
+
+# `fused_vs_single`'s cells, and the train split that keeps every epoch
+# boundary out of their 16 steps: 20,000 synthetic CIFAR-10 images are
+# 400 batches of 50, 20 headline steps of S = 20 (a chunk that held a
+# boundary would draw its flips after the reshuffle, unlike single steps)
+FUSED_CELLS = ("headline", "headline_adaptive", "default")
+FUSED_TRAIN = "20000"
+# In the default mode the headline's runs part ways after a few steps,
+# at M = 1 as at M = 8: cuDNN's unordered sums tip a near-tie in the
+# defense's selection one way or the other, and runs on one branch lie
+# an order of magnitude closer together than runs on two (the log gives
+# each spread). Two M = 1 runs on one branch say nothing of the other,
+# so M = 1 runs are drawn, up to FUSED_SINGLE_RUNS, until their spread
+# holds the M = 8 run (a run on no branch of theirs stays outside it)
+FUSED_SINGLE_RUNS = 8
+
+
+def fused_run(cell, M):
+    """`fused_vs_single`'s run of `cell` at `--steps-per-program` M:
+    (steps/s, eval file, study file)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = driver.run([*cell_argv(cell, STEPS, tmp),
+                              "--steps-per-program", str(M)])
+        return (summary["steps_per_s"],
+                (pathlib.Path(tmp) / "eval").read_text(),
+                (pathlib.Path(tmp) / "study").read_text())
+
+
+def fused_vs_single(smi):
+    """Phase 4, `--steps-per-program` 1 against the default 8 inside one
+    call, for `FUSED_CELLS` (16 steps each, the evaluation at step 16:
+    chunks 0-8 and 8-16), with steps/s of each. Under deterministic cuDNN
+    (and PyTorch's deterministic algorithms) the study and eval files of
+    M = 1 and M = 8 must be byte-equal; in the default mode the M = 8 run
+    must lie within the resume check's bound (`spread_verdict`:
+    SPREAD_FACTOR times the spread of the M = 1 runs, or SPREAD_FLOOR of
+    the column's magnitude) of the first M = 1 run, the spread taken over
+    2 to FUSED_SINGLE_RUNS M = 1 runs, drawn until it holds the M = 8
+    run."""
+    saved = os.environ.get("BMT_SYNTH_TRAIN")
+    os.environ["BMT_SYNTH_TRAIN"] = FUSED_TRAIN
+    try:
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            label = "deterministic" if deterministic else "default"
+            for name in FUSED_CELLS:
+                cell = CELLS_BY_NAME[name]
+                single, fused = fused_run(cell, 1), fused_run(cell, M_DEFAULT)
+                same = single[1:] == fused[1:]
+                log(f"fused_vs_single {name} ({label}): {STEPS} steps, "
+                    f"{single[0]:.4f} steps/s at M = 1, "
+                    f"{fused[0]:.4f} at M = {M_DEFAULT}; CSVs "
+                    f"{'byte-equal' if same else 'NOT byte-equal'} on {smi}")
+                if same:
+                    continue
+                if deterministic:
+                    raise SystemExit(f"fused_vs_single {name}: M = 1 and M = "
+                                     f"{M_DEFAULT} wrote other CSVs under "
+                                     f"deterministic algorithms")
+                refs = [single]
+                ratio = math.inf
+                while ratio > 1:
+                    refs.append(fused_run(cell, 1))
+                    ratio = spread_verdict(
+                        f"fused_vs_single {name} ({label})",
+                        [ref[2].split(os.linesep)[1:] for ref in refs],
+                        fused[2].split(os.linesep)[1:],
+                        final=len(refs) == FUSED_SINGLE_RUNS)
+                distinct = len({ref[1:] for ref in refs})
+                log(f"  {name}: M = {M_DEFAULT} within the bound (largest "
+                    f"|M8 - M1| over it {ratio:.3f}) of {len(refs)} M = 1 "
+                    f"runs, {distinct} of them distinct")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("BMT_SYNTH_TRAIN")
+        else:
+            os.environ["BMT_SYNTH_TRAIN"] = saved
+
+
+# `--device-gar cpu`'s cells: the driver's defaults (no defense kernel),
+# Krum against the stateful `alie-warmup` (its counter hops with the
+# rows; the window ends inside the run) and Krum against the default
+# `empire` search (16 probes of the GAR a step, on the CPU)
+DEVICE_GAR_CELLS = (
+    CELLS_BY_NAME["default"],
+    attack_cell("mnist-alie-warmup8-krum", "alie-warmup", ("window:8",)),
+    attack_cell("mnist-empire-search-krum", "empire", ()),
+)
+
+
+def hop_verdict(label, card, card2, hop):
+    """The `--device-gar cpu` run's study file `hop` against two all-card
+    runs' (`card`, `card2`): byte-equal, or within the kernels' tolerance
+    of `card`, or, where the placement's last-bit differences (the CPU's
+    sums) grew past that tolerance over the steps, within the resume
+    check's bound (`spread_verdict` against the spread of the two card
+    runs, or SPREAD_FLOOR of the column's magnitude). Returns (what held,
+    the largest |hop - card|); fails otherwise."""
+    if hop == card:
+        return "byte-equal to", 0.0
+    rows = [text.split(os.linesep)[1:] for text in (card, card2, hop)]
+    a, b = (torch.tensor([[float(v) for v in row.split("\t")] for row in r],
+                         dtype=torch.float64) for r in (rows[0], rows[2]))
+    try:
+        return "within tolerance of", compare(f"{label} study", b, a)
+    except SystemExit as past:
+        ratio = spread_verdict(label, rows[:2], rows[2])
+        err = float((b - a).abs().nan_to_num().max())
+        return (f"past the kernels' tolerance ({past}) but within the "
+                f"resume check's bound (largest over it {ratio:.3f}) of"), err
+
+
+def device_gar_cell(smi):
+    """Phase 4, `--device-gar cpu` on `DEVICE_GAR_CELLS`, 16 steps each:
+    the defense (the attack with its line search, the GAR, the influence)
+    runs on the CPU (plain versions), the study CSV tracks the all-card
+    run's (`hop_verdict`: byte-equal, or within the plain-versus-kernel
+    tolerance, or where the drift grew past it, the resume bound), the
+    run launches no defense kernel (no GAR kernel, no `linesearch_step`;
+    the split launches as before, once a step), forces one step a
+    dispatch and counts its hops. The three runs take cuDNN's
+    deterministic algorithms (and PyTorch's), so that the card runs agree
+    and what differs is the defense's placement."""
+    steps = STEPS
+    for cell in DEVICE_GAR_CELLS:
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                card = driver.run(cell_argv(cell, steps, f"{tmp}/card"))
+                driver.run(cell_argv(cell, steps, f"{tmp}/card2"))
+                _cuda.reset_launches()
+                hop = driver.run([*cell_argv(cell, steps, f"{tmp}/hop"),
+                                  "--device-gar", "cpu"])
+                launches = {(kernel, dt): count
+                            for kernel, wrapper in WRAPPERS.items()
+                            for dt, count in wrapper.launches_by_dtype.items()
+                            if count}
+                rows = [(pathlib.Path(tmp) / run / "study").read_text()
+                        for run in ("card", "card2", "hop")]
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.use_deterministic_algorithms(False)
+        label = f"device-gar cpu ({cell.name})"
+        want = {key: per * steps for key, per in SPLIT_STEP.items()}
+        if launches != want:
+            raise SystemExit(f"{label}: launches {launches}, expected {want}")
+        delta = driver.process_commandline(
+            cell_argv(cell, steps, "")).evaluation_delta
+        want = {"indexed_steps": steps, "grouped_phases": steps,
+                "device_gar_steps": steps,
+                "indexed_evals": len(range(0, steps + 1, delta))}
+        if hop["counts"] != want:
+            raise SystemExit(f"{label}: engine counts {hop['counts']}, "
+                             f"expected {want}")
+        verdict, err = hop_verdict(label, *rows)
+        log(f"{label}, {steps} steps: study CSV {verdict} the "
+            f"all-card run's (largest |hop - card| {err:.3e}), launches "
+            f"{launches}, {hop['steps_per_s']:.4f} steps/s against "
+            f"{card['steps_per_s']:.4f} on the card, counts {hop['counts']}, "
+            f"on {smi}")
+
+
+def chunk_profile(cell, smi, M=M_DEFAULT):
+    """Phase 5 at the driver's default M: one warm chunk of `M` steps
+    through `Engine.train_multi_indexed` (the index draw included) under
+    `torch.profiler`: wall and device-busy ms a step and the busy share."""
+    args, engine, state = setup_cell(cell)
+    lrs = np.full(M, args.initial_lr(0), np.float32)
+    state, _ = engine.train_multi_indexed(state, *engine.sample_indices(M), lrs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = engine.train_multi_indexed(
+            state, *engine.sample_indices(M), lrs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / M
+    busy_ms = union_busy_us(prof) / 1e3 / M
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) // M
+    log(f"{cell.name} chunk profile at M = {M} on {smi}: wall {wall_ms:.3f} "
+        f"ms/step, device busy {busy_ms:.3f} ms/step "
+        f"({100 * busy_ms / wall_ms:.1f}%), {ops} device ops/step")
+
+
 def main():
     os.environ.setdefault("BMT_SYNTH_TRAIN", "5000")
     os.environ.setdefault("BMT_SYNTH_TEST", "500")
@@ -1846,7 +2287,8 @@ def main():
     smi = environment()
     build()
     lap("build")
-    records = key_tree_kernels(smi) + kernels_vs_plain(smi) + mnist_kernels(smi)
+    records = (key_tree_kernels(smi) + search_kernel(smi) + kernels_vs_plain(smi)
+               + mnist_kernels(smi))
     lap("kernels")
     records += wrn_kernels(smi)
     lap("WRN kernels")
@@ -1866,11 +2308,21 @@ def main():
             lap(cell.name)
     resume_check(smi)
     lap("resume")
+    no_host_reads(smi)
+    lap("no host reads")
+    fused_vs_single(smi)
+    lap("fused vs single")
+    device_gar_cell(smi)
+    lap("device-gar")
     for cell in CELLS:
         if cell.name in PROFILED:
             # brute's step is 95k device operations: one step is enough
             # for the profile and keeps its trace's processing short
             step_profile(cell, smi, steps=1 if cell.name == "brute" else 3)
+            # and at the driver's default M (brute's chunk of one step is
+            # the step profile above)
+            if cell.name != "brute":
+                chunk_profile(cell, smi)
             lap(f"profile {cell.name}")
     for record in records:
         record["launches"] = totals[split_record_name(record["name"])]

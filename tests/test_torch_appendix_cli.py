@@ -144,7 +144,8 @@ def test_appendix_line_tracks_the_jax_driver(runs, k):
     jdir, pdir, summary, argv = runs[k]
     assert summary["steps"] == 2
     path = "grouped_phases" if k == 1 else "vmapped_phases"
-    assert summary["counts"] == {"indexed_steps": 2, path: 2, "indexed_evals": 1}
+    assert summary["counts"] == {"indexed_steps": 2, path: 2, "indexed_evals": 1,
+                                 "multi_dispatches": 1}
     (jheader, want), (header, got) = _rows(jdir, "study"), _rows(pdir, "study")
     assert header == jheader == "# " + "\t".join(STUDY_COLUMNS)
     assert [row[:2] for row in got] == [row[:2] for row in want]

@@ -105,7 +105,9 @@ def _check_search(searched, objective, got, want):
     """Rows equal where the factors are; a differing factor must be a
     near-tie of the JAX objective."""
     jf, pf = np.float32(searched["jax"]), searched["port"]
-    assert type(pf) is np.float32
+    # The port's factor is an f32 0-d tensor on the rows' device
+    assert pf.dtype == torch.float32 and pf.dim() == 0
+    pf = np.float32(pf.item())
     if jf == pf:
         _assert_values(got, want)
     else:
@@ -174,7 +176,7 @@ def test_bf16_probes_and_rows_are_f32(searched, name, kwargs, gar):
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
     assert probe_dtypes["port"] == [torch.float32] * 16
     assert set(probe_dtypes["jax"]) == {np.dtype(np.float32)}
-    if np.float32(searched["jax"]) == searched["port"]:
+    if np.float32(searched["jax"]) == searched["port"].item():
         _assert_values(got.numpy(), want, rtol=2.0 ** -7, atol=1e-6)
     # A positive factor is a weak scalar: the rows stay in bf16
     if name != "empire-strict":

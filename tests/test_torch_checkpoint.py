@@ -14,7 +14,10 @@ against the JAX package's, on the CPU.
 * Each package resumes the other's checkpoint: the port's driver,
   `--load-checkpoint` on a JAX checkpoint, writes the JAX run's study
   rows (within `tests/test_torch_seed.py`'s bounds) and eval rows; the
-  JAX driver resumes a port checkpoint the same way.
+  JAX driver resumes a port checkpoint the same way, also in the middle
+  of `alie-warmup`'s window and of the past-gradient window (the port
+  holds both counters as device tensors, written as the JAX int32 0-d
+  arrays).
 * A corrupt file is refused (CRC), `find_latest_valid` walks past a torn
   tail, `--keep-checkpoints` keeps the newest N and `--checkpoint-mirror`
   writes the same bytes twice, as in the JAX package; arrays beyond
@@ -178,10 +181,14 @@ def _port_state(jstate, like):
     fields["net_state"] = {name: t(v) for name, v in convert.flat_items(
         jax.tree.map(np.asarray, jstate.net_state))}
     fields.update({name: int(getattr(jstate, name))
-                   for name in ("past_count", "steps", "datapoints")})
+                   for name in ("steps", "datapoints")})
+    # The port's device counters: i32 0-d tensors
+    fields["past_count"] = torch.tensor(int(jstate.past_count),
+                                        dtype=torch.int32)
     fields["rng"] = torch.from_numpy(np.asarray(jstate.rng).astype(np.int64))
     fields["attack_state"] = (() if isinstance(jstate.attack_state, tuple)
-                              else int(jstate.attack_state))
+                              else torch.tensor(int(jstate.attack_state),
+                                                dtype=torch.int32))
     return type(like)(**{**like.__dict__, **fields})
 
 
@@ -284,6 +291,71 @@ def test_each_package_resumes_the_others_checkpoint(tmp_path, writer):
         assert jax_main(argv) == 0
     _assert_tracks(resumed, jdir if writer == "jax" else pdir, 2)
     _assert_tracks(pdir, jdir, 0)
+
+
+# Mid-window: `alie-warmup` at window 4 and a past-gradient window P = 3,
+# both counters (device tensors in the port) part-way at the step-2
+# checkpoint, over the first P + 2 = 5 steps
+MID_WINDOW = [*MNIST, "--gar", "krum", "--attack", "alie-warmup",
+              "--attack-args", "window:4", "--nb-for-study-past", "3"]
+
+
+@pytest.fixture(scope="module")
+def mid_window_runs(tmp_path_factory):
+    """Both drivers, 5 steps of MID_WINDOW with checkpoints at 0, 2, 4."""
+    tmp = tmp_path_factory.mktemp("mid")
+    with pytest.MonkeyPatch.context() as patch:
+        for key, value in SYNTH.items():
+            patch.setenv(key, value)
+        return _both(tmp, MID_WINDOW, 5)
+
+
+def test_device_counters_track_jax_over_the_first_windows(tmp_path,
+                                                          mid_window_runs):
+    """`past_count` and the warm-up counter as device tensors: the study
+    rows of the first P + 2 steps track the JAX driver's (the curvature's
+    masked sum over P slots, the burst then the hidden rows), and a JAX
+    checkpoint read into the port's state (tensor counters on the
+    template's device) and saved again is the JAX file byte for byte."""
+    jdir, pdir = mid_window_runs
+    _assert_tracks(pdir, jdir, 0)
+    curvature = driver.STUDY_COLUMNS.index("Sampled composite curvature")
+    rows = [row.split("\t") for row in _rows(pdir, "study")]
+    assert rows[0][curvature] == "nan" and "nan" not in [
+        row[curvature] for row in rows[1:]]
+    args = driver._postprocess(driver.process_commandline(
+        ["--device", "cpu", *BASE, *MID_WINDOW, "--result-directory",
+         str(tmp_path)]))
+    _, _, fresh = driver._setup(args)
+    assert fresh.past_count.dtype == torch.int32 and fresh.past_count.dim() == 0
+    assert fresh.attack_state.dtype == torch.int32
+    for step in (2, 4):
+        state, data_state = checkpoint.load(jdir / f"checkpoint-{step}", fresh,
+                                            return_data=True)
+        assert isinstance(state.past_count, torch.Tensor)
+        assert int(state.past_count) == min(step, 3)
+        assert int(state.attack_state) == step
+        checkpoint.save(pdir / f"again-{step}", state, data_state=data_state)
+        assert (pdir / f"again-{step}").read_bytes() == (
+            jdir / f"checkpoint-{step}").read_bytes()
+
+
+@pytest.mark.parametrize("writer", ("jax", "port"))
+def test_each_package_resumes_the_other_mid_window(tmp_path, mid_window_runs,
+                                                   writer):
+    """The other package resumes the step-2 checkpoint (warm-up counter 2
+    of 4, past count 2 of 3) and writes the uninterrupted run's rows 2-4
+    and evaluations 2 and 4."""
+    jdir, pdir = mid_window_runs
+    source = (jdir if writer == "jax" else pdir) / "checkpoint-2"
+    argv = ["--device", "cpu", *BASE, *MID_WINDOW, "--nb-steps", "3",
+            "--load-checkpoint", str(source), "--result-directory",
+            str(tmp_path / "resumed")]
+    if writer == "jax":
+        assert driver.run(argv)["steps"] == 5
+    else:
+        assert jax_main(argv) == 0
+    _assert_tracks(tmp_path / "resumed", jdir if writer == "jax" else pdir, 2)
 
 
 # --------------------------------------------------------------------------- #

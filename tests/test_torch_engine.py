@@ -135,7 +135,8 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     state = init_state(cfg, theta, bn)
     state = type(state)(**{**state.__dict__, "momentum_server": _t(ms),
                            "momentum_workers": _t(mw), "past_grads": _t(past),
-                           "past_norms": _t(past_norms), "past_count": 1})
+                           "past_norms": _t(past_norms),
+                           "past_count": torch.tensor(1, dtype=torch.int32)})
 
     # --- honest phase, per worker, on the JAX dropout masks --- #
     _, _, *wkeys = jax.random.split(jstate.rng, S + 2)

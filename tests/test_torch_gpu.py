@@ -1125,6 +1125,7 @@ def test_attacks_on_card_match_cpu(cuda, monkeypatch, name, kwargs, gar, kernels
     assert got.device.type == "cuda" and got.shape == want.shape == (f, d)
     if factors:
         (card, _), (cpu, objective) = factors
+        card, cpu = card.cpu(), cpu  # f32 0-d tensors, the search's state
         if card != cpu:
             a, b = float(objective(card)), float(objective(cpu))
             assert abs(a - b) <= 1e-6 * max(abs(a), abs(b)), (card, cpu, a, b)
@@ -1297,3 +1298,65 @@ def test_strided_grouped_conv_matches_the_vmapped_one(cuda, size, k, padding,
     torch.testing.assert_close(got.view(want.shape), want, rtol=1e-4, atol=1e-5)
     for mine, theirs in zip((xg, wg, bg), leaves):
         torch.testing.assert_close(mine.grad, theirs.grad, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# Fused dispatch: the line search's state update and a step with no host read
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ydtype", (torch.float32, torch.float64))
+def test_linesearch_step_kernel_equals_its_plain_version(cuda, ydtype):
+    """The kernel's next state equals its plain version's on the card and
+    the CPU's, bit for bit, on `chip_smoke.search_states()` (expansion,
+    contraction, the guard to -0, NaN values); one launch a call, counted
+    under the values' dtype."""
+    from byzantinemomentum_tpu_torch.ops import search_kernels
+    from chip_smoke import search_states
+
+    def bits(t):
+        view = {torch.float32: torch.int32, torch.float64: torch.int64,
+                torch.int32: torch.int32}[t.dtype]
+        return t.contiguous().view(view).cpu()
+
+    for x, best_y, ints, y in search_states():
+        cpu = (torch.tensor(x, dtype=torch.float32),
+               torch.tensor(best_y, dtype=ydtype),
+               torch.tensor(ints, dtype=torch.int32),
+               torch.tensor(y, dtype=ydtype))
+        card = tuple(t.to(cuda) for t in cpu)
+        got = _launched(search_kernels.linesearch_step,
+                        lambda: search_kernels.linesearch_step(*card), ydtype)
+        for want in (search_kernels.linesearch_step_plain(*card),
+                     search_kernels.linesearch_step_plain(*cpu)):
+            assert all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_headline_chunk_makes_no_synchronizing_call(cuda, tmp_path, monkeypatch):
+    """One chunk of 3 headline steps (Bulyan f = 5 against the default
+    `empire` search, empire-cnn at n = 25, cut to batch 8 and 500 train
+    images) through `Engine.train_multi_indexed` under
+    `set_sync_debug_mode("error")`, after one warm-up step."""
+    from byzantinemomentum_tpu_torch.cli import attack as driver
+    monkeypatch.setenv("BMT_SYNTH_TRAIN", "500")
+    monkeypatch.setenv("BMT_SYNTH_TEST", "100")
+    args = driver._postprocess(driver.process_commandline([
+        "--seed", "1", "--dataset", "cifar10", "--model", "empire-cnn",
+        "--nb-workers", "25", "--nb-decl-byz", "5", "--nb-real-byz", "5",
+        "--gar", "bulyan", "--attack", "empire", "--batch-size", "8",
+        "--momentum", "0.99", "--gradient-clip", "5", "--nb-for-study", "1",
+        "--nb-for-study-past", "2", "--result-directory", str(tmp_path)]))
+    _, engine, state = driver._setup(args)
+    lrs = np.full(3, 0.01, np.float32)
+    state, _ = engine.train_multi_indexed(state, *engine.sample_indices(1),
+                                          lrs[:1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = engine.train_multi_indexed(
+            state, *engine.sample_indices(3), lrs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert metrics["Defense gradient norm"].shape == (3,)
+    assert bool(torch.isfinite(metrics["Defense gradient norm"]).all())
+    assert int(state.past_count) == 2

@@ -110,7 +110,8 @@ def test_driver_regularizers_and_no_grouped_workers_on_cpu(tmp_path,
     for name, (summary, rows) in runs.items():
         honest = "vmapped_phases" if name == "vmapped" else "grouped_phases"
         assert summary["counts"] == {"indexed_steps": 3, honest: 3,
-                                     "indexed_evals": 2}, name
+                                     "indexed_evals": 2,
+                                     "multi_dispatches": 1}, name
         assert len(rows) == 3
         for row in rows:
             assert np.isfinite(float(row["Defense gradient norm"])), (name, row)

@@ -82,7 +82,7 @@ def test_driver_defaults_on_cpu(tmp_path):
     summary, rows = _run(tmp_path, ["--nb-steps", "3", "--batch-size", "8",
                                     *SMALL])
     assert summary["counts"] == {"indexed_steps": 3, "grouped_phases": 3,
-                                 "indexed_evals": 1}
+                                 "indexed_evals": 1, "multi_dispatches": 1}
     args = driver._postprocess(driver.process_commandline([]))
     assert (args.dataset, args.model, args.attack, args.gar, args.nb_workers,
             args.nb_decl_byz, args.nb_real_byz) == (
@@ -123,7 +123,7 @@ def test_mnist_grid_cell_on_cpu(tmp_path, name):
     args = driver.process_commandline(argv)
     assert (args.nb_workers, args.nb_steps, args.evaluation_delta) == (51, 3, 5)
     assert summary["counts"] == {"indexed_steps": 3, "grouped_phases": 3,
-                                 "indexed_evals": 1}
+                                 "indexed_evals": 1, "multi_dispatches": 1}
     col = STUDY_COLUMNS.index("Attack gradient norm")
     assert all((row[col] == "nan") == (args.attack == "nan") for row in rows)
 
@@ -136,7 +136,7 @@ def test_phishing_line_on_cpu(tmp_path):
             "--evaluation-delta", "3", *SMALL]
     summary, rows = _run(tmp_path, argv)
     assert summary["counts"] == {"indexed_steps": 3, "grouped_phases": 3,
-                                 "indexed_evals": 2}
+                                 "indexed_evals": 2, "multi_dispatches": 1}
     assert all(0.0 <= float(row[-1]) <= 1.0 for row in rows)
     evals = (tmp_path / "run" / "eval").read_text().split(os.linesep)[1:]
     assert [line.split("\t")[0] for line in evals] == ["0", "3"]

@@ -99,7 +99,8 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
                        torch.from_numpy(np.asarray(jstate.rng).astype(np.int64)))
     state = type(state)(**{**state.__dict__, "momentum_server": _t(ms),
                            "momentum_workers": _t(mw), "past_grads": _t(past),
-                           "past_norms": _t(past_norms), "past_count": 1})
+                           "past_norms": _t(past_norms),
+                           "past_count": torch.tensor(1, dtype=torch.int32)})
 
     (_, mix_key, jG_sampled, jloss, jnet, jmw, jG_honest, _, _) = \
         jengine._phase_honest(jstate, jnp.asarray(xs), jnp.asarray(ys), LR)
