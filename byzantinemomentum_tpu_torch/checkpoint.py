@@ -15,8 +15,11 @@ subset of msgpack (`packb`, `unpackb`), with the shortest forms
 msgpack-python chooses; bfloat16 arrays travel as their 16-bit words.
 
 The port's `TrainState` (`engine/state.py`) maps onto the JAX layout:
-`net_state` `{"b1.mean": ...}` nests as `{"b1": {"mean": ...}}`; `rng`
-(int64 words) is written as uint32 `[2]`; `steps`, `datapoints` (host
+`net_state` `{"b1.mean": ...}` nests as `{"b1": {"mean": ...}}`; an
+optimizer's state (`optim.py`: a tuple of dicts of optax's fields) as
+flax writes optax's tuple of NamedTuples; `rng` (int64 words) is written
+as uint32 `[2]` (and a load restarts the host's mirror of the key chain,
+`TrainState.rng_host`, from the file's words); `steps`, `datapoints` (host
 ints) and `past_count` (an i32 0-d tensor) as int32 0-d arrays, as is an
 integer attack state (`alie-warmup`'s step counter, an i32 0-d tensor),
 and each comes back as the template holds it (a tensor on the
@@ -365,13 +368,19 @@ def _tensor(value):
 
 def _restore_like(path, name, ref, value):
     """flax's `from_state_dict(ref, value)` for the port's containers:
-    tuples from `{"0": ...}` maps, an int from a 0-d array, a tensor cast
-    to the reference's dtype and device (shapes must agree)."""
+    tuples from `{"0": ...}` maps, dicts (an optimizer's NamedTuple
+    states) from maps of the same keys, an int from a 0-d array, a tensor
+    cast to the reference's dtype and device (shapes must agree)."""
     if isinstance(ref, (tuple, list)):
         if not isinstance(value, dict) or len(value) != len(ref):
             _fail(path, f"field {name!r} does not match the run's layout")
         return type(ref)(_restore_like(path, name, r, value[str(i)])
                          for i, r in enumerate(ref))
+    if isinstance(ref, dict):
+        if not isinstance(value, dict) or sorted(value) != sorted(ref):
+            _fail(path, f"field {name!r} does not match the run's layout")
+        return {key: _restore_like(path, name, r, value[key])
+                for key, r in ref.items()}
     if isinstance(ref, int) and not isinstance(ref, bool):
         if isinstance(value, (dict, list)) or np.asarray(value).shape != ():
             _fail(path, f"field {name!r} does not match the run's layout")
@@ -525,6 +534,8 @@ def load(path, template, *, return_data=False):
                 _fail(path, f"field 'rng' has shape {tuple(key.shape)}, "
                             f"expected (2,)")
             out[name] = key.to(template.rng.device)
+            # The host's mirror of the key chain restarts from the file
+            out["rng_host"] = tuple(int(word) for word in key.tolist())
         else:
             out[name] = _restore_like(path, name, getattr(template, name),
                                       value)

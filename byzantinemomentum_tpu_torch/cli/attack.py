@@ -5,9 +5,22 @@ Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
 JAX driver that the port does not have yet (meshes, fault plans,
-diagnostics, health and rollbacks, telemetry, the `--gars` mixture,
-`--user-input-delta`, ...) are refused by the parser rather than
-ignored.
+diagnostics, health and rollbacks, telemetry, ...) are refused by the
+parser rather than ignored.
+
+The defense is `--gar` or a `--gars 'name[,freq[,json-args]];...'`
+mixture (the JAX `_parse_gars`, with its messages), drawn once a step
+from the step's mixture key, which the host mirrors so that only the
+drawn member runs and nothing is read (the mirror is compared with the
+device's key at each chunk's end), or with `--gars-per-call` at every
+defense call on the device (`engine/step.py`). `--optimizer` takes
+every name of the JAX registry (`optim.py`) with `--optimizer-args`;
+`--init-multi`/`--init-mono` (with their `-args`) re-draw the model's
+parameters under `fold_in(root key, 2)` (`models/core.py::
+apply_named_init`); `--user-input-delta N` ends a chunk every N steps
+and opens `code.interact` with `state` and `engine` (with stdin closed
+it returns at once, and the run writes what it writes without the
+flag).
 
 Fused dispatch, as in the JAX driver: `--steps-per-program M` (default
 8) runs up to M steps a dispatch (`Engine.train_multi_indexed`), each
@@ -66,6 +79,7 @@ precision), so `study.py` reads the port's result directories unchanged.
 """
 
 import argparse
+import code
 import json
 import math
 import os
@@ -88,6 +102,7 @@ from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
     DTYPES, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine, EngineConfig)
 from byzantinemomentum_tpu_torch.engine import program
+from byzantinemomentum_tpu_torch.models.core import apply_named_init, inits
 
 __all__ = ["process_commandline", "run", "main"]
 
@@ -132,8 +147,22 @@ def process_commandline(argv=None):
         help="Number of declared Byzantine workers")
     add("--nb-real-byz", type=int, default=0,
         help="Number of actually Byzantine workers")
+    add("--init-multi", type=str, default=None,
+        help="Multi-dimensional parameter init algorithm")
+    add("--init-multi-args", nargs="*",
+        help="key:value args for --init-multi")
+    add("--init-mono", type=str, default=None,
+        help="Mono-dimensional parameter init algorithm")
+    add("--init-mono-args", nargs="*",
+        help="key:value args for --init-mono")
     add("--gar", type=str, default="average", help="Aggregation rule")
     add("--gar-args", nargs="*", help="key:value args for the GAR")
+    add("--gars", type=str, default=None,
+        help="Random per-step GAR mixture: 'name[,freq[,json-args]];...'")
+    add("--gars-per-call", action="store_true",
+        help="Re-draw the --gars mixture GAR on every defense invocation "
+             "(incl. inside adaptive attacks' line searches) — the "
+             "reference's semantics; default draws once per step")
     add("--no-grouped-workers", action="store_true",
         help="Disable the merged-batch grouped honest phase (always use the "
              "vmapped per-worker path, even for models that provide the "
@@ -203,6 +232,8 @@ def process_commandline(argv=None):
         help="Steps between evaluations, 0 for none")
     add("--checkpoint-delta", type=int, default=0,
         help="Steps between checkpoints, 0 for none")
+    add("--user-input-delta", type=int, default=0,
+        help="Steps between interactive prompts, 0 for none")
     add("--steps-per-program", type=int, default=8,
         help="Training steps fused into one compiled dispatch (lax.scan); "
              "milestones always force a boundary, so the per-step trajectory "
@@ -215,8 +246,8 @@ def process_commandline(argv=None):
 
 def _postprocess(args):
     """Derivations and checks (the JAX driver's `_postprocess`)."""
-    for name in ("gar", "attack", "model", "dataset", "loss", "criterion",
-                 "optimizer"):
+    for name in ("init_multi", "init_mono", "gar", "attack", "model",
+                 "dataset", "loss", "criterion", "optimizer"):
         name = f"{name}_args"
         setattr(args, name, utils.parse_keyval(getattr(args, name)))
     args.nb_honests = args.nb_workers - args.nb_real_byz
@@ -327,6 +358,35 @@ def _postprocess(args):
     return args
 
 
+def _parse_gars(spec):
+    """Parse the `--gars 'name,freq,json;...'` mixture string into
+    `[(gar, cumulative_freq, kwargs)]` (the JAX driver's `_parse_gars`)."""
+    freq_sum = 0.0
+    defenses = []
+    for info in spec.split(";"):
+        info = info.split(",", maxsplit=2)
+        name = info[0].strip()
+        freq = 1.0
+        if len(info) >= 2:
+            raw = info[1].strip()
+            freq = 1.0 if raw == "-" else float(raw)
+        conf = {}
+        if len(info) >= 3:
+            try:
+                conf = json.loads(info[2].strip())
+            except json.decoder.JSONDecodeError as err:
+                utils.fatal(f"Invalid GAR arguments for GAR {name!r}: "
+                            f"{str(err).lower()}")
+            if not isinstance(conf, dict):
+                utils.fatal(f"Invalid GAR arguments for GAR {name!r}: "
+                            f"expected a dictionary")
+        if name not in ops_mod.gars:
+            utils.fatal_unavailable(ops_mod.gars, name, what="aggregation rule")
+        freq_sum += freq
+        defenses.append((ops_mod.gars[name], freq_sum, conf))
+    return defenses
+
+
 def _config_text(args):
     """Human-readable run configuration (the JAX driver's rendering)."""
     lines = ["Configuration:"]
@@ -397,17 +457,29 @@ class _ResultFiles:
             fd.close()
 
 
-def _study_rows(metrics, steps, datapoints, increment, count, float_format):
+def _study_rows(metrics, steps, datapoints, increment, count, float_format,
+                rng=None):
     """The study CSV rows of a chunk of `count` steps from `steps` (its
-    first step's point count `datapoints`, `increment` points a step):
-    the chunk's stacked device columns (`stack_metrics`) move to the host
-    in one transfer, widened to float64, which holds every dtype's value
+    first step's point count `datapoints`, `increment` points a step), and
+    the words of the device key `rng` after the chunk (None without one):
+    the chunk's stacked device columns (`stack_metrics`; `metrics` None
+    for no rows) and the key move to the host in one transfer, widened to
+    float64, which holds every dtype's value and every 32-bit word
     exactly."""
-    columns = STUDY_COLUMNS[2:]
-    host = torch.stack([metrics[column].double() for column in columns]).tolist()
-    return [[steps + i, datapoints + i * increment]
+    columns = STUDY_COLUMNS[2:] if metrics is not None else ()
+    parts = [torch.stack([metrics[column].double() for column in columns])
+             .flatten()] if columns else []
+    if rng is not None:
+        parts.append(rng.double())
+    if not parts:
+        return [], None
+    host = torch.cat(parts).tolist()
+    words = tuple(int(word) for word in host[-2:]) if rng is not None else None
+    host = [host[k * count:(k + 1) * count] for k in range(len(columns))]
+    rows = [[steps + i, datapoints + i * increment]
             + [float_format % values[i] for values in host[:-1]]
-            + [float(host[-1][i])] for i in range(count)]
+            + [float(host[-1][i])] for i in range(count)] if columns else []
+    return rows, words
 
 
 def _setup(args):
@@ -433,16 +505,26 @@ def _setup(args):
     np.random.seed(seed % 2**32)
     root_key = prng.PRNGKey(seed, device=device)
 
-    if args.gar not in ops_mod.gars:
-        utils.fatal_unavailable(ops_mod.gars, args.gar, what="aggregation rule")
-    gar = ops_mod.gars[args.gar]
+    if args.gars is None:
+        if args.gar not in ops_mod.gars:
+            utils.fatal_unavailable(ops_mod.gars, args.gar,
+                                    what="aggregation rule")
+        defenses = [(ops_mod.gars[args.gar], 1.0, args.gar_args)]
+    else:
+        defenses = _parse_gars(args.gars)
+        args.gar_args = {}
     if args.attack not in attacks_mod.attacks:
         utils.fatal_unavailable(attacks_mod.attacks, args.attack, what="attack")
     attack = attacks_mod.attacks[args.attack]
-    message = gar.check(gradients=torch.zeros((args.nb_workers, 2)),
-                        f=args.nb_decl_byz, **args.gar_args)
-    if message is not None:
-        utils.fatal(f"Aggregation rule {gar.name!r} cannot be used: {message}")
+    for gar, _, kwargs in defenses:
+        message = gar.check(gradients=torch.zeros((args.nb_workers, 2)),
+                            f=args.nb_decl_byz, **kwargs)
+        if message is not None:
+            utils.fatal(f"Aggregation rule {gar.name!r} cannot be used: "
+                        f"{message}")
+    for name in (args.init_multi, args.init_mono):
+        if name is not None and name not in inits:
+            utils.fatal_unavailable(inits, name, what="initialization")
     message = attack.check(
         grad_honests=torch.zeros((args.nb_honests, 2)),
         f_decl=args.nb_decl_byz, f_real=args.nb_real_byz,
@@ -458,13 +540,19 @@ def _setup(args):
         nesterov=args.momentum_nesterov, momentum_at=args.momentum_at,
         weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
         grouped_workers=not args.no_grouped_workers,
-        nb_local_steps=args.nb_local_steps,
+        nb_local_steps=args.nb_local_steps, gars_per_call=args.gars_per_call,
         dtype=args.dtype, compute_dtype=args.compute_dtype)
     # Parameters are drawn in f32 and rounded to the parameter dtype, as
     # the JAX package casts its f32 init
     model = models_mod.build(args.model, device=device,
                              dtype=cfg.torch_dtype, **args.model_args)
     model.init(root_key)
+    if args.init_multi or args.init_mono:
+        apply_named_init(model, prng.fold_in(root_key, 2),
+                         init_multi=args.init_multi,
+                         init_multi_args=args.init_multi_args,
+                         init_mono=args.init_mono,
+                         init_mono_args=args.init_mono_args)
     trainset, testset = data_mod.make_datasets(
         args.dataset, args.batch_size, args.batch_size_test,
         no_transform=args.no_transform, seed=seed % 2**32,
@@ -477,7 +565,7 @@ def _setup(args):
     criterion = losses_mod.Criterion(args.criterion, **args.criterion_args)
     optimizer = optim.build(args.optimizer, weight_decay=args.weight_decay,
                             **args.optimizer_args)
-    engine = Engine(cfg, model, loss, criterion, (gar, args.gar_args), attack,
+    engine = Engine(cfg, model, loss, criterion, defenses, attack,
                     args.attack_args, optimizer)
     engine.attach_data(*DeviceData.pair(trainset, testset, device))
     return device, engine, engine.init(root_key)
@@ -598,11 +686,25 @@ def run(argv=None):
             torch.cuda.synchronize(device)
 
     def flush(pending):
-        if pending is not None and fd_study is not None:
-            for row in _study_rows(*pending, float_format):
+        """The previous chunk's study rows to the file, and under a
+        per-step mixture its key against the host's mirror."""
+        if pending is None:
+            return
+        *chunk, (rng, rng_host) = pending
+        rows, words = _study_rows(*chunk, float_format, rng=rng)
+        if fd_study is not None:
+            for row in rows:
                 results.store(fd_study, *row, *recovery)
+        if words is not None and words != tuple(rng_host):
+            raise RuntimeError(f"the host's mirror of the key chain "
+                               f"{tuple(rng_host)} differs from the "
+                               f"device's key {words} after step "
+                               f"{chunk[1] + chunk[-1]}")
 
-    pending = None          # the previous chunk's (metrics, step, points, M)
+    # The previous chunk's (metrics, step, points, increment, M, (key,
+    # mirror)) while its rows or its key are still to be read
+    pending = None
+    mirrored = engine.mixture and not engine.per_call
     clock = None            # (start, paused seconds) once chunk 1 is done
     timed_from = None       # the step count the throughput counts from
     current_lr = args.initial_lr(steps_host)
@@ -618,8 +720,10 @@ def run(argv=None):
                 milestone_checkpoint = (args.checkpoint_delta > 0
                                         and steps % args.checkpoint_delta == 0
                                         and not just_loaded)
+                milestone_user_input = (args.user_input_delta > 0
+                                        and steps % args.user_input_delta == 0)
                 t_pause = time.perf_counter()
-                if milestone_eval or milestone_checkpoint:
+                if milestone_eval or milestone_checkpoint or milestone_user_input:
                     # The rows before this step reach the disk before a
                     # checkpoint can be taken
                     flush(pending)
@@ -650,6 +754,11 @@ def run(argv=None):
                         # run; the next milestone tries again
                         utils.warning(f"Checkpoint save failed: {err}")
                 just_loaded = False
+                if milestone_user_input:
+                    sync()  # the chunk before the prompt is drained
+                    code.interact(banner=f"Interactive prompt (step {steps}); "
+                                  "Ctrl-D to resume",
+                                  local={"state": state, "engine": engine})
                 if clock is not None:
                     clock[1] += time.perf_counter() - t_pause
                 if steps_limit is not None and steps >= steps_limit:
@@ -658,7 +767,8 @@ def run(argv=None):
                 # --steps-per-program steps (the JAX driver's horizon)
                 bounds = [(steps // delta + 1) * delta
                           for delta in (args.evaluation_delta,
-                                        args.checkpoint_delta) if delta > 0]
+                                        args.checkpoint_delta,
+                                        args.user_input_delta) if delta > 0]
                 if steps_limit is not None:
                     bounds.append(steps_limit)
                 horizon = min(bounds, default=steps + per_program)
@@ -680,8 +790,10 @@ def run(argv=None):
                 # The previous chunk's rows move to the host once this
                 # one is queued
                 flush(pending)
-                pending = ((metrics, steps, datapoints_host - M * increment,
-                            increment, M) if cfg.study else None)
+                pending = ((metrics if cfg.study else None, steps,
+                            datapoints_host - M * increment, increment, M,
+                            (state.rng if mirrored else None, state.rng_host))
+                           if cfg.study or mirrored else None)
                 if clock is None:
                     sync()
                     clock = [time.perf_counter(), 0.0]

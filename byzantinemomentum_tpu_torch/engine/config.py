@@ -1,6 +1,6 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
-the fields of the training path ported so far: local steps, a single
-GAR, the grouped honest phase)."""
+the fields of the training path ported so far: local steps, the
+`--gars` mixture's draw, the grouped honest phase)."""
 
 import dataclasses
 
@@ -42,6 +42,9 @@ class EngineConfig:
     #                               models with a grouped forward
     #                               (--no-grouped-workers turns it off)
     nb_local_steps: int = 1       # --nb-local-steps (multi-local-step SGD)
+    gars_per_call: bool = False   # --gars-per-call: a --gars mixture draws
+    #                               its member at every defense call (from
+    #                               a hash of the operand), not once a step
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):

@@ -12,6 +12,9 @@ keeps its own copies, as the JAX driver does), so they need no read
 either.
 `rng` is the step's PRNG key, the JAX `TrainState.rng`: an int64 `[2]`
 tensor of two uint32 words on the device (`prng.py`), split once a step.
+`rng_host` is the host's mirror of `rng` as two Python ints, or None
+where no mirror is kept: a `--gars` mixture drawn once a step picks its
+member from it (`Engine.mirror_keys`) without reading the device.
 `attack_state` is a stateful attack's history (`attacks/__init__.py`,
 tensors on theta's device), `()` for a static attack.
 A step returns a new `TrainState` and writes none of the old one's
@@ -41,14 +44,15 @@ class TrainState:
     datapoints: int                 # training point counter
     rng: torch.Tensor = None        # int64 [2] PRNG key on the device
     attack_state: typing.Any = ()   # the stateful attack's history
+    rng_host: tuple = None          # the host's mirror of rng (two ints)
 
 
 def init_state(cfg, theta, net_state, rng=None, opt_state=(),
-               attack_state=()):
+               attack_state=(), rng_host=None):
     """Fresh-run state; `rng` the step key (`Engine.init` gives
     `fold_in(root key, 1)`; None only for states that never draw, as in
     tests that hand the masks in), `attack_state` from the attack's
-    `state_init`."""
+    `state_init`, `rng_host` the host's mirror of `rng`."""
     d = theta.shape[0]
     h = cfg.nb_honests
     past = cfg.nb_for_study_past if cfg.study else 0
@@ -67,4 +71,5 @@ def init_state(cfg, theta, net_state, rng=None, opt_state=(),
         datapoints=0,
         rng=rng,
         attack_state=attack_state,
+        rng_host=rng_host,
     )

@@ -68,10 +68,29 @@ JAX step's `rng, mix_key, *wkeys = split(state.rng, S + 2)`), keeps the
 first as the next state's key and draws worker s's dropout keep-masks
 from `wkeys[s]` (`model.draw_masks`), so the same seed gives the JAX
 run's masks bit for bit (at k local steps, local step t's from key t of
-`split(wkeys[s], k)`, `draw_masks`). `mix_key` is drawn and set aside:
-it feeds the `--gars` mixture, which the port does not have yet.
-`train_step(..., masks=...)` takes the masks from the caller instead (the
-parity tests feed the JAX masks).
+`split(wkeys[s], k)`, `draw_masks`). `mix_key` feeds the `--gars`
+mixture. `train_step(..., masks=...)` takes the masks from the caller
+instead (the parity tests feed the JAX masks).
+
+The defense (`engine/program.py::defense_program`): one GAR (`--gar`), or
+a `--gars` mixture of `(gar, cumulative frequency, kwargs)` members. By
+default the mixture draws once a step: `uniform(mix_key)` picks the
+member for the attack's inner calls, the aggregation and the influence
+(the JAX package's divergence from the reference, which redraws at every
+call, `byzantinemomentum_tpu/engine/step.py:490-509`). The host mirrors
+the key chain (`TrainState.rng_host`, `mirror_keys`: the step's first
+two keys and the uniform, in Python ints) and runs only the drawn
+member, which is what `lax.switch` runs, with no read of the device; the
+driver compares the mirror with the device's key at each chunk's end.
+`cfg.gars_per_call` (`--gars-per-call`, the reference's semantics)
+draws at every defense call from `fold_in(mix_key, h)`, h the content
+hash of the call's operand (the influence from `fold_in(mix_key, 1)`'s):
+the draw depends on device data, so it stays on the device
+(`ops/mixture_kernels.py`: `operand_hash`, then `mixture_draw`), every
+member runs and the drawn one is picked (`program.select`). Two calls
+on byte-identical operands within a step draw the same member, where the
+reference's `random.random()` would draw twice: the JAX package's note
+holds here too (no shipped attack probes twice with the same operand).
 """
 
 import collections
@@ -84,11 +103,12 @@ from torch.func import functional_call, grad, vmap
 from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.data.device import to_device
 from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
+from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.engine.program import tree_to
 from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
 from byzantinemomentum_tpu_torch.models import FlatParams, grouped_forward
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
-from byzantinemomentum_tpu_torch.ops import prng_kernels
+from byzantinemomentum_tpu_torch.ops import mixture_kernels, prng_kernels
 from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["Engine", "clip_rows", "compose_bn_updates", "pin_precision",
@@ -174,7 +194,7 @@ def stack_metrics(steps):
 class Engine:
     """The training and evaluation programs of one configuration."""
 
-    def __init__(self, cfg, model, loss, criterion, defense, attack,
+    def __init__(self, cfg, model, loss, criterion, defenses, attack,
                  attack_kwargs, optimizer):
         """The engine draws no random number of its own: every draw of a
         step comes from `TrainState.rng` (`init`, `step_keys`).
@@ -184,7 +204,9 @@ class Engine:
           model: the model `nn.Module` (`models.build`), on the run's device.
           loss: `(output, target, theta) -> scalar`.
           criterion: `(output, target) -> f32[2]`.
-          defense: `(gar, kwargs)` — the aggregation rule and its arguments.
+          defenses: a list of `(gar, cumulative frequency, kwargs)`: the
+            aggregation rules and their arguments, one for `--gar`, the
+            members of a `--gars` mixture.
           attack: `attacks.Attack` (unused when no worker is Byzantine).
           attack_kwargs: the attack's arguments.
           optimizer: `optim.Optimizer` applying the final update.
@@ -198,7 +220,12 @@ class Engine:
         self.d = self.flat.d
         self.loss = loss
         self.criterion = criterion
-        self.gar, self.gar_kwargs = defense
+        self.defenses = list(defenses)
+        self.mixture = len(self.defenses) > 1
+        self.per_call = cfg.gars_per_call and self.mixture
+        self.defense = program.defense_program(self.defenses, "plain",
+                                               f=cfg.nb_decl_byz)
+        self._cumulative = {}  # the mixture's frequencies, by device
         self.attack = attack
         self.attack_kwargs = dict(attack_kwargs or {})
         self.optimizer = optimizer
@@ -232,9 +259,13 @@ class Engine:
             attack_state = tree_to(self.attack.state_init(
                 f_real=self.cfg.nb_real_byz, d=self.d), self.device)
         rng = prng.fold_in(key.to(self.device), 1)
+        rng_host = None
+        if self.mixture and not self.per_call:
+            rng_host = prng.fold_in_words(
+                tuple(int(word) for word in key.tolist()), 1)
         return init_state(self.cfg, theta, net_state, rng,
                           opt_state=self.optimizer.init(theta),
-                          attack_state=attack_state)
+                          attack_state=attack_state, rng_host=rng_host)
 
     # ----------------------------------------------------------------- #
     # Phases
@@ -245,6 +276,33 @@ class Engine:
         on the card)."""
         keys = prng_kernels.split_keys(rng, self.cfg.nb_sampled + 2)
         return keys[0], keys[1], keys[2:]
+
+    def mirror_keys(self, state):
+        """The host's side of a step's key split for a per-step `--gars`
+        mixture: `(next rng_host, member)`, key 0 of `split(rng, S + 2)`
+        and the member drawn by `uniform(key 1)` (`program.mixture_index`),
+        from the mirror `state.rng_host`; `(None, None)` for one defense
+        or a per-call draw."""
+        if not self.mixture or self.per_call:
+            return None, None
+        words = state.rng_host
+        if words is None:
+            raise RuntimeError("a --gars mixture state needs rng_host; build "
+                               "it with Engine.init or checkpoint.load")
+        mix_u = prng.uniform_words(prng.split_words(words, 1))
+        return (prng.split_words(words, 0),
+                program.mixture_index(self.defenses, mix_u))
+
+    def per_call_member(self, key, G):
+        """The member a per-call draw gives the defense call on `G`:
+        `mixture_draw(key, operand_hash(G), cum)`, an int32 0-d tensor on
+        G's device (the JAX `_per_call_uniform` and `mixture_index`)."""
+        cum = self._cumulative.get(G.device)
+        if cum is None:
+            cum = self._cumulative[G.device] = program.cumulative(
+                self.defenses, G.device)
+        return mixture_kernels.mixture_draw(
+            key, mixture_kernels.operand_hash(G), cum)
 
     def draw_masks(self, wkeys, batch):
         """The dropout keep-masks of a step from the worker keys `wkeys
@@ -383,19 +441,30 @@ class Engine:
         return G_sampled, losses.mean(), net_state, new_mw, G_honest
 
     @torch.no_grad()
-    def phase_defense(self, G_honest, attack_state):
+    def phase_defense(self, G_honest, attack_state, mix_key=None,
+                      member=None):
         """Attack synthesis, aggregation and the attack acceptation ratio.
-        The attack calls `defense`, the configured GAR (an adaptive attack
-        line-searches it); its rows are cast to the honest rows' dtype (a
-        searched factor makes them f32 under a half dtype). A stateful
-        attack takes `attack_state` (the `TrainState`'s) and returns the
-        next one; a stateless attack passes it through. Returns
-        (G_attack, grad_defense, accept_ratio, attack_state)."""
+        The attack calls `defense`, the configured defense (an adaptive
+        attack line-searches it); its rows are cast to the honest rows'
+        dtype (a searched factor makes them f32 under a half dtype). A
+        stateful attack takes `attack_state` (the `TrainState`'s) and
+        returns the next one; a stateless attack passes it through. A
+        mixture runs `member` (the per-step draw, `mirror_keys`), or with
+        `cfg.gars_per_call` draws at every call from `mix_key`
+        (`per_call_member`). Returns (G_attack, grad_defense,
+        accept_ratio, attack_state)."""
         cfg = self.cfg
         f = cfg.nb_decl_byz
+        if self.per_call:
+            def draw(G, key=mix_key):
+                return self.per_call_member(key, G)
+        else:
+            def draw(G, key=None):
+                return member
 
         def defense(gradients, f):
-            return self.gar.unchecked(gradients, f=f, **self.gar_kwargs)
+            # The JAX defense program takes f from the configuration
+            return self.defense(gradients, draw(gradients))
 
         if cfg.nb_real_byz > 0:
             kwargs = dict(f_decl=f, f_real=cfg.nb_real_byz, defense=defense,
@@ -408,27 +477,41 @@ class Engine:
             G_attack = G_attack.to(G_honest.dtype)
         else:
             G_attack = G_honest.new_zeros((0, self.d))
-        grad_defense = defense(torch.cat([G_honest, G_attack]), f).to(
-            G_honest.dtype)
-        # An f32 0-d tensor, the JAX package's `jnp.float32(influence)`
-        if self.gar.influence is None:
-            accept_ratio = G_honest.new_full((), math.nan, dtype=torch.float32)
-        else:
-            ratio = self.gar.influence(G_honest, G_attack, f=f,
-                                       **self.gar_kwargs)
-            accept_ratio = (ratio.to(torch.float32)
-                            if isinstance(ratio, torch.Tensor)
-                            else G_honest.new_full((), ratio,
-                                                   dtype=torch.float32))
+        G_all = torch.cat([G_honest, G_attack])
+        grad_defense = self.defense(G_all, draw(G_all)).to(G_honest.dtype)
+        # The influence's own draw (per call: from fold_in(mix_key, 1))
+        infl_member = (draw(G_all, prng.fold_in(mix_key, 1)) if self.per_call
+                       else member)
+        accept_ratio = self.influence(G_honest, G_attack, infl_member)
         return G_attack, grad_defense, accept_ratio, attack_state
+
+    def influence(self, G_honest, G_attack, member=None):
+        """The attack acceptation ratio of the defense (`member` as for
+        `program.defense_program`), an f32 0-d tensor, the JAX package's
+        `jnp.float32(influence)`: NaN for a GAR without one."""
+        f = self.cfg.nb_decl_byz
+
+        def one(gar, kwargs):
+            if gar.influence is None:
+                return G_honest.new_full((), math.nan, dtype=torch.float32)
+            ratio = gar.influence(G_honest, G_attack, f=f, **kwargs)
+            return (ratio.to(torch.float32) if isinstance(ratio, torch.Tensor)
+                    else G_honest.new_full((), ratio, dtype=torch.float32))
+
+        if len(self.defenses) == 1 or not isinstance(member, torch.Tensor):
+            gar, _, kwargs = self.defenses[member or 0]
+            return one(gar, kwargs)
+        return program.select([one(gar, kwargs)
+                               for gar, _, kwargs in self.defenses], member)
 
     @torch.no_grad()
     def phase_update(self, state, G_sampled, loss_avg, net_state, new_mw,
                      G_honest, G_attack, grad_defense, accept_ratio,
-                     attack_state, lr, batch, rng=None):
+                     attack_state, lr, batch, rng=None, rng_host=None):
         """Model update and study metrics; the attack's next state and the
-        step's next key `rng` (`step_keys`; the state's own when None) go
-        into the new state. Returns (new state, metrics)."""
+        step's next key `rng` (`step_keys`; the state's own when None) and
+        its host mirror `rng_host` (`mirror_keys`) go into the new state.
+        Returns (new state, metrics)."""
         cfg = self.cfg
         lr = self.round_lr(lr)
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
@@ -461,7 +544,8 @@ class Engine:
             datapoints=(state.datapoints
                         + batch * cfg.nb_honests * cfg.nb_local_steps),
             rng=state.rng if rng is None else rng,
-            attack_state=attack_state)
+            attack_state=attack_state,
+            rng_host=state.rng_host if rng is None else rng_host)
         return new_state, metrics
 
     def lr_dtype(self):
@@ -496,16 +580,18 @@ class Engine:
         local steps `[S, k, B, ...]`, `[S, k, B]`). The step splits
         `state.rng` (`step_keys`) and draws the dropout keep-masks from
         the worker keys (`draw_masks`), unless `masks` gives them."""
-        rng, _, wkeys = self.step_keys(state.rng)
+        rng, mix_key, wkeys = self.step_keys(state.rng)
+        rng_host, member = self.mirror_keys(state)
         batch = self._batch_of(xs)
         if masks is None:
             masks = self.draw_masks(wkeys, batch)
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
-        defense = self.phase_defense(G_honest, state.attack_state)
+        defense = self.phase_defense(G_honest, state.attack_state,
+                                     mix_key=mix_key, member=member)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            *defense, lr, batch, rng=rng)
+            *defense, lr, batch, rng=rng, rng_host=rng_host)
 
     def sample_indices(self, chunk=None, batchwise=False):
         """The host indices and flips of a step's batches

@@ -70,7 +70,8 @@ __all__ = ["BN_MOMENTUM", "BN_EPS", "Conv", "Dense", "BatchNorm",
            "batchnorm_train", "batchnorm_eval", "fold_running_stats",
            "same_pads", "grouped_conv", "grouped_dense", "grouped_batchnorm",
            "worker_dropout_masks", "dropout_apply",
-           "max_pool", "global_avg_pool", "log_softmax"]
+           "max_pool", "global_avg_pool", "log_softmax", "inits",
+           "apply_named_init"]
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -412,3 +413,195 @@ def global_avg_pool(x):
 
 def log_softmax(x):
     return F.log_softmax(x, dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# Named inits (`--init-multi` / `--init-mono`,
+# `byzantinemomentum_tpu/models/core.py::inits`): each draws a float32
+# leaf of the JAX shape from its key, as the JAX function does; Python
+# scalars (mean, std, gain, bounds) apply as float32 weak scalars, one
+# rounding an operation
+
+def _fans(shape):
+    if len(shape) < 2:
+        fan = shape[0] if shape else 1
+        return fan, fan
+    receptive = math.prod(shape[:-2])
+    # HWIO kernels / (din, dout) dense matrices
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _gain(nonlinearity, a=0.0):
+    if nonlinearity in ("sigmoid", "linear"):
+        return 1.0
+    if nonlinearity == "tanh":
+        return 5.0 / 3.0
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "leaky_relu":
+        return math.sqrt(2.0 / (1.0 + a * a))
+    return 1.0
+
+
+def _scaled(scale, x):
+    """`scale * x` for a Python scale and an f32 tensor."""
+    return weak_scalar(scale, torch.float32) * x
+
+
+def _init_uniform_named(key, shape, a=0.0, b=1.0, **kw):
+    return prng.uniform(key, shape, torch.float32, a, b)
+
+
+def _init_normal(key, shape, mean=0.0, std=1.0, **kw):
+    return weak_scalar(mean, torch.float32) + _scaled(std, prng.normal(key, shape))
+
+
+def _init_constant(key, shape, val=0.0, **kw):
+    return torch.full(shape, val, dtype=torch.float32, device=key.device)
+
+
+def _init_ones(key, shape, **kw):
+    return torch.ones(shape, dtype=torch.float32, device=key.device)
+
+
+def _init_zeros(key, shape, **kw):
+    return torch.zeros(shape, dtype=torch.float32, device=key.device)
+
+
+def _init_xavier_uniform(key, shape, gain=1.0, **kw):
+    fan_in, fan_out = _fans(shape)
+    bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    return prng.uniform(key, shape, torch.float32, -bound, bound)
+
+
+def _init_xavier_normal(key, shape, gain=1.0, **kw):
+    fan_in, fan_out = _fans(shape)
+    return _scaled(gain * math.sqrt(2.0 / (fan_in + fan_out)),
+                   prng.normal(key, shape))
+
+
+def _init_kaiming_uniform(key, shape, a=0.0, mode="fan_in",
+                          nonlinearity="leaky_relu", **kw):
+    fan_in, fan_out = _fans(shape)
+    fan = fan_in if mode == "fan_in" else fan_out
+    bound = _gain(nonlinearity, a) * math.sqrt(3.0 / fan)
+    return prng.uniform(key, shape, torch.float32, -bound, bound)
+
+
+def _init_kaiming_normal(key, shape, a=0.0, mode="fan_in",
+                         nonlinearity="leaky_relu", **kw):
+    fan_in, fan_out = _fans(shape)
+    fan = fan_in if mode == "fan_in" else fan_out
+    return _scaled(_gain(nonlinearity, a) / math.sqrt(fan),
+                   prng.normal(key, shape))
+
+
+def _init_orthogonal(key, shape, gain=1.0, **kw):
+    """`jax.nn.initializers.orthogonal()`: the QR of a normal
+    `(max(r, c), min(r, c))` matrix (r = prod(shape) / c rows, c =
+    shape[-1] columns), Q's columns times the signs of R's diagonal,
+    transposed where r < c, then reshaped to `shape`; times 1.0, then
+    `gain`."""
+    if len(shape) < 2:
+        raise ValueError("orthogonal initializer requires at least a 2D shape")
+    cols = shape[-1]
+    rows = math.prod(shape) // cols
+    z = prng.normal(key, (max(rows, cols), min(rows, cols)))
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    if rows < cols:
+        q = q.T
+    return _scaled(gain, q.reshape(shape).contiguous())
+
+
+def _init_trunc_normal(key, shape, mean=0.0, std=1.0, a=-2.0, b=2.0, **kw):
+    """torch `trunc_normal_`: N(mean, std) truncated to values in [a, b]."""
+    lo = (a - mean) / std
+    hi = (b - mean) / std
+    return weak_scalar(mean, torch.float32) + _scaled(
+        std, prng.truncated_normal(key, lo, hi, shape))
+
+
+def _init_eye(key, shape, **kw):
+    """torch `eye_`: the 2D identity."""
+    if len(shape) != 2:
+        raise ValueError("eye init requires a 2-dimensional parameter")
+    return torch.eye(shape[0], shape[1], dtype=torch.float32, device=key.device)
+
+
+def _init_dirac(key, shape, groups=1, **kw):
+    """torch `dirac_` in HWIO layout: the {3,4,5}D kernel that keeps each
+    channel (a delta at the spatial center, per group)."""
+    if len(shape) not in (3, 4, 5):
+        raise ValueError("dirac init requires a {3,4,5}-dimensional kernel")
+    spatial, cin, cout = shape[:-2], shape[-2], shape[-1]
+    if cout % groups != 0:
+        raise ValueError("out channels must be divisible by groups")
+    per_group = cout // groups
+    w = torch.zeros(shape, dtype=torch.float32, device=key.device)
+    center = tuple(s // 2 for s in spatial)
+    for g in range(groups):
+        for d in range(min(per_group, cin)):
+            w[center + (d, g * per_group + d)] = 1.0
+    return w
+
+
+def _init_sparse(key, shape, sparsity=0.1, std=0.01, **kw):
+    """torch `sparse_`: an N(0, std) 2D matrix with ceil(sparsity * rows)
+    entries of each column zeroed, those of the smallest uniform ranks."""
+    if len(shape) != 2:
+        raise ValueError("sparse init requires a 2-dimensional parameter")
+    rows, _ = shape
+    nz = math.ceil(sparsity * rows)
+    kn, kp = prng.split(key)
+    w = _scaled(std, prng.normal(kn, shape))
+    if nz <= 0:
+        return w
+    u = prng.uniform(kp, shape)
+    thresh = torch.sort(u, dim=0).values[nz - 1]
+    # +0 where zeroed, as XLA gives `w * (u > thresh)`
+    return torch.where(u > thresh, w, 0.0)
+
+
+inits = {
+    "uniform": _init_uniform_named,
+    "normal": _init_normal,
+    "trunc_normal": _init_trunc_normal,
+    "constant": _init_constant,
+    "ones": _init_ones,
+    "zeros": _init_zeros,
+    "eye": _init_eye,
+    "dirac": _init_dirac,
+    "xavier_uniform": _init_xavier_uniform,
+    "xavier_normal": _init_xavier_normal,
+    "kaiming_uniform": _init_kaiming_uniform,
+    "kaiming_normal": _init_kaiming_normal,
+    "orthogonal": _init_orthogonal,
+    "sparse": _init_sparse,
+}
+# The torch in-place spellings too ("xavier_uniform_", ...)
+inits.update({name + "_": init for name, init in list(inits.items())})
+
+
+@torch.no_grad()
+def apply_named_init(model, key, init_multi=None, init_multi_args=None,
+                     init_mono=None, init_mono_args=None):
+    """Re-initialize the model's parameters of two or more dimensions with
+    `init_multi` and those of fewer with `init_mono` (the JAX
+    `apply_named_init`): one key a parameter from `split(key, count)` in
+    `jax.tree.flatten`'s leaf order (the names sorted component by
+    component, `FlatParams.names`), each drawn in float32 in its JAX
+    shape and rounded to the parameter dtype."""
+    named = dict(model.named_parameters())
+    names = sorted(named, key=lambda name: tuple(name.split(".")))
+    keys = prng.split(key.to(next(iter(named.values())).device), len(names))
+    for name, leaf_key in zip(names, keys):
+        leaf = named[name]
+        if leaf.dim() >= 2 and init_multi is not None:
+            init, args = inits[init_multi], init_multi_args
+        elif leaf.dim() < 2 and init_mono is not None:
+            init, args = inits[init_mono], init_mono_args
+        else:
+            continue
+        leaf.copy_(init(leaf_key, tuple(leaf.shape), **(args or {})))
+    return model

@@ -27,23 +27,36 @@ signed 64-bit range.
 - `bernoulli(key, p, shape)`: `uniform(key, shape) < p` in float32.
 - `normal(key, shape, dtype)`: `sqrt(2) * erfinv(u)` for u uniform in
   (-1, 1), with XLA's polynomial for the inverse error function (its
-  float32 form; the half dtypes compute it in float32 and round). Its
-  `log1p`, `sqrt` and multiply-adds are taken in float64 and rounded, so
-  the CPU and the card give the same bits; XLA's own float32 `log1p`
-  differs from that in the last bits of about 1% of the values (within
-  4 ulps). float64 uses `torch.erfinv`.
+  float32 form; the half dtypes compute it in float32 and round), and
+  XLA's float32 `log1p` (`log1p32`, its CPU intrinsic, step for step).
+  Each fused multiply-add is one rounding (`fma32`), a `sqrt` or a
+  quotient is taken in float64 and rounded once (the card's float32
+  `sqrt` is not correctly rounded), so the CPU and the card give XLA's
+  bits. float64 uses `torch.erfinv`.
 
 `mul32` and `wrapping_sum32` give the uint32 product and sum (modulo
 2^32) that content hashes need (`attacks/alie.py::row_key`).
+
+`truncated_normal(key, lower, upper, shape)`: JAX's inverse-CDF draw, a
+uniform between erf(lower / sqrt2) and erf(upper / sqrt2) (XLA's float32
+`erf`, `erf32`), `sqrt2 * erfinv(u)`, clipped to the open interval.
+
+The same hash on a key held on the host as two Python ints, for a host
+that mirrors a chain of device keys without reading them:
+`split_words(words, i)` (key i of `split(key, n)`, for any n > i),
+`fold_in_words(words, data)` and `uniform_words(words)` (a float32
+uniform, as a numpy scalar).
 """
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
-           "bits8", "uniform", "bernoulli", "normal", "mul32",
-           "wrapping_sum32", "MASK32"]
+           "bits8", "uniform", "bernoulli", "normal", "truncated_normal",
+           "erf32", "log1p32", "fma32", "mul32", "wrapping_sum32",
+           "split_words", "fold_in_words", "uniform_words", "MASK32"]
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -137,7 +150,7 @@ def random_bits(key, shape):
     xor of the two words hashed from the counter i; `[..., *shape]` for
     keys `[..., 2]`."""
     b1, b2 = _counter_hash(key, math.prod(shape))
-    return (b1 ^ b2).view(*key.shape[:-1], *shape)
+    return (b1 ^ b2).view((*key.shape[:-1], *shape))
 
 
 def bits8(key, shape):
@@ -155,7 +168,7 @@ def _unit_floats(key, shape, dtype):
     else:
         bits = (random_bits(key, shape) & ((1 << width) - 1)) >> (width - mantissa)
     ints = (bits | one).to(_INT_VIEW[dtype])
-    return (ints.view(dtype) - 1.0).view(*key.shape[:-1], *shape)
+    return (ints.view(dtype) - 1.0).view((*key.shape[:-1], *shape))
 
 
 def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
@@ -167,9 +180,27 @@ def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
     if dtype in (torch.float64, torch.bfloat16):
         return torch.maximum(lo, floats * (hi - lo) + lo)
     # XLA on the CPU fuses the scale and shift of f32 (and of f16, at f32)
-    # into one multiply-add; the product is exact in float64
-    scaled = floats.double() * (hi - lo).double() + lo.double()
-    return torch.maximum(lo, scaled.float().to(dtype))
+    # into one multiply-add
+    scaled = fma32(floats.float(), (hi - lo).float(), lo.float())
+    return torch.maximum(lo, scaled.to(dtype))
+
+
+def fma32(a, b, c):
+    """`a * b + c` of float32 tensors (c may be a Python float, taken as
+    a float32) with one rounding, as a fused multiply-add gives it: the
+    product is exact in float64, the sum is rounded to odd there (its
+    exact error from Knuth's two-sum), and rounding that to float32 is
+    then correct."""
+    p = a.double() * b.double()
+    c = (c.double() if isinstance(c, torch.Tensor)
+         else torch.full_like(p, float(np.float32(c))))
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(torch.int64)
+    even = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(even, bits + toward, bits).view(torch.float64).float()
 
 
 def bernoulli(key, p, shape):
@@ -182,18 +213,80 @@ def bernoulli(key, p, shape):
 
 def _erfinv32(x):
     """XLA's float32 inverse error function on an f32 tensor."""
-    w = -torch.log1p(-(x * x).double()).float()
+    w = -log1p32(-(x * x))
     small = w < 5.0
     # The card's float32 sqrt is not correctly rounded (0.7% of values
     # off by an ulp); float64's, rounded once more, is
     w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
-    w64 = w.double()
     for lo, hi in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
-        # XLA fuses each step into one multiply-add; the f32 product is
-        # exact in float64, so one rounding of the sum stands in for it
-        p = (torch.where(small, lo, hi).double() + p.double() * w64).float()
+        # XLA fuses each step into one multiply-add
+        p = fma32(p, w, torch.where(small, lo, hi))
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def _f32(values):
+    return tuple(float(np.float32(v)) for v in values)
+
+
+# XLA's float32 `log1p` (its CPU intrinsic). For |x| < sqrt2 - 1, Cephes'
+# x - x^2 / 2 + x^3 P(x) / Q(x) (coefficients highest degree first);
+# otherwise Cephes' float32 log of 1 + x: 1 + x = 2^e m, m in
+# [sqrt(0.5), sqrt(2)), y = m - 1, y - y^2 / 2 + y^3 R(y) + e log(2),
+# R evaluated as three quadratics (c0 y + c1) y + c2 joined in y^3, and
+# log(2) split in two
+_LOG1P_P = _f32((4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+                 6.5787325942061044846969, 2.9911919328553073277375e1,
+                 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+                 2.0039553499201281259648e1))
+_LOG1P_Q = _f32((1.5062909083469192043167e1, 8.3047565967967209469434e1,
+                 2.2176239823732856465394e2, 3.0909872225312059774938e2,
+                 2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOGF_R = _f32((7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LN2_HI, _LN2_LO = 0.693359375, float(np.float32(-2.12194440e-4))
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+
+
+def _logf32(x):
+    """Cephes' float32 log of an f32 tensor as XLA's CPU computes it: NaN
+    at and below zero (all bits set), -inf at zero, +inf at +inf."""
+    tiny = torch.finfo(torch.float32).tiny
+    bits = torch.where(x > tiny, x, torch.full_like(x, tiny)).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _SQRT_HALF
+    y = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = torch.where(low, e - 1.0, e)
+    y2 = y * y
+    y3 = y2 * y
+    c = _LOGF_R
+    q0, q1, q2 = (fma32(fma32(y, torch.full_like(y, c[k]), c[k + 1]), y,
+                        c[k + 2]) for k in (0, 3, 6))
+    r = fma32(fma32(fma32(q0, y3, q1), y3, q2), y3, e * _LN2_LO)
+    out = fma32(e, torch.full_like(e, _LN2_HI), (y - y2 * 0.5) + r)
+    nan = torch.full_like(out, -1, dtype=torch.int32).view(torch.float32)
+    out = torch.where(x > 0, out, nan)
+    return torch.where(x == 0, -torch.inf,
+                       torch.where(x == torch.inf, torch.inf, out))
+
+
+def log1p32(x):
+    """XLA's float32 `log1p` of an f32 tensor, bit for bit (a subnormal
+    input read as a zero of its sign, as XLA's CPU reads it)."""
+    x = torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+    x2 = x * x
+    num = torch.full_like(x, _LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        num = fma32(num, x, c)
+    den = torch.ones_like(x)
+    for c in _LOG1P_Q:
+        den = fma32(den, x, c)
+    ratio = (num.double() / den.double()).float()
+    small = x + ((x * x2) * ratio - x2 * 0.5)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _logf32(x + 1.0))
 
 
 def normal(key, shape, dtype=torch.float32):
@@ -206,3 +299,68 @@ def normal(key, shape, dtype=torch.float32):
     if dtype == torch.float64:
         return sqrt2 * torch.erfinv(u)
     return sqrt2 * _erfinv32(u.float()).to(dtype)
+
+
+# XLA's float32 `erf` (its CPU emitter): x clamped to +-erfinv(1 - 2^-23),
+# then x P(x^2) / Q(x^2), each Horner step one multiply-add; coefficients
+# highest degree first
+_ERF_CLAMP = 3.7439211627767994
+_ERF_P = (0.00022905065861350646, 0.0034082910107109506,
+          0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_Q = (-1.1791602954361697e-7, 0.000023547966471313185,
+          0.0010179625278914885, 0.014070470171167667, 0.11098505178285362,
+          0.49746925110067538, 1.0)
+
+
+def _horner32(x2, coefficients):
+    """A float32 polynomial in `x2` with one rounding a multiply-add."""
+    p = torch.full_like(x2, coefficients[0])
+    for c in coefficients[1:]:
+        p = fma32(p, x2, c)
+    return p
+
+
+def erf32(x):
+    """XLA's float32 `erf` of an f32 tensor, bit for bit (a subnormal
+    input read as a zero of its sign, as XLA's CPU reads it)."""
+    x = torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+    c = float(np.float32(_ERF_CLAMP))
+    x = torch.clamp(x, -c, c)
+    x2 = x * x
+    return (x * _horner32(x2, _ERF_P)) / _horner32(x2, _ERF_Q)
+
+
+def truncated_normal(key, lower, upper, shape):
+    """`jax.random.truncated_normal(key, lower, upper, shape)` in float32
+    for Python bounds: u uniform in [erf(lower / sqrt2), erf(upper /
+    sqrt2)), `sqrt2 * erfinv(u)` clipped to the open interval (lower,
+    upper) (the nearest floats inside it)."""
+    f32 = torch.float32
+    sqrt2 = torch.full((), math.sqrt(2.0), dtype=f32, device=key.device)
+    lo = torch.full((), lower, dtype=f32, device=key.device)
+    hi = torch.full((), upper, dtype=f32, device=key.device)
+    a, b = (float(erf32(bound / sqrt2)) for bound in (lo, hi))
+    u = uniform(key, shape, f32, a, b)
+    out = sqrt2 * _erfinv32(u)
+    inf = torch.full((), math.inf, dtype=f32, device=key.device)
+    return torch.clamp(out, torch.nextafter(lo, inf), torch.nextafter(hi, -inf))
+
+
+# --------------------------------------------------------------------------- #
+# Keys held on the host (two Python ints)
+
+def split_words(words, i):
+    """Key i of `split(key, n)` (any n > i) of the key `words = (k1, k2)`."""
+    return threefry2x32(words[0], words[1], i >> 32, i & MASK32)
+
+
+def fold_in_words(words, data):
+    """`fold_in(key, data)` of the key `words`."""
+    return threefry2x32(words[0], words[1], 0, int(data) & MASK32)
+
+
+def uniform_words(words):
+    """`uniform(key, ())` in float32 of the key `words`, a numpy scalar."""
+    b1, b2 = threefry2x32(words[0], words[1], 0, 0)
+    one_plus = np.uint32(((b1 ^ b2) >> 9) | 0x3F800000).view(np.float32)
+    return one_plus - np.float32(1.0)

@@ -8,7 +8,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Build: `nvcc` compiles `byzantinemomentum_tpu_torch/csrc/prng_kernels.cu`
    (the key tree's dropout-mask, Bernoulli-mask and split kernels),
    `csrc/search_kernels.cu` (the line search's `linesearch_step`),
-   `csrc/gar_kernels.cu`
+   `csrc/mixture_kernels.cu` (the `--gars-per-call` draw's
+   `operand_hash` and `mixture_draw`), `csrc/gar_kernels.cu`
    and `csrc/sort_kernels.cu` from this checkout into the kernel libraries
    the run needs (one per round count, and one per (kernel, n, element
    type) for the four sorting kernels, in f32, bf16 and f16), all side by
@@ -39,6 +40,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    > 0 and with prop_x = 0 down to -0 from the largest f32 step; f32 and
    f64 values, NaN values); its record times one probe's update (52
    bytes: launch-bound).
+   The `--gars-per-call` draw (`mixture_kernels_check`): `operand_hash`
+   against its plain version (the int64 emulation), its one-multiply
+   int64 form and the CPU's, bit for bit, on stacks with NaN payloads of
+   both signs, +-0, +-inf and a subnormal (`hash_stack`) at the
+   headline's [25, 1,310,922] in f32, bf16 and f16 and at WRN-28-10's
+   f32[11, 36,489,290]; `mixture_draw` against its plain version and the
+   CPU's for each hash; its records: `operand_hash` at the headline f32
+   shape (bound by its bytes; the library column is the one-multiply
+   int64 form) and `mixture_draw` (one thread, launch-bound), the other
+   shapes logged. The 14 named inits and empire-cnn's `apply_named_init`
+   on the card against the CPU's bits (orthogonal within 1e-6).
    Kernels against their plain PyTorch versions on the card: the seven
    f32 kernels at the headline shape f32[25, 1,310,922] (Bulyan's W at
    f=5, Krum's weights at f=11, Brute's mask at f=11 from the brute
@@ -155,6 +167,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `mnist-alie-krum`, `mnist-alie-warmup-krum` (`window:25`: the burst,
    then the hidden phase), `mnist-framing-krum` (`victim:0 push:1.0
    jitter:0.1`), `mnist-mimic-median` (`victim:0 jitter:0.1`).
+   Then the rest of the driver's training flags on the headline's
+   flags, 16 steps each: `headline_mixture` (`--gars
+   "bulyan,2;krum,1;median,1"`, drawn once a step on the host's mirror
+   of the key chain: each member's launches equal what the draws worked
+   out here from `--seed 1` predict, `mixture_draws`, and the driver
+   fails a chunk whose device key differs from the mirror),
+   `headline_mixture_per_call` (the same with `--gars-per-call` against
+   the `empire` search: every member at each of the 16 probes and the
+   outer call, 18 `operand_hash` and `mixture_draw` launches a step) and
+   `headline_adam` (`--optimizer adam`).
    Then the paper's appendix grid on WRN-28-10 at full width (depth 28,
    widen 10, d = 36,489,290; n = 11, batch 20, `crossentropy`, dropout
    0.3, Nesterov, the schedule `0.02,8000,0.004,16000,0.0008`, clip 5,
@@ -200,16 +222,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the rows where its two vectors' norms lie beyond that bound from
    zero: a vector the bound cannot tell from zero has no direction).
    Where the default runs are not byte-equal, the same three runs again
-   with cuDNN's deterministic algorithms, held the same way.
+   with cuDNN's deterministic algorithms (A, B and the killed run side by
+   side on the card, then the resume), held the same way.
    Then no host read inside a step (`no_host_reads`): after a warm-up
    step, one chunk of `Engine.train_multi_indexed` (its draw, uploads,
    gathers and steps) under `torch.cuda.set_sync_debug_mode("error")`,
    which fails on any synchronizing call, for the headline,
    `headline_adaptive`, `krum_f11_strict`, `median_bf16_adaptive`,
-   `cge_anticge`, `mnist-alie-warmup-krum` and `default` (8 steps each),
+   `cge_anticge`, `headline_mixture`, `headline_mixture_per_call`,
+   `headline_adam`, `mnist-alie-warmup-krum` and `default` (8 steps each),
    brute (1 step), the WRN Bulyan cell (2 steps) and `baseline_wrn_aksel`
    (2 steps at k = 2). Then `fused_vs_single`: the headline,
-   `headline_adaptive` and `default` at `--steps-per-program` 1 and 8
+   `headline_adaptive`, `default` and (under deterministic cuDNN only)
+   `headline_mixture` at `--steps-per-program` 1 and 8
    inside one call (16 steps; 20,000 synthetic CIFAR-10 train images, so
    no epoch boundary falls inside the window: a chunk that held one
    would draw its flips after the reshuffle), with steps/s of each; their
@@ -228,11 +253,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernels' tolerance over the 16 steps, as in the curvature column,
    within the resume check's bound of two card runs); no GAR-kernel or
    `linesearch_step` launch, one hop a step.
-5. Where a step's time goes (over 3 warm steps, brute's over 1), for the
+5. Where a step's time goes (over 3 warm steps; brute's, WRN's and the
+   per-call mixture's over 1), for the
    headline, `krum_f11`, brute,
    mixed-precision headline, vmapped headline,
-   `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive` and
-   the appendix's Bulyan WRN-28-10 cells, through the
+   `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive`, the
+   mixture and Adam cells (the update phase's time under Adam) and the
+   appendix's Bulyan WRN-28-10 cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the step keys and dropout masks, the honest,
    defense and update phases), the
@@ -244,8 +271,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
-the CIFAR runs of phase 4, the two key-tree kernels' and
-`linesearch_step`'s too; one
+the CIFAR runs of phase 4, the two key-tree kernels', `linesearch_step`'s,
+`operand_hash`'s and `mixture_draw`'s too; one
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
 at n = 51; `bernoulli_masks` and one `<kernel>_wrn` record per kernel at
@@ -284,9 +311,10 @@ from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import RECOVERY_COLUMNS, STUDY_COLUMNS
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
+from byzantinemomentum_tpu_torch.models import core as core_mod
 from byzantinemomentum_tpu_torch.ops import (
-    _common, _cuda, brute, bulyan, gar_kernels, gars, krum, prng_kernels,
-    search_kernels, sort_kernels)
+    _common, _cuda, brute, bulyan, gar_kernels, gars, krum, mixture_kernels,
+    prng_kernels, search_kernels, sort_kernels)
 
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 BOOL, I64 = torch.bool, torch.int64  # the mask and split kernels' counts
@@ -298,6 +326,8 @@ STEPS = 16
 M_DEFAULT = 8     # the driver's --steps-per-program
 # The headline's workers and batch: its dropout masks and step keys
 HEADLINE_S, HEADLINE_B = 20, 50
+# The headline's stack: n = 25 rows of empire-cnn's d
+HEADLINE_N, HEADLINE_D = 25, 1_310_922
 # Row counts the sorting kernels meet below, each with the trims f of
 # `check_sort_kernels` (closest_mean's m = n - f)
 SORT_CASES = {2: (0,), 25: (5, 11), 64: (7, 31)}
@@ -452,7 +482,8 @@ def build():
     for each m, `trimmed_mean` for each f it meets), compiled side by
     side; prints each kernel's registers and spills, and fails on a
     spill."""
-    jobs = [(prng_kernels.build,), (search_kernels.build,)]
+    jobs = [(prng_kernels.build,), (search_kernels.build,),
+            (mixture_kernels.build,)]
     jobs += [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
     jobs += [(sort_kernels.build, *job) for job in MNIST_SORT_BUILDS]
     jobs += [(sort_kernels.build, kernel, n, dtype)
@@ -537,7 +568,7 @@ def split_record_name(name):
     key-tree kernels under their names, in the operand types they count
     (the masks' bool, the split's int64), family "cifar", but the
     Bernoulli masks, which only WRN draws (family "wrn")."""
-    if name in ("dropout_masks", "split_keys"):
+    if name in ("dropout_masks", "split_keys", "mixture_draw"):
         return name, BOOL if name == "dropout_masks" else I64, "cifar"
     if name == "bernoulli_masks":
         return name, BOOL, "wrn"
@@ -556,11 +587,15 @@ SOURCES = {"sq_gram": "gar_kernels.cu", "selected_median_mean": "gar_kernels.cu"
            "masked_rows_mean": "gar_kernels.cu",
            "dropout_masks": "prng_kernels.cu", "split_keys": "prng_kernels.cu",
            "bernoulli_masks": "prng_kernels.cu",
-           "linesearch_step": "search_kernels.cu"}
+           "linesearch_step": "search_kernels.cu",
+           "operand_hash": "mixture_kernels.cu",
+           "mixture_draw": "mixture_kernels.cu"}
 # The key-tree kernels replace no Pallas kernel: they stand where XLA
 # generates the threefry hash in the JAX package
 REPLACES = {"dropout_masks": "models/core.py:561",
             "linesearch_step": "ops/linesearch.py:92",
+            "operand_hash": "engine/step.py:511",
+            "mixture_draw": "engine/program.py:81",
             "bernoulli_masks": "models/core.py:577",
             "split_keys": "engine/step.py:598",
             "sq_gram": "pallas_gar.py:135", "selected_median_mean": "pallas_gar.py:237",
@@ -1069,6 +1104,136 @@ def search_kernel(smi):
         28 + 24, 12, 0.0, smi)]
 
 
+def hash_stack(n, d, dtype, seed, device="cuda"):
+    """An (n, d) stack of `dtype` for the mixture hash: normal values
+    with, at the first flat positions (wrapping round a small stack),
+    +0, -0, +inf, -inf, then NaN payloads of both signs (quiet and
+    signalling) and a subnormal."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    flat = g.view(-1)
+    for k, value in enumerate((0.0, -0.0, math.inf, -math.inf)):
+        flat[k % flat.numel()] = value
+    # NaN words of each dtype (as signed ints): quiet +, quiet - with a
+    # payload, signalling +, signalling + with a payload; then a subnormal
+    words = {F32: (0x7FC00000, -0x003FFFFF, 0x7F800001, 0x7FA5A5A5, 1),
+             BF16: (0x7FC0, -0x003F, 0x7F81, 0x7FA5, 1),
+             F16: (0x7E00, -0x01FF, 0x7C01, 0x7D55, 1)}[dtype]
+    bits = flat.view(torch.int32 if dtype == F32 else torch.int16)
+    for k, word in enumerate(words):
+        bits[(4 + k) % flat.numel()] = word
+    return g
+
+
+def mixture_kernels_check(smi):
+    """Phase 3, the `--gars-per-call` draw: `operand_hash` against its
+    plain version (the int64 emulation) on the card and on the CPU, bit
+    for bit, on `hash_stack`s at the headline's [25, 1,310,922] in f32,
+    bf16 and f16 and at WRN-28-10's f32[11, 36,489,290]; `mixture_draw`
+    against its plain version and the CPU's for each hash and a few keys;
+    the named inits on the card against the CPU's bits (orthogonal within
+    atol 1e-6: another QR). Returns the records of `operand_hash` (f32 at
+    the headline shape: one read of the operand, bound by its bytes; the
+    library column is `operand_hash_int64`, one int64 multiply a word)
+    and `mixture_draw` (one thread: launch-bound); logs the same times at
+    the WRN shape and in bf16 and f16."""
+    dev = torch.device("cuda")
+    cum = torch.tensor(MIXTURE_CUM)
+    records = []
+    shapes = ((HEADLINE_N, HEADLINE_D, F32), (HEADLINE_N, HEADLINE_D, BF16),
+              (HEADLINE_N, HEADLINE_D, F16), (WRN_N, WRN_D, F32))
+    for n, d, dtype in shapes:
+        g = hash_stack(n, d, dtype, seed=n + d)
+        got = mixture_kernels.operand_hash(g)
+        plain = mixture_kernels.operand_hash_plain(g)
+        library = mixture_kernels.operand_hash_int64(g)
+        if dtype == F32 and n == HEADLINE_N:
+            cpu = mixture_kernels.operand_hash_plain(g.cpu())
+        else:
+            cpu = plain  # the CPU's plain version at this size: seconds
+        if not int(got) == int(plain) == int(library) == int(cpu):
+            raise SystemExit(f"operand_hash differs from its plain version at "
+                             f"{dtype}[{n}, {d}]: {int(got)} against "
+                             f"{int(plain)} (int64 {int(library)}, CPU "
+                             f"{int(cpu)})")
+        for seed in range(4):
+            key = prng.fold_in(prng.PRNGKey(seed), n)
+            drawn = mixture_kernels.mixture_draw(key.to(dev), got, cum.to(dev))
+            want = mixture_kernels.mixture_draw_plain(key, got.cpu(), cum)
+            if int(drawn) != int(want) or int(mixture_kernels.mixture_draw_plain(
+                    key.to(dev), got, cum.to(dev))) != int(want):
+                raise SystemExit(f"mixture_draw differs from its plain version "
+                                 f"at {dtype}[{n}, {d}], key {seed}")
+        label = f"operand_hash {DTYPE_NAMES[dtype]}[{n}, {d}]"
+        log(f"{label}: {int(got)} on the card, in its plain version, in the "
+            f"int64 form and on the CPU; mixture_draw equal for 4 keys")
+        nbytes = g.numel() * g.element_size() + 8
+        # The index's multiply and or, the word's product and the sum (and
+        # a half's widening, a shift or a few selects, uncounted)
+        rec = timed_record(
+            "operand_hash", "operand_hash",
+            lambda: mixture_kernels.operand_hash(g),
+            lambda: mixture_kernels.operand_hash_plain(g),
+            lambda: mixture_kernels.operand_hash_int64(g),
+            nbytes, 4 * g.numel(), 0.0, smi, integer=True)
+        if dtype == F32 and n == HEADLINE_N:
+            records.append(rec)
+        else:
+            log(f"  ({label} is logged, not recorded)")
+        del g, got, plain, library
+        torch.cuda.empty_cache()
+    key, h = prng.PRNGKey(0, device=dev), torch.tensor(12345, device=dev)
+    records.append(timed_record(
+        "mixture_draw", "mixture_draw",
+        lambda: mixture_kernels.mixture_draw(key, h, cum.to(dev)),
+        lambda: mixture_kernels.mixture_draw_plain(key, h, cum.to(dev)), None,
+        16 + 8 + 4 * len(MIXTURE_CUM) + 4,
+        2 * prng_kernels.hash_operations(1) + len(MIXTURE_CUM), 0.0, smi,
+        integer=True))
+    named_inits_on_card()
+    return records
+
+
+def named_inits_on_card():
+    """Each named init on the card against the CPU's bits at an HWIO, a
+    dense and a 1-D shape (orthogonal within atol 1e-6: the card's QR),
+    and `apply_named_init` on empire-cnn under `fold_in(PRNGKey(1), 2)`
+    (xavier_normal weights, uniform vectors) equal on both."""
+    dev = torch.device("cuda")
+    count = 0
+    for name, init in sorted(core_mod.inits.items()):
+        if name.endswith("_"):
+            continue
+        for seed, shape in enumerate(((3, 3, 16, 32), (64, 10), (7,))):
+            try:
+                cpu = init(prng.PRNGKey(seed), shape)
+            except ValueError:  # eye, dirac, sparse and orthogonal's shapes
+                continue
+            card = init(prng.PRNGKey(seed, device=dev), shape).cpu()
+            same = (torch.allclose(card, cpu, rtol=0, atol=1e-6)
+                    if name == "orthogonal" else torch.equal(card, cpu))
+            if not same:
+                raise SystemExit(f"init {name} on the card differs from the "
+                                 f"CPU's at {shape}")
+            count += 1
+    models = []
+    for where in (dev, "cpu"):
+        model = models_mod.build("empire-cnn", device=where)
+        model.init(prng.PRNGKey(1, device=where))
+        core_mod.apply_named_init(model, prng.fold_in(prng.PRNGKey(
+            1, device=where), 2), init_multi="xavier_normal",
+            init_mono="uniform")
+        models.append(model)
+    for (key, a), (_, b) in zip(models[0].state_dict().items(),
+                                models[1].state_dict().items()):
+        if not torch.equal(a.cpu(), b):
+            raise SystemExit(f"apply_named_init on the card differs from the "
+                             f"CPU's bits at {key}")
+    log(f"named inits: {count} (init, shape) pairs and empire-cnn's "
+        f"apply_named_init on the card equal the CPU's bits (orthogonal "
+        f"within 1e-6)")
+
+
 def nan_attack_operand(n, f, d, seed, extremes=False, device="cuda"):
     """f32[n, d] on `device` as the `nan` attack leaves a GAR's input:
     n - f standard normal rows, then f rows all NaN. `extremes` adds +inf
@@ -1460,6 +1625,49 @@ GAR_CALLS = {"average": (), "cge": (),
 # the three dropout masks (WRN-28-10's: `wrn_cell`)
 SPLIT_STEP = {("split_keys", I64): 1}
 MASKS_STEP = {("dropout_masks", BOOL): 3}
+# The `--gars` mixture cells: Bulyan, Krum and Median at 2:1:1
+MIXTURE = "bulyan,2;krum,1;median,1"
+MIXTURE_MEMBERS = ("bulyan", "krum", "median")
+MIXTURE_CUM = (2.0, 3.0, 4.0)
+MIXTURE_RUN = ("--gars", MIXTURE)
+# Per call: each of the 16 probes and the outer aggregation runs every
+# member (Krum's acceptation ratio takes one more Gram), and each of them
+# and the influence hashes its operand and draws
+PER_CALL_STEP = {("sq_gram", F32): 2 * (PROBES + 1) + 1,
+                 ("selected_median_mean", F32): PROBES + 1,
+                 ("weighted_rows_mean", F32): PROBES + 1,
+                 ("lower_median", F32): PROBES + 1,
+                 ("operand_hash", F32): PROBES + 2,
+                 ("mixture_draw", I64): PROBES + 2, **SEARCH_STEP}
+
+
+def mixture_draws(steps, seed=1, S=HEADLINE_S):
+    """The members a per-step `MIXTURE` draws in the first `steps` steps
+    of a run from `--seed seed` with S sampled workers, worked out here
+    from the JAX key tree on the CPU (the engine's host mirror computes
+    the same on Python ints): the step key `fold_in(PRNGKey(seed), 1)`,
+    split into S + 2 each step, key 0 the next step's, key 1's uniform
+    through the inverse CDF."""
+    rng = prng.fold_in(prng.PRNGKey(seed), 1)
+    cum = np.asarray(MIXTURE_CUM, np.float32)
+    members = []
+    for _ in range(steps):
+        keys = prng.split(rng, S + 2)
+        rng = keys[0]
+        u = np.float32(prng.uniform(keys[1], ()).item())
+        members.append(min(int(np.searchsorted(cum, u * cum[-1],
+                                               side="right")),
+                           len(cum) - 1))
+    return members
+
+
+def mixture_launches(steps):
+    """A per-step `MIXTURE` run's exact launches in `steps` steps: the
+    drawn member's each step (`mixture_draws`), and the key tree's."""
+    totals = collections.Counter()
+    for member in mixture_draws(steps):
+        totals.update(gar_launches(MIXTURE_MEMBERS[member]))
+    return dict(totals)
 
 
 def gar_launches(gar, dtype=F32):
@@ -1475,22 +1683,30 @@ def cifar_cell(name, gar, f, attack, steps=STEPS, flags=(), dtype=F32,
     batch 50, momentum 0.99 at update, clip 5, nb-for-study 1 (its own
     flags last, so they override these); an attack with no arguments
     takes the JAX defaults (no `--attack-args`). `per_step` is the exact
-    GAR launches a step (`gar_launches(gar, dtype)` when None); the key
-    tree's are added."""
+    GAR launches a step (`gar_launches(gar, dtype)` when None), or a
+    function of the step count giving a run's totals where they vary by
+    step (a per-step mixture); the key tree's are added."""
     attack, attack_args = attack
     per_step = gar_launches(gar, dtype) if per_step is None else per_step
-    return Cell(name, (
-        "--dataset", "cifar10", "--model", "empire-cnn",
-        "--nb-workers", "25", "--nb-decl-byz", str(f),
-        "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
-        *(("--attack-args", *attack_args) if attack_args else ()),
-        "--batch-size", "50",
-        "--batch-size-test", "100", "--batch-size-test-reps", "5",
-        "--evaluation-delta", str(steps), "--momentum", "0.99",
-        "--momentum-at", "update", "--gradient-clip", "5",
-        "--learning-rate", "0.01", "--nb-for-study", "1",
-        "--nb-for-study-past", "1", *flags), steps, "cifar",
-        {**per_step, **SPLIT_STEP, **MASKS_STEP})
+    argv = ("--dataset", "cifar10", "--model", "empire-cnn",
+            "--nb-workers", "25", "--nb-decl-byz", str(f),
+            "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
+            *(("--attack-args", *attack_args) if attack_args else ()),
+            "--batch-size", "50",
+            "--batch-size-test", "100", "--batch-size-test-reps", "5",
+            "--evaluation-delta", str(steps), "--momentum", "0.99",
+            "--momentum-at", "update", "--gradient-clip", "5",
+            "--learning-rate", "0.01", "--nb-for-study", "1",
+            "--nb-for-study-past", "1", *flags)
+    if callable(per_step):
+        totals = per_step
+
+        def per_step(steps):
+            return {**totals(steps), **{key: count * steps for key, count
+                                        in {**SPLIT_STEP, **MASKS_STEP}.items()}}
+    else:
+        per_step = {**per_step, **SPLIT_STEP, **MASKS_STEP}
+    return Cell(name, argv, steps, "cifar", per_step)
 
 
 # `reproduce.py::submit_mnist`: its common flags in its order, and the
@@ -1631,6 +1847,17 @@ CELLS = (
                per_step={("lower_median", F32): PROBES, ("lower_median", BF16): 1,
                          **SEARCH_STEP}),
     cifar_cell("cge_anticge", "cge", 11, ANTICGE, per_step={}),
+    # The `--gars` mixture drawn once a step (only the drawn member runs:
+    # the host mirrors the key chain) and at every defense call (every
+    # member runs, the hash and the draw pick one on the card), and the
+    # headline under Adam
+    cifar_cell("headline_mixture", "bulyan", 5, EMPIRE, flags=MIXTURE_RUN,
+               per_step=mixture_launches),
+    cifar_cell("headline_mixture_per_call", "bulyan", 5, EMPIRE_ADAPTIVE,
+               flags=(*MIXTURE_RUN, "--gars-per-call"),
+               per_step=PER_CALL_STEP),
+    cifar_cell("headline_adam", "bulyan", 5, EMPIRE,
+               flags=("--optimizer", "adam")),
     # The MNIST half: the driver's defaults (no kernel), BASELINE.md's
     # MNIST configs, the paper's grid and its cells against `nan`, phishing
     mnist_cell("default", (), "average", steps=STEPS),
@@ -1673,6 +1900,7 @@ CELLS = (
 CELLS_BY_NAME = {cell.name: cell for cell in CELLS}
 PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped",
             "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive",
+            "headline_mixture", "headline_mixture_per_call", "headline_adam",
             APPENDIX_BULYAN)
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
@@ -1680,7 +1908,8 @@ WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     sort_kernels.colsort, sort_kernels.lower_median,
     sort_kernels.trimmed_mean, sort_kernels.closest_mean,
     prng_kernels.dropout_masks, prng_kernels.bernoulli_masks,
-    prng_kernels.split_keys, search_kernels.linesearch_step)}
+    prng_kernels.split_keys, search_kernels.linesearch_step,
+    mixture_kernels.operand_hash, mixture_kernels.mixture_draw)}
 
 
 def cell_argv(cell, steps, resdir):
@@ -1727,7 +1956,8 @@ def drive(cell, smi):
     if not np.all(np.isfinite(norms)):
         raise SystemExit(f"{name}: non-finite defense gradient norm: {norms}")
     # Exactly the counts worked out from the code, and no other kernel
-    want = {key: per * steps for key, per in per_step.items()}
+    want = (per_step(steps) if callable(per_step)
+            else {key: per * steps for key, per in per_step.items()})
     if launches != want:
         raise SystemExit(f"{name}: launches {launches} in {steps} steps, "
                          f"expected {want}")
@@ -1752,6 +1982,12 @@ def drive(cell, smi):
     ratio = rows[-1][STUDY_COLUMNS.index("Attack acceptation ratio")]
     counts = {f"{kernel}[{DTYPE_NAMES[dt]}]": count
               for (kernel, dt), count in launches.items()}
+    if name == "headline_mixture":
+        drawn = collections.Counter(MIXTURE_MEMBERS[m]
+                                    for m in mixture_draws(steps))
+        log(f"{name}: the host mirror's draws {dict(drawn)} over {steps} "
+            f"steps predict every member's launches exactly; the mirror "
+            f"equalled the device's key at each chunk's end")
     log(f"{name} cell: {steps} steps in chunks {sizes}, {rate:.4f} steps/s "
         f"after the first chunk, engine counts {summary['counts']}, "
         f"launches {counts}, defense norms {norms[0]:.4e} .. "
@@ -1784,15 +2020,17 @@ def setup_cell(cell, steps=None):
     return args, engine, state
 
 
-def step_profile(cell, smi, steps=3):
+def step_profile(cell, smi, steps=3, setup=None):
     """Phase 5: where the device time of a cell's step goes, over `steps`
     warm steps on the driver's path: the host draws the step's indices and
     flips, uploads them and the device gathers the batches. CUDA events
     between the index draw, the gather and the engine's three phases give
     each one's time on the device's clock; `torch.profiler` gives the
     busiest kernels and the device's busy share of the wall time (the
-    union of the kernels' intervals; their summed times beside it)."""
-    args, engine, state = setup_cell(cell, steps)
+    union of the kernels' intervals; their summed times beside it).
+    `setup` is the cell's `(args, engine, state)` where the caller has
+    them (`setup_cell`); returns them, the state advanced."""
+    args, engine, state = setup or setup_cell(cell, steps)
     data = engine.train_data
     lr = args.initial_lr(0)
     phase_ms = dict.fromkeys(("draw+upload", "gather", "keys+masks", "honest",
@@ -1806,15 +2044,17 @@ def step_profile(cell, smi, steps=3):
         xs, ys = data.gather(idx, flips)
         marks[2].record()
         batch = engine._batch_of(xs)
-        rng, _, wkeys = engine.step_keys(state.rng)
+        rng, mix_key, wkeys = engine.step_keys(state.rng)
+        rng_host, member = engine.mirror_keys(state)
         masks = engine.draw_masks(wkeys, batch)
         marks[3].record()
         honest = engine.phase_honest(state, xs, ys, lr, masks)
         marks[4].record()
-        defense = engine.phase_defense(honest[-1], state.attack_state)
+        defense = engine.phase_defense(honest[-1], state.attack_state,
+                                       mix_key=mix_key, member=member)
         marks[5].record()
         state, _ = engine.phase_update(state, *honest, *defense, lr, batch,
-                                       rng=rng)
+                                       rng=rng, rng_host=rng_host)
         marks[6].record()
         return state, marks
 
@@ -1857,6 +2097,7 @@ def step_profile(cell, smi, steps=3):
     for event in sorted(kernels, key=device_ms, reverse=True)[:12]:
         log(f"  {device_ms(event):9.4f} ms/step {event.count // steps:5d}x  "
             f"{event.key[:90]}")
+    return args, engine, state
 
 
 # Phase 4's kill-and-resume cell: a short headline run with checkpoints
@@ -1882,52 +2123,90 @@ DETERMINISTIC = ("import sys, torch; "
                  "sys.exit(main(sys.argv[1:]))")
 
 
-def resume_runs(tmp, deterministic):
+def _resume_child(resdir, deterministic, extra=None):
+    """One child process of RESUME_CELL through the driver, started and
+    not waited for; its output goes to `<resdir>.out` and `<resdir>.err`
+    (files: a child never blocks on a full pipe)."""
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           **{k: str(v) for k, v in (extra or {}).items()}}
+    entry = (["-c", DETERMINISTIC] if deterministic
+             else ["-m", "byzantinemomentum_tpu_torch"])
+    resdir.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{resdir}.out", "w") as out, open(f"{resdir}.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, *entry,
+             *cell_argv(RESUME_CELL, RESUME_CELL.steps, str(resdir))],
+            env=env, stdout=out, stderr=err)
+    proc.logs = resdir
+    return proc
+
+
+def _waited(procs, expected, t0):
+    """Wait for each `{label: process}` child (600 s at most), check its
+    exit code against `expected[label]`; returns `{label: stdout}`. Kills
+    every child still running when one fails."""
+    out = {}
+    try:
+        for label, proc in procs.items():
+            proc.wait(timeout=600)
+            if proc.returncode != expected[label]:
+                stderr = pathlib.Path(f"{proc.logs}.err").read_text()
+                raise SystemExit(f"resume run {label} exited {proc.returncode}, "
+                                 f"expected {expected[label]}:\n{stderr[-3000:]}")
+            log(f"  resume run {label}: done after "
+                f"{time.perf_counter() - t0:.1f} s")
+            out[label] = pathlib.Path(f"{proc.logs}.out").read_text()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def resume_runs(tmp, deterministic, side_by_side=False):
     """RESUME_CELL through the driver in child processes: twice
     uninterrupted (A, B), then SIGKILLed at step RESUME_KILL_STEP
     (`BMT_CHAOS_KILL_AT_STEP`) and `--auto-resume`d with the same command
-    line (R). Returns each run's `(eval file, study rows without the
-    recovery columns)` and checks the kill, the restart and the
-    `Restarts` column."""
-    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent),
-           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    entry = (["-c", DETERMINISTIC] if deterministic
-             else ["-m", "byzantinemomentum_tpu_torch"])
+    line (R); with `side_by_side`, A, B and the killed run at once, then
+    the resume, else one after the other. Returns each run's `(eval
+    file, study rows without the recovery columns)` and checks the kill,
+    the restart and the `Restarts` column."""
     strip = len(RECOVERY_COLUMNS)
     header = "# " + "\t".join(STUDY_COLUMNS + RECOVERY_COLUMNS)
+    kill = {"BMT_CHAOS_KILL_AT_STEP": RESUME_KILL_STEP}
+    t0 = time.perf_counter()
+    first = [(name, kill if name == "R" else None) for name in "ABR"]
+    labels = {name: f"{name}{' (killed)' if extra else ''}"
+              for name, extra in first}
+    if side_by_side:
+        _waited({labels[name]: _resume_child(tmp / name, deterministic, extra)
+                 for name, extra in first},
+                {labels[name]: -9 if extra else 0 for name, extra in first}, t0)
+    else:
+        for name, extra in first:
+            _waited({labels[name]: _resume_child(tmp / name, deterministic,
+                                                 extra)},
+                    {labels[name]: -9 if extra else 0}, t0)
+    found = checkpoint_mod.find_latest_valid(tmp / "R")
+    if found is None or found.name != "checkpoint-2":
+        raise SystemExit(f"the killed run left {found} as its newest "
+                         f"checkpoint, expected checkpoint-2")
+    resumed = _waited({"R": _resume_child(tmp / "R", deterministic)},
+                      {"R": 0}, t0)
+    if "Auto-resume: restart #1 from checkpoint-2" not in resumed["R"]:
+        raise SystemExit("the resumed run did not restart from checkpoint-2")
     out = {}
-    for name, extra, code in (("A", {}, 0), ("B", {}, 0),
-                              ("R", {"BMT_CHAOS_KILL_AT_STEP": RESUME_KILL_STEP}, -9),
-                              ("R", {}, 0)):
-        resdir = tmp / name
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, *entry,
-             *cell_argv(RESUME_CELL, RESUME_CELL.steps, str(resdir))],
-            env={**env, **{k: str(v) for k, v in extra.items()}},
-            capture_output=True, text=True, timeout=600, check=False)
-        if proc.returncode != code:
-            raise SystemExit(f"resume run {name} {extra} exited "
-                             f"{proc.returncode}, expected {code}:\n"
-                             f"{proc.stderr[-3000:]}")
-        log(f"  resume run {name}{' (killed)' if code else ''}: "
-            f"{time.perf_counter() - t0:.1f} s")
-        if code:
-            found = checkpoint_mod.find_latest_valid(resdir)
-            if found is None or found.name != "checkpoint-2":
-                raise SystemExit(f"the killed run left {found} as its newest "
-                                 f"checkpoint, expected checkpoint-2")
-            continue
-        study = (resdir / "study").read_text().split(os.linesep)
+    for name in "ABR":
+        study = (tmp / name / "study").read_text().split(os.linesep)
         if study[0] != header:
             raise SystemExit(f"run {name}: study header {study[0]!r}")
         restarts = [row.split("\t")[-1] for row in study[1:]]
         if restarts != (["0", "0"] + ["1"] * 6 if name == "R" else ["0"] * 8):
             raise SystemExit(f"run {name}: Restarts column {restarts}")
-        out[name] = ((resdir / "eval").read_text(),
+        out[name] = ((tmp / name / "eval").read_text(),
                      [row.rsplit("\t", strip)[0] for row in study[1:]])
-    if "Auto-resume: restart #1 from checkpoint-2" not in proc.stdout:
-        raise SystemExit("the resumed run did not restart from checkpoint-2")
     return out
 
 
@@ -2029,15 +2308,18 @@ def spread_verdict(label, refs, rows_r, final=True):
 
 def resume_check(smi):
     """Phase 4, kill and resume (`resume_runs`, `resume_verdict`) on the
-    driver's default settings; where those runs are not byte-equal, once
-    more with deterministic cuDNN algorithms, which must then hold the
-    resume byte for byte (or, if even they are not byte-equal, within the
+    driver's default settings, one run after the other; where those runs
+    are not byte-equal, once more with deterministic cuDNN algorithms
+    (A, B and the killed run side by side: deterministic runs do not
+    depend on what else the card runs), which must then hold the resume
+    byte for byte (or, if even they are not byte-equal, within the
     spread)."""
     with tempfile.TemporaryDirectory() as tmp:
         deterministic = resume_verdict(
             resume_runs(pathlib.Path(tmp) / "default", False), "default", smi)
         if not deterministic:
-            resume_verdict(resume_runs(pathlib.Path(tmp) / "deterministic", True),
+            resume_verdict(resume_runs(pathlib.Path(tmp) / "deterministic",
+                                       True, side_by_side=True),
                            "cudnn.deterministic", smi)
 
 
@@ -2047,6 +2329,9 @@ NO_READ_CELLS = (("headline", M_DEFAULT), ("headline_adaptive", M_DEFAULT),
                  ("krum_f11_strict", M_DEFAULT),
                  ("median_bf16_adaptive", M_DEFAULT),
                  ("cge_anticge", M_DEFAULT),
+                 ("headline_mixture", M_DEFAULT),
+                 ("headline_mixture_per_call", M_DEFAULT),
+                 ("headline_adam", M_DEFAULT),
                  ("mnist-alie-warmup-krum", M_DEFAULT),
                  ("default", M_DEFAULT), ("brute", 1), (APPENDIX_BULYAN, 2),
                  ("baseline_wrn_aksel", 2))
@@ -2091,7 +2376,10 @@ def no_host_reads(smi):
 # boundary out of their 16 steps: 20,000 synthetic CIFAR-10 images are
 # 400 batches of 50, 20 headline steps of S = 20 (a chunk that held a
 # boundary would draw its flips after the reshuffle, unlike single steps)
-FUSED_CELLS = ("headline", "headline_adaptive", "default")
+FUSED_CELLS = ("headline", "headline_adaptive", "default", "headline_mixture")
+# Cells held only under deterministic cuDNN: the mixture's members are
+# the headline's kernels, whose default-mode branching the headline holds
+DETERMINISTIC_ONLY = ("headline_mixture",)
 FUSED_TRAIN = "20000"
 # In the default mode the headline's runs part ways after a few steps,
 # at M = 1 as at M = 8: cuDNN's unordered sums tip a near-tie in the
@@ -2133,6 +2421,8 @@ def fused_vs_single(smi):
             torch.use_deterministic_algorithms(deterministic, warn_only=True)
             label = "deterministic" if deterministic else "default"
             for name in FUSED_CELLS:
+                if name in DETERMINISTIC_ONLY and not deterministic:
+                    continue
                 cell = CELLS_BY_NAME[name]
                 single, fused = fused_run(cell, 1), fused_run(cell, M_DEFAULT)
                 same = single[1:] == fused[1:]
@@ -2252,11 +2542,12 @@ def device_gar_cell(smi):
             f"on {smi}")
 
 
-def chunk_profile(cell, smi, M=M_DEFAULT):
+def chunk_profile(cell, smi, M=M_DEFAULT, setup=None):
     """Phase 5 at the driver's default M: one warm chunk of `M` steps
     through `Engine.train_multi_indexed` (the index draw included) under
-    `torch.profiler`: wall and device-busy ms a step and the busy share."""
-    args, engine, state = setup_cell(cell)
+    `torch.profiler`: wall and device-busy ms a step and the busy share.
+    `setup` as for `step_profile`."""
+    args, engine, state = setup or setup_cell(cell)
     lrs = np.full(M, args.initial_lr(0), np.float32)
     state, _ = engine.train_multi_indexed(state, *engine.sample_indices(M), lrs)
     torch.cuda.synchronize()
@@ -2287,7 +2578,8 @@ def main():
     smi = environment()
     build()
     lap("build")
-    records = (key_tree_kernels(smi) + search_kernel(smi) + kernels_vs_plain(smi)
+    records = (key_tree_kernels(smi) + search_kernel(smi)
+               + mixture_kernels_check(smi) + kernels_vs_plain(smi)
                + mnist_kernels(smi))
     lap("kernels")
     records += wrn_kernels(smi)
@@ -2316,13 +2608,17 @@ def main():
     lap("device-gar")
     for cell in CELLS:
         if cell.name in PROFILED:
-            # brute's step is 95k device operations: one step is enough
-            # for the profile and keeps its trace's processing short
-            step_profile(cell, smi, steps=1 if cell.name == "brute" else 3)
-            # and at the driver's default M (brute's chunk of one step is
-            # the step profile above)
+            # brute's step is 95k device operations, WRN's 18k and the
+            # per-call mixture's 5k: one step each keeps their traces'
+            # processing short
+            setup = step_profile(cell, smi, steps=1 if cell.name in (
+                "brute", APPENDIX_BULYAN, "headline_mixture_per_call") else 3)
+            # and at the driver's default M, on the same engine (brute's
+            # chunk of one step is the step profile above)
             if cell.name != "brute":
-                chunk_profile(cell, smi)
+                chunk_profile(cell, smi, setup=setup)
+            del setup
+            torch.cuda.empty_cache()
             lap(f"profile {cell.name}")
     for record in records:
         record["launches"] = totals[split_record_name(record["name"])]

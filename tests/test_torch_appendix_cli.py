@@ -45,6 +45,8 @@ from byzantinemomentum_tpu_torch import checkpoint, convert
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CELL = "cifar10-empire-bulyan-f_2-lr_pow-at_update-nesterov"
 # The grid's runner adds the seed; the rest cuts the runs to size

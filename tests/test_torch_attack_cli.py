@@ -27,6 +27,8 @@ import pytest
 from byzantinemomentum_tpu.cli.attack import main as jax_main
 from byzantinemomentum_tpu_torch.cli import attack as driver
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 SEED = 2
 COMMON = ["--seed", str(SEED), "--nb-steps", "4", "--model", "simples-full",
           "--dataset", "mnist", "--nb-workers", "11", "--nb-decl-byz", "4",

@@ -41,6 +41,8 @@ from byzantinemomentum_tpu.ops import gars as jax_gars
 from byzantinemomentum_tpu_torch.attacks import alie, attacks, empire, identical
 from byzantinemomentum_tpu_torch.ops import gars
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 H, D, F = 9, 50, 2
 ADAPTIVE_GARS = ("average", "krum", "bulyan", "median", "trmean")

@@ -33,6 +33,8 @@ from byzantinemomentum_tpu.ops import pallas_gar, pallas_sort
 from byzantinemomentum_tpu_torch.ops import (
     brute, cge, gar_kernels, gars, sort_kernels)
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 NS = (1, 2, 9, 25, 64)
 D = 301  # not a multiple of any tile width

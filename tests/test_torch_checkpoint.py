@@ -53,6 +53,8 @@ from byzantinemomentum_tpu_torch import checkpoint, convert, data, utils
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import RECOVERY_COLUMNS
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SYNTH = {"BMT_SYNTH_TRAIN": "256", "BMT_SYNTH_TEST": "64"}
 

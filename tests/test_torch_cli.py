@@ -34,6 +34,8 @@ from byzantinemomentum_tpu_torch import data
 from byzantinemomentum_tpu_torch.data import sources
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "byzantinemomentum_tpu_torch"
 SYNTH = {"BMT_SYNTH_TRAIN": "256", "BMT_SYNTH_TEST": "64"}

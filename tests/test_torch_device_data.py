@@ -40,6 +40,7 @@ from byzantinemomentum_tpu_torch.ops import gars
 
 from tests.test_torch_engine import CFG, LR, _close
 from tests.test_torch_model import jax_masks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 IMAGES, BATCH, COUNT = 130, 10, 4
 
@@ -144,8 +145,9 @@ def _engines():
     jstate = jengine.init(key, params=params, net_state=net_state)
     cfg = EngineConfig(**CFG)
     engine = Engine(cfg, models.build("empire-cnn", device="cpu"),
-                    Loss("nll"), Criterion("top-k"), (gars["bulyan"], {}),
-                    attacks["empire"], {"factor": 1.1},
+                    Loss("nll"), Criterion("top-k"),
+                    [(gars["bulyan"], 1.0, {})], attacks["empire"],
+                    {"factor": 1.1},
                     optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))

@@ -68,6 +68,7 @@ from byzantinemomentum_tpu_torch.ops import gars, sort_kernels
 
 from tests.test_torch_brute_cge import D, _kernel_input
 from tests.test_torch_model import jax_masks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 HALF = {"bf16": (jnp.bfloat16, torch.bfloat16, 2.0 ** -7, 2.0 ** -133),
         "f16": (jnp.float16, torch.float16, 2.0 ** -10, 2.0 ** -24)}
@@ -239,8 +240,8 @@ def _engines(gar, **dtypes):
 
 def _port_engine(cfg, gar):
     model = models.build("empire-cnn", device="cpu", dtype=cfg.torch_dtype)
-    return Engine(cfg, model, Loss("nll"), Criterion("top-k"), (gars[gar], {}),
-                  attacks["empire"], {"factor": 1.1},
+    return Engine(cfg, model, Loss("nll"), Criterion("top-k"),
+                  [(gars[gar], 1.0, {})], attacks["empire"], {"factor": 1.1},
                   optim.build("sgd", weight_decay=cfg.weight_decay))
 
 
@@ -378,8 +379,9 @@ def test_update_scalars_round_as_jax(half, momentum_at):
     jstate = jengine.init(jax.random.PRNGKey(3))
     pcfg = EngineConfig(**cfg)
     engine = Engine(pcfg, models.build("simples-full", device="cpu", dtype=tdt),
-                    Loss("nll"), Criterion("top-k"), (gars["average"], {}),
-                    attacks["empire"], {"factor": 1.1},
+                    Loss("nll"), Criterion("top-k"),
+                    [(gars["average"], 1.0, {})], attacks["empire"],
+                    {"factor": 1.1},
                     optim.build("sgd", weight_decay=pcfg.weight_decay))
     engine.model.init(prng.PRNGKey(3))
     state = engine.init(prng.PRNGKey(3))

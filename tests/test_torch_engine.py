@@ -42,6 +42,7 @@ from byzantinemomentum_tpu_torch.losses import Criterion, Loss
 from byzantinemomentum_tpu_torch.ops import gars
 
 from tests.test_torch_model import jax_masks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 N, F, F_REAL, B, LR = 11, 2, 2, 4, 0.05
@@ -97,11 +98,20 @@ STEP_CASES = ([("bulyan", momentum_at, nesterov)
                   "brute", "cge")])
 
 
+@pytest.fixture(scope="module")
+def jax_honest():
+    """The JAX honest phase's outputs by (momentum placement, Nesterov):
+    the phase does not depend on the GAR or the attack, so the cases of
+    one configuration share one run of it (eager JAX on the CPU, the
+    longest part of a case)."""
+    return {}
+
+
 @pytest.mark.parametrize(
     "gar,momentum_at,nesterov", STEP_CASES,
     ids=[f"{nesterov}-{momentum_at}" if gar == "bulyan" else f"{gar}-{momentum_at}"
          for gar, momentum_at, nesterov in STEP_CASES])
-def test_step_matches_jax(gar, momentum_at, nesterov):
+def test_step_matches_jax(gar, momentum_at, nesterov, jax_honest):
     jcfg = JaxConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     mdef = jax_models.build("empire-cnn")
     jengine = build_engine(
@@ -128,7 +138,8 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     cfg = EngineConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     model = models.build("empire-cnn", device="cpu")
     engine = Engine(cfg, model, Loss("nll"), Criterion("top-k"),
-                    (gars[gar], {}), attacks["empire"], {"factor": 1.1},
+                    [(gars[gar], 1.0, {})], attacks["empire"],
+                    {"factor": 1.1},
                     optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
@@ -142,8 +153,12 @@ def test_step_matches_jax(gar, momentum_at, nesterov):
     _, _, *wkeys = jax.random.split(jstate.rng, S + 2)
     masks = [jax_masks(k, B) for k in wkeys]
     masks = tuple(_t(np.stack(m)) for m in zip(*masks))
+    shared = (momentum_at, nesterov)
+    if shared not in jax_honest:
+        jax_honest[shared] = jengine._phase_honest(
+            jstate, jnp.asarray(xs), jnp.asarray(ys), LR)
     (_, mix_key, jG_sampled, jloss, jnet, jmw, jG_honest, _, _) = \
-        jengine._phase_honest(jstate, jnp.asarray(xs), jnp.asarray(ys), LR)
+        jax_honest[shared]
     G_sampled, loss_avg, net, new_mw, G_honest = engine.phase_honest(
         state, _t(xs), _t(ys), LR, masks)
     _close_rows(G_sampled, jG_sampled)

@@ -31,6 +31,8 @@ from byzantinemomentum_tpu.ops import pallas_gar, pallas_sort
 from byzantinemomentum_tpu_torch.ops import (
     _common, aksel, gar_kernels, gars, krum, sort_kernels)
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 D = 1001
 

@@ -24,7 +24,7 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import (
     _common, bulyan, gar_kernels, gars, sort_kernels)
-from chip_smoke import nan_attack_operand
+from chip_smoke import hash_stack, nan_attack_operand
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -827,7 +827,8 @@ def _honest_setup(device, momentum_at="update", nesterov=False, **dtypes):
     engines = [Engine(c, models.build("empire-cnn", device=device,
                                       dtype=cfg.torch_dtype),
                       Loss("nll") + 1e-2 * Loss("l2"), Criterion("top-k"),
-                      (gars["bulyan"], {}), attacks["empire"], {"factor": 1.1},
+                      [(gars["bulyan"], 1.0, {})], attacks["empire"],
+                      {"factor": 1.1},
                       optim.build("sgd"))
                for c in (cfg, dataclasses.replace(cfg, grouped_workers=False))]
     engines[0].model.init(prng.PRNGKey(1, device=device))
@@ -1360,3 +1361,27 @@ def test_headline_chunk_makes_no_synchronizing_call(cuda, tmp_path, monkeypatch)
     assert metrics["Defense gradient norm"].shape == (3,)
     assert bool(torch.isfinite(metrics["Defense gradient norm"]).all())
     assert int(state.past_count) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16, torch.float16))
+@pytest.mark.parametrize("n,d", ((25, 1032), (7, 4), (3, 1)))
+def test_operand_hash_kernel_equals_its_plain_version(cuda, dtype, n, d):
+    """The hash bit for bit on the card, on stacks with NaN payloads,
+    +-0, +-inf and a subnormal (`chip_smoke.hash_stack`; 16-byte loads
+    where d allows, scalar ones otherwise; an offset view takes the
+    scalar path) and the draw from it; one launch each."""
+    from byzantinemomentum_tpu_torch import prng
+    from byzantinemomentum_tpu_torch.ops import mixture_kernels as mk
+    g = hash_stack(n, d, dtype, seed=n + d, device=cuda)
+    for operand in (g, g.reshape(-1)[1:].reshape(1, -1)):
+        want = mk.operand_hash_plain(operand.cpu())
+        got = _launched(mk.operand_hash, lambda: mk.operand_hash(operand),
+                        dtype)
+        assert int(got) == int(want)
+        assert int(mk.operand_hash_plain(operand)) == int(want)
+        key = prng.PRNGKey(n * 31 + d)
+        cum = torch.tensor([2.0, 3.0, 4.0])
+        drawn = _launched(mk.mixture_draw, lambda: mk.mixture_draw(
+            key.to(cuda), got, cum.to(cuda)), torch.int64)
+        assert int(drawn) == int(mk.mixture_draw_plain(key, want, cum))

@@ -67,6 +67,7 @@ from tests.test_torch_dtype import _engines as _dtype_engines
 from tests.test_torch_dtype import _half_rows_close, _rel, _values_close
 from tests.test_torch_engine import CFG, LR, _close, _close_rows
 from tests.test_torch_model import jax_masks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 MIXED = {"dtype": "float32", "compute_dtype": "bfloat16"}
@@ -193,8 +194,9 @@ def _port_phases(momentum_at, nesterov, params, net_state, ms, mw, xs, ys,
                     (dataclasses.replace(cfg, grouped_workers=False),
                      "vmapped_phases")):
         engine = Engine(c, models.build("empire-cnn", device="cpu", dtype=pdt),
-                        Loss("nll"), Criterion("top-k"), (gars["bulyan"], {}),
-                        attacks["empire"], {"factor": 1.1},
+                        Loss("nll"), Criterion("top-k"),
+                        [(gars["bulyan"], 1.0, {})], attacks["empire"],
+                        {"factor": 1.1},
                         optim.build("sgd", weight_decay=c.weight_decay))
         outs.append(engine.phase_honest(state, torch.from_numpy(xs),
                                         torch.from_numpy(ys), LR, masks))

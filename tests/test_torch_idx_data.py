@@ -40,6 +40,8 @@ from byzantinemomentum_tpu_torch import data, utils
 from byzantinemomentum_tpu_torch.data import sources, svm
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 TRAIN, TEST, BATCH, COUNT = 130, 40, 10, 4
 CODES = {np.uint8: 0x08, np.int8: 0x09, ">i2": 0x0B, ">i4": 0x0C,
          ">f4": 0x0D, ">f8": 0x0E}

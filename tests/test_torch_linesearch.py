@@ -35,6 +35,7 @@ from byzantinemomentum_tpu_torch.ops import search_kernels
 from byzantinemomentum_tpu_torch.ops.linesearch import line_maximize
 
 from tests.reference_oracles import line_maximize as oracle_line_maximize
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = np.float32
 OBJECTIVES = {

@@ -62,6 +62,7 @@ from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
 from byzantinemomentum_tpu_torch.ops import gars
 
 from tests.test_torch_device_data import _splits
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 NAME = "wide_resnet-Wide_ResNet"
@@ -144,8 +145,9 @@ def _engines(k, momentum_at="update", nesterov=False):
     cfg = EngineConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov,
                        nb_local_steps=k)
     engine = Engine(cfg, models.build(NAME, device="cpu", **ARGS), Loss("nll"),
-                    Criterion("top-k"), (gars["average"], {}), attacks["empire"],
-                    {"factor": 1.1}, optim.build("sgd", weight_decay=0.0))
+                    Criterion("top-k"), [(gars["average"], 1.0, {})],
+                    attacks["empire"], {"factor": 1.1},
+                    optim.build("sgd", weight_decay=0.0))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
     state = dataclasses.replace(

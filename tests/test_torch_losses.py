@@ -35,6 +35,7 @@ from byzantinemomentum_tpu_torch.losses import Loss
 from byzantinemomentum_tpu_torch.models import FlatParams
 
 from tests.test_torch_cli import HEADLINE, SYNTH
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 COMPOSED = (
     ("l1", lambda L: L("l1")),

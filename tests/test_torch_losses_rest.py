@@ -25,6 +25,8 @@ from byzantinemomentum_tpu.attacks import nan as jax_nan
 from byzantinemomentum_tpu_torch import losses
 from byzantinemomentum_tpu_torch.attacks import attacks, nan
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 B, C = 6, 5
 

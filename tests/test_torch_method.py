@@ -35,6 +35,8 @@ from byzantinemomentum_tpu.ops import gars as jax_gars
 from byzantinemomentum_tpu.ops import krum as jax_krum
 from byzantinemomentum_tpu_torch.ops import _common, brute, bulyan, gars, krum
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 METHODS = ("dot", "diff")
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -30,6 +30,8 @@ from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.engine import STUDY_COLUMNS
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 SMALL = ["--batch-size-test", "16", "--batch-size-test-reps", "2"]
 
 
@@ -153,8 +155,8 @@ def test_dataset_args_reach_the_loader(tmp_path, capsys):
         driver.run(["--device", "cpu", "--dataset", "emnist", "--dataset-args",
                     "split:nope", "--nb-steps", "1"])
     with pytest.raises(SystemExit):
-        driver.process_commandline(["--user-input-delta", "2"])
-    assert "unrecognized arguments: --user-input-delta" in capsys.readouterr().err
+        driver.process_commandline(["--mesh", "2x1"])
+    assert "unrecognized arguments: --mesh" in capsys.readouterr().err
 
 
 def test_chip_smoke_grid_cells_are_the_reproduce_lines():

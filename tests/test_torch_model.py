@@ -24,6 +24,8 @@ from byzantinemomentum_tpu_torch import convert, models, prng
 from byzantinemomentum_tpu_torch.losses import Criterion, Loss
 from byzantinemomentum_tpu_torch.models import FlatParams
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-4, 1e-5
 B = 4
 

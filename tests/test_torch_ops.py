@@ -22,6 +22,8 @@ from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.attacks import attacks
 from byzantinemomentum_tpu_torch.ops import _common, bulyan, gar_kernels, gars, sort_kernels
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

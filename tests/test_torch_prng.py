@@ -4,12 +4,13 @@ against JAX on the CPU (threefry-2x32, `jax_threefry_partitionable` on).
 Keys, `fold_in`, `split`, the 32-bit random words, `bits8`, `uniform`
 and `bernoulli` equal JAX's (one key or a batch of keys, `jax.vmap`)
 exactly, in every dtype the attacks draw. `normal` equals JAX's exactly
-in bf16 and f16; in f32 its values are within 4 ulps (3 is the most
-seen over 40 keys) and at least 98% of them are bit-equal (XLA's own
-float32 `log1p` rounds otherwise in the rest); in f64 (`torch.erfinv`)
-within rtol 1e-12. The
-uint32 helpers equal numpy's wrapping uint32 arithmetic.
+in f32, bf16 and f16, and in f64 (`torch.erfinv`) within rtol 1e-12;
+`log1p32` equals XLA's float32 `log1p` bit for bit, and `fma32` rounds
+`a * b + c` once (where a float64 sum rounded to float32 would round
+twice). The uint32 helpers equal numpy's wrapping uint32 arithmetic.
 """
+
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,8 @@ import pytest
 import torch
 
 from byzantinemomentum_tpu_torch import prng
+
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = (0, 1, 42, 0xA11E, 2**31 - 1, 2**32 - 1, -7)
 DTYPES = ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
@@ -85,13 +88,59 @@ def test_normal_matches_jax(jdt, tdt, data):
     assert got.dtype == tdt and got.shape == shape
     got = got.float().numpy()
     assert np.all(np.isfinite(got))
-    if tdt == torch.float32:
-        ulps = np.abs(got.view(np.int32).astype(np.int64)
-                      - want.view(np.int32).astype(np.int64))
-        assert ulps.max() <= 4
-        assert np.mean(got == want) >= 0.98
-    else:
-        assert np.array_equal(got, want)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _log1p_inputs(kind, rng):
+    """f32 inputs of `log1p`: those `normal` gives it (-u^2), both sides
+    of sqrt2 - 1, tiny and huge magnitudes, and the special values."""
+    if kind == "normal":
+        return -(rng.uniform(-1, 1, 200_000).astype(np.float32) ** 2)
+    if kind == "range":
+        return rng.uniform(-1, 3, 200_000).astype(np.float32)
+    if kind == "magnitudes":
+        mag = np.exp(rng.uniform(-100, 80, 200_000)).astype(np.float32)
+        return np.where(rng.random(mag.shape) < 0.5, -np.minimum(mag, 1), mag)
+    return np.array([0.0, -0.0, -1.0, np.inf, -np.inf, np.nan, -2.0, 1e-30,
+                     -1e-40, 1e-40, -0.41421356, -0.4142135, -0.41421357,
+                     0.41421357, 5.0, 1e30], np.float32)
+
+
+@pytest.mark.parametrize("kind", ("normal", "range", "magnitudes", "special"))
+def test_log1p32_matches_xla(kind):
+    x = _log1p_inputs(kind, np.random.default_rng(len(kind)))
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = prng.log1p32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _round_once(a, b, c):
+    """The float32 nearest `a * b + c` (ties to even), exactly."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(exact))
+    candidates = [np.nextafter(near, np.float32(-np.inf)), near,
+                  np.nextafter(near, np.float32(np.inf))]
+    return min(candidates, key=lambda y: (abs(Fraction(float(y)) - exact),
+                                          int(y.view(np.int32)) & 1))
+
+
+def test_fma32_rounds_once():
+    # (1 + 2^-11)(1 - 2^-11 + 2^-22) = 1 + 2^-33: 2^24 + 1 + 2^-33 rounds
+    # to the float32 midpoint 2^24 + 1 in float64, then to even, 2^24
+    a = torch.tensor([1 + 2.0 ** -11])
+    b = torch.tensor([1 - 2.0 ** -11 + 2.0 ** -22])
+    assert float(prng.fma32(a, b, 2.0 ** 24)) == 2.0 ** 24 + 2
+    assert float(prng.fma32(a, -b, -(2.0 ** 24))) == -(2.0 ** 24 + 2)
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(3000).astype(np.float32)
+    b = (rng.standard_normal(3000) * 2.0 ** rng.integers(-30, 30, 3000)
+         ).astype(np.float32)
+    # c beside -a * b (cancellation), far above it and far below it
+    c = (-(a.astype(np.float64) * b) * rng.choice(
+        [1 + 1e-7, 2.0 ** 29, 2.0 ** -29], 3000)).astype(np.float32)
+    got = prng.fma32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_round_once(*abc) for abc in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_normal_f64_matches_jax():

@@ -41,6 +41,8 @@ from byzantinemomentum_tpu_torch.losses import Criterion, Loss
 from byzantinemomentum_tpu_torch.models.core import worker_dropout_masks
 from byzantinemomentum_tpu_torch.ops import gars, prng_kernels
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 MODELS = ("empire-cnn", "simples-full", "simples-conv", "simples-logit",
           "simples-linear")
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -93,8 +95,8 @@ def _engines(S_workers=3):
         attack=jax_attacks.attacks["nan"], attack_kwargs={})
     pcfg = EngineConfig(**cfg)
     engine = Engine(pcfg, models.build("empire-cnn", device="cpu"), Loss("nll"),
-                    Criterion("top-k"), (gars["average"], {}), attacks["nan"],
-                    {}, optim.build("sgd"))
+                    Criterion("top-k"), [(gars["average"], 1.0, {})],
+                    attacks["nan"], {}, optim.build("sgd"))
     return jengine, engine
 
 

@@ -16,6 +16,8 @@ import pytest
 from byzantinemomentum_tpu.cli.attack import main as jax_main
 from byzantinemomentum_tpu_torch.cli import attack as driver
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 COMMON = ["--seed", "4", "--nb-steps", "3", "--nb-workers", "11",
           "--nb-decl-byz", "2", "--nb-real-byz", "2", "--batch-size-test",
           "16", "--batch-size-test-reps", "2", "--evaluation-delta", "3",

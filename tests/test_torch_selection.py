@@ -51,6 +51,8 @@ import torch
 from byzantinemomentum_tpu.ops import pallas_sort
 from byzantinemomentum_tpu_torch.ops import gar_kernels, sort_kernels
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 D = 512
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NONE_KEY = 0xFFFFFFFF + 1  # past every key: the end of a run

@@ -41,6 +41,7 @@ from byzantinemomentum_tpu_torch.losses import Criterion, Loss
 from byzantinemomentum_tpu_torch.ops import gars
 
 from tests.test_torch_engine import _close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N, F, B, LR = 11, 2, 4, 0.05
 CFG = dict(nb_workers=N, nb_decl_byz=F, nb_real_byz=F, nb_for_study=11,
@@ -58,12 +59,22 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+@pytest.fixture(scope="module")
+def jax_honest():
+    """The JAX honest phase's outputs by (model, momentum placement, Nesterov):
+    the phase does not depend on the GAR or the attack, so the cases of
+    one configuration share one run of it (eager JAX on the CPU, the
+    longest part of a case)."""
+    return {}
+
+
 @pytest.mark.parametrize("model_name", ("simples-full", "simples-conv"))
 @pytest.mark.parametrize(
     "gar,attack,momentum_at,nesterov", CASES,
     ids=[f"{gar}-{attack}-{at}{'-nesterov' * nesterov}"
          for gar, attack, at, nesterov in CASES])
-def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
+def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov,
+                          jax_honest):
     jcfg = JaxConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     mdef = jax_models.build(model_name)
     jengine = build_engine(
@@ -90,8 +101,8 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
 
     cfg = EngineConfig(**CFG, momentum_at=momentum_at, nesterov=nesterov)
     engine = Engine(cfg, models.build(model_name, device="cpu"), Loss("nll"),
-                    Criterion("top-k"), (gars[gar], {}), attacks[attack],
-                    ATTACKS[attack],
+                    Criterion("top-k"), [(gars[gar], 1.0, {})],
+                    attacks[attack], ATTACKS[attack],
                     optim.build("sgd", weight_decay=cfg.weight_decay))
     theta, bn = convert.params_from_jax(jax.tree.map(np.asarray, params),
                                         jax.tree.map(np.asarray, net_state))
@@ -102,8 +113,12 @@ def test_step_matches_jax(model_name, gar, attack, momentum_at, nesterov):
                            "past_norms": _t(past_norms),
                            "past_count": torch.tensor(1, dtype=torch.int32)})
 
+    shared = (model_name, momentum_at, nesterov)
+    if shared not in jax_honest:
+        jax_honest[shared] = jengine._phase_honest(
+            jstate, jnp.asarray(xs), jnp.asarray(ys), LR)
     (_, mix_key, jG_sampled, jloss, jnet, jmw, jG_honest, _, _) = \
-        jengine._phase_honest(jstate, jnp.asarray(xs), jnp.asarray(ys), LR)
+        jax_honest[shared]
     G_sampled, loss_avg, net, new_mw, G_honest = engine.phase_honest(
         state, _t(xs), _t(ys), LR)
     assert engine.counts == {"grouped_phases": 1} and net == {}

@@ -52,6 +52,8 @@ from byzantinemomentum_tpu_torch.models.core import (
     Conv, dropout_apply, grouped_conv, same_pads)
 from byzantinemomentum_tpu_torch.ops import prng_kernels
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 NAME = "wide_resnet-Wide_ResNet"
 RTOL, ATOL = 1e-4, 1e-5
 B = 2
