@@ -4,7 +4,8 @@ vector and buffer dict, so both packages can be run on the same weights.
 
 Leaf layouts are shared (HWIO kernels, (din, dout) dense weights), so the
 conversion only orders the leaves as `ravel_pytree` does: nested dict keys
-sorted at every level.
+sorted at every level, list items (the transformer's `blocks`) in index
+order, named by their index (`blocks.10.qkv.w`, `models.flat_key`).
 """
 
 import numpy as np
@@ -14,11 +15,14 @@ __all__ = ["params_from_jax", "flat_items"]
 
 
 def flat_items(tree, prefix=""):
-    """`(dotted name, leaf)` pairs of a nested dict in sorted-key order."""
-    for key in sorted(tree):
-        value = tree[key]
+    """`(dotted name, leaf)` pairs of nested dicts and lists in
+    `ravel_pytree`'s order: a dict's keys sorted, a list's items in index
+    order."""
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else ((key, tree[key]) for key in sorted(tree)))
+    for key, value in items:
         name = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list, tuple)):
             yield from flat_items(value, name + ".")
         else:
             yield name, value

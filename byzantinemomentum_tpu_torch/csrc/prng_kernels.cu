@@ -40,8 +40,12 @@
 //   2^23), an integer the host works out once. Same hash, same walk; a
 //   shift takes the place of the mask. A WRN-28-10 step at S = 9, B = 20
 //   draws 12 such masks, 206.4 M elements: 15.3 G operations.
+//   A layer may also draw from the worker's key itself (`derive` false:
+//   MobileNetV2's classifier dropout draws `bernoulli(wkey, 0.8, shape)`
+//   from the worker key, `byzantinemomentum_tpu/models/mobilenet.py:147`).
 //   Design: blockIdx.y is the worker; one thread of each block derives
-//   the worker's layer key once into shared memory. Each thread then
+//   the worker's layer key once into shared memory (or copies the
+//   worker's key there). Each thread then
 //   hashes kItems elements a block stride apart (consecutive threads on
 //   consecutive bytes). The output index is split into (b, c, h, w) by
 //   two 32-bit divisions by the plane size and the channel count.
@@ -98,12 +102,12 @@ __global__ void __launch_bounds__(kThreads)
 dropout_mask_kernel(const long long* __restrict__ wkeys,
                     unsigned char* __restrict__ out, uint32_t j,
                     uint32_t count, uint32_t hw, uint32_t c,
-                    uint32_t threshold) {
+                    uint32_t threshold, bool derive) {
   __shared__ uint2 layer_key;
   const uint32_t s = blockIdx.y;
   if (threadIdx.x == 0) {
-    layer_key = threefry2x32((uint32_t)wkeys[2 * s],
-                             (uint32_t)wkeys[2 * s + 1], 0u, j);
+    const uint32_t k0 = (uint32_t)wkeys[2 * s], k1 = (uint32_t)wkeys[2 * s + 1];
+    layer_key = derive ? threefry2x32(k0, k1, 0u, j) : make_uint2(k0, k1);
   }
   __syncthreads();
   const uint2 key = layer_key;
@@ -150,8 +154,8 @@ int launch_masks(const long long* wkeys, unsigned char* out, int S,
   const dim3 grid((unsigned)((count + per_block - 1) / per_block),
                   (unsigned)S);
   dropout_mask_kernel<kTopBits><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      wkeys, out, (uint32_t)j, (uint32_t)count, (uint32_t)hw, (uint32_t)c,
-      (uint32_t)threshold);
+      wkeys, out, (uint32_t)(j < 0 ? 0 : j), (uint32_t)count, (uint32_t)hw,
+      (uint32_t)c, (uint32_t)threshold, j >= 0);
   return (int)cudaGetLastError();
 }
 
@@ -164,7 +168,8 @@ int bmt_prng_threads() { return kThreads; }
 int bmt_prng_items() { return kItems; }
 
 // The masks of S >= 1 workers, count = B * c * hw >= 1 elements each
-// (count < 2^31), 0 < threshold < 256
+// (count < 2^31), 0 < threshold < 256; layer j of each worker's key, or
+// the worker's key itself where j < 0
 int bmt_dropout_masks(const long long* wkeys, unsigned char* out, int S,
                       long long j, long long count, int hw, int c,
                       int threshold, void* stream) {

@@ -5,16 +5,22 @@ A model is an `nn.Module` whose parameters keep the JAX package's layouts,
 whose `init(key)` draws the JAX model's `init(key)` parameters bit for
 bit (`models/core.py`), whose `draw_masks(wkeys, batch)` gives S workers'
 dropout keep-masks from their keys, and whose
-`forward(x, train=..., masks=...)` returns
-`(log-probabilities, new BatchNorm state)` without writing its buffers.
+`forward(x, train=..., masks=...)` returns `(outputs, new BatchNorm
+state)` without writing its buffers: the outputs are what the JAX model's
+`apply` returns, log-probabilities (`simples-*`, `empire-cnn`,
+`wide_resnet`, the transformer) or raw logits (the torchvision families
+`resnet*`, `vgg*`, `densenet*`, `mobilenet_v2`, which pair with `--loss
+crossentropy`).
 The engine runs it through `torch.func.functional_call` on views of ONE
 flat parameter vector, as the JAX package runs `apply` on
 `ravel_pytree(params)`.
 
 The flat order is `jax.flatten_util.ravel_pytree`'s: names compared
-component by component (`b1.beta < b1.gamma < ... < c1.b < c1.w < f1.b`),
-each leaf flattened row-major — so a gradient row of the port and of the
-JAX package compare coordinate for coordinate.
+component by component (`b1.beta < b1.gamma < ... < c1.b < c1.w < f1.b`;
+`flat_key`), dict keys as strings and the index of a list leaf (an
+`nn.ModuleList`, the transformer's `blocks.10`) as an integer, each leaf
+flattened row-major — so a gradient row of the port and of the JAX
+package compare coordinate for coordinate.
 
 A model may also have a merged-batch forward over S workers
 (`forward_grouped`, the JAX package's `ModelDef.apply_grouped`);
@@ -27,7 +33,8 @@ import torch
 
 from byzantinemomentum_tpu_torch import utils
 
-__all__ = ["models", "register", "build", "grouped_forward", "FlatParams"]
+__all__ = ["models", "register", "build", "grouped_forward", "flat_key",
+           "FlatParams"]
 
 models = {}
 
@@ -56,6 +63,15 @@ def grouped_forward(module):
     return getattr(module, "forward_grouped", None)
 
 
+def flat_key(name):
+    """The sort key of a dotted parameter name in `ravel_pytree`'s order:
+    a component of digits (a list index) compares as an integer, any
+    other (a dict key) as a string, so `blocks.2 < blocks.10` as JAX
+    orders a list and `s0b10 < s0b2` as it orders dict keys."""
+    return tuple((0, int(part), "") if part.isdigit() else (1, 0, part)
+                 for part in name.split("."))
+
+
 class FlatParams:
     """The flat parameter space of a module: `flatten` concatenates its
     parameters in `ravel_pytree` order, `unflatten` gives back the named
@@ -63,7 +79,7 @@ class FlatParams:
 
     def __init__(self, module):
         named = dict(module.named_parameters())
-        self.names = sorted(named, key=lambda name: tuple(name.split(".")))
+        self.names = sorted(named, key=flat_key)
         self.shapes = [tuple(named[name].shape) for name in self.names]
         self.sizes = [named[name].numel() for name in self.names]
         self.d = sum(self.sizes)

@@ -1,5 +1,7 @@
 """Layer primitives of the model zoo (`byzantinemomentum_tpu/models/core.py`,
-the subset `empire-cnn`, the `simples-*` models and `wide_resnet` need).
+the subset `empire-cnn`, the `simples-*` models and `wide_resnet` need),
+and those the torchvision families share (`PaddedConv`, the 3x3 stride-2
+stem pool, ReLU6).
 
 Parameters keep the JAX package's layouts — HWIO convolution kernels and
 (din, dout) dense weights — so the flat parameter vector of the port and
@@ -63,14 +65,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from byzantinemomentum_tpu_torch import prng
+from byzantinemomentum_tpu_torch.models import flat_key
 from byzantinemomentum_tpu_torch.ops import prng_kernels
 from byzantinemomentum_tpu_torch.utils import weak_scalar
 
 __all__ = ["BN_MOMENTUM", "BN_EPS", "Conv", "Dense", "BatchNorm",
            "batchnorm_train", "batchnorm_eval", "fold_running_stats",
            "same_pads", "grouped_conv", "grouped_dense", "grouped_batchnorm",
-           "worker_dropout_masks", "dropout_apply",
-           "max_pool", "global_avg_pool", "log_softmax", "inits",
+           "worker_dropout_masks", "dropout_apply", "PaddedConv",
+           "max_pool", "max_pool_3x3s2p1", "relu6", "global_avg_pool",
+           "log_softmax", "inits",
            "apply_named_init"]
 
 BN_MOMENTUM = 0.1
@@ -157,6 +161,38 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return x @ self.w + self.b
+
+
+class PaddedConv(nn.Module):
+    """A k x k convolution of the torchvision families (`resnet`, `vgg`,
+    `densenet`, `mobilenet_v2`): an HWIO kernel `w` of shape `(k, k,
+    cin / groups, cout)`, torch's symmetric integer `pad` (as the JAX
+    modules give `lax.conv_general_dilated` `[(pad, pad), (pad, pad)]`),
+    `stride`, `groups` (a depthwise convolution: `groups` = cin = cout,
+    the JAX `feature_group_count`), and a bias `b` where `bias`."""
+
+    def __init__(self, cin, cout, k, stride=1, pad=0, groups=1, bias=False,
+                 device=None, dtype=None):
+        super().__init__()
+        self.stride, self.pad, self.groups = stride, pad, groups
+        like = {"device": device, "dtype": dtype}
+        self.w = nn.Parameter(torch.empty((k, k, cin // groups, cout), **like))
+        self.b = nn.Parameter(torch.empty((cout,), **like)) if bias else None
+
+    @torch.no_grad()
+    def init_normal(self, key, std):
+        """`std * jax.random.normal(key, HWIO shape, float32)` (the JAX
+        modules' `_conv_init`, std a Python float applied as a float32
+        weak scalar), rounded to the parameter dtype; a zero bias."""
+        self.w.copy_(weak_scalar(std, torch.float32)
+                     * prng.normal(key.to(self.w.device), self.w.shape))
+        if self.b is not None:
+            self.b.zero_()
+
+    def forward(self, x):
+        return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b,
+                        stride=self.stride, padding=self.pad,
+                        groups=self.groups)
 
 
 class BatchNorm(nn.Module):
@@ -379,8 +415,10 @@ def worker_dropout_masks(wkeys, j, keep, shape):
     """The keep-masks of S workers' dropout layer j: worker s's is the JAX
     package's `_dropout_mask(split(wkeys[s], n)[j], keep, shape)` (any
     n > j: `bits8 < keep * 256` where that is an 8-bit threshold, else
-    `bernoulli(keep)`), the JAX shape `(B, H, W, C)` or `(B, F)` -> the
-    port's layout
+    `bernoulli(keep)`), or with `j` None `_dropout_mask(wkeys[s], keep,
+    shape)` (a layer that draws from the worker's key itself, as
+    MobileNetV2's classifier does), the JAX shape `(B, H, W, C)` or
+    `(B, F)` -> the port's layout
     `bool[S, B, C, H, W]` or `bool[S, B, F]`. An 8-bit keep threshold
     goes through `prng_kernels.dropout_masks`, any other rate through
     `prng_kernels.bernoulli_masks` (each the CUDA kernel on the card,
@@ -403,6 +441,20 @@ def dropout_apply(mask, x, rate):
 
 def max_pool(x, window=2):
     return F.max_pool2d(x, window)
+
+
+def max_pool_3x3s2p1(x):
+    """torch `MaxPool2d(3, stride=2, padding=1)`, the stem pool of
+    `resnet` and `densenet` (the JAX `reduce_window` pads with -inf)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+def relu6(x):
+    """`jnp.clip(x, 0, 6)` with its gradient: 1 inside, 0 outside and 0.5
+    at exactly 0 and exactly 6, where JAX's clip (a max, then a min)
+    splits the tie (`F.relu6` gives 0 there, `torch.clamp` 1;
+    `torch.maximum` and `torch.minimum` split it as JAX does)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
 
 
 def global_avg_pool(x):
@@ -593,7 +645,7 @@ def apply_named_init(model, key, init_multi=None, init_multi_args=None,
     component, `FlatParams.names`), each drawn in float32 in its JAX
     shape and rounded to the parameter dtype."""
     named = dict(model.named_parameters())
-    names = sorted(named, key=lambda name: tuple(name.split(".")))
+    names = sorted(named, key=flat_key)
     keys = prng.split(key.to(next(iter(named.values())).device), len(names))
     for name, leaf_key in zip(names, keys):
         leaf = named[name]

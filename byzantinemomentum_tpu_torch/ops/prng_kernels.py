@@ -129,12 +129,19 @@ def _port_shape(S, shape):
     return (S, *shape)
 
 
+def _layer_keys(wkeys, j):
+    """Key j of `split(wkeys[s], j + 1)` for each worker s, or the
+    workers' keys themselves for `j` None."""
+    return wkeys if j is None else prng.split(wkeys, j + 1)[:, j]
+
+
 def dropout_masks_plain(wkeys, j, shape, threshold):
     """Worker s's keep-mask `prng.bits8(split(wkeys[s], j + 1)[j], shape)
     < threshold` for each s of `wkeys: int64[S, 2]` (`shape` the JAX
     per-worker shape, `(B, H, W, C)` or `(B, F)`), in the port's layout
-    `bool[S, B, C, H, W]` or `bool[S, B, F]`."""
-    keys = prng.split(wkeys, j + 1)[:, j]
+    `bool[S, B, C, H, W]` or `bool[S, B, F]`; `j` None draws from
+    `wkeys[s]` itself."""
+    keys = _layer_keys(wkeys, j)
     mask = prng.bits8(keys, tuple(shape)) < threshold
     if len(shape) == 4:
         mask = mask.permute(0, 1, 4, 2, 3)
@@ -143,8 +150,8 @@ def dropout_masks_plain(wkeys, j, shape, threshold):
 
 @_cuda.counted
 def dropout_masks(wkeys, j, shape, threshold):
-    """`dropout_masks_plain(wkeys, j, shape, threshold)` (0 <= j < 2^32,
-    0 < threshold < 256); kernel on a CUDA tensor, the plain version on a
+    """`dropout_masks_plain(wkeys, j, shape, threshold)` (0 <= j < 2^32
+    or None, 0 < threshold < 256); kernel on a CUDA tensor, the plain version on a
     CPU one."""
     if wkeys.device.type == "cpu":
         return dropout_masks_plain(wkeys, j, shape, threshold)
@@ -169,8 +176,8 @@ def bernoulli_threshold(p):
 def bernoulli_masks_plain(wkeys, j, shape, p):
     """Worker s's keep-mask `prng.bernoulli(split(wkeys[s], j + 1)[j], p,
     shape)` for each s of `wkeys: int64[S, 2]`, in the port's layout
-    (`dropout_masks_plain`'s)."""
-    keys = prng.split(wkeys, j + 1)[:, j]
+    (`dropout_masks_plain`'s); `j` None draws from `wkeys[s]` itself."""
+    keys = _layer_keys(wkeys, j)
     mask = prng.bernoulli(keys, p, tuple(shape))
     if len(shape) == 4:
         mask = mask.permute(0, 1, 4, 2, 3)
@@ -179,8 +186,8 @@ def bernoulli_masks_plain(wkeys, j, shape, p):
 
 @_cuda.counted
 def bernoulli_masks(wkeys, j, shape, p):
-    """`bernoulli_masks_plain(wkeys, j, shape, p)` (0 <= j < 2^32, p a
-    Python float); kernel on a CUDA tensor, comparing the hash's top 23
+    """`bernoulli_masks_plain(wkeys, j, shape, p)` (0 <= j < 2^32 or
+    None, p a Python float); kernel on a CUDA tensor, comparing the hash's top 23
     bits with `bernoulli_threshold(p)`, the plain version on a CPU one."""
     if wkeys.device.type == "cpu":
         return bernoulli_masks_plain(wkeys, j, shape, p)
@@ -192,12 +199,14 @@ def bernoulli_masks(wkeys, j, shape, p):
 
 def _launch_masks(wrapper, entry, wkeys, j, shape, threshold):
     """One launch of a mask kernel (`entry` of the library) for S workers'
-    layer j of JAX shape `shape`, counted on `wrapper`."""
+    layer j (their keys themselves for `j` None; -1 to the kernel) of
+    JAX shape `shape`, counted on `wrapper`."""
     name = wrapper.__name__
     _check_keys(name, wkeys)
     B, H, W, C = mask_layout(shape)
     count = B * H * W * C
-    if not (isinstance(j, int) and 0 <= j < 2**32 and count < 2**31):
+    if not ((j is None or isinstance(j, int) and 0 <= j < 2**32)
+            and count < 2**31):
         raise ValueError(f"{name}: j = {j!r} or a mask of {count} elements "
                          f"out of range")
     S = wkeys.shape[0]
@@ -206,7 +215,8 @@ def _launch_masks(wrapper, entry, wkeys, j, shape, threshold):
     if S == 0 or count == 0:
         return out
     _cuda.raise_on(name, getattr(_library(), entry)(
-        wkeys.data_ptr(), out.data_ptr(), S, j, count, H * W, C, threshold,
+        wkeys.data_ptr(), out.data_ptr(), S, -1 if j is None else j, count,
+        H * W, C, threshold,
         _cuda.stream(wkeys)))
     _cuda.launched(wrapper, torch.bool)
     return out

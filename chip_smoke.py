@@ -110,6 +110,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Kernels 1, 2, 3 and 6 at f32[11, 36,489,290] (Bulyan's W at f = 2,
    Krum's w at f = 2) against their plain versions at the tolerances
    above (6 exactly); records `<kernel>_wrn` time them as above.
+   The rest of the model zoo (`zoo_kernels`, `zoo_gradients`): the mask
+   kernels through the models' draws (VGG16's two 8-bit classifier
+   masks, keys 0 and 1 of each worker's split, at (S, B) = (9, 50);
+   MobileNetV2's Bernoulli mask from the worker keys themselves at (14,
+   50) and (3, 2)), their launches and the CPU's bits; each GAR kernel
+   a zoo cell launches at its cell's operand against its plain version
+   (`sq_gram` and `selected_median_mean` at resnet18's f32[25,
+   11,181,642], `sq_gram` and `weighted_rows_mean` at resnet50's [25,
+   23,528,522], `lower_median` at vgg16's [11, 134,301,514] (5.9 GB),
+   `trimmed_mean` at densenet121's [25, 6,964,106], `lower_median` and
+   `closest_mean` at mobilenet_v2's [25, 2,236,682], `lower_median` at
+   the transformer's [11, 104,394]), timed as records
+   `<kernel>_<family>`; then each family's train-mode forward and
+   gradient at full width on the card against the CPU's, batch 4, on the
+   same weights and masks (`card_vs_cpu_gradient`: the card's f32
+   outputs, gradient and BatchNorm state no farther from the CPU's
+   float64 ones than 4 times the CPU's own f32 run, or 1e-5), the card's
+   init equal to the CPU's bits for densenet121, mobilenet_v2 and the
+   transformer (the resnets' and vgg16's CPU draws would take from 12 s
+   to minutes: the card's weights are copied).
    Then the device-resident path (`data/device.py`): `DeviceData.gather`
    on the card gives the same bits as on the CPU (CIFAR-10's train split
    with flips, its test split, and both under `--no-transform`; MNIST
@@ -190,6 +210,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `--gar aksel --nb-local-steps 2`, the vmapped honest phase); a WRN
    step launches the split of the step key and 12 Bernoulli masks a local
    step (and at two local steps one more split, of the workers' keys).
+   Then the rest of the model zoo at full width, each timed
+   (`ZOO_CELLS`, the vmapped honest phase: none has a grouped forward):
+   on CIFAR-10 with the CIFAR cells' flags and `--loss crossentropy`
+   (raw logits), `resnet18_bulyan` (n = 25, f = 5, Bulyan against
+   `empire factor:1.1`), `resnet50_krum_f11` (Krum, f = 11, `little`),
+   `vgg16_median` (n = 11, f = 2, Median, `little`; two dropout masks a
+   step), `densenet121_trmean` (f = 11, Trimmed mean, `little`),
+   `mobilenet_v2_meamed` (f = 11, MeaMed, `little`; one Bernoulli mask a
+   step), 16 steps each; and `transformer_mnist_median` (the JAX driver
+   test's line at the default width: MNIST, Median, 2 real Byzantine
+   workers against `little factor:1.5`, 50 steps); each logs its peak
+   device memory (`max_memory_allocated`).
    Every run takes the driver's default `--steps-per-program` 8: chunks
    of up to 8 steps cut at every evaluation and checkpoint (`chunks`).
    Every CIFAR and WRN cell runs 16 steps, two chunks of 8 (the
@@ -253,19 +285,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernels' tolerance over the 16 steps, as in the curvature column,
    within the resume check's bound of two card runs); no GAR-kernel or
    `linesearch_step` launch, one hop a step.
-5. Where a step's time goes (over 3 warm steps; brute's, WRN's and the
-   per-call mixture's over 1), for the
-   headline, `krum_f11`, brute,
+5. Where a step's time goes (over 3 warm steps; WRN's, the per-call
+   mixture's and the zoo cells' over 1), for the headline, `krum_f11`,
    mixed-precision headline, vmapped headline,
    `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive`, the
    mixture and Adam cells (the update phase's time under Adam) and the
-   appendix's Bulyan WRN-28-10 cells, through the
+   appendix's Bulyan WRN-28-10 cells and the six zoo cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the step keys and dropout masks, the honest,
    defense and update phases), the
    busiest kernels and the device's busy share (`torch.profiler`; the
    union of the kernels' intervals, their summed times beside it); and
-   each of them but brute at the driver's default M = 8
+   each of them but WRN's, the per-call mixture's and the zoo's at the
+   driver's default M = 8
    (`chunk_profile`): wall and device-busy ms a step over one warm chunk
    of 8.
 
@@ -276,7 +308,9 @@ the CIFAR runs of phase 4, the two key-tree kernels', `linesearch_step`'s,
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
 at n = 51; `bernoulli_masks` and one `<kernel>_wrn` record per kernel at
-WRN-28-10's width, launches summed over the WRN runs);
+WRN-28-10's width, launches summed over the WRN runs; one
+`<kernel>_<family>` record per kernel a zoo cell launches, at its
+operand, launches from that cell);
 the last line is `{"ok": true, "device": {...}}`. Before them it logs
 the seconds each phase (and each WRN cell and profile) took. Needs one
 card; exits non-zero without one.
@@ -567,14 +601,18 @@ def split_record_name(name):
     f32 form at WRN-28-10's width as `<kernel>_wrn` (family "wrn"); the
     key-tree kernels under their names, in the operand types they count
     (the masks' bool, the split's int64), family "cifar", but the
-    Bernoulli masks, which only WRN draws (family "wrn")."""
+    Bernoulli masks, which only WRN draws (family "wrn"); a kernel at a
+    zoo model's shapes as `<kernel>_<family>` (`ZOO`: "vgg16", ...), the
+    masks in bool."""
     if name in ("dropout_masks", "split_keys", "mixture_draw"):
         return name, BOOL if name == "dropout_masks" else I64, "cifar"
     if name == "bernoulli_masks":
         return name, BOOL, "wrn"
-    match = re.fullmatch(r"(\w+)_(n[0-9]+|wrn)", name)
+    match = re.fullmatch(r"(\w+?)_(n[0-9]+|wrn|" + "|".join(ZOO) + ")", name)
     if match:
-        return match.group(1), F32, match.group(2)
+        kernel = match.group(1)
+        return (kernel, BOOL if kernel.endswith("_masks") else F32,
+                match.group(2))
     for half in (BF16, F16):
         suffix = "_" + DTYPE_NAMES[half]
         if name.endswith(suffix):
@@ -1481,6 +1519,235 @@ def wrn_kernels(smi):
     return records
 
 
+def zoo_kernels(smi):
+    """Phase 3 at the zoo cells' shapes (`ZOO_CELLS`): the mask kernels
+    through the models' draws, VGG16's two 8-bit classifier masks (keys 0
+    and 1 of each worker's split) at (S, B) = (9, 50) and MobileNetV2's
+    Bernoulli mask from the worker keys themselves at (14, 50) and (3, 2):
+    the launches each draw makes, and bit for bit the CPU's; then each
+    GAR kernel a zoo cell launches at its cell's operand, f32[n, d] (d the
+    model's), against its plain version at `kernels_vs_plain`'s
+    tolerances: `sq_gram` and `selected_median_mean` at resnet18's
+    [25, 11,181,642] (Bulyan's W at f = 5), `sq_gram` and
+    `weighted_rows_mean` at resnet50's [25, 23,528,522] (Krum's w at
+    f = 11), `lower_median` at vgg16's [11, 134,301,514] (5.9 GB),
+    `trimmed_mean` at densenet121's [25, 6,964,106] (f = 11),
+    `lower_median` and `closest_mean` at mobilenet_v2's [25, 2,236,682]
+    (m = 14 about the median), `lower_median` at the transformer's
+    [11, 104,394]. Returns the timed records `<kernel>_<family>`."""
+    dev = torch.device("cuda")
+    records = []
+    mask_wrappers = {"dropout_masks": prng_kernels.dropout_masks,
+                     "bernoulli_masks": prng_kernels.bernoulli_masks}
+    for family, S, B in (("vgg16", 9, 50), ("mobilenet_v2", 14, 50),
+                         ("mobilenet_v2", 3, 2)):
+        model = models_mod.build(ZOO[family][0], device="meta")
+        wkeys = prng.split(prng.fold_in(prng.PRNGKey(S), B), S)
+        _cuda.reset_launches()
+        card = model.draw_masks(wkeys.to(dev), B)
+        launched = {kernel: wrapper.launches
+                    for kernel, wrapper in mask_wrappers.items()}
+        want = {**dict.fromkeys(mask_wrappers, 0),
+                **{kernel: count for (kernel, _), count
+                   in ZOO_MASKS[family].items()}}
+        if launched != want:
+            raise SystemExit(f"{family}'s draw_masks launched {launched}, "
+                             f"expected {want}")
+        for j, (got, cpu) in enumerate(zip(card, model.draw_masks(wkeys, B))):
+            if not torch.equal(got.cpu(), cpu):
+                raise SystemExit(f"{family}'s mask {j} at S={S} B={B} "
+                                 f"differs from the CPU's bits")
+        log(f"{family}'s draw_masks S={S} B={B}: {launched} launches, "
+            f"{[list(m.shape) for m in card]} equal to the CPU's bits (keep "
+            f"share {float(card[0].float().mean()):.5f})")
+        if B > 2:
+            elements = sum(m.numel() for m in card)
+            kernel = next(k for k, count in want.items() if count)
+            records.append(timed_record(
+                f"{kernel}_{family}", kernel,
+                lambda model=model, wkeys=wkeys.to(dev), B=B:
+                    model.draw_masks(wkeys, B),
+                lambda model=model, wkeys=wkeys.to(dev), B=B: [
+                    (prng_kernels.dropout_masks_plain(wkeys, j, (B, 4096), 128)
+                     if family == "vgg16" else
+                     prng_kernels.bernoulli_masks_plain(wkeys, None, (B, 1280),
+                                                        0.8))
+                    for j in range(len(card))],
+                None, S * 16 + elements, prng_kernels.hash_operations(elements),
+                0.0, smi, integer=True))
+        del card
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for family, n, f, kernels in (
+            ("resnet18", 25, 5, ("sq_gram", "selected_median_mean")),
+            ("resnet50", 25, 11, ("sq_gram", "weighted_rows_mean")),
+            ("vgg16", 11, 2, ("lower_median",)),
+            ("densenet121", 25, 11, ("trimmed_mean",)),
+            ("mobilenet_v2", 25, 11, ("lower_median", "closest_mean")),
+            ("transformer", 11, 4, ("lower_median",))):
+        d = ZOO[family][1]
+        g = torch.randn((n, d), generator=gen, device=dev)
+        plain_gram = gar_kernels.sq_gram_plain(g)
+        dist = _common.distances_from_sq_gram(plain_gram)
+        W = bulyan.selection_weights(dist, f) if n >= 4 * f + 3 else None
+        w = krum.selection_weights(dist, f)
+        rounds = W.shape[0] if W is not None else 0
+        m2 = rounds - 2 * f
+        median = sort_kernels.lower_median_plain(g)
+        work = {
+            "sq_gram": (lambda: gar_kernels.sq_gram(g),
+                        lambda: gar_kernels.sq_gram_plain(g),
+                        lambda: torch.matmul(g, g.T),
+                        (n * d + n * n) * 4, 2 * (n * (n + 1) // 2) * d,
+                        TOL_RTOL * float(torch.diagonal(plain_gram).max()), TOL_RTOL),
+            "selected_median_mean": (
+                lambda: gar_kernels.selected_median_mean(W, g, m2),
+                lambda: gar_kernels.selected_median_mean_plain(W, g, m2), None,
+                (n * d + rounds * n + d) * 4,
+                (2 * rounds * n + sort_kernels.selection_operations(rounds)) * d,
+                TOL_ATOL, TOL_RTOL),
+            "weighted_rows_mean": (
+                lambda: gar_kernels.weighted_rows_mean(w, g),
+                lambda: gar_kernels.select_rows(w, g),
+                lambda: torch.matmul(w, g), (n * d + n + d) * 4, 2 * n * d,
+                TOL_ATOL, TOL_RTOL),
+            "lower_median": (
+                lambda: sort_kernels.lower_median(g),
+                lambda: sort_kernels.lower_median_plain(g),
+                lambda: torch.kthvalue(g, (n - 1) // 2 + 1, dim=0),
+                (n * d + d) * 4,
+                sort_kernels.selection_operations(n, (n - 1) // 2) * d, 0.0, 0.0),
+            "trimmed_mean": (
+                lambda: sort_kernels.trimmed_mean(g, f),
+                lambda: sort_kernels.trimmed_mean_plain(g, f),
+                lambda: torch.sort(g, dim=0), (n * d + d) * 4,
+                (sort_kernels.selection_operations(n, range(f, n - f))
+                 + n - 2 * f) * d, 0.0, 0.0),
+            "closest_mean": (
+                lambda: sort_kernels.closest_mean(g, median, n - f),
+                lambda: sort_kernels.closest_mean_plain(g, median, n - f), None,
+                (n * d + 2 * d) * 4,
+                (sort_kernels.selection_operations(n, n - f - 1) + 2 * n) * d,
+                TOL_ATOL, TOL_RTOL)}
+        del plain_gram, dist
+        errs = []
+        for kernel in kernels:
+            fn, plain, library, nbytes, ops, atol, rtol = work[kernel]
+            err = compare(f"{kernel} at {family}'s f32[{n}, {d}]", fn(),
+                          plain(), atol=atol, rtol=rtol)
+            errs.append(f"{kernel} max abs err {err:.3e}")
+            records.append(timed_record(f"{kernel}_{family}", kernel, fn,
+                                        plain, library, nbytes, ops, err, smi))
+        log(f"{family}'s operand f32[{n}, {d}] ({g.numel() * 4 / 1e9:.2f} "
+            f"GB, f = {f}): " + ", ".join(errs))
+        del g, work, W, w, median
+        torch.cuda.empty_cache()
+    return records
+
+
+# Phase 3's card-against-CPU gradients: (family, whether the CPU draws
+# the init too); the resnets' 11-24 M and vgg16's 134 M normal draws
+# take from 12 s to minutes in the eager int64 threefry on a host CPU, so
+# those take the card's weights (densenet121 holds the same convolution
+# init to the CPU's bits)
+ZOO_GRADIENTS = (("resnet18", False), ("resnet50", False), ("vgg16", False),
+                 ("densenet121", True), ("mobilenet_v2", True),
+                 ("transformer", True))
+# The card's f32 forward, gradient and BatchNorm state are held against
+# the CPU's float64 ones on the same weights: no farther from them than
+# ZOO_SLACK times the CPU's own f32 run, or ZOO_FLOOR (relative L2 for
+# the gradient, relative to the largest output for the outputs, absolute
+# for the state). cuDNN and the CPU sum in other orders, and at batch 4
+# the last stage's BatchNorm normalizes 4 values a channel (1x1 pixels),
+# which magnifies those last bits by as much as the values' spread is
+# small: resnet50's f32 gradient on a CPU lies 8e-2 (relative L2) from
+# its float64 one, and the card's f32 one as far from the CPU's f32, so
+# a fixed f32 tolerance either fails the well-made run or passes a
+# broken one. cuDNN's algorithms may round more than the CPU's: on an
+# H100 mobilenet_v2's f32 outputs lay 2.2 times as far from float64 as
+# the CPU's (4.2e-4 against 1.9e-4), every other family's within 1.3
+# times; a wrong kernel lands orders of magnitude farther
+ZOO_SLACK, ZOO_FLOOR = 4.0, 1e-5
+
+
+def card_vs_cpu_gradient(name, seed=1, batch=4, cpu_init=True, device="cuda"):
+    """One worker's train-mode forward and gradient of `sum(out * R)` of
+    the model `name` at full width on the card (f32) and on the CPU (f32
+    and float64), on the same weights (the card's `init(PRNGKey(seed))`;
+    with `cpu_init` the CPU draws them too, and they must be the card's
+    bits), inputs, dropout masks (the card's kernels against the CPU's
+    draw, bit for bit) and R. Returns `{"outputs", "gradient", "state":
+    (the card's error, the CPU f32 run's error)}` against float64, raising
+    where the card's passes `ZOO_SLACK` times the CPU's or `ZOO_FLOOR`."""
+    dev = torch.device(device)
+    card = models_mod.build(name, device=dev)
+    cpu = models_mod.build(name, device="cpu")
+    card.init(prng.PRNGKey(seed, device=dev))
+    if cpu_init:
+        cpu.init(prng.PRNGKey(seed))
+        for key, value in card.state_dict().items():
+            if not torch.equal(value.cpu(), cpu.state_dict()[key]):
+                raise SystemExit(f"{name}: the card's init of {key} differs "
+                                 f"from the CPU's bits")
+    else:
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    wide = models_mod.build(name, device="cpu", dtype=torch.float64)
+    wide.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, *card.input_shape), generator=gen)
+    R = torch.randn((batch, 10), generator=gen)
+    wkeys = prng.split(prng.PRNGKey(seed + 1), 1)
+    runs = []
+    for model, where in ((card, dev), (cpu, torch.device("cpu")),
+                         (wide, torch.device("cpu"))):
+        dtype = next(model.parameters()).dtype
+        masks = tuple(m[0] for m in model.draw_masks(wkeys.to(where), batch))
+        flat = models_mod.FlatParams(model)
+        theta = flat.flatten(dict(model.named_parameters())).detach()
+        theta.requires_grad_()
+        buffers = dict(model.named_buffers())
+        out, state = torch.func.functional_call(
+            model, {**flat.unflatten(theta), **buffers},
+            (x.to(where, dtype),), {"train": True, "masks": masks})
+        (out * R.to(where, dtype)).sum().backward()
+        runs.append((out.detach().cpu().double(), theta.grad.cpu().double(),
+                     {f"{k}.{s}": v.detach().cpu().double()
+                      for k, stats in state.items() for s, v in stats.items()},
+                     [m.cpu() for m in masks]))
+    (out64, grad64, state64, masks64) = runs[2]
+    errors = {"outputs": [], "gradient": [], "state": []}
+    for out, grad, state, masks in runs[:2]:
+        if not all(torch.equal(a, b) for a, b in zip(masks, masks64)):
+            raise SystemExit(f"{name}: the card's masks differ from the CPU's")
+        errors["outputs"].append(float((out - out64).abs().max()
+                                       / out64.abs().max()))
+        errors["gradient"].append(float((grad - grad64).norm() / grad64.norm()))
+        errors["state"].append(max((float((state[k] - v).abs().max())
+                                    for k, v in state64.items()), default=0.0))
+    bad = [kind for kind, (card_err, cpu_err) in errors.items()
+           if card_err > max(ZOO_SLACK * cpu_err, ZOO_FLOOR)]
+    if bad:
+        raise SystemExit(f"{name}: the card's {', '.join(bad)} lie farther "
+                         f"from float64 than {ZOO_SLACK}x the CPU's f32 run "
+                         f"(card, CPU f32: {errors})")
+    return errors
+
+
+def zoo_gradients(smi):
+    """Phase 3: each zoo family's card gradient at full width against the
+    CPU's (`card_vs_cpu_gradient`, batch 4, `ZOO_GRADIENTS`)."""
+    for family, cpu_init in ZOO_GRADIENTS:
+        t0 = time.perf_counter()
+        errors = card_vs_cpu_gradient(ZOO[family][0], cpu_init=cpu_init)
+        log(f"{family} (d = {ZOO[family][1]}), batch 4, train mode, against "
+            f"the CPU's float64 (the card's f32 / the CPU's f32): " + ", ".join(
+                f"{kind} {card:.3e} / {cpu:.3e}"
+                for kind, (card, cpu) in errors.items())
+            + "; init " + ("the CPU's bits" if cpu_init else "the card's, copied")
+            + f" ({time.perf_counter() - t0:.1f} s) on {smi}")
+        torch.cuda.empty_cache()
+
+
 def device_paths(smi):
     """Phase 3, the device-resident path: `DeviceData.gather` on the card
     against the same gather on the CPU, bit for bit; the grouped honest
@@ -1813,6 +2080,59 @@ def attack_cell(name, attack, attack_args, gar="krum"):
         gar)
 
 
+# The rest of the model zoo at full width (`models/resnet.py`, `vgg.py`,
+# `densenet.py`, `mobilenet.py`, `transformer.py`): family name -> (model,
+# flat parameter count d). None has a grouped forward (the JAX package has
+# no `apply_grouped` for them): each takes the vmapped honest phase
+ZOO = {"resnet18": ("resnet18", 11_181_642),
+       "resnet50": ("resnet50", 23_528_522),
+       "vgg16": ("vgg16", 134_301_514),
+       "densenet121": ("densenet121", 6_964_106),
+       "mobilenet_v2": ("mobilenet_v2", 2_236_682),
+       "transformer": ("transformer-classifier", 104_394)}
+# The dropout launches of a step: VGG's two classifier masks (keep 0.5, the
+# 8-bit threshold), MobileNetV2's one (keep 0.8, the Bernoulli path, from
+# the worker's key itself)
+ZOO_MASKS = {"vgg16": {("dropout_masks", BOOL): 2},
+             "mobilenet_v2": {("bernoulli_masks", BOOL): 1}}
+
+
+def zoo_cell(name, family, n, f, gar, attack):
+    """A zoo model's run on CIFAR-10 with `cifar_cell`'s flags (n workers,
+    f real Byzantine workers, batch 50, momentum 0.99 at update, clip 5,
+    16 steps) and `--loss crossentropy` (the torchvision families return
+    raw logits): a step launches its GAR's kernels, the split of the step
+    key and the model's dropout masks (family `family`)."""
+    attack, attack_args = attack
+    argv = ("--dataset", "cifar10", "--model", ZOO[family][0],
+            "--nb-workers", str(n), "--nb-decl-byz", str(f),
+            "--nb-real-byz", str(f), "--gar", gar, "--attack", attack,
+            "--attack-args", *attack_args, "--batch-size", "50",
+            "--batch-size-test", "100", "--batch-size-test-reps", "5",
+            "--evaluation-delta", str(STEPS), "--momentum", "0.99",
+            "--momentum-at", "update", "--gradient-clip", "5",
+            "--learning-rate", "0.01", "--nb-for-study", "1",
+            "--nb-for-study-past", "1", "--loss", "crossentropy")
+    return Cell(name, argv, STEPS, family, {**gar_launches(gar), **SPLIT_STEP,
+                                            **ZOO_MASKS.get(family, {})})
+
+
+ZOO_CELLS = (
+    zoo_cell("resnet18_bulyan", "resnet18", 25, 5, "bulyan", EMPIRE),
+    zoo_cell("resnet50_krum_f11", "resnet50", 25, 11, "krum", LITTLE),
+    zoo_cell("vgg16_median", "vgg16", 11, 2, "median", LITTLE),
+    zoo_cell("densenet121_trmean", "densenet121", 25, 11, "trmean", LITTLE),
+    zoo_cell("mobilenet_v2_meamed", "mobilenet_v2", 25, 11, "meamed", LITTLE),
+    # `tests/test_driver.py:148`'s line at the model's default width (depth
+    # 2, dim 64, heads 4), on MNIST with the driver's defaults otherwise
+    Cell("transformer_mnist_median", (
+        "--model", "transformer-classifier", "--gar", "median",
+        "--nb-real-byz", "2", "--attack", "little", "--attack-args",
+        "factor:1.5", "--nb-for-study", "11", "--nb-for-study-past", "2"),
+        MNIST_STEPS, "transformer", {**gar_launches("median"), **SPLIT_STEP}),
+)
+
+
 CELLS = (
     cifar_cell("headline", "bulyan", 5, EMPIRE),
     cifar_cell("krum_f11", "krum", 11, EMPIRE),
@@ -1896,12 +2216,23 @@ CELLS = (
              "cifar10-empire-krum-f_4-lr_pow-at_update-nesterov", "krum"),
     wrn_cell("baseline_wrn_aksel", APPENDIX_BULYAN, "aksel",
              ("--gar", "aksel", "--nb-local-steps", "2"), local_steps=2),
+    # The rest of the model zoo, each timed
+    *ZOO_CELLS,
 )
 CELLS_BY_NAME = {cell.name: cell for cell in CELLS}
-PROFILED = ("headline", "krum_f11", "brute", "headline_mixed", "headline_vmapped",
+# Phase 5's cells: each profiled over warm steps (`step_profile`), and
+# but for those of `STEP_PROFILED_ONLY` over a chunk of the default M too
+# (`chunk_profile`). Brute's profile (its enumeration, 98% of its step,
+# 95k device operations a step) was taken out when the zoo cells came
+# in, to keep the run inside its time limit, as were the chunk profiles
+# of WRN-28-10, of the per-call mixture and of the zoo cells (tens of
+# thousands of device operations a chunk to trace)
+PROFILED = ("headline", "krum_f11", "headline_mixed", "headline_vmapped",
             "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive",
             "headline_mixture", "headline_mixture_per_call", "headline_adam",
-            APPENDIX_BULYAN)
+            APPENDIX_BULYAN, *(cell.name for cell in ZOO_CELLS))
+STEP_PROFILED_ONLY = (APPENDIX_BULYAN, "headline_mixture_per_call",
+                      *(cell.name for cell in ZOO_CELLS))
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
     gar_kernels.sq_gram, gar_kernels.selected_median_mean,
     gar_kernels.weighted_rows_mean, gar_kernels.masked_rows_mean,
@@ -1940,8 +2271,10 @@ def drive(cell, smi):
     with tempfile.TemporaryDirectory() as tmp:
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         summary = driver.run(argv)
         torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
                     for dt, count in wrapper.launches_by_dtype.items() if count}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
@@ -1964,8 +2297,10 @@ def drive(cell, smi):
     # Every step and evaluation on the device-resident batches, every
     # honest phase on the program asked for
     args = driver.process_commandline(argv)
+    # A model without a grouped forward (the zoo's) takes the vmapped one
+    grouped = getattr(models_mod.models[args.model], "forward_grouped", None)
     honest = ("vmapped_phases" if args.no_grouped_workers or args.nb_local_steps > 1
-              else "grouped_phases")
+              or grouped is None else "grouped_phases")
     sizes = chunks(steps, args.evaluation_delta, args.checkpoint_delta,
                    args.steps_per_program)
     multi = sum(size > 1 for size in sizes)
@@ -1991,7 +2326,8 @@ def drive(cell, smi):
     log(f"{name} cell: {steps} steps in chunks {sizes}, {rate:.4f} steps/s "
         f"after the first chunk, engine counts {summary['counts']}, "
         f"launches {counts}, defense norms {norms[0]:.4e} .. "
-        f"{norms[-1]:.4e}, acceptation ratio {ratio} on {smi}")
+        f"{norms[-1]:.4e}, acceptation ratio {ratio}, peak memory "
+        f"{peak_gb:.2f} GB (max_memory_allocated) on {smi}")
     return launches
 
 
@@ -2584,6 +2920,10 @@ def main():
     lap("kernels")
     records += wrn_kernels(smi)
     lap("WRN kernels")
+    records += zoo_kernels(smi)
+    lap("zoo kernels")
+    zoo_gradients(smi)
+    lap("zoo gradients")
     device_paths(smi)
     grouped_vs_vmapped(CELLS_BY_NAME[APPENDIX_BULYAN], smi, timed=True)
     grouped_vs_vmapped(CELLS_BY_NAME[
@@ -2596,7 +2936,7 @@ def main():
             lap("cells")  # the WRN cells come last, each timed
         for (kernel, dtype), count in drive(cell, smi).items():
             totals[kernel, dtype, cell.family] += count
-        if cell.family == "wrn":
+        if cell.family == "wrn" or cell.family in ZOO:
             lap(cell.name)
     resume_check(smi)
     lap("resume")
@@ -2608,14 +2948,13 @@ def main():
     lap("device-gar")
     for cell in CELLS:
         if cell.name in PROFILED:
-            # brute's step is 95k device operations, WRN's 18k and the
-            # per-call mixture's 5k: one step each keeps their traces'
-            # processing short
-            setup = step_profile(cell, smi, steps=1 if cell.name in (
-                "brute", APPENDIX_BULYAN, "headline_mixture_per_call") else 3)
-            # and at the driver's default M, on the same engine (brute's
-            # chunk of one step is the step profile above)
-            if cell.name != "brute":
+            # WRN's step is 18k device operations, the per-call mixture's
+            # 5k and the zoo's up to 13k: one step each keeps their
+            # traces' processing short
+            setup = step_profile(cell, smi, steps=1 if cell.name
+                                 in STEP_PROFILED_ONLY else 3)
+            # and at the driver's default M, on the same engine
+            if cell.name not in STEP_PROFILED_ONLY:
                 chunk_profile(cell, smi, setup=setup)
             del setup
             torch.cuda.empty_cache()

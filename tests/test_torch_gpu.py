@@ -1385,3 +1385,38 @@ def test_operand_hash_kernel_equals_its_plain_version(cuda, dtype, n, d):
         drawn = _launched(mk.mixture_draw, lambda: mk.mixture_draw(
             key.to(cuda), got, cum.to(cuda)), torch.int64)
         assert int(drawn) == int(mk.mixture_draw_plain(key, want, cum))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep", (0.8, 0.5))
+def test_mask_kernels_draw_from_the_keys_as_given(cuda, keep):
+    """`j` None: the mask kernels hash under the workers' keys themselves
+    (MobileNetV2's classifier mask), bit for bit the CPU's draw."""
+    from byzantinemomentum_tpu_torch import prng
+    from byzantinemomentum_tpu_torch.ops import prng_kernels
+    wkeys = prng.split(prng.PRNGKey(31), 5)
+    wrapper, plain, arg = (
+        (prng_kernels.bernoulli_masks, prng_kernels.bernoulli_masks_plain, keep)
+        if keep == 0.8 else
+        (prng_kernels.dropout_masks, prng_kernels.dropout_masks_plain, 128))
+    for shape in ((7, 1280), (3, 4, 4, 9)):
+        got = _launched(wrapper, lambda: wrapper(wkeys.to(cuda), None, shape,
+                                                 arg), torch.bool)
+        assert torch.equal(got.cpu(), plain(wkeys, None, shape, arg))
+        assert not torch.equal(got.cpu(), plain(wkeys, 0, shape, arg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,cpu_init", (
+    ("resnet18", True), ("resnet50", False), ("vgg11", False),
+    ("densenet121", True), ("mobilenet_v2", True),
+    ("transformer-classifier", True)))
+def test_zoo_gradient_on_the_card_matches_the_cpu(cuda, name, cpu_init):
+    """Each zoo family at full width, batch 4, train mode: the card's
+    outputs, gradient and BatchNorm state against the CPU's float64 ones
+    on the same weights and masks, no farther than 4 times the CPU's own
+    f32 run (`chip_smoke.card_vs_cpu_gradient`)."""
+    from chip_smoke import card_vs_cpu_gradient
+    from byzantinemomentum_tpu_torch.engine.step import pin_precision
+    pin_precision()
+    card_vs_cpu_gradient(name, seed=2, cpu_init=cpu_init)
