@@ -4,9 +4,9 @@ of the training path ported so far).
 Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
-JAX driver that the port does not have yet (meshes, fault plans,
-diagnostics, health and rollbacks, telemetry, ...) are refused by the
-parser rather than ignored.
+JAX driver that the port does not have yet (meshes, fault plans, health
+and rollbacks, telemetry, ...) are refused by the parser rather than
+ignored.
 
 The defense is `--gar` or a `--gars 'name[,freq[,json-args]];...'`
 mixture (the JAX `_parse_gars`, with its messages), drawn once a step
@@ -72,6 +72,18 @@ flips in that order (`DeviceData.sample_batches`) and gathers them on
 the device. The honest phase is the grouped program unless
 `--no-grouped-workers`.
 
+`--gar-diagnostics` (with `--result-directory` and `--nb-for-study`;
+without them the JAX warning disables it) runs the outer aggregation
+through the GAR's diagnose form and appends the JAX driver's
+`FORENSIC_COLUMNS` to the study CSV, after the recovery columns: the
+selected workers (';'-joined, '-' for none), the honest-vs-all median
+distance, the variance-to-norm ratio, the clip fraction and the largest
+suspicion of `obs/forensics.py::SuspicionTracker`, which the host folds
+step by step from the selection and worker-distance vectors. Those
+vectors reach the host in the chunk's one transfer of its study rows.
+The tracker is not checkpointed (nor is the JAX driver's): a resumed run
+starts it from zero.
+
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
 prefixed with the line separator, values at the parameter dtype's
@@ -97,10 +109,11 @@ from byzantinemomentum_tpu_torch import data as data_mod
 from byzantinemomentum_tpu_torch import losses as losses_mod
 from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import ops as ops_mod
-from byzantinemomentum_tpu_torch import optim, prng, utils
+from byzantinemomentum_tpu_torch import obs, optim, prng, utils
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    DTYPES, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine, EngineConfig)
+    DTYPES, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine,
+    EngineConfig)
 from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.models.core import apply_named_init, inits
 
@@ -167,6 +180,14 @@ def process_commandline(argv=None):
         help="Disable the merged-batch grouped honest phase (always use the "
              "vmapped per-worker path, even for models that provide the "
              "grouped execution)")
+    add("--gar-diagnostics", action="store_true", default=False,
+        help="Run the defense through its in-jit diagnostics kernel and "
+             "append the aggregation-forensics columns to the study CSV "
+             "('Sel workers', 'Dist honest med', 'Var/norm ratio', 'Clip "
+             "frac', 'Suspicion max'), feeding the per-worker suspicion "
+             "tracker (obs/forensics.py: suspect_worker telemetry events). "
+             "Off by default: the diagnostic aux rides the compiled step "
+             "as extra outputs (measured overhead documented in README)")
     add("--attack", type=str, default="nan", help="Attack to use")
     add("--attack-args", nargs="*", help="key:value args for the attack")
     add("--model", type=str, default="simples-conv", help="Model to train")
@@ -343,6 +364,12 @@ def _postprocess(args):
         utils.warning("Argument '--checkpoint-delta' ignored as no "
                       "'--result-directory' was specified")
         args.checkpoint_delta = 0
+    if args.gar_diagnostics and (args.result_directory is None
+                                 or args.nb_for_study < 1):
+        utils.warning("'--gar-diagnostics' needs the study pipeline "
+                      "('--nb-for-study' with '--result-directory'); "
+                      "diagnostics disabled")
+        args.gar_diagnostics = False
     # Study coercions (the JAX driver's)
     if args.result_directory is None:
         args.nb_for_study = 0
@@ -457,28 +484,58 @@ class _ResultFiles:
             fd.close()
 
 
+# The forensic values written as they are, and the vectors the host
+# formats and folds into the suspicion tracker
+FORENSIC_SCALARS = ("Dist honest med", "Var/norm ratio", "Clip frac")
+FORENSIC_VECTORS = ("Sel mask", "Worker dist")
+
+
 def _study_rows(metrics, steps, datapoints, increment, count, float_format,
-                rng=None):
+                rng=None, recovery=(), tracker=None):
     """The study CSV rows of a chunk of `count` steps from `steps` (its
     first step's point count `datapoints`, `increment` points a step), and
     the words of the device key `rng` after the chunk (None without one):
     the chunk's stacked device columns (`stack_metrics`; `metrics` None
     for no rows) and the key move to the host in one transfer, widened to
     float64, which holds every dtype's value and every 32-bit word
-    exactly."""
+    exactly. Each row ends with the `recovery` values, then, with a
+    suspicion `tracker` (`--gar-diagnostics`), the forensic columns: the
+    forensic scalars and the `[count, n]` selection and worker-distance
+    vectors join the same transfer, and the tracker folds the steps in
+    order."""
     columns = STUDY_COLUMNS[2:] if metrics is not None else ()
-    parts = [torch.stack([metrics[column].double() for column in columns])
+    forensic = bool(columns) and tracker is not None
+    scalars = columns + (FORENSIC_SCALARS if forensic else ())
+    parts = [torch.stack([metrics[column].double() for column in scalars])
              .flatten()] if columns else []
+    if forensic:
+        parts += [metrics[name].double().flatten() for name in FORENSIC_VECTORS]
     if rng is not None:
         parts.append(rng.double())
     if not parts:
         return [], None
     host = torch.cat(parts).tolist()
     words = tuple(int(word) for word in host[-2:]) if rng is not None else None
-    host = [host[k * count:(k + 1) * count] for k in range(len(columns))]
-    rows = [[steps + i, datapoints + i * increment]
-            + [float_format % values[i] for values in host[:-1]]
-            + [float(host[-1][i])] for i in range(count)] if columns else []
+    table = [host[k * count:(k + 1) * count] for k in range(len(scalars))]
+    if forensic:
+        n = tracker.nb_workers
+        start = len(scalars) * count
+        sel, dist = (np.asarray(host[start + k * count * n:
+                                     start + (k + 1) * count * n]
+                                ).reshape(count, n) for k in range(2))
+    rows = []
+    for i in range(count if columns else 0):
+        row = [steps + i, datapoints + i * increment]
+        row += [float_format % values[i] for values in table[:len(columns) - 1]]
+        row.append(float(table[len(columns) - 1][i]))
+        row += recovery
+        if forensic:
+            selected = np.nonzero(sel[i] > 0)[0]
+            row.append(";".join(str(w) for w in selected) or "-")
+            row += [float_format % values[i] for values in table[len(columns):]]
+            tracker.update(steps + i, sel[i], distances=dist[i])
+            row.append(float_format % tracker.max())
+        rows.append(row)
     return rows, words
 
 
@@ -541,6 +598,7 @@ def _setup(args):
         weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
         grouped_workers=not args.no_grouped_workers,
         nb_local_steps=args.nb_local_steps, gars_per_call=args.gars_per_call,
+        gar_diagnostics=args.gar_diagnostics,
         dtype=args.dtype, compute_dtype=args.compute_dtype)
     # Parameters are drawn in f32 and rounded to the parameter dtype, as
     # the JAX package casts its f32 init
@@ -603,8 +661,10 @@ def _open_results(args):
                      resume_step=resume_step)
     if args.nb_for_study > 0:
         # The JAX driver's recovery columns ride the study CSV only when
-        # crash recovery is on
-        columns = STUDY_COLUMNS + (RECOVERY_COLUMNS if args.auto_resume else ())
+        # crash recovery is on, its forensic columns under diagnostics
+        columns = (STUDY_COLUMNS
+                   + (RECOVERY_COLUMNS if args.auto_resume else ())
+                   + (FORENSIC_COLUMNS if args.gar_diagnostics else ()))
         results.make("study", *columns, resume_step=resume_step)
     (resdir / "config").write_text(_config_text(args) + os.linesep)
     with (resdir / "config.json").open("w") as fd:
@@ -666,6 +726,10 @@ def run(argv=None):
     fd_eval = results.get("eval") if results else None
     fd_study = results.get("study") if results else None
     recovery = (0, restarts) if args.auto_resume else ()
+    # The suspicion tracker of --gar-diagnostics (not checkpointed, as in
+    # the JAX driver)
+    tracker = (obs.SuspicionTracker(args.nb_workers) if engine.diagnostics
+               else None)
     hop = (program.build_step(engine, gar_device=args.gar_device)
            if args.gar_device is not None else None)
     # The host's own step and point counters (the JAX driver's mirrors):
@@ -691,10 +755,11 @@ def run(argv=None):
         if pending is None:
             return
         *chunk, (rng, rng_host) = pending
-        rows, words = _study_rows(*chunk, float_format, rng=rng)
+        rows, words = _study_rows(*chunk, float_format, rng=rng,
+                                  recovery=recovery, tracker=tracker)
         if fd_study is not None:
             for row in rows:
-                results.store(fd_study, *row, *recovery)
+                results.store(fd_study, *row)
         if words is not None and words != tuple(rng_host):
             raise RuntimeError(f"the host's mirror of the key chain "
                                f"{tuple(rng_host)} differs from the "

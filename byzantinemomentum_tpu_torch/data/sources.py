@@ -36,13 +36,16 @@ __all__ = ["data_dirs", "load_mnist", "load_emnist", "load_qmnist",
 
 
 def data_dirs():
-    """Candidate directories holding raw dataset files."""
+    """Candidate directories holding raw dataset files, in the JAX
+    package's order: `BMT_DATA_DIR`, `./data`, the user's cache and the
+    JAX package's fixed data directory."""
     dirs = []
     env = os.environ.get("BMT_DATA_DIR")
     if env:
         dirs.append(pathlib.Path(env))
     dirs.append(pathlib.Path.cwd() / "data")
     dirs.append(pathlib.Path.home() / ".cache" / "byzantinemomentum_tpu")
+    dirs.append(pathlib.Path("/root/data"))
     return [d for d in dirs if d.is_dir()]
 
 

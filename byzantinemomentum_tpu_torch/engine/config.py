@@ -1,6 +1,7 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
 the fields of the training path ported so far: local steps, the
-`--gars` mixture's draw, the grouped honest phase)."""
+`--gars` mixture's draw, the grouped honest phase, the GAR
+diagnostics)."""
 
 import dataclasses
 
@@ -45,6 +46,13 @@ class EngineConfig:
     gars_per_call: bool = False   # --gars-per-call: a --gars mixture draws
     #                               its member at every defense call (from
     #                               a hash of the operand), not once a step
+    gar_diagnostics: bool = False  # --gar-diagnostics: with the study on,
+    #                               the outer aggregation runs the GAR's
+    #                               diagnose form and the step's metrics
+    #                               gain the forensic values
+    #                               (`engine/metrics.py::forensic_metrics`);
+    #                               off, the step runs no code of
+    #                               `ops/diag.py`
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):

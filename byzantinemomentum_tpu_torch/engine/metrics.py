@@ -19,12 +19,21 @@ Values stay on the device, and nothing here reads one on the host:
 every past slot weighted by `arange(P) < past_count`, the JAX package's
 own masked sum. The driver moves a chunk's rows to the host in one
 transfer.
+
+With `--gar-diagnostics`, `forensic_metrics` digests the GAR's
+diagnostics aux (`ops/diag.py`) on the device into the values behind
+`FORENSIC_COLUMNS`: the `Sel mask` and `Worker dist` vectors (f32[n]),
+which the driver formats and folds into the suspicion tracker on the
+host, and three scalars written as they are.
 """
 
 import torch
 
-__all__ = ["STUDY_COLUMNS", "RECOVERY_COLUMNS", "avg_dev_max", "cosine", "push_past",
-           "study_metrics"]
+from byzantinemomentum_tpu_torch.ops import diag
+
+__all__ = ["STUDY_COLUMNS", "RECOVERY_COLUMNS", "FORENSIC_COLUMNS",
+           "avg_dev_max", "cosine", "push_past", "study_metrics",
+           "forensic_metrics"]
 
 # CSV header, byte-identical to the JAX package's (and the reference's)
 STUDY_COLUMNS = (
@@ -43,6 +52,14 @@ STUDY_COLUMNS = (
 # rollbacks (none in the port, which has no --rollback-budget) and the
 # run's restart count
 RECOVERY_COLUMNS = ("Rollbacks", "Restarts")
+
+# The aggregation-forensics columns the JAX driver appends under
+# --gar-diagnostics: the selected workers (';'-joined indices), the
+# honest-vs-all median distance, the paper's variance-to-norm ratio of
+# the honest submissions, the mean trim fraction and the largest
+# suspicion (`obs/forensics.py`)
+FORENSIC_COLUMNS = ("Sel workers", "Dist honest med", "Var/norm ratio",
+                    "Clip frac", "Suspicion max")
 
 _NAN = float("nan")
 
@@ -82,6 +99,30 @@ def push_past(past_grads, past_norms, past_count, grad, norm):
     past_norms = torch.cat([norm[None], past_norms[:-1]])
     past_count = torch.minimum(past_count + 1, torch.full_like(past_count, P))
     return past_grads, past_norms, past_count
+
+
+def forensic_metrics(aux, G_honest):
+    """The forensic values of one step from the GAR's diagnostics aux and
+    the honest submissions (the JAX `forensic_metrics`): `Sel mask`, the
+    aux selection; `Worker dist`, each worker's mean distance to its
+    finite peers (+inf for a row with none); `Dist honest med`, the
+    median honest-vs-all distance; `Var/norm ratio`; `Clip frac`, the
+    mean trim fraction. Device tensors, none read on the host."""
+    n = aux["selection"].shape[0]
+    dist = aux["dist"]
+    _, dmed, _ = diag.distance_summary(dist, rows=G_honest.shape[0])
+    eye = torch.eye(n, dtype=torch.bool, device=dist.device)
+    finite = torch.isfinite(dist) & ~eye
+    count = finite.to(torch.float32).sum(dim=1)
+    mean_d = (torch.where(finite, dist, 0.0).sum(dim=1)
+              / torch.clamp(count, min=1.0))
+    return {
+        "Sel mask": aux["selection"],
+        "Worker dist": torch.where(count > 0, mean_d, torch.inf),
+        "Dist honest med": dmed,
+        "Var/norm ratio": diag.var_norm_ratio(G_honest),
+        "Clip frac": diag.mean_f32(aux["trim_frac"]),
+    }
 
 
 def study_metrics(*, loss_avg, l2_origin, G_sampled, G_honest, G_attack,

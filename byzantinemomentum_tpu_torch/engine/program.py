@@ -12,9 +12,11 @@ per-step draw, from the host's mirror of the key chain,
 `Engine.mirror_keys`), so only that member runs, or a 0-d int32 device
 tensor (the per-call draw, which hashes the operand on the device,
 `ops/mixture_kernels.py`), so every member runs and the index picks one
-result with `torch.where` (`select`), nothing read on the host. Only the
-"plain" variant is ported: "diag" and "masked" wait for the diagnostics
-and the fault plans, and raise until then.
+result with `torch.where` (`select`), nothing read on the host. The
+"plain" variant returns the aggregate; the "diag" variant (the engine's
+outer aggregation under `--gar-diagnostics`) returns `(aggregate, aux)`
+from `gar.diagnosed`, and `select` picks the aggregate and each aux key.
+The "masked" variant waits for the fault plans and raises until then.
 
 `build_step(engine, gar_device=..., multi=...)` returns what the driver
 dispatches: the engine's single step (`Engine.train_step`), its fused
@@ -34,14 +36,17 @@ VARIANTS = ("plain", "diag", "masked")
 
 
 def defense_kernel(gar, variant, *, f, kwargs=None):
-    """The program of one (GAR, variant) cell: `G -> aggregate`."""
+    """The program of one (GAR, variant) cell: `G -> aggregate` ("plain")
+    or `G -> (aggregate, aux)` ("diag")."""
     kwargs = {} if kwargs is None else kwargs
     if variant == "plain":
         return lambda G: gar.unchecked(G, f=f, **kwargs)
+    if variant == "diag":
+        return lambda G: gar.diagnosed(G, f=f, **kwargs)
     if variant in VARIANTS:
         raise NotImplementedError(
-            f"the {variant!r} defense variant is not ported yet (GAR "
-            f"diagnostics and fault plans, ROADMAP.md section 1 item 5)")
+            f"the {variant!r} defense variant is not ported yet (fault "
+            f"plans, ROADMAP.md section 1 item 2)")
     raise ValueError(
         f"Unknown lattice variant {variant!r}; expected one of {VARIANTS}")
 
@@ -66,8 +71,17 @@ def mixture_index(defenses, mix_u):
 def select(outputs, index):
     """`outputs[index]` for a 0-d integer device tensor, with no read of
     the index: each later output replaces the first where the index names
-    it (a NaN of an unpicked output never leaks)."""
-    out = outputs[0]
+    it (a NaN of an unpicked output never leaks). Outputs that are tuples
+    or dicts of tensors (the "diag" variant's `(aggregate, aux)`) are
+    picked leaf by leaf."""
+    first = outputs[0]
+    if isinstance(first, dict):
+        return {key: select([out[key] for out in outputs], index)
+                for key in first}
+    if isinstance(first, tuple):
+        return tuple(select([out[k] for out in outputs], index)
+                     for k in range(len(first)))
+    out = first
     for k, other in enumerate(outputs[1:], 1):
         out = torch.where(index == k, other, out)
     return out
@@ -92,11 +106,14 @@ def defense_program(defenses, variant, *, f):
 
 
 def tree_to(tree, device):
-    """Tensors (and tuples of them) on `device`; anything else as it is."""
+    """Tensors (and tuples, lists and dicts of them) on `device`;
+    anything else as it is."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_to(leaf, device) for leaf in tree)
+    if isinstance(tree, dict):
+        return {key: tree_to(leaf, device) for key, leaf in tree.items()}
     return tree
 
 
@@ -133,11 +150,11 @@ def device_gar_step(engine, gar_device):
                                    tree_to(state.attack_state, device),
                                    mix_key=tree_to(mix_key, device),
                                    member=member)
-        G_attack, grad_defense, accept_ratio, attack_state = tree_to(out, main)
+        out = tree_to(out, main)
         return engine.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            G_attack, grad_defense, accept_ratio, attack_state, lr, batch,
-            rng=rng, rng_host=rng_host)
+            *out[:4], lr, batch, rng=rng, rng_host=rng_host,
+            diag_metrics=out[4] if engine.diagnostics else None)
 
     return step
 

@@ -91,6 +91,16 @@ member runs and the drawn one is picked (`program.select`). Two calls
 on byte-identical operands within a step draw the same member, where the
 reference's `random.random()` would draw twice: the JAX package's note
 holds here too (no shipped attack probes twice with the same operand).
+
+GAR diagnostics (`cfg.gar_diagnostics` with the study on, the JAX
+`_run_defense_diag`): the outer aggregation runs the "diag" program
+(`defense_program(..., "diag")`: each rule's diagnose form, one call
+giving the aggregate, bit for bit the plain one, and the aux), and
+`engine/metrics.py::forensic_metrics` digests the aux on the device; the
+attack's calls, line-search probes included, stay on the plain program.
+The forensic values join the step's metrics (`phase_update`), and
+`stack_metrics` stacks the vectors among them to `[M, n]`. With the flag
+off the step runs no code of `ops/diag.py`.
 """
 
 import collections
@@ -174,8 +184,9 @@ def compose_bn_updates(net_state0, per_worker_states, count, local_steps=1):
 
 
 def stack_metrics(steps):
-    """The study columns of M steps' metric dicts as device tensors `[M]`;
-    `{}` where the steps computed none. A column is a tensor in every step
+    """The study columns of M steps' metric dicts as device tensors `[M]`
+    (`[M, n]` for the forensic vectors); `{}` where the steps computed
+    none. A column is a tensor in every step
     or a Python NaN in every step (the attack columns without a Byzantine
     row, a deviation over one row): the latter becomes an f32 NaN
     column."""
@@ -225,6 +236,11 @@ class Engine:
         self.per_call = cfg.gars_per_call and self.mixture
         self.defense = program.defense_program(self.defenses, "plain",
                                                f=cfg.nb_decl_byz)
+        # The outer aggregation's diagnose program (`--gar-diagnostics`)
+        self.diagnostics = cfg.gar_diagnostics and cfg.study
+        self.defense_diag = (program.defense_program(
+            self.defenses, "diag", f=cfg.nb_decl_byz)
+            if self.diagnostics else None)
         self._cumulative = {}  # the mixture's frequencies, by device
         self.attack = attack
         self.attack_kwargs = dict(attack_kwargs or {})
@@ -452,7 +468,9 @@ class Engine:
         mixture runs `member` (the per-step draw, `mirror_keys`), or with
         `cfg.gars_per_call` draws at every call from `mix_key`
         (`per_call_member`). Returns (G_attack, grad_defense,
-        accept_ratio, attack_state)."""
+        accept_ratio, attack_state), and under `self.diagnostics` the
+        forensic metrics after them: the outer aggregation then runs the
+        "diag" program."""
         cfg = self.cfg
         f = cfg.nb_decl_byz
         if self.per_call:
@@ -478,12 +496,20 @@ class Engine:
         else:
             G_attack = G_honest.new_zeros((0, self.d))
         G_all = torch.cat([G_honest, G_attack])
-        grad_defense = self.defense(G_all, draw(G_all)).to(G_honest.dtype)
+        if self.diagnostics:
+            # One call gives the aggregate and the aux (nothing is
+            # aggregated twice)
+            grad_defense, aux = self.defense_diag(G_all, draw(G_all))
+            diag_metrics = metrics_mod.forensic_metrics(aux, G_honest)
+        else:
+            grad_defense = self.defense(G_all, draw(G_all))
+        grad_defense = grad_defense.to(G_honest.dtype)
         # The influence's own draw (per call: from fold_in(mix_key, 1))
         infl_member = (draw(G_all, prng.fold_in(mix_key, 1)) if self.per_call
                        else member)
         accept_ratio = self.influence(G_honest, G_attack, infl_member)
-        return G_attack, grad_defense, accept_ratio, attack_state
+        out = G_attack, grad_defense, accept_ratio, attack_state
+        return (*out, diag_metrics) if self.diagnostics else out
 
     def influence(self, G_honest, G_attack, member=None):
         """The attack acceptation ratio of the defense (`member` as for
@@ -507,11 +533,13 @@ class Engine:
     @torch.no_grad()
     def phase_update(self, state, G_sampled, loss_avg, net_state, new_mw,
                      G_honest, G_attack, grad_defense, accept_ratio,
-                     attack_state, lr, batch, rng=None, rng_host=None):
+                     attack_state, lr, batch, rng=None, rng_host=None,
+                     diag_metrics=None):
         """Model update and study metrics; the attack's next state and the
         step's next key `rng` (`step_keys`; the state's own when None) and
-        its host mirror `rng_host` (`mirror_keys`) go into the new state.
-        Returns (new state, metrics)."""
+        its host mirror `rng_host` (`mirror_keys`) go into the new state,
+        the forensic values `diag_metrics` (`phase_defense`) into the
+        metrics. Returns (new state, metrics)."""
         cfg = self.cfg
         lr = self.round_lr(lr)
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
@@ -536,6 +564,8 @@ class Engine:
         else:
             metrics = {}
             pg, pn, pc = state.past_grads, state.past_norms, state.past_count
+        if cfg.study and diag_metrics is not None:
+            metrics.update(diag_metrics)
         new_state = TrainState(
             theta=theta, net_state=net_state, opt_state=opt_state,
             momentum_server=new_ms, momentum_workers=new_mw,
@@ -591,7 +621,8 @@ class Engine:
                                      mix_key=mix_key, member=member)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
-            *defense, lr, batch, rng=rng, rng_host=rng_host)
+            *defense[:4], lr, batch, rng=rng, rng_host=rng_host,
+            diag_metrics=defense[4] if self.diagnostics else None)
 
     def sample_indices(self, chunk=None, batchwise=False):
         """The host indices and flips of a step's batches

@@ -6,6 +6,14 @@ parameter dtype) with a Byzantine tolerance `f`, returning the aggregate
 `.checked`, `.unchecked`, `.check`, `.upper_bound` (the variance-norm
 ratio bound the study reads) and `.influence` (attack acceptation ratio,
 None where the rule has none). Modules in this directory self-register.
+
+`gar.diagnosed(G, **kwargs)` returns `(aggregate, aux)`, the aux in the
+one schema of `ops/diag.py`: the rule's own `diagnose` form, or for a
+rule without one (`average`) `_generic_diagnose`. Every diagnose form
+computes its aggregate with the plain form's kernels and operands, so
+the aggregate is the plain one bit for bit. `gar.checked(G,
+diagnostics=True)` checks and returns that pair; the default call runs
+`.unchecked` alone and never reaches `ops/diag.py`.
 """
 
 import pathlib
@@ -36,25 +44,36 @@ class GAR:
     path."""
 
     def __init__(self, name, unchecked, check, upper_bound=None,
-                 influence=None):
+                 influence=None, diagnose=None):
         self.name = name
         self.unchecked = unchecked
         self.check = check
         self.upper_bound = upper_bound
         self.influence = influence
+        self.diagnose = diagnose
 
-    def checked(self, gradients, **kwargs):
+    def checked(self, gradients, *, diagnostics=False, **kwargs):
         gradients = as_matrix(gradients)
         message = self.check(gradients=gradients, **kwargs)
         if message is not None:
             raise utils.UserException(
                 f"Aggregation rule {self.name!r} cannot be used: {message}")
-        result = self.unchecked(gradients, **kwargs)
+        if diagnostics:
+            result, aux = self.diagnosed(gradients, **kwargs)
+        else:
+            result = self.unchecked(gradients, **kwargs)
         if result.shape != gradients.shape[1:]:
             raise utils.UserException(
                 f"Aggregation rule {self.name!r} returned shape "
                 f"{tuple(result.shape)}, expected {tuple(gradients.shape[1:])}")
-        return result
+        return (result, aux) if diagnostics else result
+
+    def diagnosed(self, gradients, **kwargs):
+        """`(G, **kwargs) -> (aggregate, aux)`: the rule's diagnose form,
+        or `_generic_diagnose` around `.unchecked`."""
+        if self.diagnose is not None:
+            return self.diagnose(gradients, **kwargs)
+        return _generic_diagnose(self.unchecked, gradients, **kwargs)
 
     def __call__(self, gradients, **kwargs):
         return self.checked(gradients, **kwargs)
@@ -63,12 +82,31 @@ class GAR:
         return f"GAR({self.name!r})"
 
 
-def register(name, unchecked, check, upper_bound=None, influence=None):
-    """Register a GAR under `name`; returns the GAR object."""
+def _generic_diagnose(unchecked, gradients, **kwargs):
+    """The diagnostics of a rule without a diagnose form: its aggregate,
+    the distance geometry, each worker's distance to the aggregate as its
+    score, and a selection of all ones."""
+    from byzantinemomentum_tpu_torch.ops import _common, diag
+
+    n = gradients.shape[0]
+    result = unchecked(gradients, **kwargs)
+    dist = _common.pairwise_distances(gradients)
+    dev = gradients - result[None, :]
+    scores = _common.sanitize_inf(torch.sqrt(torch.sum(dev * dev, dim=1)))
+    return result, diag.make_aux(
+        n, scores=scores, dist=dist,
+        selection=torch.ones((n,), dtype=torch.float32,
+                             device=gradients.device))
+
+
+def register(name, unchecked, check, upper_bound=None, influence=None,
+             diagnose=None):
+    """Register a GAR under `name` (`diagnose`: its `(G, **kwargs) ->
+    (aggregate, aux)` form, if it has one); returns the GAR object."""
     if name in gars:
         utils.warning(f"Aggregation rule {name!r} registered twice; keeping the last")
     gar = GAR(name, unchecked, check, upper_bound=upper_bound,
-              influence=influence)
+              influence=influence, diagnose=diagnose)
     gars[name] = gar
     return gar
 

@@ -2,16 +2,18 @@
 
 Coordinate-wise median center (the `lower_median` kernel on the card),
 rank workers by squared L2 distance to it, average the c closest —
-c = (n+1)//2 in 'mid' mode, n-f in 'n-f' mode.
+c = (n+1)//2 in 'mid' mode, n-f in 'n-f' mode. `diagnose` takes its
+scores from the same median distances (one `lower_median` launch) and
+computes the distances, which the rule itself never needs.
 """
 
 import torch
 
-from byzantinemomentum_tpu_torch.ops import register
+from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    lower_median, sanitize_inf, selection_influence)
+    lower_median, pairwise_distances, sanitize_inf, selection_influence)
 
-__all__ = ["aggregate", "selection"]
+__all__ = ["aggregate", "diagnose", "selection"]
 
 
 def _count(n, f, mode):
@@ -22,18 +24,38 @@ def _count(n, f, mode):
     raise NotImplementedError(f"Unknown aksel mode {mode!r}")
 
 
+def _median_sq_distances(gradients):
+    """Each row's squared L2 distance to the coordinate-wise median,
+    non-finite -> +inf."""
+    med = lower_median(gradients)
+    return sanitize_inf(torch.sum((gradients - med[None, :]) ** 2, dim=1))
+
+
+def _select(sqd, n, f, mode):
+    return torch.argsort(sqd, stable=True)[:_count(n, f, mode)]
+
+
 def selection(gradients, f, mode="mid", **kwargs):
     """Indices of the c gradients closest (squared L2) to the median, in
     stable-sort order; non-finite distances rank last."""
-    n = gradients.shape[0]
-    med = lower_median(gradients)
-    sqd = sanitize_inf(torch.sum((gradients - med[None, :]) ** 2, dim=1))
-    return torch.argsort(sqd, stable=True)[:_count(n, f, mode)]
+    return _select(_median_sq_distances(gradients), gradients.shape[0], f,
+                   mode)
 
 
 def aggregate(gradients, f, mode="mid", **kwargs):
     """Aksel: the mean of the selected rows, gathered in score order."""
     return gradients[selection(gradients, f, mode)].mean(dim=0)
+
+
+def diagnose(gradients, f, mode="mid", **kwargs):
+    """The aggregate and its aux: the squared median distances as scores,
+    the selected rows' 0/1 mask and the distances."""
+    n = gradients.shape[0]
+    sqd = _median_sq_distances(gradients)
+    sel = _select(sqd, n, f, mode)
+    return gradients[sel].mean(dim=0), diag.make_aux(
+        n, scores=sqd, selection=diag.selection_from_indices(n, sel),
+        dist=pairwise_distances(gradients))
 
 
 def check(gradients, f, mode="mid", **kwargs):
@@ -51,4 +73,4 @@ def check(gradients, f, mode="mid", **kwargs):
 influence = selection_influence(selection)
 
 
-register("aksel", aggregate, check, influence=influence)
+register("aksel", aggregate, check, influence=influence, diagnose=diagnose)

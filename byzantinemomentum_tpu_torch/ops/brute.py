@@ -18,7 +18,8 @@ never waits for the host.
 
 The enumeration is stock torch ops, as it is XLA work in the JAX package;
 the subset mean of a `gar_kernels.supported` operand is the
-`masked_rows_mean` CUDA kernel.
+`masked_rows_mean` CUDA kernel. `diagnose` runs the same enumeration and
+kernels, and reads its aux off the distances and the winning mask.
 """
 
 import functools
@@ -28,11 +29,12 @@ import numpy as np
 import torch
 
 from byzantinemomentum_tpu_torch.data.device import to_device
-from byzantinemomentum_tpu_torch.ops import gar_kernels, register
+from byzantinemomentum_tpu_torch.ops import diag, gar_kernels, register
 from byzantinemomentum_tpu_torch.ops._common import (
     pairwise_distances, selection_influence)
 
-__all__ = ["aggregate", "selection", "best_subset_mask_from_dist", "CHUNK"]
+__all__ = ["aggregate", "diagnose", "selection", "best_subset_mask_from_dist",
+           "CHUNK"]
 
 # Subsets evaluated per chunk of the enumeration: O(CHUNK * n^2) memory,
 # about 80 MB of f32 at n = 25 (the JAX package's chunk)
@@ -124,14 +126,31 @@ def selection(gradients, f, *, method="dot", **kwargs):
     return torch.argsort((~mask).to(torch.uint8), stable=True)[:n - f]
 
 
-def aggregate(gradients, f, *, method="dot", **kwargs):
-    """Brute rule: the mean of the minimum-diameter subset."""
+def _subset_mean(mask, gradients, f):
     n = gradients.shape[0]
-    mask = _best_subset_mask(gradients, f, method=method)
     if gar_kernels.supported(gradients):
         return gar_kernels.masked_rows_mean(mask, gradients, n - f)
     # where (not mask @ G): excluded rows may be all-NaN and 0*NaN = NaN
     return gar_kernels.masked_rows_mean_plain(mask, gradients, n - f)
+
+
+def aggregate(gradients, f, *, method="dot", **kwargs):
+    """Brute rule: the mean of the minimum-diameter subset."""
+    return _subset_mean(_best_subset_mask(gradients, f, method=method),
+                        gradients, f)
+
+
+def diagnose(gradients, f, *, method="dot", **kwargs):
+    """The aggregate and its aux: the subset's 0/1 membership as the
+    selection, and as each worker's score its largest distance to the
+    winning subset (-inf where there is none)."""
+    n = gradients.shape[0]
+    dist = pairwise_distances(gradients, method=method)
+    mask = best_subset_mask_from_dist(dist, f)
+    agg = _subset_mean(mask, gradients, f)
+    eye = torch.eye(n, dtype=torch.bool, device=dist.device)
+    scores = torch.where(mask[None, :] & ~eye, dist, -torch.inf).amax(dim=1)
+    return agg, diag.make_aux(n, scores=scores, selection=mask, dist=dist)
 
 
 def check(gradients, f, **kwargs):
@@ -153,4 +172,4 @@ influence = selection_influence(selection)
 
 
 register("brute", aggregate, check, upper_bound=upper_bound,
-         influence=influence)
+         influence=influence, diagnose=diagnose)

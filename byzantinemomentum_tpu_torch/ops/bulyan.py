@@ -13,17 +13,21 @@ does: prune = set the minimum score to +inf and update no other score
 
 Bulyan scores are the sum of the m smallest neighbour distances
 (m = n-f-2 by default).
+
+`diagnose` runs the aggregate's own kernels (the Gram, then the fused
+stage 1 and 2) and reads its aux off the (n, n) distances and the
+stage-1 weights it already has.
 """
 
 import math
 
 import torch
 
-from byzantinemomentum_tpu_torch.ops import gar_kernels, register
+from byzantinemomentum_tpu_torch.ops import diag, gar_kernels, register
 from byzantinemomentum_tpu_torch.ops._common import (
     averaged_median, pairwise_distances, weighted_rows_mean)
 
-__all__ = ["aggregate", "selection_weights"]
+__all__ = ["aggregate", "diagnose", "selection_weights"]
 
 
 def selection_weights(dist, f, m=None):
@@ -47,19 +51,40 @@ def selection_weights(dist, f, m=None):
     return torch.stack(rows)
 
 
-def aggregate(gradients, f, m=None, *, method="dot", **kwargs):
-    """Bulyan over Multi-Krum. A CUDA operand in `gar_kernels.supported`
-    goes through the fused `selected_median_mean` kernel (one more read of
-    the matrix after the Gram's); any other operand takes the plain
-    `weighted_rows_mean` + `averaged_median`."""
+def _bulyan(gradients, f, m, method):
+    """`(aggregate, dist, W)`: the distances, the stage-1 weights and the
+    aggregate they give."""
     dist = pairwise_distances(gradients, method=method)
     # The weights take the stack's dtype, as in the JAX package, so a
     # half-precision stack is averaged and sorted in its own dtype
     W = selection_weights(dist, f, m).to(gradients.dtype)
     m2 = W.shape[0] - 2 * f
     if gar_kernels.supported(gradients):
-        return gar_kernels.selected_median_mean(W, gradients, m2)
-    return averaged_median(weighted_rows_mean(W, gradients), m2)
+        return gar_kernels.selected_median_mean(W, gradients, m2), dist, W
+    return averaged_median(weighted_rows_mean(W, gradients), m2), dist, W
+
+
+def aggregate(gradients, f, m=None, *, method="dot", **kwargs):
+    """Bulyan over Multi-Krum. A CUDA operand in `gar_kernels.supported`
+    goes through the fused `selected_median_mean` kernel (one more read of
+    the matrix after the Gram's); any other operand takes the plain
+    `weighted_rows_mean` + `averaged_median`."""
+    return _bulyan(gradients, f, m, method)[0]
+
+
+def diagnose(gradients, f, m=None, *, method="dot", **kwargs):
+    """The aggregate and its aux: the Bulyan scores before any pruning
+    (each row's m smallest distances summed) and each worker's share of
+    the n - 2f - 2 rounds' averages (1.0 = in every round)."""
+    n = gradients.shape[0]
+    agg, dist, W = _bulyan(gradients, f, m, method)
+    m_scores = n - f - 2 if m is None else m
+    scores = torch.sort(dist, dim=1).values[:, :m_scores].sum(dim=1)
+    # A divisor on the device: torch on CUDA turns a division by a Python
+    # number into a product with its reciprocal
+    rounds = torch.full((), W.shape[0], dtype=torch.float32, device=W.device)
+    mass = (W > 0).to(torch.float32).sum(dim=0) / rounds
+    return agg, diag.make_aux(n, scores=scores, selection=mass, dist=dist)
 
 
 def check(gradients, f, m=None, **kwargs):
@@ -77,4 +102,5 @@ def upper_bound(n, f, d):
     return 1 / math.sqrt(2 * (n - f + f * (n + f * (n - f - 2) - 2) / (n - 2 * f - 2)))
 
 
-register("bulyan", aggregate, check, upper_bound=upper_bound)
+register("bulyan", aggregate, check, upper_bound=upper_bound,
+         diagnose=diagnose)

@@ -4,16 +4,17 @@
 Sort the workers by gradient norm (non-finite norms as +inf) and average
 the n-f smallest-norm gradients, gathered in norm order. It has no
 kernel of its own: the norms and the mean are stock torch reductions, as
-they are XLA work in the JAX package.
+they are XLA work in the JAX package. `diagnose` adds the distances
+(the `sq_gram` kernel on the card) to the norms and the selection.
 """
 
 import torch
 
-from byzantinemomentum_tpu_torch.ops import register
+from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    sanitize_inf, selection_influence)
+    pairwise_distances, sanitize_inf, selection_influence)
 
-__all__ = ["aggregate", "norms", "selection"]
+__all__ = ["aggregate", "diagnose", "norms", "selection"]
 
 
 def norms(gradients):
@@ -21,15 +22,29 @@ def norms(gradients):
     return sanitize_inf(torch.sqrt(torch.sum(gradients * gradients, dim=1)))
 
 
+def _select(nrm, f):
+    return torch.argsort(nrm, stable=True)[:nrm.shape[0] - f]
+
+
 def selection(gradients, f, **kwargs):
     """Indices of the n-f smallest-norm gradients, in stable-sort order."""
-    n = gradients.shape[0]
-    return torch.argsort(norms(gradients), stable=True)[:n - f]
+    return _select(norms(gradients), f)
 
 
 def aggregate(gradients, f, **kwargs):
     """CGE rule: the mean of the selected rows, gathered in norm order."""
     return gradients[selection(gradients, f)].mean(dim=0)
+
+
+def diagnose(gradients, f, **kwargs):
+    """The aggregate and its aux: the norms as scores, the selected rows'
+    0/1 mask and the distances."""
+    n = gradients.shape[0]
+    nrm = norms(gradients)
+    sel = _select(nrm, f)
+    return gradients[sel].mean(dim=0), diag.make_aux(
+        n, scores=nrm, selection=diag.selection_from_indices(n, sel),
+        dist=pairwise_distances(gradients))
 
 
 def check(gradients, f=None, m=None, **kwargs):
@@ -42,4 +57,4 @@ def check(gradients, f=None, m=None, **kwargs):
 influence = selection_influence(selection)
 
 
-register("cge", aggregate, check, influence=influence)
+register("cge", aggregate, check, influence=influence, diagnose=diagnose)

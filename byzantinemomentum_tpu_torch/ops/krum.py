@@ -10,19 +10,20 @@ the `sq_gram` kernel on the card; `method="diff"` reduces the differences
 instead, as in the JAX package) and the selected-row average is a
 weight-vector product (`_common.weighted_rows_mean`, the
 `weighted_rows_mean` kernel on the card), so the rule reads the (n, d)
-matrix twice.
+matrix twice. `diagnose` runs the same two kernels and reads its aux
+off the distances and the weight vector.
 """
 
 import math
 
 import torch
 
-from byzantinemomentum_tpu_torch.ops import register
+from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
     pairwise_distances, selection_influence, weighted_rows_mean)
 
-__all__ = ["aggregate", "scores", "scores_from_dist", "selection",
-           "selection_weights"]
+__all__ = ["aggregate", "diagnose", "scores", "scores_from_dist",
+           "selection", "selection_weights"]
 
 
 def scores_from_dist(dist, f):
@@ -65,6 +66,19 @@ def aggregate(gradients, f, m=None, *, method="dot", **kwargs):
     return weighted_rows_mean(w.to(gradients.dtype), gradients)
 
 
+def diagnose(gradients, f, m=None, *, method="dot", **kwargs):
+    """The aggregate and its aux: the Krum scores, the selection mass
+    `w * m` (1 on each selected row) and the distances."""
+    n = gradients.shape[0]
+    if m is None:
+        m = n - f - 2
+    dist = pairwise_distances(gradients, method=method)
+    w = selection_weights(dist, f, m)
+    agg = weighted_rows_mean(w.to(gradients.dtype), gradients)
+    return agg, diag.make_aux(n, scores=scores_from_dist(dist, f),
+                              selection=w * m, dist=dist)
+
+
 def check(gradients, f, m=None, **kwargs):
     n = gradients.shape[0]
     if n < 1:
@@ -86,4 +100,4 @@ influence = selection_influence(selection)
 
 
 register("krum", aggregate, check, upper_bound=upper_bound,
-         influence=influence)
+         influence=influence, diagnose=diagnose)

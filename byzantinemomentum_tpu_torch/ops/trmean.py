@@ -9,13 +9,21 @@ All three are coordinate-wise rules over the stacked `(n, d)` matrix:
 * meamed — median center (`lower_median` kernel), then the mean of the
   n-f closest.
 The kernels take f32, bf16 and f16 stacks (`sort_kernels.supported`).
+
+The diagnose forms run the aggregate's kernels, then the rank trim of
+`diag.rank_kept_fraction` (the colsort kernel): over the values for
+trmean, over the deviations `|g - center|` for phocas and meamed.
 """
 
-from byzantinemomentum_tpu_torch.ops import register, sort_kernels
-from byzantinemomentum_tpu_torch.ops._common import closest_mean, lower_median
+import torch
+
+from byzantinemomentum_tpu_torch.ops import diag, register, sort_kernels
+from byzantinemomentum_tpu_torch.ops._common import (
+    closest_mean, lower_median, pairwise_distances, sanitize_inf)
 
 __all__ = ["trmean", "aggregate_trmean", "aggregate_phocas",
-           "aggregate_meamed"]
+           "aggregate_meamed", "diagnose_trmean", "diagnose_phocas",
+           "diagnose_meamed"]
 
 
 def trmean(g, f):
@@ -40,6 +48,44 @@ def aggregate_meamed(gradients, f, **kwargs):
     return closest_mean(g, lower_median(g), g.shape[0] - f)
 
 
+def _coordinate_aux(g, agg, trim_frac):
+    """The coordinate-wise rules' aux: each worker's L2 deviation from the
+    aggregate as its score, a selection of all ones, the distances and
+    the rule's trim fraction."""
+    n = g.shape[0]
+    dev = g - agg[None, :]
+    scores = sanitize_inf(torch.sqrt(torch.sum(dev * dev, dim=1)))
+    return diag.make_aux(
+        n, scores=scores, dist=pairwise_distances(g), trim_frac=trim_frac,
+        selection=torch.ones((n,), dtype=torch.float32, device=g.device))
+
+
+def diagnose_trmean(gradients, f, **kwargs):
+    """The trimmed mean and its aux; `trim_frac[i]` is the fraction of
+    worker i's coordinates outside the kept ranks [f, n - f)."""
+    agg = trmean(gradients, f)
+    kept = diag.rank_kept_fraction(gradients, f)
+    return agg, _coordinate_aux(gradients, agg, 1.0 - kept)
+
+
+def _diagnose_closest(g, f, center):
+    """The closest mean around `center` and its aux: the trim of the n - f
+    values nearest the center, by deviation threshold."""
+    n = g.shape[0]
+    agg = closest_mean(g, center, n - f)
+    dev = torch.abs(g - center[None, :])
+    kept = diag.rank_kept_fraction(dev, f, n_low=0, n_high=n - f)
+    return agg, _coordinate_aux(g, agg, 1.0 - kept)
+
+
+def diagnose_phocas(gradients, f, **kwargs):
+    return _diagnose_closest(gradients, f, trmean(gradients, f))
+
+
+def diagnose_meamed(gradients, f, **kwargs):
+    return _diagnose_closest(gradients, f, lower_median(gradients))
+
+
 def check(gradients, f, **kwargs):
     n = gradients.shape[0]
     if n < 1:
@@ -48,6 +94,6 @@ def check(gradients, f, **kwargs):
         return f"Invalid number of Byzantine gradients to tolerate, got f = {f!r}, expected 1 <= f <= {(n - 1) // 2}"
 
 
-register("trmean", aggregate_trmean, check)
-register("phocas", aggregate_phocas, check)
-register("meamed", aggregate_meamed, check)
+register("trmean", aggregate_trmean, check, diagnose=diagnose_trmean)
+register("phocas", aggregate_phocas, check, diagnose=diagnose_phocas)
+register("meamed", aggregate_meamed, check, diagnose=diagnose_meamed)

@@ -100,6 +100,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (`simples-logit`, the phishing cell) the same for Krum, `lower_median`
    and `trimmed_mean`. Records `<kernel>_n51` time kernels 1, 2, 3, 6, 7
    and 8 at the n = 51 shapes as above.
+   The GAR diagnostics (`diag_kernels`, logged as a phase of its own):
+   every diagnose form of the registry (`GAR.diagnosed`) at the
+   headline's f32[25, 1,310,922] with f = 5 (`diag_operand`: a NaN row,
+   NaN, +-inf and half-integer ties, a +-0 column): its aggregate bit for
+   bit its plain form's, its launches by dtype exactly `DIAG_CALLS` (the
+   aggregate's kernels, the Gram of the distances, the colsort of the
+   rank trim; Bulyan's are its plain form's), and its aux held to the
+   same form with every kernel's plain version on the card
+   (`plain_kernels`, which launches nothing): selection and trim fraction
+   exactly, distances and scores within rtol 1e-5 and 1e-5 of their
+   largest finite magnitude, the aggregate within the kernels' tolerance;
+   each form's time is logged against its plain form's. Then each form on
+   the card against the CPU port at a small size (Bulyan n = 11, f = 2;
+   Brute, CGE and Average n = 11, f = 4; the others n = 25, f = 11).
    WRN-28-10's shapes (`wrn_kernels`): the Bernoulli keep-mask kernel
    (keep 0.7, `bernoulli_masks`) against its plain version (the eager
    `prng.bernoulli`) bit for bit at the 12 masks of a step at (S, B) =
@@ -222,6 +236,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    test's line at the default width: MNIST, Median, 2 real Byzantine
    workers against `little factor:1.5`, 50 steps); each logs its peak
    device memory (`max_memory_allocated`).
+   Then the GAR diagnostics (`DIAG_CELLS`, logged as a phase of its own),
+   16 steps each with `--gar-diagnostics`: `headline_diag` (the
+   headline's flags), `trmean_diag` (Trimmed mean at f = 11 against
+   `little`: the rank trim's colsort, once a step) and
+   `mnist_krum_worker_diag` (the JAX `tests/test_diag.py` line at the
+   full width of simples-full: MNIST, n = 9, f = 2, Krum against `empire
+   factor:1.1`, momentum at the workers, `--nb-for-study 7`, seed 11, on
+   that test's 512 / 128 synthetic images, `CELL_ENV`),
+   each with exact launches (a diagnose step's: `DIAG_CALLS` and the
+   acceptation ratio's) and a study header of `STUDY_COLUMNS +
+   FORENSIC_COLUMNS` whose forensic columns hold (`forensic_verdict`:
+   well-formed `Sel workers`, `Suspicion max` in [0, 1], a non-zero clip
+   fraction for the Trimmed mean; on the JAX test's line no attacker
+   selected from step 8 on and a falling `Var/norm ratio`); then
+   `diag_vs_plain`: under deterministic cuDNN `headline_diag`'s first 24
+   columns are byte-equal to the headline's.
    Every run takes the driver's default `--steps-per-program` 8: chunks
    of up to 8 steps cut at every evaluation and checkpoint (`chunks`).
    Every CIFAR and WRN cell runs 16 steps, two chunks of 8 (the
@@ -262,7 +292,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    which fails on any synchronizing call, for the headline,
    `headline_adaptive`, `krum_f11_strict`, `median_bf16_adaptive`,
    `cge_anticge`, `headline_mixture`, `headline_mixture_per_call`,
-   `headline_adam`, `mnist-alie-warmup-krum` and `default` (8 steps each),
+   `headline_adam`, `headline_diag`, `mnist-alie-warmup-krum` and
+   `default` (8 steps each),
    brute (1 step), the WRN Bulyan cell (2 steps) and `baseline_wrn_aksel`
    (2 steps at k = 2). Then `fused_vs_single`: the headline,
    `headline_adaptive`, `default` and (under deterministic cuDNN only)
@@ -289,7 +320,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    mixture's and the zoo cells' over 1), for the headline, `krum_f11`,
    mixed-precision headline, vmapped headline,
    `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive`, the
-   mixture and Adam cells (the update phase's time under Adam) and the
+   mixture and Adam cells (the update phase's time under Adam),
+   `headline_diag` (the defense's time with the diagnose form) and the
    appendix's Bulyan WRN-28-10 cells and the six zoo cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the step keys and dropout masks, the honest,
@@ -303,7 +335,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
-the CIFAR runs of phase 4, the two key-tree kernels', `linesearch_step`'s,
+the CIFAR runs of phase 4, the diagnostics cells' included (`colsort`'s
+from `trmean_diag`), the two key-tree kernels', `linesearch_step`'s,
 `operand_hash`'s and `mixture_draw`'s too; one
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
@@ -317,6 +350,7 @@ card; exits non-zero without one.
 """
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -343,7 +377,8 @@ from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.attacks import alie
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
-from byzantinemomentum_tpu_torch.engine import RECOVERY_COLUMNS, STUDY_COLUMNS
+from byzantinemomentum_tpu_torch.engine import (
+    FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS)
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.models import core as core_mod
 from byzantinemomentum_tpu_torch.ops import (
@@ -1403,6 +1438,164 @@ def mnist_kernels(smi):
             for kernel, fn, plain, library, nbytes, ops in work]
 
 
+# Kernel launches of one call of each rule's diagnose form (the outer
+# aggregation of a `--gar-diagnostics` step): its aggregate's kernels,
+# the Gram behind `dist` where the aggregate has none, and the colsort
+# of the rank trim (`ops/diag.py::rank_kept_mask`)
+DIAG_CALLS = {
+    "average": (("sq_gram", 1),),
+    "bulyan": (("sq_gram", 1), ("selected_median_mean", 1)),
+    "krum": (("sq_gram", 1), ("weighted_rows_mean", 1)),
+    "brute": (("sq_gram", 1), ("masked_rows_mean", 1)),
+    "median": (("lower_median", 1), ("sq_gram", 1)),
+    "trmean": (("trimmed_mean", 1), ("colsort", 1), ("sq_gram", 1)),
+    "phocas": (("trimmed_mean", 1), ("closest_mean", 1), ("colsort", 1),
+               ("sq_gram", 1)),
+    "meamed": (("lower_median", 1), ("closest_mean", 1), ("colsort", 1),
+               ("sq_gram", 1)),
+    "aksel": (("lower_median", 1), ("sq_gram", 1)),
+    "cge": (("sq_gram", 1),),
+}
+# The acceptation ratio's launches beside the outer call (Krum's and
+# Brute's selections take a Gram, Aksel's a median)
+INFLUENCE_CALLS = {"krum": (("sq_gram", 1),), "brute": (("sq_gram", 1),),
+                   "aksel": (("lower_median", 1),)}
+
+
+def diag_launches(gar, influence=True):
+    """The exact f32 launches of a diagnose call of `gar` (with its
+    acceptation ratio's: a `--gar-diagnostics` step)."""
+    calls = collections.Counter()
+    for kernel, count in (*DIAG_CALLS[gar],
+                          *(INFLUENCE_CALLS.get(gar, ()) if influence else ())):
+        calls[kernel, F32] += count
+    return dict(calls)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every GAR caller's dispatch as for an operand outside the kernels'
+    domain: on the card each takes its plain PyTorch version."""
+    saved = gar_kernels.supported, sort_kernels.supported
+    gar_kernels.supported = sort_kernels.supported = lambda g: False
+    try:
+        yield
+    finally:
+        gar_kernels.supported, sort_kernels.supported = saved
+
+
+def launched():
+    """The wrappers' launch counts by (kernel, dtype), non-zero only."""
+    return {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
+            for dt, count in wrapper.launches_by_dtype.items() if count}
+
+
+def check_diag(label, got, want, exact_values=False):
+    """A diagnose form's `(aggregate, aux)` against another run's: the
+    selection and the trim fraction exactly, the aggregate within the
+    kernels' tolerance (exactly with `exact_values`), the distances and
+    scores within rtol 1e-5 and an absolute floor of 1e-5 of their largest
+    finite magnitude (a Gram-read distance cancels at that scale),
+    non-finite entries at the same places."""
+    (agg, aux), (want_agg, want_aux) = got, want
+    for key in ("selection", "trim_frac"):
+        if not torch.equal(aux[key].cpu(), want_aux[key].cpu()):
+            raise SystemExit(f"{label}: {key} differs: {aux[key].tolist()} "
+                             f"against {want_aux[key].tolist()}")
+    compare(f"{label} aggregate", agg, want_agg,
+            *((0.0, 0.0) if exact_values else ()))
+    for key in ("dist", "scores"):
+        ref = want_aux[key].float()
+        finite = ref[torch.isfinite(ref)].abs()
+        scale = float(finite.max()) if finite.numel() else 0.0
+        compare(f"{label} {key}", aux[key], ref,
+                atol=max(TOL_ATOL, TOL_RTOL * scale))
+
+
+def diag_operand(n, d, seed, device="cuda", nan_row=True):
+    """f32[n, d]: normal rows, the second half of the columns rounded to
+    half-integers (ties), the last row all NaN (with `nan_row`) and NaN
+    entries in row 3, +inf entries in row 0 and -inf in row 1, a column
+    of +-0."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    g[:, d // 2:] = np.round(g[:, d // 2:] * 2.0) / 2.0
+    if nan_row:
+        g[n - 1] = np.nan
+    g[3, rng.integers(0, d, 50)] = np.nan
+    g[0, rng.integers(0, d, 20)] = np.inf
+    g[1, rng.integers(0, d, 20)] = -np.inf
+    g[:, 7] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    return torch.from_numpy(g).to(device)
+
+
+def diag_kernels(smi):
+    """Phase 3, the GAR diagnostics (`--gar-diagnostics`): every diagnose
+    form of the registry at the headline's f32[25, 1,310,922] (f = 5; a
+    NaN row, NaN, +-inf, ties, a +-0 column: `diag_operand`) on the card,
+    its aggregate bit for bit the plain form's (`unchecked`), held against
+    the same form with the kernels' plain versions on the card
+    (`plain_kernels`, which launches nothing), its launches by dtype
+    exactly `DIAG_CALLS`; then each form on the card against the CPU at a
+    small size (Bulyan at n = 11, f = 2, Brute, CGE and Average at n = 11,
+    f = 4, the others at n = 25, f = 11, as phase 3's GAR check has them).
+    Logs each form's time against its plain form's at the headline."""
+    n, f, d = 25, 5, 1310922
+    g = diag_operand(n, d, seed=16)
+    if diag_launches("bulyan") != gar_launches("bulyan"):
+        raise SystemExit("Bulyan's diagnose form launches other kernels "
+                         "than its plain form")
+    for name in sorted(DIAG_CALLS):
+        gar = gars[name]
+        _cuda.reset_launches()
+        out = gar.diagnosed(g, f=f)
+        torch.cuda.synchronize()
+        got = launched()
+        if got != diag_launches(name, influence=False):
+            raise SystemExit(f"{name} diagnose: launches {got}, expected "
+                             f"{diag_launches(name, influence=False)}")
+        plain_agg = gar.unchecked(g, f=f)
+        if not torch.equal(out[0].view(torch.int32), plain_agg.view(torch.int32)):
+            raise SystemExit(f"{name} diagnose: the aggregate differs from "
+                             f"the plain form's")
+        _cuda.reset_launches()
+        with plain_kernels():
+            want = gar.diagnosed(g, f=f)
+        torch.cuda.synchronize()
+        if launched():
+            raise SystemExit(f"{name}: the plain versions launched {launched()}")
+        check_diag(f"{name} diagnose headline", out, want)
+        ms = cuda_ms(lambda gar=gar: gar.diagnosed(g, f=f), reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda gar=gar: gar.unchecked(g, f=f), reps=5,
+                           warmup=1)
+        selected = int((out[1]["selection"] > 0).sum())
+        log(f"{name} diagnose at f32[{n}, {d}] f={f}: launches "
+            f"{ {k: c for (k, _), c in got.items()} }, aggregate bit for bit "
+            f"the plain form's, aux held to the plain versions'; {selected} "
+            f"workers selected, clip fraction "
+            f"{float(out[1]['trim_frac'].mean()):.6f}; {ms:.4f} ms a call "
+            f"against {plain_ms:.4f} ms without diagnostics on {smi}")
+        del out, want, plain_agg
+    del g
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    for rows, f_small, names in ((11, 2, ("bulyan",)),
+                                 (11, 4, ("brute", "cge", "average")),
+                                 (25, 11, ("krum", "median", "trmean", "phocas",
+                                           "meamed", "aksel"))):
+        # At n = 11 one non-finite row fewer, so that Bulyan's and Brute's
+        # selections stay among finite rows
+        small = diag_operand(rows, 5001 if rows == 11 else 20_001,
+                             seed=int(rng.integers(1 << 30)), device="cpu",
+                             nan_row=rows > 11)
+        for name in names:
+            check_diag(f"{name} diagnose cuda vs cpu (n={rows}, f={f_small})",
+                       gars[name].diagnosed(small.cuda(), f=f_small),
+                       gars[name].diagnosed(small, f=f_small))
+    log("diagnose forms on the card agree with the CPU port at the small "
+        "sizes")
+
+
 def wrn_kernels(smi):
     """Phase 3 at WRN-28-10's shapes: `prng_kernels.bernoulli_masks`
     (keep 0.7) against its plain version on the card, bit for bit, at the
@@ -2219,7 +2412,49 @@ CELLS = (
     # The rest of the model zoo, each timed
     *ZOO_CELLS,
 )
-CELLS_BY_NAME = {cell.name: cell for cell in CELLS}
+# GAR diagnostics (`--gar-diagnostics`), driven after `CELLS` in a phase
+# of their own: the headline (Bulyan's diagnose form launches its plain
+# form's kernels), Trimmed mean at f = 11 (the rank trim's colsort) and
+# the JAX package's `tests/test_diag.py` line at the full width of
+# simples-full (MNIST, n = 9, f = 2, Krum against `empire factor:1.1`,
+# momentum at the workers, `--nb-for-study 7`, seed 11, 16 steps)
+DIAG_RUN = ("--gar-diagnostics",)
+DIAG_CELLS = (
+    cifar_cell("headline_diag", "bulyan", 5, EMPIRE, flags=DIAG_RUN,
+               per_step=diag_launches("bulyan")),
+    cifar_cell("trmean_diag", "trmean", 11, LITTLE, flags=DIAG_RUN,
+               per_step=diag_launches("trmean")),
+    mnist_cell("mnist_krum_worker_diag", (
+        "--batch-size", "8", "--batch-size-test", "32",
+        "--batch-size-test-reps", "2", "--model", "simples-full", "--seed",
+        "11", "--nb-workers", "9", "--nb-decl-byz", "2", "--nb-real-byz", "2",
+        "--gar", "krum", "--attack", "empire", "--attack-args", "factor:1.1",
+        "--momentum-at", "worker", "--nb-for-study", "7",
+        "--nb-for-study-past", "2", *DIAG_RUN), "krum", steps=STEPS),
+)
+CELLS_BY_NAME = {cell.name: cell for cell in (*CELLS, *DIAG_CELLS)}
+# Cells that run on other synthetic sets than the script's: the JAX
+# diagnostics test's line on that test's own (its `small_synth` fixture),
+# on which the test's claims (no attacker selected from step 8 on) are
+# made
+CELL_ENV = {"mnist_krum_worker_diag": {"BMT_SYNTH_TRAIN": "512",
+                                       "BMT_SYNTH_TEST": "128"}}
+
+
+@contextlib.contextmanager
+def cell_env(name):
+    """The environment `CELL_ENV` gives cell `name`, restored after."""
+    env = CELL_ENV.get(name, {})
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
 # Phase 5's cells: each profiled over warm steps (`step_profile`), and
 # but for those of `STEP_PROFILED_ONLY` over a chunk of the default M too
 # (`chunk_profile`). Brute's profile (its enumeration, 98% of its step,
@@ -2230,7 +2465,8 @@ CELLS_BY_NAME = {cell.name: cell for cell in CELLS}
 PROFILED = ("headline", "krum_f11", "headline_mixed", "headline_vmapped",
             "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive",
             "headline_mixture", "headline_mixture_per_call", "headline_adam",
-            APPENDIX_BULYAN, *(cell.name for cell in ZOO_CELLS))
+            "headline_diag", APPENDIX_BULYAN,
+            *(cell.name for cell in ZOO_CELLS))
 STEP_PROFILED_ONLY = (APPENDIX_BULYAN, "headline_mixture_per_call",
                       *(cell.name for cell in ZOO_CELLS))
 WRAPPERS = {wrapper.__name__: wrapper for wrapper in (
@@ -2272,18 +2508,24 @@ def drive(cell, smi):
         argv = cell_argv(cell, steps, tmp)
         _cuda.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        summary = driver.run(argv)
+        with cell_env(name):
+            summary = driver.run(argv)
         torch.cuda.synchronize()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
                     for dt, count in wrapper.launches_by_dtype.items() if count}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
     header = lines[0]
-    if header != "# " + "\t".join(STUDY_COLUMNS):
-        raise SystemExit(f"{name}: study header differs from STUDY_COLUMNS")
+    forensic = "--gar-diagnostics" in cell.argv
+    if header != "# " + "\t".join(STUDY_COLUMNS
+                                   + (FORENSIC_COLUMNS if forensic else ())):
+        raise SystemExit(f"{name}: study header differs from STUDY_COLUMNS"
+                         f"{' + FORENSIC_COLUMNS' if forensic else ''}")
     rows = [line.split("\t") for line in lines[1:]]
     if len(rows) != steps:
         raise SystemExit(f"{name}: study has {len(rows)} rows, expected {steps}")
+    if forensic:
+        forensic_verdict(name, rows, smi)
     col = STUDY_COLUMNS.index("Defense gradient norm")
     norms = np.array([float(row[col]) for row in rows])
     if not np.all(np.isfinite(norms)):
@@ -2329,6 +2571,74 @@ def drive(cell, smi):
         f"{norms[-1]:.4e}, acceptation ratio {ratio}, peak memory "
         f"{peak_gb:.2f} GB (max_memory_allocated) on {smi}")
     return launches
+
+
+def forensic_verdict(name, rows, smi):
+    """A `--gar-diagnostics` run's forensic columns: `Sel workers` the
+    ';'-joined indices of distinct workers (or '-'), finite `Dist honest
+    med` and `Var/norm ratio`, `Clip frac` in [0, 1] (above 0 for the
+    Trimmed mean), `Suspicion max` in [0, 1]; for the JAX diagnostics
+    test's line, from step 8 on no selection names the attackers 7 and 8,
+    and `Var/norm ratio` ends below where it started."""
+    first = len(STUDY_COLUMNS)
+    n = int(driver.process_commandline(list(CELLS_BY_NAME[name].argv))
+            .nb_workers)
+    selections = []
+    for row in rows:
+        cell = row[first]
+        picked = [int(w) for w in cell.split(";")] if cell != "-" else []
+        if picked != sorted(set(picked)) or not all(0 <= w < n for w in picked):
+            raise SystemExit(f"{name}: malformed Sel workers {cell!r}")
+        selections.append(set(picked))
+    values = np.array([[float(v) for v in row[first + 1:]] for row in rows])
+    med, ratio, clip, suspicion = values.T
+    if not (np.all(np.isfinite(med)) and np.all(np.isfinite(ratio))):
+        raise SystemExit(f"{name}: non-finite distance median or ratio")
+    if not np.all((clip >= 0) & (clip <= 1)):
+        raise SystemExit(f"{name}: clip fraction outside [0, 1]: {clip}")
+    if not np.all((suspicion >= 0) & (suspicion <= 1)):
+        raise SystemExit(f"{name}: suspicion outside [0, 1]: {suspicion}")
+    if name == "trmean_diag" and not np.all(clip > 0):
+        raise SystemExit(f"{name}: the trimmed mean trimmed nothing: {clip}")
+    if name == "mnist_krum_worker_diag":
+        late = [sel & {7, 8} for step, sel in enumerate(selections)
+                if step >= 8]
+        if any(late):
+            raise SystemExit(f"{name}: an attacker selected from step 8 on: "
+                             f"{[sorted(s) for s in selections]}")
+        if not ratio[-1] < ratio[0]:
+            raise SystemExit(f"{name}: Var/norm ratio {ratio[0]} .. "
+                             f"{ratio[-1]} did not fall")
+    log(f"{name} forensic columns: selected {sorted(selections[0])} at step "
+        f"0 and {sorted(selections[-1])} at step {len(rows) - 1}; distance "
+        f"median {med[0]:.4e} .. {med[-1]:.4e}, Var/norm ratio "
+        f"{ratio[0]:.4e} .. {ratio[-1]:.4e}, clip fraction {clip.mean():.4f} "
+        f"on average, suspicion max {suspicion.max():.4f} at most on {smi}")
+
+
+def diag_vs_plain(smi):
+    """Phase 4, `--gar-diagnostics` changes nothing but the columns it
+    adds: under deterministic cuDNN (and PyTorch's deterministic
+    algorithms) `headline_diag`'s study rows are byte-equal to the
+    headline's in the 24 study columns (16 steps each, the default M)."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {name: fused_run(CELLS_BY_NAME[name], M_DEFAULT)
+                for name in ("headline", "headline_diag")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    plain, diag = ([row.split("\t") for row in runs[name][2].split(os.linesep)[1:]]
+                   for name in ("headline", "headline_diag"))
+    width = len(STUDY_COLUMNS)
+    if len(plain) != STEPS or [row[:width] for row in diag] != plain:
+        raise SystemExit("diag_vs_plain: headline_diag's first 24 columns "
+                         "differ from the headline's")
+    log(f"diag_vs_plain (deterministic): headline_diag's {STEPS} rows equal "
+        f"the headline's byte for byte in the {width} study columns; "
+        f"{runs['headline'][0]:.4f} steps/s without diagnostics, "
+        f"{runs['headline_diag'][0]:.4f} with, on {smi}")
 
 
 def union_busy_us(prof):
@@ -2389,8 +2699,10 @@ def step_profile(cell, smi, steps=3, setup=None):
         defense = engine.phase_defense(honest[-1], state.attack_state,
                                        mix_key=mix_key, member=member)
         marks[5].record()
-        state, _ = engine.phase_update(state, *honest, *defense, lr, batch,
-                                       rng=rng, rng_host=rng_host)
+        state, _ = engine.phase_update(
+            state, *honest, *defense[:4], lr, batch, rng=rng,
+            rng_host=rng_host,
+            diag_metrics=defense[4] if engine.diagnostics else None)
         marks[6].record()
         return state, marks
 
@@ -2667,7 +2979,7 @@ NO_READ_CELLS = (("headline", M_DEFAULT), ("headline_adaptive", M_DEFAULT),
                  ("cge_anticge", M_DEFAULT),
                  ("headline_mixture", M_DEFAULT),
                  ("headline_mixture_per_call", M_DEFAULT),
-                 ("headline_adam", M_DEFAULT),
+                 ("headline_adam", M_DEFAULT), ("headline_diag", M_DEFAULT),
                  ("mnist-alie-warmup-krum", M_DEFAULT),
                  ("default", M_DEFAULT), ("brute", 1), (APPENDIX_BULYAN, 2),
                  ("baseline_wrn_aksel", 2))
@@ -2918,6 +3230,8 @@ def main():
                + mixture_kernels_check(smi) + kernels_vs_plain(smi)
                + mnist_kernels(smi))
     lap("kernels")
+    diag_kernels(smi)
+    lap("diag kernels")
     records += wrn_kernels(smi)
     lap("WRN kernels")
     records += zoo_kernels(smi)
@@ -2938,6 +3252,11 @@ def main():
             totals[kernel, dtype, cell.family] += count
         if cell.family == "wrn" or cell.family in ZOO:
             lap(cell.name)
+    for cell in DIAG_CELLS:
+        for (kernel, dtype), count in drive(cell, smi).items():
+            totals[kernel, dtype, cell.family] += count
+    diag_vs_plain(smi)
+    lap("diag cells")
     resume_check(smi)
     lap("resume")
     no_host_reads(smi)
@@ -2946,7 +3265,7 @@ def main():
     lap("fused vs single")
     device_gar_cell(smi)
     lap("device-gar")
-    for cell in CELLS:
+    for cell in (*CELLS, *DIAG_CELLS):
         if cell.name in PROFILED:
             # WRN's step is 18k device operations, the per-call mixture's
             # 5k and the zoo's up to 13k: one step each keeps their

@@ -15,7 +15,12 @@ exact too. +-0 compare as equal: the keyed networks of `lower_median`,
 order -0 below +0, so a median or a zero sum may come back as the other
 zero, and `colsort` puts every -0 of a column before its +0. Every
 launch of a kernel must add one to its wrapper's count, and to its count
-for the operand's dtype.
+for the operand's dtype. Each rule's diagnose form on the card (`ops/diag.py`,
+the form `tests/test_torch_diag.py` holds to the JAX package on the CPU):
+its aggregate bit for bit its plain aggregate, its launches exactly
+`chip_smoke.DIAG_CALLS`, and its aux against the CPU port's: selection
+and trim fraction exactly, distances and scores within rtol 1e-5 and
+1e-5 of their largest finite magnitude.
 """
 
 import numpy as np
@@ -24,7 +29,9 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import (
     _common, bulyan, gar_kernels, gars, sort_kernels)
-from chip_smoke import hash_stack, nan_attack_operand
+from chip_smoke import (
+    DIAG_CALLS, diag_launches, diag_operand, hash_stack, launched,
+    nan_attack_operand)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -1420,3 +1427,26 @@ def test_zoo_gradient_on_the_card_matches_the_cpu(cuda, name, cpu_init):
     from byzantinemomentum_tpu_torch.engine.step import pin_precision
     pin_precision()
     card_vs_cpu_gradient(name, seed=2, cpu_init=cpu_init)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DIAG_CALLS))
+def test_diagnose_on_the_card_matches_the_cpu(cuda, name):
+    n, f = 25, 5
+    g = diag_operand(n, 20_011, seed=len(name), device="cpu")
+    gar = gars[name]
+    gar_kernels.reset_launches()
+    agg, aux = gar.diagnosed(g.to(cuda), f=f)
+    torch.cuda.synchronize()
+    assert launched() == diag_launches(name, influence=False)
+    plain = gar.unchecked(g.to(cuda), f=f)
+    assert torch.equal(agg.view(torch.int32), plain.view(torch.int32))
+    want_agg, want_aux = gar.diagnosed(g, f=f)
+    _assert_values(agg, want_agg)
+    for key in ("selection", "trim_frac"):
+        assert torch.equal(aux[key].cpu(), want_aux[key]), key
+    for key in ("dist", "scores"):
+        want = want_aux[key]
+        finite = want[torch.isfinite(want)].abs()
+        scale = float(finite.max()) if finite.numel() else 0.0
+        _assert_values(aux[key], want, atol=max(ATOL, RTOL * scale))

@@ -9,9 +9,8 @@ package's (`data/sources.py`, `data/svm.py`, `data/__init__.py`,
   never a sibling's files), `load_emnist`, `load_qmnist`, `load_svhn`
   and `load_phishing` give the JAX arrays from files on disk and, with
   none, from the synthetic fallback (`letters` 1-based); an unknown
-  EMNIST split raises. The JAX package searches one fixed directory
-  more than the port does, so the JAX loader is given the port's
-  `data_dirs`.
+  EMNIST split raises. Each loader searches its own package's
+  `data_dirs`, and the two lists are the same.
 * The transform metadata (`flip`, `norm`) and the host sampler's
   batches equal the JAX ones across epoch boundaries for `mnist`,
   `fashionmnist`, `kmnist`, `qmnist`, `--no-transform` and `phishing`.
@@ -23,6 +22,7 @@ package's (`data/sources.py`, `data/svm.py`, `data/__init__.py`,
 """
 
 import gzip
+import pathlib
 import struct
 
 import jax
@@ -71,8 +71,25 @@ def dirs(tmp_path, monkeypatch):
     monkeypatch.delenv("BMT_DOWNLOAD", raising=False)
     monkeypatch.setenv("BMT_SYNTH_TRAIN", str(TRAIN))
     monkeypatch.setenv("BMT_SYNTH_TEST", str(TEST))
-    monkeypatch.setattr(jax_sources, "data_dirs", sources.data_dirs)
     return root
+
+
+@pytest.mark.parametrize("env", (False, True))
+def test_data_dirs_match_jax(tmp_path, monkeypatch, env):
+    """Both packages list the same candidate directories in the same
+    order, the fixed directory after `BMT_DATA_DIR`, `./data` and the
+    user's cache (every candidate taken as existing, so the lists are the
+    whole search paths)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if env:
+        monkeypatch.setenv("BMT_DATA_DIR", str(tmp_path / "env"))
+    else:
+        monkeypatch.delenv("BMT_DATA_DIR", raising=False)
+    monkeypatch.setattr(pathlib.Path, "is_dir", lambda self: True)
+    want = jax_sources.data_dirs()
+    assert sources.data_dirs() == want
+    assert len(want) == 3 + env
 
 
 def _equal(got, want):
