@@ -23,9 +23,11 @@ as uint32 `[2]` (and a load restarts the host's mirror of the key chain,
 ints) and `past_count` (an i32 0-d tensor) as int32 0-d arrays, as is an
 integer attack state (`alie-warmup`'s step counter, an i32 0-d tensor),
 and each comes back as the template holds it (a tensor on the
-template's device, or an int); the JAX `fault_buffer`, which the
-port has no use for, as the empty `(0, d)` array a run without a fault
-plan holds. Arrays above flax's chunk size (`MAX_CHUNK_SIZE` bytes),
+template's device, or an int); `fault_buffer`, the straggler buffer of a
+run with a fault plan (`[h, d]`, or `(0, d)` without a straggler), as
+the state holds it, byte for byte as the JAX file does; a file without
+the field loads with the template's zeros (the JAX cold start). Arrays
+above flax's chunk size (`MAX_CHUNK_SIZE` bytes),
 which flax splits into chunks, are refused.
 
 Crash safety, as in the JAX package: `save` writes atomically (tmp file,
@@ -347,7 +349,9 @@ def state_dict(state):
     out["opt_state"] = _to_state_dict(state.opt_state)
     out["attack_state"] = _to_state_dict(state.attack_state)
     out["rng"] = state.rng.detach().cpu().numpy().astype(np.uint32)
-    out["fault_buffer"] = theta.new_zeros((0, theta.shape[0]))
+    buffer = state.fault_buffer
+    out["fault_buffer"] = (theta.new_zeros((0, theta.shape[0]))
+                           if buffer is None else buffer.detach().cpu())
     return {name: out[name] for name in FIELDS}
 
 
@@ -503,11 +507,7 @@ def load(path, template, *, return_data=False):
                 continue
             _fail(path, f"missing field {name!r}")
         value = stored[name]
-        if name == "fault_buffer":
-            # The port has no fault plan: only the empty buffer resumes
-            _restore_like(path, name, template.theta.new_zeros(
-                (0, template.theta.shape[0])), value)
-        elif name == "net_state":
+        if name == "net_state":
             if not isinstance(value, dict):
                 _fail(path, "field 'net_state' is not a map")
             flat = _flatten(value)

@@ -4,8 +4,8 @@ of the training path ported so far).
 Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
-JAX driver that the port does not have yet (meshes, fault plans, health
-and rollbacks, telemetry, ...) are refused by the parser rather than
+JAX driver that the port does not have yet (meshes, health and
+rollbacks, telemetry, ...) are refused by the parser rather than
 ignored.
 
 The defense is `--gar` or a `--gars 'name[,freq[,json-args]];...'`
@@ -84,6 +84,18 @@ vectors reach the host in the chunk's one transfer of its study rows.
 The tracker is not checkpointed (nor is the JAX driver's): a resumed run
 starts it from zero.
 
+`--fault-plan plan.json` (a `faults.FaultPlan`) injects the plan's
+system faults into each step's honest rows before the aggregation, which
+then runs the dynamic quorum with NaN-quarantine as the plan's policy
+says (`engine/step.py`); a plan that does not fit the run is refused
+with the JAX messages, a plan with no events attaches nothing (the
+fault-free run, byte for byte). The study CSV gains the JAX driver's
+`FAULT_COLUMNS` after the 24 study columns, the three integers moved in
+the chunk's one transfer, and under `--gar-diagnostics` the suspicion
+tracker sees the quarantined rows (`Active mask`). The plan's `fetch_*`
+policy fields parameterize the JAX package's downloads; the port
+downloads nothing and sets no `BMT_FETCH_*` variable.
+
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
 prefixed with the line separator, values at the parameter dtype's
@@ -106,14 +118,15 @@ import torch
 from byzantinemomentum_tpu_torch import attacks as attacks_mod
 from byzantinemomentum_tpu_torch import checkpoint as checkpoint_mod
 from byzantinemomentum_tpu_torch import data as data_mod
+from byzantinemomentum_tpu_torch import faults as faults_mod
 from byzantinemomentum_tpu_torch import losses as losses_mod
 from byzantinemomentum_tpu_torch import models as models_mod
 from byzantinemomentum_tpu_torch import ops as ops_mod
 from byzantinemomentum_tpu_torch import obs, optim, prng, utils
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    DTYPES, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS, Engine,
-    EngineConfig)
+    DTYPES, FAULT_COLUMNS, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS,
+    Engine, EngineConfig)
 from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.models.core import apply_named_init, inits
 
@@ -190,6 +203,14 @@ def process_commandline(argv=None):
              "as extra outputs (measured overhead documented in README)")
     add("--attack", type=str, default="nan", help="Attack to use")
     add("--attack-args", nargs="*", help="key:value args for the attack")
+    add("--fault-plan", type=str, default=None,
+        help="JSON fault plan (faults.FaultPlan): deterministic per-step "
+             "system faults — stragglers, dropped workers, corrupted/NaN "
+             "shards, duplicated submissions, device loss — injected into "
+             "the stacked gradient batch before aggregation, with the "
+             "plan's degradation policy (NaN-quarantine, dynamic quorum, "
+             "download retry). Adds the 'Faults injected'/'Workers "
+             "active'/'Quorum f' columns to the study CSV")
     add("--model", type=str, default="simples-conv", help="Model to train")
     add("--model-args", nargs="*", help="key:value args for the model")
     add("--loss", type=str, default="nll", help="Loss to use")
@@ -485,9 +506,10 @@ class _ResultFiles:
 
 
 # The forensic values written as they are, and the vectors the host
-# formats and folds into the suspicion tracker
+# formats and folds into the suspicion tracker (`Active mask` only under
+# a fault plan)
 FORENSIC_SCALARS = ("Dist honest med", "Var/norm ratio", "Clip frac")
-FORENSIC_VECTORS = ("Sel mask", "Worker dist")
+FORENSIC_VECTORS = ("Sel mask", "Worker dist", "Active mask")
 
 
 def _study_rows(metrics, steps, datapoints, increment, count, float_format,
@@ -498,18 +520,22 @@ def _study_rows(metrics, steps, datapoints, increment, count, float_format,
     the chunk's stacked device columns (`stack_metrics`; `metrics` None
     for no rows) and the key move to the host in one transfer, widened to
     float64, which holds every dtype's value and every 32-bit word
-    exactly. Each row ends with the `recovery` values, then, with a
-    suspicion `tracker` (`--gar-diagnostics`), the forensic columns: the
-    forensic scalars and the `[count, n]` selection and worker-distance
-    vectors join the same transfer, and the tracker folds the steps in
-    order."""
+    exactly. Under a fault plan the `FAULT_COLUMNS` integers follow the
+    24 columns. Each row then ends with the `recovery` values, then, with
+    a suspicion `tracker` (`--gar-diagnostics`), the forensic columns:
+    the forensic scalars and the `[count, n]` selection, worker-distance
+    and (under a fault plan) active-mask vectors join the same transfer,
+    and the tracker folds the steps in order."""
     columns = STUDY_COLUMNS[2:] if metrics is not None else ()
+    faulted = bool(columns) and FAULT_COLUMNS[0] in metrics
     forensic = bool(columns) and tracker is not None
-    scalars = columns + (FORENSIC_SCALARS if forensic else ())
+    ints = FAULT_COLUMNS if faulted else ()
+    scalars = columns + ints + (FORENSIC_SCALARS if forensic else ())
     parts = [torch.stack([metrics[column].double() for column in scalars])
              .flatten()] if columns else []
-    if forensic:
-        parts += [metrics[name].double().flatten() for name in FORENSIC_VECTORS]
+    vectors = [name for name in FORENSIC_VECTORS
+               if forensic and name in metrics]
+    parts += [metrics[name].double().flatten() for name in vectors]
     if rng is not None:
         parts.append(rng.double())
     if not parts:
@@ -520,20 +546,27 @@ def _study_rows(metrics, steps, datapoints, increment, count, float_format,
     if forensic:
         n = tracker.nb_workers
         start = len(scalars) * count
-        sel, dist = (np.asarray(host[start + k * count * n:
-                                     start + (k + 1) * count * n]
-                                ).reshape(count, n) for k in range(2))
+        vector = {name: np.asarray(host[start + k * count * n:
+                                        start + (k + 1) * count * n]
+                                   ).reshape(count, n)
+                  for k, name in enumerate(vectors)}
     rows = []
     for i in range(count if columns else 0):
         row = [steps + i, datapoints + i * increment]
         row += [float_format % values[i] for values in table[:len(columns) - 1]]
         row.append(float(table[len(columns) - 1][i]))
+        row += [int(values[i]) for values in
+                table[len(columns):len(columns) + len(ints)]]
         row += recovery
         if forensic:
-            selected = np.nonzero(sel[i] > 0)[0]
+            sel = vector["Sel mask"][i]
+            selected = np.nonzero(sel > 0)[0]
             row.append(";".join(str(w) for w in selected) or "-")
-            row += [float_format % values[i] for values in table[len(columns):]]
-            tracker.update(steps + i, sel[i], distances=dist[i])
+            row += [float_format % values[i]
+                    for values in table[len(columns) + len(ints):]]
+            active = vector["Active mask"][i] if "Active mask" in vector else None
+            tracker.update(steps + i, sel, distances=vector["Worker dist"][i],
+                           active=active)
             row.append(float_format % tracker.max())
         rows.append(row)
     return rows, words
@@ -588,6 +621,7 @@ def _setup(args):
         defense=lambda **kw: None, **args.attack_args)
     if message is not None:
         utils.fatal(f"Attack {attack.name!r} cannot be used: {message}")
+    fault_plan, fault_schedule = _fault_plan(args)
 
     cfg = EngineConfig(
         nb_workers=args.nb_workers, nb_decl_byz=args.nb_decl_byz,
@@ -599,6 +633,10 @@ def _setup(args):
         grouped_workers=not args.no_grouped_workers,
         nb_local_steps=args.nb_local_steps, gars_per_call=args.gars_per_call,
         gar_diagnostics=args.gar_diagnostics,
+        fault_quarantine=(fault_plan.policy.nan_quarantine
+                          if fault_plan is not None else True),
+        fault_dynamic_quorum=(fault_plan.policy.dynamic_quorum
+                              if fault_plan is not None else True),
         dtype=args.dtype, compute_dtype=args.compute_dtype)
     # Parameters are drawn in f32 and rounded to the parameter dtype, as
     # the JAX package casts its f32 init
@@ -624,16 +662,39 @@ def _setup(args):
     optimizer = optim.build(args.optimizer, weight_decay=args.weight_decay,
                             **args.optimizer_args)
     engine = Engine(cfg, model, loss, criterion, defenses, attack,
-                    args.attack_args, optimizer)
+                    args.attack_args, optimizer, faults=fault_schedule)
     engine.attach_data(*DeviceData.pair(trainset, testset, device))
     return device, engine, engine.init(root_key)
 
 
-def _open_results(args):
+def _fault_plan(args):
+    """`--fault-plan`'s `(plan, schedule)` (the JAX driver's load, checks
+    and messages): `(None, None)` without the flag; a plan with no events
+    gives no schedule, and the run is the fault-free one."""
+    if args.fault_plan is None:
+        return None, None
+    try:
+        plan = faults_mod.FaultPlan.load(args.fault_plan)
+    except (OSError, ValueError, TypeError) as err:
+        utils.fatal(f"Unable to load fault plan {args.fault_plan!r}: {err}")
+    message = plan.validate(args.nb_workers, args.nb_honests)
+    if message is not None:
+        utils.fatal(f"Fault plan {args.fault_plan!r} cannot be used: "
+                    f"{message}")
+    schedule = faults_mod.build_schedule(plan, nb_workers=args.nb_workers,
+                                         nb_honests=args.nb_honests)
+    if schedule is None:
+        utils.info("Fault plan has no events; the fault machinery stays out "
+                   "of the compiled step entirely")
+    return plan, schedule
+
+
+def _open_results(args, faulted=False):
     """The result directory's `eval`/`study` files and `config` files
     (None without a result directory), after the `--auto-resume` scan;
     returns `(results, resume step or None, restart count)`. An actual
-    resume sets `args.load_checkpoint` to the checkpoint found."""
+    resume sets `args.load_checkpoint` to the checkpoint found. `faulted`:
+    the run has a fault schedule (the study gains `FAULT_COLUMNS`)."""
     if args.result_directory is None:
         return None, None, 0
     resdir = pathlib.Path(args.result_directory).resolve()
@@ -660,9 +721,11 @@ def _open_results(args):
         results.make("eval", "Step number", "Cross-accuracy",
                      resume_step=resume_step)
     if args.nb_for_study > 0:
-        # The JAX driver's recovery columns ride the study CSV only when
-        # crash recovery is on, its forensic columns under diagnostics
+        # The JAX driver's fault columns ride the study CSV only under a
+        # fault schedule, its recovery columns only when crash recovery
+        # is on, its forensic columns under diagnostics
         columns = (STUDY_COLUMNS
+                   + (FAULT_COLUMNS if faulted else ())
                    + (RECOVERY_COLUMNS if args.auto_resume else ())
                    + (FORENSIC_COLUMNS if args.gar_diagnostics else ()))
         results.make("study", *columns, resume_step=resume_step)
@@ -717,7 +780,8 @@ def run(argv=None):
         args = _postprocess(process_commandline(argv))
     with utils.Context("setup"):
         device, engine, state = _setup(args)
-        results, resume_step, restarts = _open_results(args)
+        results, resume_step, restarts = _open_results(
+            args, faulted=engine.faults is not None)
     if args.load_checkpoint is not None:
         with utils.Context("load"):
             state = _load(args, engine, state)

@@ -1,7 +1,7 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
 the fields of the training path ported so far: local steps, the
 `--gars` mixture's draw, the grouped honest phase, the GAR
-diagnostics)."""
+diagnostics, the fault plans' degradation policy)."""
 
 import dataclasses
 
@@ -46,6 +46,15 @@ class EngineConfig:
     gars_per_call: bool = False   # --gars-per-call: a --gars mixture draws
     #                               its member at every defense call (from
     #                               a hash of the operand), not once a step
+    fault_quarantine: bool = True  # with a fault schedule attached
+    #                               (`faults/`): quarantine non-finite
+    #                               submission rows out of the aggregation
+    #                               and the quorum (no effect without one)
+    fault_dynamic_quorum: bool = True  # recompute the effective (n, f)
+    #                               the GAR runs with when workers are
+    #                               absent (`faults/quorum.py`); False
+    #                               keeps the declared f and only leaves
+    #                               the absent rows out
     gar_diagnostics: bool = False  # --gar-diagnostics: with the study on,
     #                               the outer aggregation runs the GAR's
     #                               diagnose form and the step's metrics

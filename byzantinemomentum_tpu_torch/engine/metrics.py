@@ -31,7 +31,8 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import diag
 
-__all__ = ["STUDY_COLUMNS", "RECOVERY_COLUMNS", "FORENSIC_COLUMNS",
+__all__ = ["STUDY_COLUMNS", "FAULT_COLUMNS", "RECOVERY_COLUMNS",
+           "FORENSIC_COLUMNS",
            "avg_dev_max", "cosine", "push_past", "study_metrics",
            "forensic_metrics"]
 
@@ -47,6 +48,12 @@ STUDY_COLUMNS = (
     "Sampled-prev cosine", "Sampled composite curvature",
     "Attack acceptation ratio",
 )
+
+# The resilience columns the JAX driver appends under a fault plan
+# (`--fault-plan`): the fault conditions live this step, the effective
+# worker count after drops and quarantine, and the effective Byzantine
+# tolerance the aggregation ran with (`faults/quorum.py`)
+FAULT_COLUMNS = ("Faults injected", "Workers active", "Quorum f")
 
 # The crash-recovery columns the JAX driver appends under --auto-resume:
 # rollbacks (none in the port, which has no --rollback-budget) and the

@@ -35,18 +35,21 @@ __all__ = ["VARIANTS", "defense_kernel", "defense_program", "mixture_index",
 VARIANTS = ("plain", "diag", "masked")
 
 
-def defense_kernel(gar, variant, *, f, kwargs=None):
-    """The program of one (GAR, variant) cell: `G -> aggregate` ("plain")
-    or `G -> (aggregate, aux)` ("diag")."""
+def defense_kernel(gar, variant, *, f, kwargs=None, dynamic=True):
+    """The program of one (GAR, variant) cell: `G -> aggregate` ("plain"),
+    `G -> (aggregate, aux)` ("diag") or `(G, active) -> (aggregate,
+    f_eff)` ("masked", with the dynamic quorum unless `dynamic` is
+    False)."""
     kwargs = {} if kwargs is None else kwargs
     if variant == "plain":
         return lambda G: gar.unchecked(G, f=f, **kwargs)
     if variant == "diag":
         return lambda G: gar.diagnosed(G, f=f, **kwargs)
-    if variant in VARIANTS:
-        raise NotImplementedError(
-            f"the {variant!r} defense variant is not ported yet (fault "
-            f"plans, ROADMAP.md section 1 item 2)")
+    if variant == "masked":
+        from byzantinemomentum_tpu_torch.faults import quorum
+
+        return lambda G, active: quorum.masked_aggregate(
+            gar, G, active, f_decl=f, dynamic=dynamic, **kwargs)
     raise ValueError(
         f"Unknown lattice variant {variant!r}; expected one of {VARIANTS}")
 
@@ -87,29 +90,33 @@ def select(outputs, index):
     return out
 
 
-def defense_program(defenses, variant, *, f):
-    """The mixture axis over `defense_kernel`: `program(G, member)`. One
-    defense runs its kernel whatever `member`; a mixture runs member
-    `member` (a host int), or, for a 0-d device index, every member, and
-    picks one result (`select`)."""
-    kernels = [defense_kernel(gar, variant, f=f, kwargs=kwargs)
+def defense_program(defenses, variant, *, f, dynamic=True):
+    """The mixture axis over `defense_kernel`: `program(G, member,
+    *extra)`, `extra` the active mask `(active,)` of the "masked"
+    variant. One defense runs its kernel whatever `member`; a mixture
+    runs member `member` (a host int), or, for a 0-d device index, every
+    member, and picks one result (`select`)."""
+    kernels = [defense_kernel(gar, variant, f=f, kwargs=kwargs,
+                              dynamic=dynamic)
                for gar, _, kwargs in defenses]
 
-    def program(G, member=None):
+    def program(G, member=None, *extra):
         if len(kernels) == 1:
-            return kernels[0](G)
+            return kernels[0](G, *extra)
         if isinstance(member, torch.Tensor):
-            return select([kernel(G) for kernel in kernels], member)
-        return kernels[member](G)
+            return select([kernel(G, *extra) for kernel in kernels], member)
+        return kernels[member](G, *extra)
 
     return program
 
 
 def tree_to(tree, device):
-    """Tensors (and tuples, lists and dicts of them) on `device`;
-    anything else as it is."""
+    """Tensors (and tuples, named tuples, lists and dicts of them) on
+    `device`; anything else as it is."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(leaf, device) for leaf in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_to(leaf, device) for leaf in tree)
     if isinstance(tree, dict):
@@ -127,15 +134,18 @@ def device_gar_step(engine, gar_device):
     ratio and the attack's next state hop back, every step. On the CPU
     the defense takes the plain versions of the kernels (a wrapper given
     a CPU tensor takes its plain version), as the JAX package runs the
-    GAR device's programs without the Mosaic kernels.
+    GAR device's programs without the Mosaic kernels. With a fault
+    schedule, the step's fault context (the active mask and the injected
+    count) hops with the rows, and the fault metrics hop back, as in the
+    JAX package.
 
-    Returns `step(state, xs, ys, lr, masks=None) -> (state, metrics)`, a
-    drop-in for `engine.train_step`; each call counts one
+    Returns `step(state, xs, ys, lr, masks=None, faults=None) -> (state,
+    metrics)`, a drop-in for `engine.train_step`; each call counts one
     `device_gar_steps` in `engine.counts`.
     """
     device = torch.device(gar_device)
 
-    def step(state, xs, ys, lr, masks=None):
+    def step(state, xs, ys, lr, masks=None, faults=None):
         engine.counts["device_gar_steps"] += 1
         rng, mix_key, wkeys = engine.step_keys(state.rng)
         rng_host, member = engine.mirror_keys(state)
@@ -144,17 +154,19 @@ def device_gar_step(engine, gar_device):
             masks = engine.draw_masks(wkeys, batch)
         G_sampled, loss_avg, net_state, new_mw, G_honest = engine.phase_honest(
             state, xs, ys, lr, masks)
+        G_honest, new_fb, fault = engine.phase_faults(state, G_honest, faults)
         main = G_honest.device
         # --- the hop (reference `attack.py:811-815`) --- #
         out = engine.phase_defense(tree_to(G_honest, device),
                                    tree_to(state.attack_state, device),
                                    mix_key=tree_to(mix_key, device),
-                                   member=member)
+                                   member=member,
+                                   fault=tree_to(fault, device))
         out = tree_to(out, main)
         return engine.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
             *out[:4], lr, batch, rng=rng, rng_host=rng_host,
-            diag_metrics=out[4] if engine.diagnostics else None)
+            **engine.defense_extras(out), fault_buffer=new_fb)
 
     return step
 

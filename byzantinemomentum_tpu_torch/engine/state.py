@@ -17,6 +17,9 @@ where no mirror is kept: a `--gars` mixture drawn once a step picks its
 member from it (`Engine.mirror_keys`) without reading the device.
 `attack_state` is a stateful attack's history (`attacks/__init__.py`,
 tensors on theta's device), `()` for a static attack.
+`fault_buffer` is each honest worker's last fresh submission, `[h, d]`
+in theta's dtype when the engine's fault schedule has a straggler
+(`faults/inject.py`), `(0, d)` otherwise.
 A step returns a new `TrainState` and writes none of the old one's
 tensors.
 """
@@ -43,16 +46,19 @@ class TrainState:
     steps: int                      # step counter
     datapoints: int                 # training point counter
     rng: torch.Tensor = None        # int64 [2] PRNG key on the device
+    fault_buffer: torch.Tensor = None  # [h, d] stale submissions, or (0, d)
     attack_state: typing.Any = ()   # the stateful attack's history
     rng_host: tuple = None          # the host's mirror of rng (two ints)
 
 
 def init_state(cfg, theta, net_state, rng=None, opt_state=(),
-               attack_state=(), rng_host=None):
+               attack_state=(), rng_host=None, fault_buffer_rows=0):
     """Fresh-run state; `rng` the step key (`Engine.init` gives
     `fold_in(root key, 1)`; None only for states that never draw, as in
     tests that hand the masks in), `attack_state` from the attack's
-    `state_init`, `rng_host` the host's mirror of `rng`."""
+    `state_init`, `rng_host` the host's mirror of `rng`,
+    `fault_buffer_rows` the honest count when the fault schedule has a
+    straggler (0 otherwise)."""
     d = theta.shape[0]
     h = cfg.nb_honests
     past = cfg.nb_for_study_past if cfg.study else 0
@@ -70,6 +76,7 @@ def init_state(cfg, theta, net_state, rng=None, opt_state=(),
         steps=0,
         datapoints=0,
         rng=rng,
+        fault_buffer=zeros((fault_buffer_rows, d)),
         attack_state=attack_state,
         rng_host=rng_host,
     )

@@ -101,6 +101,24 @@ attack's calls, line-search probes included, stay on the plain program.
 The forensic values join the step's metrics (`phase_update`), and
 `stack_metrics` stacks the vectors among them to `[M, n]`. With the flag
 off the step runs no code of `ops/diag.py`.
+
+Fault plans (`Engine(..., faults=schedule)`, `faults/`, the JAX
+`engine/step.py:661-786`): every step of a run with a schedule ends its
+honest phase with the injection (`phase_faults`: the step's fault rows,
+picked on the host from `TrainState.steps` and uploaded in one copy, a
+chunk's M rows at once; duplication, staleness, corruption and absence
+on the honest rows, never on the momentum buffers; the straggler buffer
+`TrainState.fault_buffer` refreshed from the clean rows), and its
+defense takes the "masked" program (`program.defense_program(...,
+"masked")`, the dynamic quorum of `faults/quorum.py`) on the active rows,
+after quarantining the non-finite ones (`cfg.fault_quarantine`), even on
+a step where no fault is live (the masked forms sum in another order
+than the static ones). The line search's probes of n rows take the
+masked program on the step's active mask too. The step's metrics gain
+`Faults injected`, `Workers active` and `Quorum f` (0-d int32), and
+under `--gar-diagnostics` the diag program re-runs on the full stack,
+its forensic values joined by the post-quarantine `Active mask`. A
+schedule of None (an empty plan) is the fault-free step.
 """
 
 import collections
@@ -116,6 +134,8 @@ from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
 from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.engine.program import tree_to
 from byzantinemomentum_tpu_torch.engine.state import TrainState, init_state
+from byzantinemomentum_tpu_torch.faults import inject as inject_mod
+from byzantinemomentum_tpu_torch.faults import sanitize
 from byzantinemomentum_tpu_torch.models import FlatParams, grouped_forward
 from byzantinemomentum_tpu_torch.models.core import BN_MOMENTUM
 from byzantinemomentum_tpu_torch.ops import mixture_kernels, prng_kernels
@@ -206,7 +226,7 @@ class Engine:
     """The training and evaluation programs of one configuration."""
 
     def __init__(self, cfg, model, loss, criterion, defenses, attack,
-                 attack_kwargs, optimizer):
+                 attack_kwargs, optimizer, faults=None):
         """The engine draws no random number of its own: every draw of a
         step comes from `TrainState.rng` (`init`, `step_keys`).
 
@@ -221,6 +241,8 @@ class Engine:
           attack: `attacks.Attack` (unused when no worker is Byzantine).
           attack_kwargs: the attack's arguments.
           optimizer: `optim.Optimizer` applying the final update.
+          faults: a `faults.schedule.FaultSchedule`, or None (no plan, or
+            an empty one): the fault-free step.
         """
         pin_precision()
         self.cfg = cfg
@@ -241,6 +263,11 @@ class Engine:
         self.defense_diag = (program.defense_program(
             self.defenses, "diag", f=cfg.nb_decl_byz)
             if self.diagnostics else None)
+        # The defense of a step with a fault schedule (the dynamic quorum)
+        self.faults = faults
+        self.defense_masked = (program.defense_program(
+            self.defenses, "masked", f=cfg.nb_decl_byz,
+            dynamic=cfg.fault_dynamic_quorum) if faults is not None else None)
         self._cumulative = {}  # the mixture's frequencies, by device
         self.attack = attack
         self.attack_kwargs = dict(attack_kwargs or {})
@@ -279,9 +306,11 @@ class Engine:
         if self.mixture and not self.per_call:
             rng_host = prng.fold_in_words(
                 tuple(int(word) for word in key.tolist()), 1)
+        stale = self.faults is not None and self.faults.has_stale
         return init_state(self.cfg, theta, net_state, rng,
                           opt_state=self.optimizer.init(theta),
-                          attack_state=attack_state, rng_host=rng_host)
+                          attack_state=attack_state, rng_host=rng_host,
+                          fault_buffer_rows=self.cfg.nb_honests if stale else 0)
 
     # ----------------------------------------------------------------- #
     # Phases
@@ -456,9 +485,30 @@ class Engine:
                 G_honest = G_sampled[:h]
         return G_sampled, losses.mean(), net_state, new_mw, G_honest
 
+    def phase_faults(self, state, G_honest, faults=None):
+        """The honest phase's last step under a fault schedule: the step's
+        faults applied to the honest rows (`faults/inject.py`), from its
+        rows `faults` (a `StepFaults` on the device; uploaded here from
+        `state.steps` when None). Returns `(G_honest, fault_buffer,
+        FaultContext)`, or the rows, the state's buffer and None without
+        a schedule."""
+        if self.faults is None:
+            return G_honest, state.fault_buffer, None
+        if faults is None:
+            faults = self.faults.upload(state.steps, 1, G_honest.device).at(0)
+        return inject_mod.inject(faults, self.faults.has_stale, G_honest,
+                                 state.fault_buffer)
+
+    def defense_extras(self, out):
+        """`phase_defense`'s output past its first four as `phase_update`'s
+        `diag_metrics` and `fault_metrics` keywords."""
+        extras = list(out[4:])
+        return {"diag_metrics": extras.pop(0) if self.diagnostics else None,
+                "fault_metrics": extras.pop(0) if extras else None}
+
     @torch.no_grad()
     def phase_defense(self, G_honest, attack_state, mix_key=None,
-                      member=None):
+                      member=None, fault=None):
         """Attack synthesis, aggregation and the attack acceptation ratio.
         The attack calls `defense`, the configured defense (an adaptive
         attack line-searches it); its rows are cast to the honest rows'
@@ -470,7 +520,12 @@ class Engine:
         (`per_call_member`). Returns (G_attack, grad_defense,
         accept_ratio, attack_state), and under `self.diagnostics` the
         forensic metrics after them: the outer aggregation then runs the
-        "diag" program."""
+        "diag" program. With a step's `fault` context (`phase_faults`)
+        the aggregation, and every probe of n rows, runs the "masked"
+        program on the active rows (the outer one after the quarantine,
+        `cfg.fault_quarantine`), and the fault metrics come last; under
+        diagnostics the "diag" program runs on the full stack beside it
+        and its metrics gain the `Active mask`."""
         cfg = self.cfg
         f = cfg.nb_decl_byz
         if self.per_call:
@@ -481,7 +536,12 @@ class Engine:
                 return member
 
         def defense(gradients, f):
-            # The JAX defense program takes f from the configuration
+            # The JAX defense program takes f from the configuration; a
+            # probe of n rows shares the step's active mask
+            if (fault is not None
+                    and gradients.shape[0] == fault.active.shape[0]):
+                return self.defense_masked(gradients, draw(gradients),
+                                           fault.active)[0]
             return self.defense(gradients, draw(gradients))
 
         if cfg.nb_real_byz > 0:
@@ -496,20 +556,38 @@ class Engine:
         else:
             G_attack = G_honest.new_zeros((0, self.d))
         G_all = torch.cat([G_honest, G_attack])
-        if self.diagnostics:
+        outer = draw(G_all)
+        if fault is not None:
+            active = fault.active
+            if cfg.fault_quarantine:
+                active, _ = sanitize.quarantine(G_all, active)
+            grad_defense, f_eff = self.defense_masked(G_all, outer, active)
+            fault_metrics = {"Faults injected": fault.injected,
+                             "Workers active": active.sum(dtype=torch.int32),
+                             "Quorum f": f_eff}
+            if self.diagnostics:
+                # The aggregate stays the masked one; the diagnostics show
+                # what the plain rule would choose on the full stack, and
+                # who was quarantined
+                _, aux = self.defense_diag(G_all, outer)
+                diag_metrics = metrics_mod.forensic_metrics(aux, G_honest)
+                diag_metrics["Active mask"] = active.to(torch.float32)
+        elif self.diagnostics:
             # One call gives the aggregate and the aux (nothing is
             # aggregated twice)
-            grad_defense, aux = self.defense_diag(G_all, draw(G_all))
+            grad_defense, aux = self.defense_diag(G_all, outer)
             diag_metrics = metrics_mod.forensic_metrics(aux, G_honest)
         else:
-            grad_defense = self.defense(G_all, draw(G_all))
+            grad_defense = self.defense(G_all, outer)
         grad_defense = grad_defense.to(G_honest.dtype)
         # The influence's own draw (per call: from fold_in(mix_key, 1))
         infl_member = (draw(G_all, prng.fold_in(mix_key, 1)) if self.per_call
                        else member)
         accept_ratio = self.influence(G_honest, G_attack, infl_member)
-        out = G_attack, grad_defense, accept_ratio, attack_state
-        return (*out, diag_metrics) if self.diagnostics else out
+        out = (G_attack, grad_defense, accept_ratio, attack_state,
+               *((diag_metrics,) if self.diagnostics else ()),
+               *((fault_metrics,) if fault is not None else ()))
+        return out
 
     def influence(self, G_honest, G_attack, member=None):
         """The attack acceptation ratio of the defense (`member` as for
@@ -534,12 +612,15 @@ class Engine:
     def phase_update(self, state, G_sampled, loss_avg, net_state, new_mw,
                      G_honest, G_attack, grad_defense, accept_ratio,
                      attack_state, lr, batch, rng=None, rng_host=None,
-                     diag_metrics=None):
-        """Model update and study metrics; the attack's next state and the
-        step's next key `rng` (`step_keys`; the state's own when None) and
-        its host mirror `rng_host` (`mirror_keys`) go into the new state,
-        the forensic values `diag_metrics` (`phase_defense`) into the
-        metrics. Returns (new state, metrics)."""
+                     diag_metrics=None, fault_metrics=None,
+                     fault_buffer=None):
+        """Model update and study metrics; the attack's next state, the
+        step's next key `rng` (`step_keys`; the state's own when None),
+        its host mirror `rng_host` (`mirror_keys`) and the straggler
+        buffer `fault_buffer` (`phase_faults`; the state's own when None)
+        go into the new state, the fault metrics and the forensic values
+        `diag_metrics` (`phase_defense`) into the metrics. Returns (new
+        state, metrics)."""
         cfg = self.cfg
         lr = self.round_lr(lr)
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
@@ -564,6 +645,8 @@ class Engine:
         else:
             metrics = {}
             pg, pn, pc = state.past_grads, state.past_norms, state.past_count
+        if cfg.study and fault_metrics is not None:
+            metrics.update(fault_metrics)
         if cfg.study and diag_metrics is not None:
             metrics.update(diag_metrics)
         new_state = TrainState(
@@ -574,6 +657,8 @@ class Engine:
             datapoints=(state.datapoints
                         + batch * cfg.nb_honests * cfg.nb_local_steps),
             rng=state.rng if rng is None else rng,
+            fault_buffer=(state.fault_buffer if fault_buffer is None
+                          else fault_buffer),
             attack_state=attack_state,
             rng_host=state.rng_host if rng is None else rng_host)
         return new_state, metrics
@@ -605,11 +690,12 @@ class Engine:
         steps, `[S, k, B, ...]`."""
         return xs.shape[2] if self.cfg.nb_local_steps > 1 else xs.shape[1]
 
-    def train_step(self, state, xs, ys, lr, masks=None):
+    def train_step(self, state, xs, ys, lr, masks=None, faults=None):
         """xs: f32[S, B, ...], ys: [S, B] on the engine's device (at k > 1
         local steps `[S, k, B, ...]`, `[S, k, B]`). The step splits
         `state.rng` (`step_keys`) and draws the dropout keep-masks from
-        the worker keys (`draw_masks`), unless `masks` gives them."""
+        the worker keys (`draw_masks`), unless `masks` gives them; under
+        a fault schedule `faults` gives its fault rows (`phase_faults`)."""
         rng, mix_key, wkeys = self.step_keys(state.rng)
         rng_host, member = self.mirror_keys(state)
         batch = self._batch_of(xs)
@@ -617,12 +703,14 @@ class Engine:
             masks = self.draw_masks(wkeys, batch)
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
+        G_honest, new_fb, fault = self.phase_faults(state, G_honest, faults)
         defense = self.phase_defense(G_honest, state.attack_state,
-                                     mix_key=mix_key, member=member)
+                                     mix_key=mix_key, member=member,
+                                     fault=fault)
         return self.phase_update(
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
             *defense[:4], lr, batch, rng=rng, rng_host=rng_host,
-            diag_metrics=defense[4] if self.diagnostics else None)
+            **self.defense_extras(defense), fault_buffer=new_fb)
 
     def sample_indices(self, chunk=None, batchwise=False):
         """The host indices and flips of a step's batches
@@ -680,15 +768,20 @@ class Engine:
 
     def _chunk(self, state, lrs, batches, step=None):
         """The steps of a chunk: step i on `batches(i)` at `lrs[i]`, the
-        learning rates uploaded in one copy; a chunk of more than one step
-        counts one `multi_dispatches`."""
+        learning rates uploaded in one copy, and under a fault schedule
+        the chunk's fault rows in one more (`FaultSchedule.upload`); a
+        chunk of more than one step counts one `multi_dispatches`."""
         lrs = to_device(np.asarray(lrs, np.float32), self.device)
-        if lrs.shape[0] > 1:
+        M = lrs.shape[0]
+        if M > 1:
             self.counts["multi_dispatches"] += 1
         step = step or self.train_step
+        faults = (self.faults.upload(state.steps, M, self.device)
+                  if self.faults is not None else None)
         rows = []
-        for i in range(lrs.shape[0]):
-            state, metrics = step(state, *batches(i), lrs[i])
+        for i in range(M):
+            extra = {} if faults is None else {"faults": faults.at(i)}
+            state, metrics = step(state, *batches(i), lrs[i], **extra)
             rows.append(metrics)
         return state, stack_metrics(rows)
 

@@ -5,15 +5,17 @@ rank workers by squared L2 distance to it, average the c closest —
 c = (n+1)//2 in 'mid' mode, n-f in 'n-f' mode. `diagnose` takes its
 scores from the same median distances (one `lower_median` launch) and
 computes the distances, which the rule itself never needs.
+`aggregate_masked` is the dynamic quorum's aksel (`faults/quorum.py`).
 """
 
 import torch
 
 from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    lower_median, pairwise_distances, sanitize_inf, selection_influence)
+    lower_median, masked_lower_median, masked_rank_mean, pairwise_distances,
+    row_sum_stable, sanitize_inf, selection_influence)
 
-__all__ = ["aggregate", "diagnose", "selection"]
+__all__ = ["aggregate", "aggregate_masked", "diagnose", "selection"]
 
 
 def _count(n, f, mode):
@@ -45,6 +47,23 @@ def selection(gradients, f, mode="mid", **kwargs):
 def aggregate(gradients, f, mode="mid", **kwargs):
     """Aksel: the mean of the selected rows, gathered in score order."""
     return gradients[selection(gradients, f, mode)].mean(dim=0)
+
+
+def aggregate_masked(gradients, active, n_eff, f_eff, mode="mid", **kwargs):
+    """Aksel over the active rows, the counts 0-d int device tensors: the
+    masked median center, squared distances to it, and the `c` closest
+    active rows averaged in index order (`_common.masked_rank_mean`),
+    `c = (n_eff + 1) // 2` ('mid') or `n_eff - f_eff` ('n-f')."""
+    n = gradients.shape[0]
+    med = masked_lower_median(gradients, active, n_eff)
+    sqd = sanitize_inf(row_sum_stable((gradients - med[None, :]) ** 2))
+    if mode == "mid":
+        c = (n_eff + 1) // 2
+    elif mode == "n-f":
+        c = n_eff - f_eff
+    else:
+        raise NotImplementedError(f"Unknown aksel mode {mode!r}")
+    return masked_rank_mean(gradients, sqd, active, torch.clamp(c, 1, n))
 
 
 def diagnose(gradients, f, mode="mid", **kwargs):

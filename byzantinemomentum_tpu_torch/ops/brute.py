@@ -20,6 +20,14 @@ The enumeration is stock torch ops, as it is XLA work in the JAX package;
 the subset mean of a `gar_kernels.supported` operand is the
 `masked_rows_mean` CUDA kernel. `diagnose` runs the same enumeration and
 kernels, and reads its aux off the distances and the winning mask.
+
+`aggregate_masked` is the dynamic quorum's brute (`faults/quorum.py`):
+the minimum-diameter size-(n_eff - f_eff) subset of the active rows,
+the counts 0-d int device tensors. Its enumeration is sized for the
+static worst case `masked_rank_space(n, f_decl)`, and refused beyond
+`MASKED_MAX_SUBSETS` (the quorum layer then takes its NaN-routing
+fallback through the static rule); its mean divides by the device count
+with torch (no kernel).
 """
 
 import functools
@@ -33,8 +41,9 @@ from byzantinemomentum_tpu_torch.ops import diag, gar_kernels, register
 from byzantinemomentum_tpu_torch.ops._common import (
     pairwise_distances, selection_influence)
 
-__all__ = ["aggregate", "diagnose", "selection", "best_subset_mask_from_dist",
-           "CHUNK"]
+__all__ = ["aggregate", "aggregate_masked", "diagnose", "selection",
+           "best_subset_mask_from_dist", "best_subset_mask_masked",
+           "masked_rank_space", "CHUNK", "MASKED_MAX_SUBSETS"]
 
 # Subsets evaluated per chunk of the enumeration: O(CHUNK * n^2) memory,
 # about 80 MB of f32 at n = 25 (the JAX package's chunk)
@@ -111,6 +120,98 @@ def best_subset_mask_from_dist(dist, f):
         best_diam = torch.where(better, low, best_diam)
         best_rank = torch.where(better, ranks.index_select(0, i)[0], best_rank)
     return _unrank_masks(best_rank[None], n, k, tbl)[0]
+
+
+# The largest static rank space a masked brute enumerates: it cannot know
+# n_eff and f_eff when it sizes its chunk loop, so it provisions
+# C(n, min(f_decl, (n - 1) // 2)); beyond this many subsets the masked
+# form is refused (`masked_rank_space` gives None). The JAX package's cap
+MASKED_MAX_SUBSETS = 2_000_000
+
+
+def masked_rank_space(n, f_decl):
+    """`C(n, min(f_decl, (n - 1) // 2))`, the most subsets any `(n_eff <=
+    n, f_eff <= f_decl)` gives, or None beyond `MASKED_MAX_SUBSETS`."""
+    k = min(int(f_decl), max((n - 1) // 2, 0))
+    total = math.comb(n, k)
+    return total if total <= MASKED_MAX_SUBSETS else None
+
+
+def _unrank_masks_masked(ranks, active, after, need0, n, tbl):
+    """Lexicographic unranking over the active rows: `i64[c] -> bool[c,
+    n]` masks of the rank-th size-`need0` combination of the active
+    indices (the static order restricted to them). An inactive element
+    takes no rank and fills no slot; at an active one with `need` slots
+    left there are `C(after[e], need - 1)` completions that include it,
+    `after[e]` the active rows past e (device tensors, read with
+    `index_select`)."""
+    r = ranks
+    need = torch.zeros_like(ranks) + need0
+    masks = []
+    for e in range(n):
+        row = tbl.index_select(0, after[e:e + 1])[0]
+        count = torch.where(need > 0, row[torch.clamp(need - 1, min=0)], 0)
+        take = active[e] & (need > 0) & (r < count)
+        r = torch.where(take | ~active[e], r, r - count)
+        need = need - take.long()
+        masks.append(take)
+    return torch.stack(masks, dim=1)
+
+
+def best_subset_mask_masked(dist, active, n_eff, f_eff, total_max):
+    """bool[n] mask of the minimum-diameter size-(n_eff - f_eff) subset
+    of the active rows: a chunk loop sized for the static `total_max`
+    (`masked_rank_space`), the surplus lanes clamped to the last real
+    subset, so the first minimum in lexicographic order wins, as in the
+    static form. Inactive pairs get +inf distances."""
+    n = dist.shape[0]
+    device = dist.device
+    pair = active[:, None] & active[None, :]
+    dist = torch.where(pair, dist, torch.inf)
+    k_eff = torch.clamp(n_eff - f_eff, 1, n)
+    # C(m, j) for every m, j <= n (int64 holds them all for n <= 66)
+    tbl = to_device(np.array(_binom_table(n, n)), device)
+    after = (active.sum() - torch.cumsum(active.long(), dim=0))
+    total_eff = torch.clamp(
+        tbl.index_select(0, n_eff.reshape(1))[0]
+        .index_select(0, k_eff.reshape(1))[0], min=1)
+    offdiag = ~torch.eye(n, dtype=torch.bool, device=device)
+    chunk = min(CHUNK, total_max)
+    lanes = torch.arange(chunk, dtype=torch.int64, device=device)
+    best_diam = torch.full((), torch.inf, dtype=dist.dtype, device=device)
+    best_rank = torch.zeros((), dtype=torch.int64, device=device)
+    for start in range(0, total_max, chunk):
+        ranks = torch.minimum(start + lanes, total_eff - 1)
+        masks = _unrank_masks_masked(ranks, active, after, k_eff, n, tbl)
+        pairm = masks[:, :, None] & masks[:, None, :] & offdiag
+        diam = torch.where(pairm, dist, -torch.inf).amax(dim=(1, 2))
+        i = torch.argmin(diam).view(1)
+        low = diam.index_select(0, i)[0]
+        better = low < best_diam  # strict: earlier chunks win ties
+        best_diam = torch.where(better, low, best_diam)
+        best_rank = torch.where(better, ranks.index_select(0, i)[0], best_rank)
+    return _unrank_masks_masked(best_rank[None], active, after, k_eff, n,
+                                tbl)[0]
+
+
+def aggregate_masked(gradients, active, n_eff, f_eff, f_decl, *,
+                     method="dot", **kwargs):
+    """Brute over the active rows: the mean of their minimum-diameter
+    subset, divided by the device count `n_eff - f_eff`. `f_decl` sizes
+    the enumeration; raises beyond `MASKED_MAX_SUBSETS`."""
+    n = gradients.shape[0]
+    total_max = masked_rank_space(n, f_decl)
+    if total_max is None:
+        raise ValueError(
+            f"brute masked kernel over {n} rows at f_decl={f_decl} "
+            f"exceeds MASKED_MAX_SUBSETS; callers must route around it "
+            f"(masked_rank_space)")
+    dist = pairwise_distances(gradients, method=method)
+    mask = best_subset_mask_masked(dist, active, n_eff, f_eff, total_max)
+    k_eff = torch.clamp(n_eff - f_eff, 1, n)
+    kept = torch.where((mask & active)[:, None], gradients,
+                       gradients.new_zeros(()))
+    return kept.sum(dim=0) / k_eff.to(gradients.dtype)
 
 
 def _best_subset_mask(gradients, f, *, method="dot"):

@@ -17,6 +17,13 @@ Bulyan scores are the sum of the m smallest neighbour distances
 `diagnose` runs the aggregate's own kernels (the Gram, then the fused
 stage 1 and 2) and reads its aux off the (n, n) distances and the
 stage-1 weights it already has.
+
+`aggregate_masked` is the dynamic quorum's Bulyan (`faults/quorum.py`):
+the counts are 0-d int device tensors, stage 1 a Python loop of a fixed
+n - 2 rounds whose rounds past `n_eff - 2 f_eff - 2` are inert (the JAX
+`lax.scan`), the stack the `weighted_rows_mean` kernel's over the active
+rows, and stage 2 the masked median and closest mean, whose column sorts
+are the colsort kernel's (`_common.sort_columns`).
 """
 
 import math
@@ -25,9 +32,11 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import diag, gar_kernels, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    averaged_median, pairwise_distances, weighted_rows_mean)
+    averaged_median, masked_closest_mean, masked_lower_median,
+    pairwise_distances, row_sum_stable, weighted_rows_mean)
 
-__all__ = ["aggregate", "diagnose", "selection_weights"]
+__all__ = ["aggregate", "aggregate_masked", "diagnose", "selection_weights",
+           "selection_weights_masked"]
 
 
 def selection_weights(dist, f, m=None):
@@ -49,6 +58,62 @@ def selection_weights(dist, f, m=None):
         rows.append(torch.where(ranks < m_i, one / m_i, 0.0))
         scores = scores.index_fill(0, order[:1], torch.inf)
     return torch.stack(rows)
+
+
+def selection_weights_masked(dist, active, n_eff, f_eff, m=None):
+    """Stage-1 weights over the active rows only, with the counts
+    `n_eff`, `f_eff` 0-d int tensors: `(W f32[n - 2, n], round_active
+    bool[n - 2])`. The loop runs n - 2 rounds, the most any active subset
+    needs; a round past `n_eff - 2 f_eff - 2` is inert (a zero weight
+    row, the scores carried unchanged). Inactive rows get +inf distances
+    and scores and are left out of every round's average."""
+    n = dist.shape[0]
+    device = dist.device
+    positions = torch.arange(n, device=device)
+    pair = active[:, None] & active[None, :]
+    dist = torch.where(pair, dist, torch.inf)
+    m_max = torch.clamp(n_eff - f_eff - 2, 1, n)
+    m_sel = m_max if m is None else torch.clamp(
+        torch.clamp(m_max, max=m), 1, n)
+    srt = torch.sort(dist, dim=1).values
+    scores = row_sum_stable(torch.where(positions[None, :] < m_sel, srt,
+                                        srt.new_zeros(())))
+    scores = torch.where(active, scores, torch.inf)
+    rounds_max = max(n - 2, 1)
+    rounds_eff = torch.clamp(n_eff - 2 * f_eff - 2, 1, rounds_max)
+    i = torch.arange(rounds_max, dtype=torch.int32, device=device)
+    m_is = torch.clamp(torch.minimum(m_sel, m_max - i), 1, n)
+    round_active = i < rounds_eff
+    one = torch.ones((), dtype=torch.float32, device=device)
+    rows = []
+    for r in range(rounds_max):
+        m_i, act_i = m_is[r], round_active[r]
+        order = torch.argsort(scores, stable=True)
+        ranks = torch.empty_like(order).scatter_(0, order, positions)
+        rows.append(torch.where((ranks < m_i) & active & act_i,
+                                one / m_i.to(torch.float32), 0.0))
+        scores = torch.where(act_i, scores.index_fill(0, order[:1], torch.inf),
+                             scores)
+    return torch.stack(rows), round_active
+
+
+def aggregate_masked(gradients, active, n_eff, f_eff, m=None, *,
+                     method="dot", **kwargs):
+    """Bulyan over the active rows: the masked stage-1 selection, its
+    stack `weighted_rows_mean` (every inactive row has weight 0, and an
+    unselected row's non-finite entries are left out), then the averaged
+    median over the real rounds only (`masked_lower_median`,
+    `masked_closest_mean` with the device round count; m2 = 1 takes the
+    median, as the static rule). Equals `aggregate(gradients[active], f_eff)` for finite
+    active rows, up to the order of the sums."""
+    dist = pairwise_distances(gradients, method=method)
+    W, round_active = selection_weights_masked(dist, active, n_eff, f_eff, m)
+    stack = weighted_rows_mean(W.to(gradients.dtype), gradients)
+    rounds_eff = round_active.sum(dtype=torch.int32)
+    med = masked_lower_median(stack, round_active, rounds_eff)
+    m2 = torch.clamp(rounds_eff - 2 * f_eff, 1, stack.shape[0])
+    closest = masked_closest_mean(stack, round_active, med, m2)
+    return torch.where(m2 == 1, med, closest)
 
 
 def _bulyan(gradients, f, m, method):

@@ -6,15 +6,17 @@ the n-f smallest-norm gradients, gathered in norm order. It has no
 kernel of its own: the norms and the mean are stock torch reductions, as
 they are XLA work in the JAX package. `diagnose` adds the distances
 (the `sq_gram` kernel on the card) to the norms and the selection.
+`aggregate_masked` is the dynamic quorum's CGE (`faults/quorum.py`).
 """
 
 import torch
 
 from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    pairwise_distances, sanitize_inf, selection_influence)
+    masked_rank_mean, pairwise_distances, row_sum_stable, sanitize_inf,
+    selection_influence)
 
-__all__ = ["aggregate", "diagnose", "norms", "selection"]
+__all__ = ["aggregate", "aggregate_masked", "diagnose", "norms", "selection"]
 
 
 def norms(gradients):
@@ -34,6 +36,16 @@ def selection(gradients, f, **kwargs):
 def aggregate(gradients, f, **kwargs):
     """CGE rule: the mean of the selected rows, gathered in norm order."""
     return gradients[selection(gradients, f)].mean(dim=0)
+
+
+def aggregate_masked(gradients, active, n_eff, f_eff, **kwargs):
+    """CGE over the active rows: inactive rows take +inf norms, and the
+    `n_eff - f_eff` smallest-norm active rows average in index order
+    (`_common.masked_rank_mean`)."""
+    n = gradients.shape[0]
+    nrm = sanitize_inf(torch.sqrt(row_sum_stable(gradients * gradients)))
+    return masked_rank_mean(gradients, nrm, active,
+                            torch.clamp(n_eff - f_eff, 1, n))
 
 
 def diagnose(gradients, f, **kwargs):

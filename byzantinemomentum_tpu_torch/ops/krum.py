@@ -11,7 +11,8 @@ instead, as in the JAX package) and the selected-row average is a
 weight-vector product (`_common.weighted_rows_mean`, the
 `weighted_rows_mean` kernel on the card), so the rule reads the (n, d)
 matrix twice. `diagnose` runs the same two kernels and reads its aux
-off the distances and the weight vector.
+off the distances and the weight vector. `selection_weights_masked` is
+the dynamic quorum's selection (`faults/quorum.py`), on device counts.
 """
 
 import math
@@ -20,10 +21,11 @@ import torch
 
 from byzantinemomentum_tpu_torch.ops import diag, register
 from byzantinemomentum_tpu_torch.ops._common import (
-    pairwise_distances, selection_influence, weighted_rows_mean)
+    pairwise_distances, row_sum_stable, selection_influence,
+    weighted_rows_mean)
 
 __all__ = ["aggregate", "diagnose", "scores", "scores_from_dist",
-           "selection", "selection_weights"]
+           "selection", "selection_weights", "selection_weights_masked"]
 
 
 def scores_from_dist(dist, f):
@@ -49,6 +51,33 @@ def selection_weights(dist, f, m=None):
     ranks = torch.empty_like(order).scatter_(
         0, order, torch.arange(n, device=dist.device))
     return torch.where(ranks < m, 1.0 / m, 0.0)
+
+
+def selection_weights_masked(dist, active, n_eff, f_eff, m=None):
+    """Multi-Krum over the active rows only, with the counts `n_eff`,
+    `f_eff` 0-d int tensors: inactive rows get +inf distances and scores,
+    so they are never selected; each active row's score sums its
+    `n_eff - f_eff - 1` smallest active-neighbour distances, and the
+    `m` (default `n_eff - f_eff - 2`) lowest scores get weight 1/m.
+    Equals `selection_weights(dist[active][:, active], f_eff, m)` put
+    back on the full row set; f32[n]."""
+    n = dist.shape[0]
+    positions = torch.arange(n, device=dist.device)
+    pair = active[:, None] & active[None, :]
+    dist = torch.where(pair, dist, torch.inf)
+    # Beyond the quorum (n_eff too small for Krum) keep at least one
+    # neighbour and one selected row
+    keep = torch.clamp(n_eff - f_eff - 1, 1, n)
+    srt = torch.sort(dist, dim=1).values
+    scores = row_sum_stable(torch.where(positions[None, :] < keep, srt,
+                                        srt.new_zeros(())))
+    scores = torch.where(active, scores, torch.inf)
+    m_max = n_eff - f_eff - 2
+    m = torch.clamp(m_max if m is None else torch.clamp(m_max, max=m), 1, n)
+    order = torch.argsort(scores, stable=True)
+    ranks = torch.empty_like(order).scatter_(0, order, positions)
+    one = torch.ones((), dtype=torch.float32, device=dist.device)
+    return torch.where((ranks < m) & active, one / m.to(torch.float32), 0.0)
 
 
 def selection(gradients, f, m=None, *, method="dot", **kwargs):

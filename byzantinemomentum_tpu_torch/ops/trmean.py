@@ -13,17 +13,23 @@ The kernels take f32, bf16 and f16 stacks (`sort_kernels.supported`).
 The diagnose forms run the aggregate's kernels, then the rank trim of
 `diag.rank_kept_fraction` (the colsort kernel): over the values for
 trmean, over the deviations `|g - center|` for phocas and meamed.
+
+`masked_phocas` and `masked_meamed` are the dynamic quorum's forms
+(`faults/quorum.py`): the masked center, then the masked closest mean
+keeping `n_eff - f_eff` values a coordinate, their sorts the colsort
+kernel's.
 """
 
 import torch
 
 from byzantinemomentum_tpu_torch.ops import diag, register, sort_kernels
 from byzantinemomentum_tpu_torch.ops._common import (
-    closest_mean, lower_median, pairwise_distances, sanitize_inf)
+    closest_mean, lower_median, masked_closest_mean, masked_lower_median,
+    masked_trmean, pairwise_distances, sanitize_inf)
 
 __all__ = ["trmean", "aggregate_trmean", "aggregate_phocas",
            "aggregate_meamed", "diagnose_trmean", "diagnose_phocas",
-           "diagnose_meamed"]
+           "diagnose_meamed", "masked_phocas", "masked_meamed"]
 
 
 def trmean(g, f):
@@ -46,6 +52,22 @@ def aggregate_phocas(gradients, f, **kwargs):
 def aggregate_meamed(gradients, f, **kwargs):
     g = gradients
     return closest_mean(g, lower_median(g), g.shape[0] - f)
+
+
+def masked_phocas(gradients, active, n_eff, f_eff, **kwargs):
+    """Phocas over the active rows: the masked trimmed-mean center, then
+    the `n_eff - f_eff` active values closest to it."""
+    center = masked_trmean(gradients, active, f_eff, n_eff)
+    m = torch.clamp(n_eff - f_eff, 1, gradients.shape[0])
+    return masked_closest_mean(gradients, active, center, m)
+
+
+def masked_meamed(gradients, active, n_eff, f_eff, **kwargs):
+    """MeaMed over the active rows: the masked median center, then the
+    `n_eff - f_eff` active values closest to it."""
+    center = masked_lower_median(gradients, active, n_eff)
+    m = torch.clamp(n_eff - f_eff, 1, gradients.shape[0])
+    return masked_closest_mean(gradients, active, center, m)
 
 
 def _coordinate_aux(g, agg, trim_frac):

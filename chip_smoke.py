@@ -252,6 +252,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    selected from step 8 on and a falling `Var/norm ratio`); then
    `diag_vs_plain`: under deterministic cuDNN `headline_diag`'s first 24
    columns are byte-equal to the headline's.
+   Then the fault plans (`FAULT_CELLS`, the phase `fault cells`,
+   `--fault-plan`): `headline_faults` (the headline's flags with
+   HEADLINE_PLAN: a device lost, a NaN window, an attack row dropped, a
+   straggler across the chunk boundary at step 8, a duplicate and a
+   scaled window; masked Bulyan through `sq_gram`, `weighted_rows_mean`
+   and two colsorts a step), `krum_f11_faults_diag` (krum_f11's flags
+   with the plan, its scaled window on worker 4, and
+   `--gar-diagnostics`: masked Krum through `sq_gram` and
+   `weighted_rows_mean`, the diag program on the full stack),
+   `adaptive_faults` (`headline_adaptive`'s flags with the plan: the 16
+   probes of the line search take the masked Bulyan too) and
+   `mnist-faults-krum-r_0.02` (`reproduce.py::submit_faults`'s line at
+   rate 0.02, its plan from `FaultPlan.generate(..., seed=200)`, 30
+   steps), each with exact launches (`MASKED_CALLS`), a study header of
+   `STUDY_COLUMNS + FAULT_COLUMNS [+ FORENSIC_COLUMNS]` whose three fault
+   columns equal the schedule's (`expected_fault_columns`) and steps/s
+   beside its unfaulted cell's; the suspicion tracker's quarantine term
+   for the NaN worker (`quarantine_verdict`); `masked_vs_plain`: masked
+   Bulyan and Krum at the headline operand on each step of their plans,
+   the kernels against their plain versions on the card (`f_eff`
+   exactly, the aggregate within rtol 1e-5, atol 1e-6); `fault_vs_single`:
+   `headline_faults` at M = 1 and 8 byte-equal under deterministic cuDNN;
+   `fault_resume` (`resume_runs` on FAULT_RESUME, side by side under
+   deterministic cuDNN): killed past step 8 and `--auto-resume`d from
+   checkpoint-7, inside the straggler window, the two uninterrupted runs'
+   CSVs byte for byte.
    Every run takes the driver's default `--steps-per-program` 8: chunks
    of up to 8 steps cut at every evaluation and checkpoint (`chunks`).
    Every CIFAR and WRN cell runs 16 steps, two chunks of 8 (the
@@ -292,8 +318,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    which fails on any synchronizing call, for the headline,
    `headline_adaptive`, `krum_f11_strict`, `median_bf16_adaptive`,
    `cge_anticge`, `headline_mixture`, `headline_mixture_per_call`,
-   `headline_adam`, `headline_diag`, `mnist-alie-warmup-krum` and
-   `default` (8 steps each),
+   `headline_adam`, `headline_diag`, `headline_faults`,
+   `adaptive_faults`, `krum_f11_faults_diag` (a plan attached),
+   `mnist-alie-warmup-krum` and `default` (8 steps each),
    brute (1 step), the WRN Bulyan cell (2 steps) and `baseline_wrn_aksel`
    (2 steps at k = 2). Then `fused_vs_single`: the headline,
    `headline_adaptive`, `default` and (under deterministic cuDNN only)
@@ -321,7 +348,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    mixed-precision headline, vmapped headline,
    `mnist-empire-krum-f_24-lr_0.5-at_update`, `headline_adaptive`, the
    mixture and Adam cells (the update phase's time under Adam),
-   `headline_diag` (the defense's time with the diagnose form) and the
+   `headline_diag` (the defense's time with the diagnose form),
+   `headline_faults` (the masked defense's, on the plan's first steps) and the
    appendix's Bulyan WRN-28-10 cells and the six zoo cells, through the
    driver's path: per-phase CUDA-event times (the index draw and upload,
    the gather on the device, the step keys and dropout masks, the honest,
@@ -335,8 +363,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
-the CIFAR runs of phase 4, the diagnostics cells' included (`colsort`'s
-from `trmean_diag`), the two key-tree kernels', `linesearch_step`'s,
+the CIFAR runs of phase 4, the diagnostics and fault cells' included
+(`colsort`'s from `trmean_diag` and the masked sorts), the two
+key-tree kernels', `linesearch_step`'s,
 `operand_hash`'s and `mixture_draw`'s too; one
 `<kernel>_n51` record per kernel of the
 MNIST grid at its n = 51 shape, launches summed over the MNIST-half runs
@@ -358,6 +387,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -372,14 +402,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from byzantinemomentum_tpu_torch import checkpoint as checkpoint_mod
 from byzantinemomentum_tpu_torch import data as data_mod
+from byzantinemomentum_tpu_torch import faults as faults_mod
 from byzantinemomentum_tpu_torch import models as models_mod
-from byzantinemomentum_tpu_torch import prng
+from byzantinemomentum_tpu_torch import obs, prng
 from byzantinemomentum_tpu_torch.attacks import alie
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS)
+    FAULT_COLUMNS, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS)
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
+from byzantinemomentum_tpu_torch.faults import inject, quorum, sanitize
 from byzantinemomentum_tpu_torch.models import core as core_mod
 from byzantinemomentum_tpu_torch.ops import (
     _common, _cuda, brute, bulyan, gar_kernels, gars, krum, mixture_kernels,
@@ -554,6 +586,8 @@ def build():
     jobs = [(prng_kernels.build,), (search_kernels.build,),
             (mixture_kernels.build,)]
     jobs += [(gar_kernels.build, rounds) for rounds in (0, 5, 13, 27)]
+    # The masked Bulyan's stack of n - 2 rounds (the fault cells)
+    jobs.append((sort_kernels.build, "colsort", HEADLINE_N - 2, F32))
     jobs += [(sort_kernels.build, *job) for job in MNIST_SORT_BUILDS]
     jobs += [(sort_kernels.build, kernel, n, dtype)
              for kernel in ("lower_median", "colsort")
@@ -826,6 +860,16 @@ def kernels_vs_plain(smi):
           gar_kernels.masked_rows_mean(mask, g, k),
           gar_kernels.masked_rows_mean_plain(mask, g, k))
     check_sort_kernels("headline", g, (f, f11))
+    # The masked Bulyan's stack of n - 2 rounds (the fault cells) at the
+    # headline width: the rows of its inert rounds NaN (from round
+    # n - 2f - 2 = 13 on where all 25 rows are active)
+    stack = g[:n - 2].clone()
+    stack[rounds:] = torch.nan
+    out = sort_kernels.colsort(stack)
+    check("colsort", f"headline n={n - 2}, rows {rounds}.. NaN", out,
+          sort_kernels.colsort_plain(stack), atol=0.0, rtol=0.0)
+    signed_zeros_in_order(f"colsort headline n={n - 2}", out)
+    del stack, out
 
     # Ragged d: NaN rows, +-inf, a selected NaN, half-integer values (ties,
     # +0 only)
@@ -2432,7 +2476,90 @@ DIAG_CELLS = (
         "--momentum-at", "worker", "--nb-for-study", "7",
         "--nb-for-study-past", "2", *DIAG_RUN), "krum", steps=STEPS),
 )
-CELLS_BY_NAME = {cell.name: cell for cell in (*CELLS, *DIAG_CELLS)}
+# Fault plans (`--fault-plan`), driven after the diagnostics cells in a
+# phase of their own ("fault cells"). HEADLINE_PLAN: a device lost at
+# step 2, a NaN window over steps 2-5, an attack row dropped over 4-6, a
+# straggler over 6-9 (across the chunk boundary at step 8), a duplicate
+# at 10-11 and a scaled window at 12-13
+HEADLINE_PLAN = faults_mod.FaultPlan(events=(
+    faults_mod.device_loss(3, 2),
+    faults_mod.corrupt_gradient(9, 2, mode="nan", duration=4),
+    faults_mod.drop_worker(22, 4, duration=3),
+    faults_mod.straggler(1, 6, delay_steps=4),
+    faults_mod.duplicate_submission(12, 10, source=13, duration=2),
+    faults_mod.corrupt_gradient(14, 12, mode="scale", scale=10.0, duration=2),
+))
+# At f = 11 the honest rows are 0-13, and the plan's validation refuses a
+# scaled window on row 14 (an attack row): it moves to worker 4
+KRUM_F11_PLAN = dataclasses.replace(HEADLINE_PLAN, events=(
+    *HEADLINE_PLAN.events[:5],
+    faults_mod.corrupt_gradient(4, 12, mode="scale", scale=10.0, duration=2)))
+# `reproduce.py::submit_faults`'s plan at rate 0.02 (the grid that
+# `study.fault_rate_sweep` reads)
+MNIST_FAULT_PLAN = faults_mod.FaultPlan.generate(
+    nb_workers=9, nb_steps=30, seed=200,
+    rates={"straggler": 0.02, "drop_worker": 0.02, "corrupt_gradient": 0.01})
+FAULT_PLANS = {"headline": HEADLINE_PLAN, "krum_f11": KRUM_F11_PLAN,
+               "mnist": MNIST_FAULT_PLAN}
+# Where `write_fault_plans` puts them for the cells' `--fault-plan`
+FAULT_PLAN_DIR = (pathlib.Path(tempfile.gettempdir())
+                  / f"bmt-chip-smoke-plans-{os.getpid()}")
+
+
+def plan_flag(name):
+    return ("--fault-plan", str(FAULT_PLAN_DIR / f"{name}.json"))
+
+
+def write_fault_plans():
+    FAULT_PLAN_DIR.mkdir(parents=True, exist_ok=True)
+    for name, plan in FAULT_PLANS.items():
+        plan.save(FAULT_PLAN_DIR / f"{name}.json")
+
+
+# One masked call's launches (`faults/quorum.py`): the Gram and the
+# weighted rows mean (Bulyan's stack of its n - 2 rounds, Krum's average),
+# and for Bulyan's stage 2 two colsorts (the stack's median and the
+# deviations' threshold); the coordinate-wise rules sort with colsort
+MASKED_CALLS = {
+    "bulyan": (("sq_gram", 1), ("weighted_rows_mean", 1), ("colsort", 2)),
+    "krum": (("sq_gram", 1), ("weighted_rows_mean", 1)),
+    "median": (("colsort", 1),), "trmean": (("colsort", 1),),
+    "phocas": (("colsort", 2),), "meamed": (("colsort", 2),),
+}
+
+
+def masked_launches(gar, calls=1):
+    """The exact f32 launches of `calls` masked calls of `gar`."""
+    return {(kernel, F32): calls * count for kernel, count in MASKED_CALLS[gar]}
+
+
+FAULT_CELLS = (
+    cifar_cell("headline_faults", "bulyan", 5, EMPIRE,
+               flags=plan_flag("headline"), per_step=masked_launches("bulyan")),
+    # Krum at f = 11 under diagnostics: the masked aggregation, the diag
+    # program on the full stack and the acceptation ratio's Gram
+    cifar_cell("krum_f11_faults_diag", "krum", 11, EMPIRE,
+               flags=(*plan_flag("krum_f11"), *DIAG_RUN),
+               per_step=dict(collections.Counter(masked_launches("krum"))
+                             + collections.Counter(diag_launches("krum")))),
+    # The line search's 16 probes take the masked Bulyan too
+    cifar_cell("adaptive_faults", "bulyan", 5, EMPIRE_ADAPTIVE,
+               flags=plan_flag("headline"),
+               per_step={**masked_launches("bulyan", calls=PROBES + 1),
+                         **SEARCH_STEP}),
+    mnist_cell("mnist-faults-krum-r_0.02", (
+        "--batch-size", "16", "--model", "simples-full", "--loss", "nll",
+        "--momentum", "0.9", "--evaluation-delta", "10", "--nb-steps", "30",
+        "--nb-for-study", "9", "--nb-for-study-past", "3", "--nb-workers",
+        "9", "--batch-size-test", "32", "--batch-size-test-reps", "2",
+        "--learning-rate", "0.5", "--gar", "krum", "--nb-decl-byz", "2",
+        *plan_flag("mnist")), "krum", steps=30),
+)
+CELLS_BY_NAME = {cell.name: cell for cell in (*CELLS, *DIAG_CELLS,
+                                              *FAULT_CELLS)}
+# Each cell's steps/s (`drive`), so a fault cell's stands beside its
+# unfaulted cell's
+RATES = {}
 # Cells that run on other synthetic sets than the script's: the JAX
 # diagnostics test's line on that test's own (its `small_synth` fixture),
 # on which the test's claims (no attacker selected from step 8 on) are
@@ -2465,7 +2592,7 @@ def cell_env(name):
 PROFILED = ("headline", "krum_f11", "headline_mixed", "headline_vmapped",
             "mnist-empire-krum-f_24-lr_0.5-at_update", "headline_adaptive",
             "headline_mixture", "headline_mixture_per_call", "headline_adam",
-            "headline_diag", APPENDIX_BULYAN,
+            "headline_diag", "headline_faults", APPENDIX_BULYAN,
             *(cell.name for cell in ZOO_CELLS))
 STEP_PROFILED_ONLY = (APPENDIX_BULYAN, "headline_mixture_per_call",
                       *(cell.name for cell in ZOO_CELLS))
@@ -2517,13 +2644,18 @@ def drive(cell, smi):
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
     header = lines[0]
     forensic = "--gar-diagnostics" in cell.argv
+    faulted = "--fault-plan" in cell.argv
     if header != "# " + "\t".join(STUDY_COLUMNS
+                                   + (FAULT_COLUMNS if faulted else ())
                                    + (FORENSIC_COLUMNS if forensic else ())):
         raise SystemExit(f"{name}: study header differs from STUDY_COLUMNS"
+                         f"{' + FAULT_COLUMNS' if faulted else ''}"
                          f"{' + FORENSIC_COLUMNS' if forensic else ''}")
     rows = [line.split("\t") for line in lines[1:]]
     if len(rows) != steps:
         raise SystemExit(f"{name}: study has {len(rows)} rows, expected {steps}")
+    if faulted:
+        fault_verdict(name, rows, smi)
     if forensic:
         forensic_verdict(name, rows, smi)
     col = STUDY_COLUMNS.index("Defense gradient norm")
@@ -2556,6 +2688,7 @@ def drive(cell, smi):
     rate = summary["steps_per_s"]
     if rate is None or not math.isfinite(rate):
         raise SystemExit(f"{name}: no throughput measured")
+    RATES[name] = rate
     ratio = rows[-1][STUDY_COLUMNS.index("Attack acceptation ratio")]
     counts = {f"{kernel}[{DTYPE_NAMES[dt]}]": count
               for (kernel, dt), count in launches.items()}
@@ -2576,13 +2709,23 @@ def drive(cell, smi):
 def forensic_verdict(name, rows, smi):
     """A `--gar-diagnostics` run's forensic columns: `Sel workers` the
     ';'-joined indices of distinct workers (or '-'), finite `Dist honest
-    med` and `Var/norm ratio`, `Clip frac` in [0, 1] (above 0 for the
-    Trimmed mean), `Suspicion max` in [0, 1]; for the JAX diagnostics
-    test's line, from step 8 on no selection names the attackers 7 and 8,
-    and `Var/norm ratio` ends below where it started."""
-    first = len(STUDY_COLUMNS)
-    n = int(driver.process_commandline(list(CELLS_BY_NAME[name].argv))
-            .nb_workers)
+    med` and `Var/norm ratio` (under a fault plan, at the steps where no
+    honest row is NaN), `Clip frac` in [0, 1] (above 0 for the Trimmed
+    mean), `Suspicion max` in [0, 1]; for the JAX diagnostics test's
+    line, from step 8 on no selection names the attackers 7 and 8, and
+    `Var/norm ratio` ends below where it started."""
+    argv = list(CELLS_BY_NAME[name].argv)
+    faulted = "--fault-plan" in argv
+    first = len(STUDY_COLUMNS) + len(FAULT_COLUMNS) * faulted
+    args = driver.process_commandline(argv)
+    n = int(args.nb_workers)
+    clean = np.ones(len(rows), bool)
+    if faulted:
+        schedule = faults_mod.build_schedule(
+            faults_mod.FaultPlan.load(args.fault_plan), nb_workers=n,
+            nb_honests=n - args.nb_real_byz)
+        clean = np.array([not schedule.step_rows(step)[1].any()
+                          for step in range(len(rows))])
     selections = []
     for row in rows:
         cell = row[first]
@@ -2592,7 +2735,8 @@ def forensic_verdict(name, rows, smi):
         selections.append(set(picked))
     values = np.array([[float(v) for v in row[first + 1:]] for row in rows])
     med, ratio, clip, suspicion = values.T
-    if not (np.all(np.isfinite(med)) and np.all(np.isfinite(ratio))):
+    if not (np.all(np.isfinite(med[clean]))
+            and np.all(np.isfinite(ratio[clean]))):
         raise SystemExit(f"{name}: non-finite distance median or ratio")
     if not np.all((clip >= 0) & (clip <= 1)):
         raise SystemExit(f"{name}: clip fraction outside [0, 1]: {clip}")
@@ -2639,6 +2783,246 @@ def diag_vs_plain(smi):
         f"the headline's byte for byte in the {width} study columns; "
         f"{runs['headline'][0]:.4f} steps/s without diagnostics, "
         f"{runs['headline_diag'][0]:.4f} with, on {smi}")
+
+
+def expected_fault_columns(name):
+    """A fault cell's `Faults injected`, `Workers active` and `Quorum f`
+    rows worked out on the host from its plan's schedule: the schedule's
+    count; the rows neither dropped nor quarantined, where the honest
+    rows corrupted to NaN are quarantined and so, when one is, are the
+    `empire` rows (a multiple of the honest rows' mean, NaN with it);
+    the declared f clamped to the rule's ceiling at that count
+    (`faults/quorum.py::_F_CEILING`)."""
+    cell = CELLS_BY_NAME[name]
+    args = driver.process_commandline(list(cell.argv))
+    n, h = args.nb_workers, args.nb_workers - args.nb_real_byz
+    plan = faults_mod.FaultPlan.load(args.fault_plan)
+    schedule = faults_mod.build_schedule(plan, nb_workers=n, nb_honests=h)
+    ceiling = quorum._F_CEILING.get(args.gar, lambda count: (count - 1) // 2)
+    out = []
+    for step in range(cell.steps):
+        stale, nan, zero, scale, dup, drop, injected = schedule.step_rows(step)
+        bad = np.zeros(n, bool)
+        bad[:h] = nan
+        if nan.any() and args.attack == "empire":
+            bad[h:] = True
+        active = int((~drop & ~bad).sum())
+        out.append([injected, active,
+                    max(min(args.nb_decl_byz, ceiling(active)), 0)])
+    return out
+
+
+def fault_verdict(name, rows, smi):
+    """A fault cell's three columns (`FAULT_COLUMNS`, after the study
+    columns) equal `expected_fault_columns`."""
+    first = len(STUDY_COLUMNS)
+    got = [[int(v) for v in row[first:first + len(FAULT_COLUMNS)]]
+           for row in rows]
+    want = expected_fault_columns(name)
+    if got != want:
+        raise SystemExit(f"{name}: fault columns {got}, expected {want}")
+    columns = list(zip(*got))
+    log(f"{name} fault columns (equal to the schedule's): Faults injected "
+        f"{list(columns[0])}, Workers active {list(columns[1])}, Quorum f "
+        f"{list(columns[2])} on {smi}")
+
+
+class QuarantineLog(obs.SuspicionTracker):
+    """A suspicion tracker that keeps, after each step, the post-quarantine
+    active mask it was given and its quarantine term."""
+
+    steps = []
+
+    def update(self, step, selection, distances=None, active=None,
+               dist_matrix=None):
+        out = super().update(step, selection, distances=distances,
+                             active=active, dist_matrix=dist_matrix)
+        QuarantineLog.steps.append((step, np.asarray(active),
+                                    self._quarantine.copy()))
+        return out
+
+
+def quarantine_verdict(smi):
+    """`krum_f11_faults_diag`: the tracker is fed the `Active mask`, so
+    worker 9 (NaN over steps 2-5) carries the quarantine term from step 2,
+    growing to step 5 and decaying after, worker 3 (lost at step 2) from
+    step 2 on, and worker 0 never."""
+    log_ = QuarantineLog.steps
+    active = np.array([a for _, a, _ in log_])
+    term = np.array([q for _, _, q in log_])
+    held = (len(log_) == STEPS
+            and not active[2:6, 9].any() and active[[0, 1, 6], 9].all()
+            and np.all(term[:2, 9] == 0) and np.all(np.diff(term[1:6, 9]) > 0)
+            and np.all(np.diff(term[5:, 9]) < 0)
+            and np.all(term[2:, 3] > 0) and not term[:, 0].any())
+    if not held:
+        raise SystemExit(f"krum_f11_faults_diag: the tracker's quarantine "
+                         f"term {term[:, [0, 3, 9]].tolist()} on active masks "
+                         f"{active[:, [0, 3, 9]].tolist()}")
+    log(f"krum_f11_faults_diag: the suspicion tracker's quarantine term of "
+        f"worker 9 rises over its NaN steps 2-5 to {term[5, 9]:.4f} and "
+        f"decays to {term[-1, 9]:.4f}; worker 3's (lost at step 2) ends at "
+        f"{term[-1, 3]:.4f}, worker 0's stays 0 on {smi}")
+
+
+def fault_resume(smi):
+    """Under deterministic cuDNN, FAULT_RESUME (`resume_runs` side by
+    side): the killed run restarts from checkpoint-7, inside the straggler
+    window, and must write the uninterrupted runs' eval file and study
+    rows byte for byte (`resume_verdict`, `exact`)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_verdict(resume_runs(pathlib.Path(tmp), True, side_by_side=True,
+                                   case=FAULT_RESUME),
+                       "faults, cudnn.deterministic", smi, case=FAULT_RESUME,
+                       exact=True)
+
+
+def fault_vs_single(smi):
+    """Under deterministic cuDNN, `headline_faults` at M = 1 and M = 8
+    writes the same study and eval bytes (the chunk's fault rows in one
+    upload, the straggler window across the chunk boundary at step 8), on
+    `fused_vs_single`'s FUSED_TRAIN images (no epoch boundary inside a
+    chunk)."""
+    saved = os.environ.get("BMT_SYNTH_TRAIN")
+    os.environ["BMT_SYNTH_TRAIN"] = FUSED_TRAIN
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {M: fused_run(CELLS_BY_NAME["headline_faults"], M)
+                for M in (1, M_DEFAULT)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("BMT_SYNTH_TRAIN")
+        else:
+            os.environ["BMT_SYNTH_TRAIN"] = saved
+    if runs[1][1:] != runs[M_DEFAULT][1:]:
+        raise SystemExit("fault_vs_single: headline_faults at M = 1 and "
+                         "M = 8 wrote different CSVs")
+    log(f"fault_vs_single (deterministic): headline_faults at M = 1 "
+        f"({runs[1][0]:.4f} steps/s) and M = 8 ({runs[M_DEFAULT][0]:.4f} "
+        f"steps/s) wrote the same study and eval bytes on {smi}")
+
+
+# Each fault cell and the cell it faults
+FAULT_BASE = {"headline_faults": "headline",
+              "krum_f11_faults_diag": "krum_f11",
+              "adaptive_faults": "headline_adaptive"}
+
+
+def masked_vs_plain(smi):
+    """The masked Bulyan (f = 5, HEADLINE_PLAN) and Krum (f = 11,
+    KRUM_F11_PLAN) at the headline operand (phase 3's f32[25, 1,310,922]),
+    on each of the plan's STEPS steps as the engine builds it: the honest
+    rows (rolled by the step, so a straggler's buffered rows differ from
+    its fresh ones) through `inject.inject`, the empire rows -1.1 times
+    their mean (NaN where an honest row is), `sanitize.quarantine`; then
+    `quorum.masked_aggregate` with the kernels (launches exactly
+    MASKED_CALLS) against the same call with their plain versions on the
+    card (`plain_kernels`): `f_eff` exactly, the aggregate within rtol
+    1e-5, atol 1e-6 (`tests/test_torch_gpu.py`'s tolerance).
+
+    The selection is read off the Gram matrix, and the scores of
+    normal rows at this width lie within a Gram's f32 rounding of each
+    other: both Grams are held to the f64 one (within 1e-5 of its
+    largest diagonal entry, phase 3's tolerance), and where the two
+    calls select other rows from them (the weights from each Gram), the
+    step is a near-tie, logged and not compared; where they select the
+    same rows the aggregates must agree. Each rule must compare most of
+    its steps."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((HEADLINE_N, HEADLINE_D), generator=gen, device=dev)
+    for name, f, plan in (("bulyan", 5, HEADLINE_PLAN),
+                          ("krum", 11, KRUM_F11_PLAN)):
+        h = HEADLINE_N - f
+        schedule = faults_mod.build_schedule(plan, nb_workers=HEADLINE_N,
+                                             nb_honests=h)
+        rows = schedule.upload(0, STEPS, dev)
+        buffer = g[:h] if schedule.has_stale else g.new_zeros((0, HEADLINE_D))
+        select = {"bulyan": lambda *a: bulyan.selection_weights_masked(*a)[0],
+                  "krum": krum.selection_weights_masked}[name]
+        err, counts, ties = 0.0, [], []
+        for step in range(STEPS):
+            honest, buffer, ctx = inject.inject(
+                rows.at(step), schedule.has_stale, g[:h].roll(step, 0), buffer)
+            G = torch.cat([honest,
+                           (honest.mean(dim=0) * -1.1).expand(f, -1)])
+            active, _ = sanitize.quarantine(G, ctx.active)
+            _cuda.reset_launches()
+            agg, f_eff = quorum.masked_aggregate(gars[name], G, active,
+                                                 f_decl=f)
+            torch.cuda.synchronize()
+            if launched() != masked_launches(name):
+                raise SystemExit(f"masked {name} step {step}: launches "
+                                 f"{launched()}, expected "
+                                 f"{masked_launches(name)}")
+            _cuda.reset_launches()
+            with plain_kernels():
+                want, want_f = quorum.masked_aggregate(gars[name], G, active,
+                                                       f_decl=f)
+            torch.cuda.synchronize()
+            if launched():
+                raise SystemExit(f"masked {name}: the plain versions "
+                                 f"launched {launched()}")
+            if not torch.equal(f_eff, want_f):
+                raise SystemExit(f"masked {name} step {step}: f_eff "
+                                 f"{int(f_eff)}, plain {int(want_f)}")
+            counts.append((int(active.sum()), int(f_eff)))
+            grams = {"kernel": gar_kernels.sq_gram(G),
+                     "plain": gar_kernels.sq_gram_plain(G)}
+            exact = (G.double() @ G.double().T).float()
+            diag = torch.diagonal(exact)
+            atol = TOL_RTOL * float(diag[torch.isfinite(diag)].max())
+            for label, gram in grams.items():
+                compare(f"masked {name} step {step} {label} Gram against f64",
+                        gram, exact, atol=atol, rtol=0.0)
+            n_eff = active.sum(dtype=torch.int32)
+            weights = [select(_common.distances_from_sq_gram(gram), active,
+                              n_eff, f_eff) for gram in grams.values()]
+            if not torch.equal(*weights):
+                ties.append(step)
+                continue
+            err = max(err, compare(f"masked {name} step {step}", agg, want))
+        if 2 * len(ties) > STEPS:
+            raise SystemExit(f"masked {name}: near-ties at steps {ties}, "
+                             f"most of the {STEPS}")
+        log(f"masked {name} (f = {f}) at the headline operand, {STEPS} steps "
+            f"of its plan (active rows, f_eff: {counts}): the kernels' "
+            f"aggregate within rtol {TOL_RTOL}, atol {TOL_ATOL} of the plain "
+            f"versions' (max abs error {err:.3g}) on "
+            f"{STEPS - len(ties)} steps; near-ties (the two Grams, each "
+            f"within 1e-5 of the f64 one's largest diagonal entry, select "
+            f"other rows) at steps {ties}; f_eff equal, launches "
+            f"{masked_launches(name)} a call, on {smi}")
+    _cuda.reset_launches()
+
+
+def fault_cells(smi, totals):
+    """The `fault cells` phase: FAULT_CELLS through the driver (their
+    launches into `totals`), the quarantine in the forensic columns, each
+    cell's steps/s beside its unfaulted cell's, `masked_vs_plain`,
+    `fault_vs_single` and `fault_resume`."""
+    for cell in FAULT_CELLS:
+        saved = obs.SuspicionTracker
+        if cell.name == "krum_f11_faults_diag":
+            QuarantineLog.steps = []
+            obs.SuspicionTracker = QuarantineLog
+        try:
+            launches = drive(cell, smi)
+        finally:
+            obs.SuspicionTracker = saved
+        for (kernel, dtype), count in launches.items():
+            totals[kernel, dtype, cell.family] += count
+        if cell.name in FAULT_BASE:
+            base = FAULT_BASE[cell.name]
+            log(f"{cell.name}: {RATES[cell.name]:.4f} steps/s against "
+                f"{base}'s {RATES[base]:.4f} on {smi}")
+    quarantine_verdict(smi)
+    masked_vs_plain(smi)
+    fault_vs_single(smi)
+    fault_resume(smi)
 
 
 def union_busy_us(prof):
@@ -2694,15 +3078,18 @@ def step_profile(cell, smi, steps=3, setup=None):
         rng_host, member = engine.mirror_keys(state)
         masks = engine.draw_masks(wkeys, batch)
         marks[3].record()
-        honest = engine.phase_honest(state, xs, ys, lr, masks)
+        *honest, G_honest = engine.phase_honest(state, xs, ys, lr, masks)
+        # Under a fault plan the honest phase ends with the injection
+        G_honest, fault_buffer, fault = engine.phase_faults(state, G_honest)
         marks[4].record()
-        defense = engine.phase_defense(honest[-1], state.attack_state,
-                                       mix_key=mix_key, member=member)
+        defense = engine.phase_defense(G_honest, state.attack_state,
+                                       mix_key=mix_key, member=member,
+                                       fault=fault)
         marks[5].record()
         state, _ = engine.phase_update(
-            state, *honest, *defense[:4], lr, batch, rng=rng,
-            rng_host=rng_host,
-            diag_metrics=defense[4] if engine.diagnostics else None)
+            state, *honest, G_honest, *defense[:4], lr, batch, rng=rng,
+            rng_host=rng_host, **engine.defense_extras(defense),
+            fault_buffer=fault_buffer)
         marks[6].record()
         return state, marks
 
@@ -2753,6 +3140,18 @@ RESUME_CELL = cifar_cell("headline_resume", "bulyan", 5, EMPIRE, 8,
                          ("--evaluation-delta", "2", "--checkpoint-delta", "2",
                           "--auto-resume"))
 RESUME_KILL_STEP = 3  # after its second checkpoint (steps 0 and 2)
+# A kill-and-resume case: the cell, the step its run is killed at
+# (BMT_CHAOS_KILL_AT_STEP) and the step of the checkpoint it restarts from
+Resume = collections.namedtuple("Resume", "cell kill_step restart")
+RESUME = Resume(RESUME_CELL, RESUME_KILL_STEP, 2)
+# The headline fault cell with checkpoints at steps 7 and 14: its run
+# killed at the first chunk boundary past step 8 (step 14, before that
+# checkpoint) restarts from checkpoint-7, inside the straggler window
+# (steps 6-9)
+FAULT_RESUME = Resume(cifar_cell(
+    "headline_faults_resume", "bulyan", 5, EMPIRE,
+    flags=(*plan_flag("headline"), "--checkpoint-delta", "7",
+           "--auto-resume")), 8, 7)
 # How far a resumed run may lie from an uninterrupted one where the card
 # is not deterministic: SPREAD_FACTOR times two uninterrupted runs'
 # spread, or SPREAD_FLOOR of the column's largest magnitude, whichever is
@@ -2771,9 +3170,9 @@ DETERMINISTIC = ("import sys, torch; "
                  "sys.exit(main(sys.argv[1:]))")
 
 
-def _resume_child(resdir, deterministic, extra=None):
-    """One child process of RESUME_CELL through the driver, started and
-    not waited for; its output goes to `<resdir>.out` and `<resdir>.err`
+def _resume_child(resdir, deterministic, extra=None, cell=RESUME_CELL):
+    """One child process of `cell` through the driver, started and not
+    waited for; its output goes to `<resdir>.out` and `<resdir>.err`
     (files: a child never blocks on a full pipe)."""
     env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent),
            "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
@@ -2783,8 +3182,7 @@ def _resume_child(resdir, deterministic, extra=None):
     resdir.parent.mkdir(parents=True, exist_ok=True)
     with open(f"{resdir}.out", "w") as out, open(f"{resdir}.err", "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, *entry,
-             *cell_argv(RESUME_CELL, RESUME_CELL.steps, str(resdir))],
+            [sys.executable, *entry, *cell_argv(cell, cell.steps, str(resdir))],
             env=env, stdout=out, stderr=err)
     proc.logs = resdir
     return proc
@@ -2813,73 +3211,82 @@ def _waited(procs, expected, t0):
     return out
 
 
-def resume_runs(tmp, deterministic, side_by_side=False):
-    """RESUME_CELL through the driver in child processes: twice
-    uninterrupted (A, B), then SIGKILLed at step RESUME_KILL_STEP
+def resume_runs(tmp, deterministic, side_by_side=False, case=RESUME):
+    """`case.cell` through the driver in child processes: twice
+    uninterrupted (A, B), then SIGKILLed at step `case.kill_step`
     (`BMT_CHAOS_KILL_AT_STEP`) and `--auto-resume`d with the same command
     line (R); with `side_by_side`, A, B and the killed run at once, then
     the resume, else one after the other. Returns each run's `(eval
     file, study rows without the recovery columns)` and checks the kill,
-    the restart and the `Restarts` column."""
+    the restart from checkpoint-`case.restart` and the `Restarts`
+    column."""
+    cell, steps, restart = case.cell, case.cell.steps, case.restart
     strip = len(RECOVERY_COLUMNS)
-    header = "# " + "\t".join(STUDY_COLUMNS + RECOVERY_COLUMNS)
-    kill = {"BMT_CHAOS_KILL_AT_STEP": RESUME_KILL_STEP}
+    faults = FAULT_COLUMNS if "--fault-plan" in cell.argv else ()
+    header = "# " + "\t".join(STUDY_COLUMNS + faults + RECOVERY_COLUMNS)
+    kill = {"BMT_CHAOS_KILL_AT_STEP": case.kill_step}
     t0 = time.perf_counter()
     first = [(name, kill if name == "R" else None) for name in "ABR"]
     labels = {name: f"{name}{' (killed)' if extra else ''}"
               for name, extra in first}
+
+    def child(name, extra=None):
+        return _resume_child(tmp / name, deterministic, extra, cell)
+
     if side_by_side:
-        _waited({labels[name]: _resume_child(tmp / name, deterministic, extra)
-                 for name, extra in first},
+        _waited({labels[name]: child(name, extra) for name, extra in first},
                 {labels[name]: -9 if extra else 0 for name, extra in first}, t0)
     else:
         for name, extra in first:
-            _waited({labels[name]: _resume_child(tmp / name, deterministic,
-                                                 extra)},
+            _waited({labels[name]: child(name, extra)},
                     {labels[name]: -9 if extra else 0}, t0)
     found = checkpoint_mod.find_latest_valid(tmp / "R")
-    if found is None or found.name != "checkpoint-2":
+    if found is None or found.name != f"checkpoint-{restart}":
         raise SystemExit(f"the killed run left {found} as its newest "
-                         f"checkpoint, expected checkpoint-2")
-    resumed = _waited({"R": _resume_child(tmp / "R", deterministic)},
-                      {"R": 0}, t0)
-    if "Auto-resume: restart #1 from checkpoint-2" not in resumed["R"]:
-        raise SystemExit("the resumed run did not restart from checkpoint-2")
+                         f"checkpoint, expected checkpoint-{restart}")
+    resumed = _waited({"R": child("R")}, {"R": 0}, t0)
+    if f"Auto-resume: restart #1 from checkpoint-{restart}" not in resumed["R"]:
+        raise SystemExit(f"the resumed run did not restart from "
+                         f"checkpoint-{restart}")
     out = {}
     for name in "ABR":
         study = (tmp / name / "study").read_text().split(os.linesep)
         if study[0] != header:
             raise SystemExit(f"run {name}: study header {study[0]!r}")
         restarts = [row.split("\t")[-1] for row in study[1:]]
-        if restarts != (["0", "0"] + ["1"] * 6 if name == "R" else ["0"] * 8):
+        if restarts != (["0"] * restart + ["1"] * (steps - restart)
+                        if name == "R" else ["0"] * steps):
             raise SystemExit(f"run {name}: Restarts column {restarts}")
         out[name] = ((tmp / name / "eval").read_text(),
                      [row.rsplit("\t", strip)[0] for row in study[1:]])
     return out
 
 
-def resume_verdict(runs, label, smi):
+def resume_verdict(runs, label, smi, case=RESUME, exact=False):
     """Byte-equal resumed CSVs where A and B are byte-equal, else R within
     SPREAD_FACTOR times the spread of A and B (or SPREAD_FLOOR of the
     column's largest magnitude) in every study column, NaN positions
-    equal; logs which held, fails otherwise. Returns whether A and B
-    were byte-equal."""
+    equal; with `exact`, A and B must be byte-equal. Logs which held,
+    fails otherwise. Returns whether A and B were byte-equal."""
     (eval_a, rows_a), (eval_b, rows_b), (eval_r, rows_r) = (
         runs[name] for name in "ABR")
     same = eval_a == eval_b and rows_a == rows_b
     log(f"resume check ({label}): two uninterrupted card runs of "
-        f"{RESUME_CELL.steps} steps are {'byte-equal' if same else 'NOT byte-equal'} "
+        f"{case.cell.steps} steps are {'byte-equal' if same else 'NOT byte-equal'} "
         f"(eval {eval_a == eval_b}, study {rows_a == rows_b})")
     if same:
         if eval_r != eval_a or rows_r != rows_a:
             raise SystemExit(f"resume check ({label}): the killed and resumed "
                              f"run's CSVs differ from the uninterrupted run's "
                              f"on a deterministic card")
-        log(f"resume check ({label}): the killed (step {RESUME_KILL_STEP}) and "
-            f"resumed (from checkpoint-2) run wrote the uninterrupted run's "
-            f"eval file and study rows byte for byte (Restarts 0, 0, then 1) "
-            f"on {smi}")
+        log(f"resume check ({label}): the killed (step {case.kill_step}) and "
+            f"resumed (from checkpoint-{case.restart}) run wrote the "
+            f"uninterrupted run's eval file and study rows byte for byte "
+            f"(Restarts 0, then 1 from step {case.restart}) on {smi}")
         return True
+    if exact:
+        raise SystemExit(f"resume check ({label}): the two uninterrupted "
+                         f"runs are not byte-equal")
 
     ratio = spread_verdict(f"resume check ({label})", (rows_a, rows_b),
                            rows_r)
@@ -2980,6 +3387,8 @@ NO_READ_CELLS = (("headline", M_DEFAULT), ("headline_adaptive", M_DEFAULT),
                  ("headline_mixture", M_DEFAULT),
                  ("headline_mixture_per_call", M_DEFAULT),
                  ("headline_adam", M_DEFAULT), ("headline_diag", M_DEFAULT),
+                 ("headline_faults", M_DEFAULT), ("adaptive_faults", M_DEFAULT),
+                 ("krum_f11_faults_diag", M_DEFAULT),
                  ("mnist-alie-warmup-krum", M_DEFAULT),
                  ("default", M_DEFAULT), ("brute", 1), (APPENDIX_BULYAN, 2),
                  ("baseline_wrn_aksel", 2))
@@ -3224,6 +3633,7 @@ def main():
         phases[name] = time.perf_counter() - t0 - sum(phases.values())
 
     smi = environment()
+    write_fault_plans()
     build()
     lap("build")
     records = (key_tree_kernels(smi) + search_kernel(smi)
@@ -3257,6 +3667,8 @@ def main():
             totals[kernel, dtype, cell.family] += count
     diag_vs_plain(smi)
     lap("diag cells")
+    fault_cells(smi, totals)
+    lap("fault cells")
     resume_check(smi)
     lap("resume")
     no_host_reads(smi)
@@ -3265,7 +3677,7 @@ def main():
     lap("fused vs single")
     device_gar_cell(smi)
     lap("device-gar")
-    for cell in (*CELLS, *DIAG_CELLS):
+    for cell in (*CELLS, *DIAG_CELLS, *FAULT_CELLS):
         if cell.name in PROFILED:
             # WRN's step is 18k device operations, the per-call mixture's
             # 5k and the zoo's up to 13k: one step each keeps their
@@ -3284,6 +3696,7 @@ def main():
         f"{name} {seconds:.1f}" for name, seconds in phases.items())
         + f"; {time.perf_counter() - t0:.1f} in all")
 
+    shutil.rmtree(FAULT_PLAN_DIR, ignore_errors=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,13 @@ the form `tests/test_torch_diag.py` holds to the JAX package on the CPU):
 its aggregate bit for bit its plain aggregate, its launches exactly
 `chip_smoke.DIAG_CALLS`, and its aux against the CPU port's: selection
 and trim fraction exactly, distances and scores within rtol 1e-5 and
-1e-5 of their largest finite magnitude.
+1e-5 of their largest finite magnitude. The masked forms of the
+dynamic quorum (`faults/quorum.py`) on the card: their launches exactly
+`chip_smoke.MASKED_CALLS` (Krum and Bulyan through `sq_gram` and
+`weighted_rows_mean`, the masked sorts through `colsort`), `f_eff` and
+the aggregate as the same forms with every kernel's plain version on
+the card (`chip_smoke.plain_kernels`) within rtol 1e-5, atol 1e-6; and a
+chunk with a fault plan makes no synchronizing call.
 """
 
 import numpy as np
@@ -30,8 +36,8 @@ import torch
 from byzantinemomentum_tpu_torch.ops import (
     _common, bulyan, gar_kernels, gars, sort_kernels)
 from chip_smoke import (
-    DIAG_CALLS, diag_launches, diag_operand, hash_stack, launched,
-    nan_attack_operand)
+    DIAG_CALLS, HEADLINE_PLAN, MASKED_CALLS, diag_launches, diag_operand,
+    hash_stack, launched, masked_launches, nan_attack_operand, plain_kernels)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -1450,3 +1456,56 @@ def test_diagnose_on_the_card_matches_the_cpu(cuda, name):
         finite = want[torch.isfinite(want)].abs()
         scale = float(finite.max()) if finite.numel() else 0.0
         _assert_values(aux[key], want, atol=max(ATOL, RTOL * scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MASKED_CALLS))
+def test_masked_forms_on_the_card_match_their_plain_kernel_forms(cuda, name):
+    from byzantinemomentum_tpu_torch.faults import quorum
+    n, f, d = 25, 5, 20_011
+    g = _mat(n, d, seed=len(name), nan_rows=(7,), dup=True, inf=True)
+    g[[3, 22]] = float("nan")
+    active = torch.ones(n, dtype=torch.bool)
+    active[[3, 22]] = False
+    G, act = g.to(cuda), active.to(cuda)
+    gar_kernels.reset_launches()
+    agg, f_eff = quorum.masked_aggregate(gars[name], G, act, f_decl=f)
+    torch.cuda.synchronize()
+    assert launched() == masked_launches(name)
+    with plain_kernels():
+        want, want_f = quorum.masked_aggregate(gars[name], G, act, f_decl=f)
+    assert int(f_eff) == int(want_f)
+    _assert_values(agg, want)
+
+
+@pytest.mark.gpu
+def test_fault_chunk_makes_no_synchronizing_call(cuda, tmp_path, monkeypatch):
+    """The headline chunk test's run with `chip_smoke.HEADLINE_PLAN`: one
+    warm-up step, then steps 1-4 (the NaN window and the lost worker, the
+    masked Bulyan and the quarantine) under `set_sync_debug_mode("error")`;
+    the fault columns come back as [4] int32 tensors."""
+    from byzantinemomentum_tpu_torch.cli import attack as driver
+    monkeypatch.setenv("BMT_SYNTH_TRAIN", "500")
+    monkeypatch.setenv("BMT_SYNTH_TEST", "100")
+    plan = HEADLINE_PLAN.save(tmp_path / "plan.json")
+    args = driver._postprocess(driver.process_commandline([
+        "--seed", "1", "--dataset", "cifar10", "--model", "empire-cnn",
+        "--nb-workers", "25", "--nb-decl-byz", "5", "--nb-real-byz", "5",
+        "--gar", "bulyan", "--attack", "empire", "--batch-size", "8",
+        "--momentum", "0.99", "--gradient-clip", "5", "--nb-for-study", "1",
+        "--nb-for-study-past", "2", "--fault-plan", str(plan),
+        "--result-directory", str(tmp_path / "run")]))
+    _, engine, state = driver._setup(args)
+    lrs = np.full(4, 0.01, np.float32)
+    state, _ = engine.train_multi_indexed(state, *engine.sample_indices(1),
+                                          lrs[:1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = engine.train_multi_indexed(
+            state, *engine.sample_indices(4), lrs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert metrics["Workers active"].dtype == torch.int32
+    assert metrics["Workers active"].tolist() == [25, 18, 18, 18]
+    assert bool(torch.isfinite(metrics["Defense gradient norm"]).all())
