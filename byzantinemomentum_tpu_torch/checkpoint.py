@@ -35,7 +35,11 @@ fsync, `os.replace`, directory fsync) with a MAGIC + CRC32 footer
 (`seal`); `find_latest_valid` walks a run's `checkpoint-<step>` files
 newest first past torn or corrupt ones; a per-run manifest
 (`checkpoints.json`) drives retention (`keep`) and counts restarts;
-`mirror` lands the same bytes in a second directory. The environment
+`mirror` lands the same bytes in a second directory. With a recorder
+active (`obs/recorder.py`), a save and a load are the
+`checkpoint_save` and `checkpoint_load` spans, a mirrored copy the
+`checkpoint_mirrored` event and a checkpoint skipped by the scan the
+`checkpoint_invalid` event, as in the JAX package. The environment
 variable `BMT_CHAOS_TORN_CHECKPOINT_STEP=<step>` makes the save of that
 step write half its bytes to the tmp file and kill the process (the
 preemption stand-in the kill-and-resume tests use).
@@ -52,6 +56,8 @@ import torch
 
 from byzantinemomentum_tpu_torch import utils
 from byzantinemomentum_tpu_torch.engine.state import TrainState
+# Telemetry (no-ops while no recorder is active)
+from byzantinemomentum_tpu_torch.obs import recorder as obs
 
 __all__ = ["VERSION", "MAGIC", "MANIFEST_NAME", "MAX_CHUNK_SIZE", "packb",
            "unpackb", "save", "load", "seal", "verify", "state_dict",
@@ -466,18 +472,20 @@ def save(path, state, *, data_state=None, keep=None, mirror=None):
     all); `mirror`: a second directory that receives the same bytes."""
     path = pathlib.Path(path)
     step = int(state.steps)
-    payload = {"version": VERSION, "state": state_dict(state)}
-    if data_state is not None:
-        payload["data"] = data_state
-    data = seal(packb(payload))
-    _chaos_torn_write(path, data, step)
-    _atomic_write(path, data)
-    _manifest_add(path.parent, path.name, step, len(data), keep=keep)
-    if mirror is not None:
-        mirror = pathlib.Path(mirror)
-        mirror.mkdir(parents=True, exist_ok=True)
-        _atomic_write(mirror / path.name, data)
-        _manifest_add(mirror, path.name, step, len(data), keep=keep)
+    with obs.span("checkpoint_save", step=step):
+        payload = {"version": VERSION, "state": state_dict(state)}
+        if data_state is not None:
+            payload["data"] = data_state
+        data = seal(packb(payload))
+        _chaos_torn_write(path, data, step)
+        _atomic_write(path, data)
+        _manifest_add(path.parent, path.name, step, len(data), keep=keep)
+        if mirror is not None:
+            mirror = pathlib.Path(mirror)
+            mirror.mkdir(parents=True, exist_ok=True)
+            _atomic_write(mirror / path.name, data)
+            _manifest_add(mirror, path.name, step, len(data), keep=keep)
+            obs.emit("checkpoint_mirrored", file=path.name, step=step)
     return path
 
 
@@ -490,10 +498,11 @@ def load(path, template, *, return_data=False):
     counters. With `return_data=True` returns `(state, data_state)`
     (None for a checkpoint written without sampler snapshots)."""
     path = pathlib.Path(path)
-    try:
-        raw = unpackb(_unseal(path, path.read_bytes()))
-    except (ValueError, TypeError, KeyError) as err:
-        _fail(path, str(err))
+    with obs.span("checkpoint_load", file=path.name):
+        try:
+            raw = unpackb(_unseal(path, path.read_bytes()))
+        except (ValueError, TypeError, KeyError) as err:
+            _fail(path, str(err))
     if not isinstance(raw, dict) or raw.get("version") != VERSION:
         version = raw.get("version") if isinstance(raw, dict) else None
         _fail(path, f"expected version {VERSION!r}, got {version!r}")
@@ -583,6 +592,7 @@ def find_latest_valid(directory, prefix="checkpoint-"):
         if verify(entry):
             return entry
         utils.warning(f"Skipping torn/corrupt checkpoint {entry.name}")
+        obs.emit("checkpoint_invalid", file=entry.name)
     return None
 
 

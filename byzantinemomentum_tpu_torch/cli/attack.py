@@ -4,9 +4,9 @@ of the training path ported so far).
 Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
-JAX driver that the port does not have yet (meshes, health and
-rollbacks, telemetry, ...) are refused by the parser rather than
-ignored.
+JAX driver that the port does not have yet (`--mesh`, `--trace-dir`,
+`--attribution`, `--telemetry-mfu`, `--download`) are refused by the
+parser rather than ignored.
 
 The defense is `--gar` or a `--gars 'name[,freq[,json-args]];...'`
 mixture (the JAX `_parse_gars`, with its messages), drawn once a step
@@ -96,6 +96,45 @@ tracker sees the quarantined rows (`Active mask`). The plan's `fetch_*`
 policy fields parameterize the JAX package's downloads; the port
 downloads nothing and sets no `BMT_FETCH_*` variable.
 
+Telemetry, as in the JAX driver, is on whenever there is a result
+directory (`--no-telemetry` turns it off; `--telemetry` only says so):
+`telemetry.jsonl` (`obs/recorder.py`) gets `run_start`, `data_setup`,
+`restart` after an auto-resume, the `eval` and checkpoint spans, the
+`faults_injected` counter, every `--telemetry-interval` steps a sample
+(`device_step_ms` from CUDA events around a chunk, read once the next
+chunk is queued, `steps_per_sec`, `host_rss_mb`, and the atomically
+replaced `heartbeat.json`), the suspicion tracker's and the health
+monitor's edges, `forensics_summary`, `health_summary` and `run_end`.
+`python -m byzantinemomentum_tpu_torch.obs <run directory>` renders it
+(`obs/report.py`).
+
+`--health` (with `--result-directory` and `--nb-for-study`, else the JAX
+warning drops it) adds the health vector to every step
+(`engine/health.py`) and the JAX driver's `HEALTH_COLUMNS` to the study
+CSV, after the forensic columns; the host folds each row into
+`obs/health/monitor.py::HealthMonitor`, whose anomaly edges land on the
+timeline and whose ring is dumped as `health_blackbox.json` at a
+rollback, a give-up and the run's end. `--rollback-budget N` (with
+`--checkpoint-delta`) watches `isfinite(max |theta|)` after each chunk:
+the flag is a device scalar read with the chunk's rows once the next
+chunk is queued, and before any evaluation, checkpoint, prompt or the
+run's end, so none of them sees a poisoned state and a chunk between
+milestones costs no wait. A non-finite state (or, with
+`--rollback-on-anomaly`, the monitor's rising anomaly edge) dumps the
+blackbox, restores the newest valid checkpoint of the result directory
+or its mirror with the samplers' state, re-seeds the step key with
+`fold_in(key, 0x5EED + rollbacks)` (the host's mirror of the key chain
+with it), drops the chunks not yet written, truncates the CSVs to the
+restored step and, with `--rollback-tighten-quorum`, raises f by one
+where every defense's check allows it and rebuilds the engine. The
+study CSV then carries the `Rollbacks`/`Restarts` columns, as under
+`--auto-resume`; a spent budget or a failed reload ends the run with
+exit code 1. `BMT_CHAOS_NAN_AT_STEP`, `BMT_CHAOS_NAN_REPEAT`,
+`BMT_CHAOS_BLOWUP_AT_STEP` and `BMT_CHAOS_BLOWUP_FACTOR` poison the
+parameters after a chunk as the JAX driver's hooks do (`_Chaos`).
+The JAX driver's SIGINT/SIGTERM latch (its exit code 130) is not ported:
+the loop runs to its `--nb-steps`.
+
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
 prefixed with the line separator, values at the parameter dtype's
@@ -104,6 +143,7 @@ precision), so `study.py` reads the port's result directories unchanged.
 
 import argparse
 import code
+import dataclasses
 import json
 import math
 import os
@@ -125,8 +165,8 @@ from byzantinemomentum_tpu_torch import ops as ops_mod
 from byzantinemomentum_tpu_torch import obs, optim, prng, utils
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    DTYPES, FAULT_COLUMNS, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS,
-    Engine, EngineConfig)
+    DTYPES, FAULT_COLUMNS, FORENSIC_COLUMNS, HEALTH_COLUMNS, RECOVERY_COLUMNS,
+    STUDY_COLUMNS, Engine, EngineConfig)
 from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.models.core import apply_named_init, inits
 
@@ -201,6 +241,23 @@ def process_commandline(argv=None):
              "tracker (obs/forensics.py: suspect_worker telemetry events). "
              "Off by default: the diagnostic aux rides the compiled step "
              "as extra outputs (measured overhead documented in README)")
+    add("--health", action="store_true", default=False,
+        help="Numerics flight recorder: compute the tensor-health vector "
+             "every step (engine/health.py — fixed-bin log-scale "
+             "histogram of submitted-momentum norms, the paper's Var/norm "
+             "ratio, weight/update norms, per-phase NaN/Inf counts), "
+             "append the HEALTH_COLUMNS to the study CSV and feed the "
+             "host-side SPC monitor (obs/health: EWMA+MAD z-scores with "
+             "sustained-run rules, health_anomaly/health_cleared telemetry "
+             "events, health_blackbox.json post-mortem ring). Off by "
+             "default; when off the step runs exactly as without it")
+    add("--rollback-on-anomaly", action="store_true", default=False,
+        help="Upgrade the divergence-rollback trigger from 'training "
+             "state went non-finite' to 'non-finite OR sustained health "
+             "anomaly' (implies --health; needs '--rollback-budget'): the "
+             "SPC monitor's rising anomaly edge rolls the run back to the "
+             "last good checkpoint BEFORE the state is destroyed, reusing "
+             "the pipelined rollback machinery")
     add("--attack", type=str, default="nan", help="Attack to use")
     add("--attack-args", nargs="*", help="key:value args for the attack")
     add("--fault-plan", type=str, default=None,
@@ -211,6 +268,19 @@ def process_commandline(argv=None):
              "plan's degradation policy (NaN-quarantine, dynamic quorum, "
              "download retry). Adds the 'Faults injected'/'Workers "
              "active'/'Quorum f' columns to the study CSV")
+    add("--telemetry", action="store_true", default=False,
+        help="Record run telemetry — 'telemetry.jsonl' (spans/events/"
+             "counters/gauges) and an atomic 'heartbeat.json' in the result "
+             "directory. Default: ON whenever '--result-directory' is set "
+             "(there is nowhere to write otherwise); this flag only makes "
+             "the intent explicit")
+    add("--no-telemetry", action="store_true", default=False,
+        help="Disable run telemetry (no telemetry.jsonl, no heartbeat)")
+    add("--telemetry-interval", type=int, default=50,
+        help="Steps between telemetry samples: each sample times one "
+             "chunk on the device (CUDA events, read once the next chunk "
+             "is queued), then records steps/s, host RSS and refreshes the "
+             "heartbeat")
     add("--model", type=str, default="simples-conv", help="Model to train")
     add("--model-args", nargs="*", help="key:value args for the model")
     add("--loss", type=str, default="nll", help="Loss to use")
@@ -268,6 +338,17 @@ def process_commandline(argv=None):
     add("--checkpoint-mirror", type=str, default=None,
         help="Second directory every checkpoint is also written to; "
              "'--auto-resume' scans both for the newest valid checkpoint")
+    add("--rollback-budget", type=int, default=0,
+        help="Divergence rollback: when the training state goes non-finite "
+             "mid-run, restore the last good checkpoint, re-seed the step "
+             "RNG fold and continue — at most this many times per process "
+             "(0 disables; needs '--checkpoint-delta' with a result "
+             "directory). Exhausting the budget fails the run (exit 1) so "
+             "a supervisor can retry it")
+    add("--rollback-tighten-quorum", action="store_true", default=False,
+        help="After each rollback, also raise the declared Byzantine count "
+             "f by one (only while every defense's contract still holds) "
+             "and rebuild the engine")
     add("--result-directory", type=str, default=None,
         help="Directory for results (eval/study CSVs, checkpoints)")
     add("--evaluation-delta", type=int, default=100,
@@ -385,12 +466,46 @@ def _postprocess(args):
         utils.warning("Argument '--checkpoint-delta' ignored as no "
                       "'--result-directory' was specified")
         args.checkpoint_delta = 0
+    # Telemetry, health and rollback flags (the JAX driver's checks and
+    # messages)
+    if args.telemetry and args.no_telemetry:
+        utils.fatal("Invalid arguments: '--telemetry' and '--no-telemetry' "
+                    "are mutually exclusive")
+    if args.telemetry_interval < 1:
+        utils.fatal(f"Invalid arguments: non-positive telemetry interval "
+                    f"{args.telemetry_interval}")
+    if args.telemetry and args.result_directory is None:
+        utils.warning("'--telemetry' needs '--result-directory' (there is "
+                      "nowhere to write the timeline); telemetry disabled")
     if args.gar_diagnostics and (args.result_directory is None
                                  or args.nb_for_study < 1):
         utils.warning("'--gar-diagnostics' needs the study pipeline "
                       "('--nb-for-study' with '--result-directory'); "
                       "diagnostics disabled")
         args.gar_diagnostics = False
+    if args.rollback_budget < 0:
+        utils.fatal(f"Invalid arguments: negative rollback budget "
+                    f"{args.rollback_budget}")
+    if args.rollback_budget > 0 and (args.result_directory is None
+                                     or args.checkpoint_delta <= 0):
+        utils.warning("'--rollback-budget' needs periodic checkpoints "
+                      "('--checkpoint-delta' with '--result-directory'); "
+                      "rollback disabled")
+        args.rollback_budget = 0
+    if args.rollback_on_anomaly and not args.health:
+        args.health = True  # the early-warning trigger needs the stream
+    if args.health and (args.result_directory is None
+                        or args.nb_for_study < 1):
+        utils.warning("'--health' needs the study pipeline "
+                      "('--nb-for-study' with '--result-directory'); "
+                      "health columns disabled")
+        args.health = False
+        args.rollback_on_anomaly = False
+    if args.rollback_on_anomaly and args.rollback_budget <= 0:
+        utils.warning("'--rollback-on-anomaly' needs '--rollback-budget' "
+                      "(there is no rollback machinery to trigger); "
+                      "anomaly trigger disabled")
+        args.rollback_on_anomaly = False
     # Study coercions (the JAX driver's)
     if args.result_directory is None:
         args.nb_for_study = 0
@@ -451,24 +566,38 @@ class _ResultFiles:
     `make(..., resume_step=s)` keeps an existing file's rows strictly
     below s (those a killed predecessor wrote before its last valid
     checkpoint; rows of another header, torn rows and unparsable step
-    numbers go), so the rows on disk stay one trajectory."""
+    numbers go), so the rows on disk stay one trajectory; `truncate(s)`
+    does the same to the open files after a rollback."""
 
     def __init__(self, directory):
         self.directory = directory
         self._fds = {}
+        self._headers = {}
 
     def make(self, name, *fields, resume_step=None):
         header = "# " + "\t".join(str(field) for field in fields)
+        self._headers[name] = header
+        self._write(name, header, resume_step)
+
+    def _write(self, name, header, limit_step=None):
         path = self.directory / name
         kept = ()
-        if resume_step is not None and path.is_file():
-            kept = self._surviving_rows(path, header, resume_step)
+        if limit_step is not None and path.is_file():
+            kept = self._surviving_rows(path, header, limit_step)
         fd = path.open("w")
         fd.write(header)
         for row in kept:
             fd.write(os.linesep + row)
         fd.flush()
         self._fds[name] = fd
+
+    def truncate(self, step):
+        """Rewind every open file to its rows strictly below `step` (a
+        divergence rollback: the rows past the restored checkpoint belong
+        to the abandoned trajectory)."""
+        for name, fd in list(self._fds.items()):
+            fd.close()
+            self._write(name, self._headers[name], step)
 
     @staticmethod
     def _surviving_rows(path, header, limit_step):
@@ -510,10 +639,15 @@ class _ResultFiles:
 # a fault plan)
 FORENSIC_SCALARS = ("Dist honest med", "Var/norm ratio", "Clip frac")
 FORENSIC_VECTORS = ("Sel mask", "Worker dist", "Active mask")
+# The health values: the floats written at the dtype's precision, the
+# counts written as integers, and the histogram (`Norm hist`, ';'-joined)
+HEALTH_FLOATS = ("Var ratio", "Weight norm", "Update norm", "Update/weight")
+HEALTH_COUNTS = ("Nonfinite submitted", "Nonfinite aggregate",
+                 "Nonfinite state")
 
 
 def _study_rows(metrics, steps, datapoints, increment, count, float_format,
-                rng=None, recovery=(), tracker=None):
+                rng=None, recovery=(), tracker=None, monitor=None):
     """The study CSV rows of a chunk of `count` steps from `steps` (its
     first step's point count `datapoints`, `increment` points a step), and
     the words of the device key `rng` after the chunk (None without one):
@@ -525,16 +659,23 @@ def _study_rows(metrics, steps, datapoints, increment, count, float_format,
     a suspicion `tracker` (`--gar-diagnostics`), the forensic columns:
     the forensic scalars and the `[count, n]` selection, worker-distance
     and (under a fault plan) active-mask vectors join the same transfer,
-    and the tracker folds the steps in order."""
+    and the tracker folds the steps in order; then, with a health
+    `monitor` (`--health`), the health columns: the health scalars and
+    the `[count, 16]` histograms join the transfer, and the monitor folds
+    each step's vector in order."""
     columns = STUDY_COLUMNS[2:] if metrics is not None else ()
     faulted = bool(columns) and FAULT_COLUMNS[0] in metrics
     forensic = bool(columns) and tracker is not None
+    health = bool(columns) and monitor is not None
     ints = FAULT_COLUMNS if faulted else ()
-    scalars = columns + ints + (FORENSIC_SCALARS if forensic else ())
+    extra = ((FORENSIC_SCALARS if forensic else ())
+             + (HEALTH_FLOATS + HEALTH_COUNTS if health else ()))
+    scalars = columns + ints + extra
     parts = [torch.stack([metrics[column].double() for column in scalars])
              .flatten()] if columns else []
-    vectors = [name for name in FORENSIC_VECTORS
-               if forensic and name in metrics]
+    vectors = ([name for name in FORENSIC_VECTORS
+                if forensic and name in metrics]
+               + (["Norm hist"] if health else []))
     parts += [metrics[name].double().flatten() for name in vectors]
     if rng is not None:
         parts.append(rng.double())
@@ -542,32 +683,47 @@ def _study_rows(metrics, steps, datapoints, increment, count, float_format,
         return [], None
     host = torch.cat(parts).tolist()
     words = tuple(int(word) for word in host[-2:]) if rng is not None else None
-    table = [host[k * count:(k + 1) * count] for k in range(len(scalars))]
-    if forensic:
-        n = tracker.nb_workers
-        start = len(scalars) * count
-        vector = {name: np.asarray(host[start + k * count * n:
-                                        start + (k + 1) * count * n]
-                                   ).reshape(count, n)
-                  for k, name in enumerate(vectors)}
+    table = dict(zip(scalars, (host[k * count:(k + 1) * count]
+                               for k in range(len(scalars)))))
+    vector, start = {}, len(scalars) * count
+    for name in vectors:
+        width = metrics[name].shape[-1]
+        vector[name] = np.asarray(
+            host[start:start + count * width]).reshape(count, width)
+        start += count * width
     rows = []
     for i in range(count if columns else 0):
         row = [steps + i, datapoints + i * increment]
-        row += [float_format % values[i] for values in table[:len(columns) - 1]]
-        row.append(float(table[len(columns) - 1][i]))
-        row += [int(values[i]) for values in
-                table[len(columns):len(columns) + len(ints)]]
+        row += [float_format % table[column][i] for column in columns[:-1]]
+        row.append(float(table[columns[-1]][i]))
+        row += [int(table[column][i]) for column in ints]
         row += recovery
         if forensic:
             sel = vector["Sel mask"][i]
             selected = np.nonzero(sel > 0)[0]
             row.append(";".join(str(w) for w in selected) or "-")
-            row += [float_format % values[i]
-                    for values in table[len(columns) + len(ints):]]
+            row += [float_format % table[column][i]
+                    for column in FORENSIC_SCALARS]
             active = vector["Active mask"][i] if "Active mask" in vector else None
             tracker.update(steps + i, sel, distances=vector["Worker dist"][i],
                            active=active)
             row.append(float_format % tracker.max())
+        if health:
+            value = {column: table[column][i]
+                     for column in HEALTH_FLOATS + HEALTH_COUNTS}
+            row += [float_format % value[column] for column in HEALTH_FLOATS]
+            hist = [int(c) for c in vector["Norm hist"][i]]
+            row.append(";".join(str(c) for c in hist))
+            nonfinite = [int(value[column]) for column in HEALTH_COUNTS]
+            row += nonfinite
+            monitor.update(steps + i, {
+                "var_ratio": value["Var ratio"],
+                "update_ratio": value["Update/weight"],
+                "weight_norm": value["Weight norm"],
+                "update_norm": value["Update norm"],
+                "nonfinite": sum(nonfinite),
+                "norm_hist": hist,
+            })
         rows.append(row)
     return rows, words
 
@@ -632,7 +788,7 @@ def _setup(args):
         weight_decay=args.weight_decay, gradient_clip=args.gradient_clip,
         grouped_workers=not args.no_grouped_workers,
         nb_local_steps=args.nb_local_steps, gars_per_call=args.gars_per_call,
-        gar_diagnostics=args.gar_diagnostics,
+        gar_diagnostics=args.gar_diagnostics, health=args.health,
         fault_quarantine=(fault_plan.policy.nan_quarantine
                           if fault_plan is not None else True),
         fault_dynamic_quorum=(fault_plan.policy.dynamic_quorum
@@ -649,10 +805,14 @@ def _setup(args):
                          init_multi_args=args.init_multi_args,
                          init_mono=args.init_mono,
                          init_mono_args=args.init_mono_args)
+    t_data = time.perf_counter()
     trainset, testset = data_mod.make_datasets(
         args.dataset, args.batch_size, args.batch_size_test,
         no_transform=args.no_transform, seed=seed % 2**32,
         **args.dataset_args)
+    # The seed taken and the data's set-up time, for the telemetry's
+    # `run_start` and `data_setup` events
+    args._seed, args._data_setup_s = seed, time.perf_counter() - t_data
     loss = losses_mod.Loss(args.loss, **args.loss_args)
     if args.l1_regularize is not None:
         loss = loss + args.l1_regularize * losses_mod.Loss("l1")
@@ -689,6 +849,12 @@ def _fault_plan(args):
     return plan, schedule
 
 
+def _recovery(args):
+    """Whether the study CSV carries `RECOVERY_COLUMNS` (the JAX driver's
+    rule: crash recovery on, by `--auto-resume` or a rollback budget)."""
+    return args.auto_resume or args.rollback_budget > 0
+
+
 def _open_results(args, faulted=False):
     """The result directory's `eval`/`study` files and `config` files
     (None without a result directory), after the `--auto-resume` scan;
@@ -723,11 +889,13 @@ def _open_results(args, faulted=False):
     if args.nb_for_study > 0:
         # The JAX driver's fault columns ride the study CSV only under a
         # fault schedule, its recovery columns only when crash recovery
-        # is on, its forensic columns under diagnostics
+        # (--auto-resume or a rollback budget) is on, its forensic columns
+        # under diagnostics, its health columns under --health
         columns = (STUDY_COLUMNS
                    + (FAULT_COLUMNS if faulted else ())
-                   + (RECOVERY_COLUMNS if args.auto_resume else ())
-                   + (FORENSIC_COLUMNS if args.gar_diagnostics else ()))
+                   + (RECOVERY_COLUMNS if _recovery(args) else ())
+                   + (FORENSIC_COLUMNS if args.gar_diagnostics else ())
+                   + (HEALTH_COLUMNS if args.health else ()))
         results.make("study", *columns, resume_step=resume_step)
     (resdir / "config").write_text(_config_text(args) + os.linesep)
     with (resdir / "config.json").open("w") as fd:
@@ -766,22 +934,131 @@ def _load(args, engine, state):
     return state
 
 
+def _open_telemetry(args, resume_step, restarts):
+    """The run's recorder, activated, with its first events (the JAX
+    driver's): on by default with a result directory, off under
+    `--no-telemetry`; None where it is off or its file cannot be opened.
+    A recorder an earlier run of this process left active is deactivated
+    first."""
+    obs.deactivate()
+    if args.result_directory is None or args.no_telemetry:
+        return None
+    try:
+        telem = obs.Telemetry(args.result_directory,
+                              interval=args.telemetry_interval)
+    except OSError as err:
+        utils.warning(f"Telemetry disabled: cannot open the timeline file "
+                      f"({err})")
+        return None
+    obs.activate(telem)
+    telem.event("run_start", seed=args._seed, restarts=restarts,
+                resume_step=resume_step)
+    telem.event("data_setup", seconds=round(args._data_setup_s, 3),
+                dataset=args.dataset)
+    if resume_step is not None:
+        telem.event("restart", step=resume_step, count=restarts)
+    return telem
+
+
+class _Chaos:
+    """The chaos hooks of the JAX driver, from the environment:
+    `BMT_CHAOS_KILL_AT_STEP` SIGKILLs the run at a loop top at or past
+    that step; `BMT_CHAOS_NAN_AT_STEP` multiplies the parameters by NaN
+    after the first chunk that ends past that step (after every such
+    chunk with `BMT_CHAOS_NAN_REPEAT=1`); `BMT_CHAOS_BLOWUP_AT_STEP`
+    multiplies them by `BMT_CHAOS_BLOWUP_FACTOR` (default 1e12) after
+    every chunk that ends past that step, a divergence that grows over
+    several steps before it overflows."""
+
+    def __init__(self):
+        def step(name):
+            value = os.environ.get(name)
+            return int(value) if value else None
+
+        self.kill = step("BMT_CHAOS_KILL_AT_STEP")
+        self.nan = step("BMT_CHAOS_NAN_AT_STEP")
+        self.nan_repeat = os.environ.get("BMT_CHAOS_NAN_REPEAT") == "1"
+        self.blowup = step("BMT_CHAOS_BLOWUP_AT_STEP")
+        self.blowup_factor = float(
+            os.environ.get("BMT_CHAOS_BLOWUP_FACTOR", "1e12"))
+
+    def poison(self, state, steps):
+        """The state after a chunk that ended at `steps`: the blow-up,
+        then the NaN, where they are armed."""
+        theta = state.theta
+
+        def scaled(factor):
+            return theta * torch.full((), factor, dtype=theta.dtype,
+                                      device=theta.device)
+
+        if self.blowup is not None and steps > self.blowup:
+            theta = scaled(self.blowup_factor)
+        if self.nan is not None and steps > self.nan:
+            if not self.nan_repeat:
+                self.nan = None
+            theta = scaled(math.nan)
+        return (state if theta is state.theta
+                else dataclasses.replace(state, theta=theta))
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """A dispatched chunk whose rows, key, health flag and device time are
+    read once the next chunk is queued."""
+    metrics: dict        # its stacked study columns (None without a study)
+    steps: int           # its first step
+    datapoints: int      # its first step's point count
+    count: int           # its steps
+    rng: tuple           # (the device's key under a per-step mixture, else
+    #                      None; the host's mirror)
+    rollbacks: int       # the rollbacks as of its dispatch
+    flag: object = None  # isfinite(max |theta|) after it, a 0-d bool
+    #                      tensor (with a rollback budget)
+    timed: tuple = None  # the StepTimer marks around its dispatch (a
+    #                      telemetry sample)
+
+    @property
+    def end(self):
+        return self.steps + self.count
+
+    def poisoned(self):
+        """Whether the chunk left a non-finite state (waits for it)."""
+        return self.flag is not None and not bool(self.flag)
+
+
 def run(argv=None):
     """Run one experiment. Returns a summary dict: `steps`, `device`,
-    `steps_per_s` (training steps per second over the steps after the
+    `steps_per_s` (training steps per second over the steps run after the
     first chunk, whose time includes one-time set-up such as the kernel
-    build; evaluations and checkpoints excluded; None when the first
-    chunk is the last), `result_directory`, `resume_step` (None on a
-    cold start) and `counts` (the engine's counts of indexed steps and
-    evaluations, of grouped and vmapped honest phases, of multi-step
-    dispatches (chunks of more than one step) and of `--device-gar` hop
-    steps)."""
+    build; evaluations, checkpoints and rollbacks excluded, the steps a
+    rollback rewound counted; None when the first chunk is the last),
+    `steps_run` (the steps dispatched, rewound ones included),
+    `rollbacks`, `diverged` (the rollback budget was spent, or a rollback
+    could not reload: the run gave up), `result_directory`, `resume_step`
+    (None on a cold start) and `counts` (the engine's counts of indexed
+    steps and evaluations, of grouped and vmapped honest phases, of
+    multi-step dispatches (chunks of more than one step) and of
+    `--device-gar` hop steps)."""
     with utils.Context("cmdline"):
         args = _postprocess(process_commandline(argv))
     with utils.Context("setup"):
         device, engine, state = _setup(args)
         results, resume_step, restarts = _open_results(
             args, faulted=engine.faults is not None)
+        telem = _open_telemetry(args, resume_step, restarts)
+    try:
+        return _train(args, device, engine, state, results, resume_step,
+                      restarts, telem)
+    finally:
+        if telem is not None:
+            telem.close()
+            obs.deactivate()
+
+
+def _train(args, device, engine, state, results, resume_step, restarts,
+           telem):
+    """`run`'s loop: the chunks, the milestones, the health verdicts and
+    rollbacks, and the telemetry."""
     if args.load_checkpoint is not None:
         with utils.Context("load"):
             state = _load(args, engine, state)
@@ -789,11 +1066,12 @@ def run(argv=None):
     float_format = FLOAT_FORMATS[cfg.torch_dtype]
     fd_eval = results.get("eval") if results else None
     fd_study = results.get("study") if results else None
-    recovery = (0, restarts) if args.auto_resume else ()
-    # The suspicion tracker of --gar-diagnostics (not checkpointed, as in
-    # the JAX driver)
+    recovery = _recovery(args)
+    # The suspicion tracker of --gar-diagnostics and the health monitor of
+    # --health (neither checkpointed, as in the JAX driver)
     tracker = (obs.SuspicionTracker(args.nb_workers) if engine.diagnostics
                else None)
+    monitor = obs.HealthMonitor() if cfg.health and cfg.study else None
     hop = (program.build_step(engine, gar_device=args.gar_device)
            if args.gar_device is not None else None)
     # The host's own step and point counters (the JAX driver's mirrors):
@@ -805,22 +1083,39 @@ def run(argv=None):
     steps_limit = (None if args.nb_steps < 0
                    else args.nb_steps if resume_step is not None
                    else steps_host + args.nb_steps)
-    chaos_kill = os.environ.get("BMT_CHAOS_KILL_AT_STEP")
-    chaos_kill = int(chaos_kill) if chaos_kill else None
+    chaos = _Chaos()
     per_program = max(args.steps_per_program, 1)
+    rollbacks, diverged, steps_run = 0, False, 0
+    # Telemetry samples: every --telemetry-interval steps a chunk is timed
+    # on the device, read with its rows
+    rate_window = obs.SlidingRate()
+    step_timer = obs.StepTimer(device)
+    next_sample_step = steps_host
+
+    def health_hb():
+        """The heartbeat's `health` block (none without --health)."""
+        return {"health": monitor.summary()} if monitor is not None else {}
+
+    if telem is not None:
+        telem.heartbeat(step=steps_host, status="running", **health_hb())
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def flush(pending):
-        """The previous chunk's study rows to the file, and under a
-        per-step mixture its key against the host's mirror."""
-        if pending is None:
+    def flush(chunk):
+        """A chunk's study rows to the file (the suspicion tracker and the
+        health monitor fed), under a per-step mixture its key against the
+        host's mirror, and its injected faults and telemetry sample to
+        the timeline."""
+        if chunk is None:
             return
-        *chunk, (rng, rng_host) = pending
-        rows, words = _study_rows(*chunk, float_format, rng=rng,
-                                  recovery=recovery, tracker=tracker)
+        rng, rng_host = chunk.rng
+        rows, words = _study_rows(
+            chunk.metrics, chunk.steps, chunk.datapoints, increment,
+            chunk.count, float_format, rng=rng,
+            recovery=(chunk.rollbacks, restarts) if recovery else (),
+            tracker=tracker, monitor=monitor)
         if fd_study is not None:
             for row in rows:
                 results.store(fd_study, *row)
@@ -828,45 +1123,200 @@ def run(argv=None):
             raise RuntimeError(f"the host's mirror of the key chain "
                                f"{tuple(rng_host)} differs from the "
                                f"device's key {words} after step "
-                               f"{chunk[1] + chunk[-1]}")
+                               f"{chunk.end}")
+        if telem is None:
+            return
+        if engine.faults is not None:
+            injected = sum(row[len(STUDY_COLUMNS)] for row in rows)
+            if injected:
+                telem.counter("faults_injected", injected)
+        if chunk.timed is not None:
+            device_ms = step_timer.seconds(*chunk.timed) * 1e3 / chunk.count
+            rate, rss = rate_window.rate(), obs.host_rss_mb()
+            telem.gauge("device_step_ms", device_ms, step=chunk.end)
+            if rate is not None:
+                telem.gauge("steps_per_sec", rate, step=chunk.end)
+            if rss is not None:
+                telem.gauge("host_rss_mb", rss, step=chunk.end)
+            telem.heartbeat(step=chunk.end, status="running",
+                            steps_per_sec=rate, device_step_ms=device_ms,
+                            rss_mb=rss, **health_hb())
 
-    # The previous chunk's (metrics, step, points, increment, M, (key,
-    # mirror)) while its rows or its key are still to be read
+    def tighten_quorum():
+        """`--rollback-tighten-quorum`: f + 1 where every defense's check
+        passes at it, with the engine (and the `--device-gar` hop)
+        rebuilt."""
+        nonlocal engine, hop
+        new_f = engine.cfg.nb_decl_byz + 1
+        if new_f > args.nb_workers:
+            utils.info("Quorum not tightened: f already equals n")
+            return
+        dummy = torch.zeros((args.nb_workers, 2))
+        for gar, _, kwargs in engine.defenses:
+            message = gar.check(gradients=dummy, f=new_f, **kwargs)
+            if message is not None:
+                utils.info(f"Quorum not tightened: {gar.name!r} cannot run "
+                           f"with f={new_f} ({message})")
+                return
+        engine = engine.with_config(
+            dataclasses.replace(engine.cfg, nb_decl_byz=new_f))
+        if args.gar_device is not None:
+            hop = program.build_step(engine, gar_device=args.gar_device)
+        utils.warning(f"Rollback: declared Byzantine count tightened to "
+                      f"f={new_f} (engine rebuilt)")
+
+    def roll_back(trigger, step):
+        """Restore the newest valid checkpoint after a health trigger at
+        `step` ('non-finite' state, or an 'anomaly' under
+        --rollback-on-anomaly), re-seed the step key and rewind the
+        result files; False when the run must give up (the budget spent,
+        nothing valid to restore, or a reload that fails)."""
+        nonlocal state, steps_host, datapoints_host, current_lr, \
+            just_loaded, rollbacks, fd_eval, fd_study
+        rollbacks += 1
+        if rollbacks > args.rollback_budget:
+            utils.error(f"Health trigger ({trigger}) at step {step} and the "
+                        f"rollback budget ({args.rollback_budget}) is "
+                        f"exhausted; giving up")
+            return False
+        found = checkpoint_mod.find_latest_valid_any(
+            (args.result_directory, args.checkpoint_mirror))
+        if found is None:
+            utils.error("Non-finite training state and no valid checkpoint "
+                        "to roll back to; giving up")
+            return False
+        try:
+            restored, data_state = checkpoint_mod.load(found, state,
+                                                       return_data=True)
+        except (OSError, ValueError, TypeError, KeyError,
+                utils.UserException) as err:
+            utils.error(f"Rollback reload of {found.name} failed ({err}); "
+                        f"giving up")
+            return False
+        if data_state is not None:
+            try:
+                engine.train_data.dataset.set_state(data_state["train"])
+                engine.test_data.dataset.set_state(data_state["test"])
+            except (KeyError, TypeError, ValueError) as err:
+                utils.warning(f"Rollback sampler state only partially "
+                              f"restored ({err})")
+        # Re-seed the step key (replaying the trajectory that just
+        # diverged would diverge again); the host's mirror of the key
+        # chain moves with it
+        salt = 0x5EED + rollbacks
+        state = dataclasses.replace(
+            restored, rng=prng.fold_in(restored.rng, salt),
+            rng_host=(None if restored.rng_host is None
+                      else prng.fold_in_words(restored.rng_host, salt)))
+        steps_host, datapoints_host = int(state.steps), int(state.datapoints)
+        current_lr = args.initial_lr(steps_host)
+        just_loaded = True
+        if results is not None:
+            results.truncate(steps_host)
+            fd_eval, fd_study = results.get("eval"), results.get("study")
+        utils.warning(f"Rollback #{rollbacks}/{args.rollback_budget}: "
+                      f"{trigger} health trigger; restored {found.name} "
+                      f"(step {steps_host})")
+        if telem is not None:
+            telem.counter("rollbacks")
+            telem.event("rollback", step=steps_host, restored=found.name,
+                        trigger=trigger,
+                        budget_left=args.rollback_budget - rollbacks)
+            telem.heartbeat(step=steps_host, status="rolled-back",
+                            **health_hb())
+        if args.rollback_tighten_quorum:
+            tighten_quorum()
+        return True
+
+    def recover(trigger, step):
+        """A health trigger at `step`: the flag event, the blackbox, then
+        the rollback (its reload and rebuild kept off the throughput
+        clock), or the give-up; returns whether the run goes on. The
+        caller drops the flagged chunk's rows after a rollback; after a
+        give-up they are written, as the JAX driver writes them."""
+        nonlocal diverged, steps_host
+        if telem is not None:
+            telem.event("health_flag", step=step, trigger=trigger)
+        if monitor is not None:
+            # The post-mortem before the trajectory rewinds
+            monitor.dump_blackbox(args.result_directory, reason=trigger)
+        t_pause = time.perf_counter()
+        back = roll_back(trigger, step)
+        if clock is not None:
+            clock[1] += time.perf_counter() - t_pause
+        if back:
+            if monitor is not None:
+                monitor.note_rollback()
+            return True
+        if telem is not None:
+            telem.event("divergence_giveup", step=step)
+        if monitor is not None:
+            monitor.dump_blackbox(args.result_directory,
+                                  reason="divergence_giveup")
+        diverged, steps_host = True, step
+        return False
+
+    # The last dispatched chunk, its rows, key, flag and sample still to
+    # be read
     pending = None
     mirrored = engine.mixture and not engine.per_call
     clock = None            # (start, paused seconds) once chunk 1 is done
-    timed_from = None       # the step count the throughput counts from
+    timed_from = None       # the steps run the throughput counts from
     current_lr = args.initial_lr(steps_host)
     just_loaded = args.load_checkpoint is not None
     with utils.Context("training"):
         try:
             while True:
                 steps = steps_host
-                if chaos_kill is not None and steps >= chaos_kill:
+                if chaos.kill is not None and steps >= chaos.kill:
                     os.kill(os.getpid(), signal.SIGKILL)
                 milestone_eval = (args.evaluation_delta > 0
                                   and steps % args.evaluation_delta == 0)
                 milestone_checkpoint = (args.checkpoint_delta > 0
-                                        and steps % args.checkpoint_delta == 0
-                                        and not just_loaded)
+                                        and steps % args.checkpoint_delta == 0)
                 milestone_user_input = (args.user_input_delta > 0
                                         and steps % args.user_input_delta == 0)
+                milestone = (milestone_eval or milestone_checkpoint
+                             or milestone_user_input)
+                at_end = steps_limit is not None and steps >= steps_limit
+                # The health verdict (--rollback-budget) before any
+                # milestone or the end reads the state, so none sees a
+                # poisoned one, the hard signal first: the last chunk's
+                # isfinite flag, then the monitor's anomaly edge
+                # (--rollback-on-anomaly). Between milestones the flag is
+                # read with the chunk's rows, once the next one is queued
+                trigger = None
+                if (args.rollback_on_anomaly and monitor is not None
+                        and monitor.rollback_pending()):
+                    trigger = "anomaly"
+                if ((trigger is not None or milestone or at_end)
+                        and pending is not None and pending.poisoned()):
+                    trigger = "non-finite"
+                if trigger is not None:
+                    if not recover(trigger, steps):
+                        break
+                    pending = None  # its rows are dropped, not flushed
+                    continue
                 t_pause = time.perf_counter()
-                if milestone_eval or milestone_checkpoint or milestone_user_input:
+                if milestone:
                     # The rows before this step reach the disk before a
                     # checkpoint can be taken
                     flush(pending)
                     pending = None
+                milestone_checkpoint = milestone_checkpoint and not just_loaded
                 # The samplers' snapshot before the evaluation draws, so a
                 # resumed run replays this step's evaluation
                 data_snapshot = ({"train": engine.train_data.dataset.get_state(),
                                   "test": engine.test_data.dataset.get_state()}
                                  if milestone_checkpoint else None)
                 if milestone_eval:
-                    correct, total = engine.eval_many_indexed(
-                        state.theta, state.net_state,
-                        *engine.test_data.sample_indices(
-                            args.batch_size_test_reps)).tolist()
+                    # `tolist` waits for the result: the span is the
+                    # evaluation's whole time
+                    with obs.span("eval", step=steps):
+                        correct, total = engine.eval_many_indexed(
+                            state.theta, state.net_state,
+                            *engine.test_data.sample_indices(
+                                args.batch_size_test_reps)).tolist()
                     acc = correct / total
                     utils.info(f"Accuracy (step {steps}): {acc * 100.:.2f}%")
                     if fd_eval is not None:
@@ -883,6 +1333,11 @@ def run(argv=None):
                         # run; the next milestone tries again
                         utils.warning(f"Checkpoint save failed: {err}")
                 just_loaded = False
+                if telem is not None and (milestone_eval
+                                          or milestone_checkpoint):
+                    telem.heartbeat(step=steps, status="running",
+                                    steps_per_sec=rate_window.rate(),
+                                    **health_hb())
                 if milestone_user_input:
                     sync()  # the chunk before the prompt is drained
                     code.interact(banner=f"Interactive prompt (step {steps}); "
@@ -890,7 +1345,7 @@ def run(argv=None):
                                   local={"state": state, "engine": engine})
                 if clock is not None:
                     clock[1] += time.perf_counter() - t_pause
-                if steps_limit is not None and steps >= steps_limit:
+                if at_end:
                     break
                 # The chunk runs to the next milestone boundary, at most
                 # --steps-per-program steps (the JAX driver's horizon)
@@ -912,45 +1367,81 @@ def run(argv=None):
                 # One draw of the chunk's batches (under --device-gar in
                 # the order of the JAX driver's host-staged batches)
                 idx, flips = engine.sample_indices(M, batchwise=hop is not None)
+                measure = telem is not None and steps_host >= next_sample_step
+                begin = step_timer.mark() if measure else None
                 state, metrics = engine.train_multi_indexed(
                     state, idx, flips, np.asarray(lrs, np.float32), step=hop)
+                timed = (begin, step_timer.mark()) if measure else None
                 steps_host += M
                 datapoints_host += M * increment
-                # The previous chunk's rows move to the host once this
-                # one is queued
+                steps_run += M
+                if telem is not None:
+                    rate_window.update(steps_run)
+                if measure:
+                    next_sample_step = steps_host + telem.interval
+                state = chaos.poison(state, steps_host)
+                chunk = _Chunk(
+                    metrics if cfg.study else None, steps,
+                    datapoints_host - M * increment, M,
+                    (state.rng if mirrored else None, state.rng_host),
+                    rollbacks, timed=timed,
+                    # max |theta| is non-finite iff a coordinate is: a
+                    # scalar read with the chunk's rows
+                    flag=(torch.isfinite(state.theta.abs().max())
+                          if args.rollback_budget > 0 else None))
+                # The previous chunk's verdict and rows, now that this one
+                # is queued (a poisoned one: this chunk ran on its state)
+                if pending is not None and pending.poisoned():
+                    if not recover("non-finite", pending.end):
+                        break
+                    pending = None  # its rows are dropped, not flushed
+                    continue
                 flush(pending)
-                pending = ((metrics if cfg.study else None, steps,
-                            datapoints_host - M * increment, increment, M,
-                            (state.rng if mirrored else None, state.rng_host))
-                           if cfg.study or mirrored else None)
+                pending = chunk
                 if clock is None:
                     sync()
                     clock = [time.perf_counter(), 0.0]
-                    timed_from = steps_host
+                    timed_from = steps_run
         finally:
             flush(pending)
             if results is not None:
                 results.close()
     sync()
-    timed = 0 if timed_from is None else steps_host - timed_from
+    timed = 0 if timed_from is None else steps_run - timed_from
     rate = None
     if timed > 0:
         rate = timed / (time.perf_counter() - clock[0] - clock[1])
         utils.info(f"Throughput: {rate:.3f} steps/s over the last {timed} of "
-                   f"{steps_host} steps on {device}")
+                   f"{steps_run} steps run on {device}")
+    if monitor is not None and monitor.steps > 0 and not diverged:
+        # Every recorded run leaves a post-mortem; a diverged one keeps
+        # its divergence_giveup dump
+        monitor.dump_blackbox(args.result_directory, reason="run_end")
+    if telem is not None:
+        if tracker is not None and tracker.steps > 0:
+            telem.event("forensics_summary", **tracker.summary())
+        status = "diverged" if diverged else "completed"
+        if monitor is not None and monitor.steps > 0:
+            telem.event("health_summary", **monitor.summary())
+        telem.event("run_end", step=steps_host, status=status,
+                    rollbacks=rollbacks, restarts=restarts)
+        telem.heartbeat(step=steps_host, status=status,
+                        steps_per_sec=rate_window.rate(), **health_hb())
     return {"steps": steps_host, "device": str(device), "steps_per_s": rate,
-            "result_directory": args.result_directory,
+            "steps_run": steps_run, "rollbacks": rollbacks,
+            "diverged": diverged, "result_directory": args.result_directory,
             "resume_step": resume_step, "counts": dict(engine.counts)}
 
 
 def main(argv=None):
-    """Command-line entry: 0 on success, 1 on a user error."""
+    """Command-line entry: 0 on success, 1 on a user error or a run that
+    gave up on its divergence (its rollback budget spent)."""
     try:
-        run(argv)
+        summary = run(argv)
     except utils.UserException as err:
         utils.error(f"Error: {err}")
         return 1
-    return 0
+    return 1 if summary["diverged"] else 0
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Static engine configuration (`byzantinemomentum_tpu/engine/config.py`,
 the fields of the training path ported so far: local steps, the
 `--gars` mixture's draw, the grouped honest phase, the GAR
-diagnostics, the fault plans' degradation policy)."""
+diagnostics, the fault plans' degradation policy, the health vector)."""
 
 import dataclasses
 
@@ -62,6 +62,10 @@ class EngineConfig:
     #                               (`engine/metrics.py::forensic_metrics`);
     #                               off, the step runs no code of
     #                               `ops/diag.py`
+    health: bool = False          # --health: with the study on, the
+    #                               step's metrics gain the health vector
+    #                               (`engine/health.py`, HEALTH_COLUMNS);
+    #                               off, the step runs no code of it
 
     def __post_init__(self):
         if self.momentum_at not in ("update", "server", "worker"):

@@ -32,7 +32,7 @@ import torch
 from byzantinemomentum_tpu_torch.ops import diag
 
 __all__ = ["STUDY_COLUMNS", "FAULT_COLUMNS", "RECOVERY_COLUMNS",
-           "FORENSIC_COLUMNS",
+           "FORENSIC_COLUMNS", "HEALTH_COLUMNS",
            "avg_dev_max", "cosine", "push_past", "study_metrics",
            "forensic_metrics"]
 
@@ -55,9 +55,9 @@ STUDY_COLUMNS = (
 # tolerance the aggregation ran with (`faults/quorum.py`)
 FAULT_COLUMNS = ("Faults injected", "Workers active", "Quorum f")
 
-# The crash-recovery columns the JAX driver appends under --auto-resume:
-# rollbacks (none in the port, which has no --rollback-budget) and the
-# run's restart count
+# The crash-recovery columns the JAX driver appends under --auto-resume
+# or a --rollback-budget: the divergence rollbacks as of the step's
+# dispatch and the run's restart count
 RECOVERY_COLUMNS = ("Rollbacks", "Restarts")
 
 # The aggregation-forensics columns the JAX driver appends under
@@ -68,22 +68,36 @@ RECOVERY_COLUMNS = ("Rollbacks", "Restarts")
 FORENSIC_COLUMNS = ("Sel workers", "Dist honest med", "Var/norm ratio",
                     "Clip frac", "Suspicion max")
 
+# The health columns the JAX driver appends under --health
+# (`engine/health.py`): the honest rows' variance-to-norm ratio, the
+# weight and update norms and their ratio, the ';'-joined log2 histogram
+# of the submitted rows' norms, and the non-finite submitted rows and 0/1
+# indicators of a non-finite aggregate and state
+HEALTH_COLUMNS = ("Var ratio", "Weight norm", "Update norm",
+                  "Update/weight", "Norm hist", "Nonfinite submitted",
+                  "Nonfinite aggregate", "Nonfinite state")
+
 _NAN = float("nan")
 
 
-def avg_dev_max(G):
+def avg_dev_max(G, sums=None):
     """(average, ||avg||, max |avg|, sample std-dev of the deviations)
     over the rows of `G: f32[m, d]`; (None, nan, nan, nan) for m == 0 and
-    dev = nan for m == 1."""
+    dev = nan for m == 1. For m >= 2, `sums` (a dict) receives the sums
+    of squares of the deviations (`dev2`) and of the average (`navg2`)."""
     m = G.shape[0]
     if m == 0:
         return None, _NAN, _NAN, _NAN
     avg = G.mean(dim=0)
-    norm_avg = torch.sqrt(torch.sum(avg * avg))
+    navg2 = torch.sum(avg * avg)
+    norm_avg = torch.sqrt(navg2)
     norm_max = torch.max(torch.abs(avg))
     if m >= 2:
         dev = G - avg
-        dev = torch.sqrt(torch.sum(dev * dev) / (m - 1))
+        dev2 = torch.sum(dev * dev)
+        dev = torch.sqrt(dev2 / (m - 1))
+        if sums is not None:
+            sums.update(dev2=dev2, navg2=navg2)
     else:
         dev = _NAN
     return avg, norm_avg, norm_max, dev
@@ -134,13 +148,19 @@ def forensic_metrics(aux, G_honest):
 
 def study_metrics(*, loss_avg, l2_origin, G_sampled, G_honest, G_attack,
                   grad_defense, accept_ratio, past_grads, past_norms,
-                  past_count, momentum):
+                  past_count, momentum, sums=None):
     """The 22 metric values of one step (every column but the step and
-    point counts). Returns (metrics dict, new past ring)."""
+    point counts). Returns (metrics dict, new past ring). `sums` (a dict)
+    receives the sums of squares the health vector reuses
+    (`engine/health.py`): the honest rows' `dev2` and `navg2` (for two
+    rows or more) and the aggregate's `agg2`."""
     sampled_avg, sampled_na, sampled_mx, sampled_dev = avg_dev_max(G_sampled)
-    honest_avg, honest_na, honest_mx, honest_dev = avg_dev_max(G_honest)
+    honest_avg, honest_na, honest_mx, honest_dev = avg_dev_max(G_honest, sums)
     attack_avg, attack_na, attack_mx, attack_dev = avg_dev_max(G_attack)
-    defense_na = torch.sqrt(torch.sum(grad_defense * grad_defense))
+    agg2 = torch.sum(grad_defense * grad_defense)
+    if sums is not None:
+        sums["agg2"] = agg2
+    defense_na = torch.sqrt(agg2)
     defense_mx = torch.max(torch.abs(grad_defense))
 
     P = past_grads.shape[0]

@@ -119,6 +119,14 @@ masked program on the step's active mask too. The step's metrics gain
 under `--gar-diagnostics` the diag program re-runs on the full stack,
 its forensic values joined by the post-quarantine `Active mask`. A
 schedule of None (an empty plan) is the fault-free step.
+
+The health vector (`cfg.health` with the study on, `--health`, the JAX
+`engine/step.py:857-872`): `phase_update` merges `engine/health.py::
+health_metrics` into the step's metrics after the update, reusing the
+study's sums of squares; `stack_metrics` stacks it to `[M]` and `Norm
+hist` to `[M, 16]`, and under `--device-gar` it is computed with the
+update on the engine's device, after the hop back. With the flag off the
+step runs no code of `engine/health.py`.
 """
 
 import collections
@@ -130,6 +138,7 @@ from torch.func import functional_call, grad, vmap
 
 from byzantinemomentum_tpu_torch import prng
 from byzantinemomentum_tpu_torch.data.device import to_device
+from byzantinemomentum_tpu_torch.engine import health as health_mod
 from byzantinemomentum_tpu_torch.engine import metrics as metrics_mod
 from byzantinemomentum_tpu_torch.engine import program
 from byzantinemomentum_tpu_torch.engine.program import tree_to
@@ -205,7 +214,8 @@ def compose_bn_updates(net_state0, per_worker_states, count, local_steps=1):
 
 def stack_metrics(steps):
     """The study columns of M steps' metric dicts as device tensors `[M]`
-    (`[M, n]` for the forensic vectors); `{}` where the steps computed
+    (`[M, n]` for the forensic vectors, `[M, HIST_BINS]` for the health
+    vector's `Norm hist`); `{}` where the steps computed
     none. A column is a tensor in every step
     or a Python NaN in every step (the attack columns without a Byzantine
     row, a deviation over one row): the latter becomes an f32 NaN
@@ -286,6 +296,18 @@ class Engine:
         """Enable the device-resident input path (`data/device.py`)."""
         self.train_data, self.test_data = train_data, test_data
         return self
+
+    def with_config(self, cfg):
+        """This engine's model, loss, criterion, defenses, attack,
+        optimizer and fault schedule under another configuration (the
+        driver's `--rollback-tighten-quorum` rebuild), with the same data
+        attached and the same `counts` carried on."""
+        engine = Engine(cfg, self.model, self.loss, self.criterion,
+                        self.defenses, self.attack, self.attack_kwargs,
+                        self.optimizer, faults=self.faults)
+        engine.attach_data(self.train_data, self.test_data)
+        engine.counts = self.counts
+        return engine
 
     def init(self, key):
         """Fresh state: the model's parameters and BatchNorm buffers as
@@ -619,8 +641,10 @@ class Engine:
         its host mirror `rng_host` (`mirror_keys`) and the straggler
         buffer `fault_buffer` (`phase_faults`; the state's own when None)
         go into the new state, the fault metrics and the forensic values
-        `diag_metrics` (`phase_defense`) into the metrics. Returns (new
-        state, metrics)."""
+        `diag_metrics` (`phase_defense`) into the metrics, and with
+        `cfg.health` (and the study) the health vector of the submitted
+        rows, the aggregate and the parameters before and after the
+        update (`engine/health.py`). Returns (new state, metrics)."""
         cfg = self.cfg
         lr = self.round_lr(lr)
         mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
@@ -634,6 +658,8 @@ class Engine:
         theta, opt_state = self.optimizer.update(
             update_grad, state.opt_state, state.theta, lr)
 
+        health = cfg.study and cfg.health
+        sums = {} if health else None
         if cfg.study:
             l2_origin = torch.sqrt(torch.sum((state.theta - state.origin) ** 2))
             metrics, (pg, pn, pc) = metrics_mod.study_metrics(
@@ -641,7 +667,7 @@ class Engine:
                 G_honest=G_honest, G_attack=G_attack,
                 grad_defense=grad_defense, accept_ratio=accept_ratio,
                 past_grads=state.past_grads, past_norms=state.past_norms,
-                past_count=state.past_count, momentum=cfg.momentum)
+                past_count=state.past_count, momentum=cfg.momentum, sums=sums)
         else:
             metrics = {}
             pg, pn, pc = state.past_grads, state.past_norms, state.past_count
@@ -649,6 +675,12 @@ class Engine:
             metrics.update(fault_metrics)
         if cfg.study and diag_metrics is not None:
             metrics.update(diag_metrics)
+        if health:
+            # The health vector (`engine/health.py`), the study's sums of
+            # squares reused
+            metrics.update(health_mod.health_metrics(
+                G_honest, G_attack, grad_defense, state.theta, theta,
+                sums=sums))
         new_state = TrainState(
             theta=theta, net_state=net_state, opt_state=opt_state,
             momentum_server=new_ms, momentum_workers=new_mw,

@@ -20,14 +20,16 @@ weighted (the weights sum to 1):
                       the cohort's median distance to another row.
 
 Crossing `threshold` upwards makes a worker a suspect, falling back to
-`clear` clears it, both once `min_steps` observations are in. The JAX
-tracker also emits `suspect_worker`/`suspect_cleared` telemetry events
-there; the port has no recorder yet, so it keeps the suspect set
-(`suspects`, `summary()`) and emits nothing. `ClientSuspicionStore`
-serves the aggregation service, which the port does not have yet.
+`clear` clears it, both once `min_steps` observations are in; each edge
+emits a `suspect_worker`/`suspect_cleared` event through the active
+recorder (`obs/recorder.py`), as the JAX tracker does.
+`ClientSuspicionStore` serves the aggregation service, which the port
+does not have yet.
 """
 
 import numpy as np
+
+from byzantinemomentum_tpu_torch.obs import recorder
 
 __all__ = ["SuspicionTracker", "Z_CLIP", "COLLUSION_FRAC",
            "collusion_partners"]
@@ -185,15 +187,21 @@ class SuspicionTracker:
 
     def _emit_edges(self, step):
         """Move the suspect set across its rising (`threshold`) and falling
-        (`clear`) edges, once `min_steps` observations are in. The JAX
-        tracker emits `suspect_worker`/`suspect_cleared` events at these
-        edges; the port has no recorder yet, so `step` stamps nothing."""
+        (`clear`) edges, once `min_steps` observations are in, emitting
+        `suspect_worker`/`suspect_cleared` stamped with `step`."""
         if self.steps < self.min_steps:
             return
         rising = (self.suspicion >= self.threshold) & ~self._suspect
         falling = (self.suspicion <= self.clear) & self._suspect
-        self._suspect[rising] = True
-        self._suspect[falling] = False
+        for worker in np.nonzero(rising)[0]:
+            self._suspect[worker] = True
+            recorder.emit("suspect_worker", worker=int(worker), step=step,
+                          suspicion=round(float(self.suspicion[worker]), 4),
+                          sel_rate=round(float(self._sel_rate[worker]), 4))
+        for worker in np.nonzero(falling)[0]:
+            self._suspect[worker] = False
+            recorder.emit("suspect_cleared", worker=int(worker), step=step,
+                          suspicion=round(float(self.suspicion[worker]), 4))
 
     # -------------------------------------------------------------- #
 

@@ -6,11 +6,12 @@ loader — the port's own copies of what it needs from
 import importlib
 import pathlib
 import sys
+import threading
 
 import numpy as np
 
-__all__ = ["UserException", "UnavailableException", "Context", "trace",
-           "info", "warning", "error", "fatal", "fatal_unavailable",
+__all__ = ["UserException", "UnavailableException", "Context", "NamedLock",
+           "trace", "info", "warning", "error", "fatal", "fatal_unavailable",
            "parse_keyval", "import_directory", "resolve_device",
            "weak_scalar"]
 
@@ -48,6 +49,29 @@ class Context:
 def _emit(file, *args):
     prefix = "".join(f"[{name}] " for name in _stack)
     print(prefix + " ".join(str(a) for a in args), file=file, flush=True)
+
+
+class NamedLock:
+    """A `threading.Lock` with a name (the JAX package's
+    `utils/locking.py::NamedLock` without its acquisition-edge recording,
+    which serves the JAX package's lock-order checker)."""
+
+    __slots__ = ("name", "_lock")
+
+    def __init__(self, name):
+        self.name = str(name)
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+    def __repr__(self):
+        return f"NamedLock({self.name!r})"
 
 
 def trace(*args):

@@ -278,6 +278,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    deterministic cuDNN): killed past step 8 and `--auto-resume`d from
    checkpoint-7, inside the straggler window, the two uninterrupted runs'
    CSVs byte for byte.
+   Then health and rollback (the phase `health cells`): `headline_health`
+   (the headline with `--health`; steps/s beside the headline's), the
+   headline with `--no-telemetry` (telemetry is on in every other run,
+   each with a result directory: `telemetry_verdict` holds each run's
+   `telemetry.jsonl` and heartbeat complete) and 48 headline steps with
+   and without `--rollback-budget 1`, each with exact launches;
+   `health_vs_f64`: a chunk of `headline_health`, each step's health
+   floats within rtol 1e-5 of an f64 recomputation on the card of its
+   stack, the histograms equal but for a shown near-tie, the counts
+   equal; the chunk profile of `headline_health`; then in child
+   processes side by side under deterministic cuDNN
+   (`health_children`): the headline and `headline_health` (the first
+   24 columns and the eval file byte-equal), and the headline with a
+   checkpoint every 4 steps and `--rollback-budget 2`, uninterrupted and
+   poisoned after the chunk past step 6 at M = 1 and 8 (restored from
+   checkpoint-4, steps 0-15 once each, `Rollbacks` 0 then 1, rows 0-3
+   the uninterrupted run's, M = 1 and 8 byte-equal); beside them
+   `tighten_check` (Krum at f = 5 tightened to 6, its launches exact
+   over the steps run; the headline's Bulyan not tightened, as the
+   driver says) and `anomaly_check` (48 single steps, the parameters
+   multiplied after each step past 36: at 1e6 with `--health` the first
+   anomaly edge leads the non-finite flag by at least 2 steps, with
+   `--rollback-on-anomaly` the run gives up after the edge; at 10 it
+   rolls back on anomalies only and gives up).
    Every run takes the driver's default `--steps-per-program` 8: chunks
    of up to 8 steps cut at every evaluation and checkpoint (`chunks`).
    Every CIFAR and WRN cell runs 16 steps, two chunks of 8 (the
@@ -381,6 +405,7 @@ card; exits non-zero without one.
 import collections
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -409,7 +434,9 @@ from byzantinemomentum_tpu_torch.attacks import alie
 from byzantinemomentum_tpu_torch.cli import attack as driver
 from byzantinemomentum_tpu_torch.data.device import DeviceData
 from byzantinemomentum_tpu_torch.engine import (
-    FAULT_COLUMNS, FORENSIC_COLUMNS, RECOVERY_COLUMNS, STUDY_COLUMNS)
+    FAULT_COLUMNS, FORENSIC_COLUMNS, HEALTH_COLUMNS, RECOVERY_COLUMNS,
+    STUDY_COLUMNS)
+from byzantinemomentum_tpu_torch.engine import health as health_mod
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.faults import inject, quorum, sanitize
 from byzantinemomentum_tpu_torch.models import core as core_mod
@@ -2555,8 +2582,57 @@ FAULT_CELLS = (
         "--learning-rate", "0.5", "--gar", "krum", "--nb-decl-byz", "2",
         *plan_flag("mnist")), "krum", steps=30),
 )
+# The health cells (`--health`, `--rollback-budget`), driven after the
+# fault cells in a phase of their own ("health cells"): the headline with
+# the health vector; the headline without telemetry (on by default with a
+# result directory); 48 headline steps in chunks of 8 with and without a
+# rollback budget (its isfinite flag, read with each chunk's rows)
+HEALTH_RUN = ("--health",)
+HEALTH_CELL = cifar_cell("headline_health", "bulyan", 5, EMPIRE,
+                         flags=HEALTH_RUN)
+NO_TELEMETRY_CELL = cifar_cell("headline_no_telemetry", "bulyan", 5, EMPIRE,
+                               flags=("--no-telemetry",))
+BUDGET_STEPS = 48
+BUDGET_CELLS = tuple(
+    cifar_cell(name, "bulyan", 5, EMPIRE, BUDGET_STEPS,
+               ("--checkpoint-delta", str(BUDGET_STEPS), *flags))
+    for name, flags in (("headline_48", ()),
+                        ("headline_48_budget", ("--rollback-budget", "1"))))
+# The rollback: the headline with a checkpoint every 4 steps and a budget
+# of 2, its parameters poisoned after the chunk past step ROLLBACK_NAN
+# (the flag read before the milestone at step 8, the restore from
+# checkpoint-4), at M = 8 (chunks of 4) and M = 1
+ROLLBACK_FLAGS = ("--checkpoint-delta", "4", "--rollback-budget", "2")
+ROLLBACK_NAN = 6
+ROLLBACK_CELLS = {
+    M: cifar_cell(f"headline_rollback_m{M}", "bulyan", 5, EMPIRE,
+                  flags=(*ROLLBACK_FLAGS, "--steps-per-program", str(M)))
+    for M in (1, M_DEFAULT)}
+# The quorum tightening after that rollback: Krum at f = 5 takes f = 6
+# (n >= 2f + 3), the headline's Bulyan does not (n >= 4f + 3 fails)
+TIGHTEN_CELLS = (
+    cifar_cell("krum_f5_tighten", "krum", 5, EMPIRE,
+               flags=(*ROLLBACK_FLAGS, "--rollback-tighten-quorum")),
+    cifar_cell("headline_tighten", "bulyan", 5, EMPIRE,
+               flags=(*ROLLBACK_FLAGS, "--rollback-tighten-quorum")))
+# The JAX health test's early warning at the headline: 48 single-step
+# chunks, a checkpoint every 5 steps, a budget of 1, the parameters
+# multiplied by a factor after every chunk past step 36: 1e6 with
+# --health, and with --rollback-on-anomaly; 10 with --rollback-on-anomaly
+# (at 1e6 the headline's state is non-finite one step after the anomaly
+# edge, before the pipelined trigger can act, so the JAX driver's order,
+# the non-finite flag first, rolls back on it)
+ANOMALY_CELLS = tuple(
+    (cifar_cell(name, "bulyan", 5, EMPIRE, 48,
+                ("--steps-per-program", "1", "--checkpoint-delta", "5",
+                 "--rollback-budget", "1", flag)),
+     {"BMT_CHAOS_BLOWUP_AT_STEP": "36", "BMT_CHAOS_BLOWUP_FACTOR": factor})
+    for name, flag, factor in (
+        ("headline_anomaly", "--health", "1e6"),
+        ("headline_anomaly_trigger", "--rollback-on-anomaly", "1e6"),
+        ("headline_anomaly_trigger_x10", "--rollback-on-anomaly", "10")))
 CELLS_BY_NAME = {cell.name: cell for cell in (*CELLS, *DIAG_CELLS,
-                                              *FAULT_CELLS)}
+                                              *FAULT_CELLS, HEALTH_CELL)}
 # Each cell's steps/s (`drive`), so a fault cell's stands beside its
 # unfaulted cell's
 RATES = {}
@@ -2642,15 +2718,24 @@ def drive(cell, smi):
         launches = {(kernel, dt): count for kernel, wrapper in WRAPPERS.items()
                     for dt, count in wrapper.launches_by_dtype.items() if count}
         lines = (pathlib.Path(tmp) / "study").read_text().split(os.linesep)
+        evals = len(range(0, steps + 1, driver.process_commandline(
+            argv).evaluation_delta))
+        records = telemetry_verdict(name, pathlib.Path(tmp), steps, evals,
+                                    "--no-telemetry" not in cell.argv)
     header = lines[0]
     forensic = "--gar-diagnostics" in cell.argv
     faulted = "--fault-plan" in cell.argv
-    if header != "# " + "\t".join(STUDY_COLUMNS
-                                   + (FAULT_COLUMNS if faulted else ())
-                                   + (FORENSIC_COLUMNS if forensic else ())):
+    recovery = "--rollback-budget" in cell.argv
+    health = "--health" in cell.argv
+    columns = (("FAULT_COLUMNS", FAULT_COLUMNS, faulted),
+               ("RECOVERY_COLUMNS", RECOVERY_COLUMNS, recovery),
+               ("FORENSIC_COLUMNS", FORENSIC_COLUMNS, forensic),
+               ("HEALTH_COLUMNS", HEALTH_COLUMNS, health))
+    if header != "# " + "\t".join(STUDY_COLUMNS + sum(
+            (names for _, names, on in columns if on), ())):
         raise SystemExit(f"{name}: study header differs from STUDY_COLUMNS"
-                         f"{' + FAULT_COLUMNS' if faulted else ''}"
-                         f"{' + FORENSIC_COLUMNS' if forensic else ''}")
+                         + "".join(f" + {label}" for label, _, on in columns
+                                   if on))
     rows = [line.split("\t") for line in lines[1:]]
     if len(rows) != steps:
         raise SystemExit(f"{name}: study has {len(rows)} rows, expected {steps}")
@@ -2699,7 +2784,8 @@ def drive(cell, smi):
             f"steps predict every member's launches exactly; the mirror "
             f"equalled the device's key at each chunk's end")
     log(f"{name} cell: {steps} steps in chunks {sizes}, {rate:.4f} steps/s "
-        f"after the first chunk, engine counts {summary['counts']}, "
+        f"after the first chunk, {records} telemetry records, engine counts "
+        f"{summary['counts']}, "
         f"launches {counts}, defense norms {norms[0]:.4e} .. "
         f"{norms[-1]:.4e}, acceptation ratio {ratio}, peak memory "
         f"{peak_gb:.2f} GB (max_memory_allocated) on {smi}")
@@ -3023,6 +3109,328 @@ def fault_cells(smi, totals):
     masked_vs_plain(smi)
     fault_vs_single(smi)
     fault_resume(smi)
+
+
+def telemetry_verdict(name, resdir, steps, evals, on=True):
+    """A completed run's `telemetry.jsonl` and heartbeat: `run_start` and
+    `data_setup` first, an `eval` span per evaluation, a `device_step_ms`
+    sample, `run_end` at `steps` with status `completed`, and a final
+    heartbeat at `steps` saying so; with telemetry off (`on` False),
+    neither file. Returns the count of records."""
+    records = obs.load_records(resdir)
+    heartbeat = obs.read_heartbeat(resdir)
+    if not on:
+        if records or heartbeat is not None:
+            raise SystemExit(f"{name}: --no-telemetry wrote a timeline")
+        return 0
+    events = [r["name"] for r in records if r["kind"] == "event"]
+    end = [r["data"] for r in records if r["name"] == "run_end"]
+    spans = [r for r in records if r["kind"] == "span" and r["name"] == "eval"]
+    gauges = {r["name"] for r in records if r["kind"] == "gauge"}
+    if (events[:2] != ["run_start", "data_setup"] or len(spans) != evals
+            or "device_step_ms" not in gauges or not end
+            or end[-1]["status"] != "completed" or end[-1]["step"] != steps
+            or heartbeat is None or heartbeat.get("step") != steps
+            or heartbeat.get("status") != "completed"):
+        raise SystemExit(f"{name}: incomplete telemetry: events {events}, "
+                         f"{len(spans)} eval spans (expected {evals}), "
+                         f"gauges {sorted(gauges)}, heartbeat {heartbeat}")
+    return len(records)
+
+
+def health_f64(G_honest, G_attack, grad_defense, theta_old, theta_new):
+    """The health vector's floats and the submitted rows' norms, in f64
+    on the card."""
+    Gh, Ga, gd, t0, t1 = (x.double() for x in (G_honest, G_attack,
+                                               grad_defense, theta_old,
+                                               theta_new))
+    avg = Gh.mean(dim=0)
+    dev = Gh - avg
+    weight, update = torch.linalg.vector_norm(t1), torch.linalg.vector_norm(
+        t0 - t1)
+    return {"Var ratio": (dev * dev).sum() / (Gh.shape[0] - 1)
+            / (avg * avg).sum(),
+            "Weight norm": weight, "Update norm": update,
+            "Update/weight": update / weight,
+            "norms": torch.cat([torch.linalg.vector_norm(G, dim=1)
+                                for G in (Gh, Ga)]),
+            "Nonfinite aggregate": float(not torch.isfinite(gd).all())}
+
+
+def health_vs_f64(smi, M=M_DEFAULT):
+    """One warm chunk of `headline_health` on the driver's path, each
+    step's `phase_update` inputs and output recomputed in f64 on the card:
+    the four health floats within rtol 1e-5, the histogram's bins equal
+    where no norm lies within 1e-6 of a bin edge (a near-tie, logged),
+    the non-finite counts equal."""
+    args, engine, state = setup_cell(HEALTH_CELL)
+    lrs = np.full(M, args.initial_lr(0), np.float32)
+    state, _ = engine.train_multi_indexed(state, *engine.sample_indices(1),
+                                          lrs[:1])
+    wants = []
+    update = engine.phase_update
+
+    def recomputed(state, G_sampled, loss_avg, net_state, new_mw, G_honest,
+                   G_attack, grad_defense, *rest, **kwargs):
+        new_state, metrics = update(state, G_sampled, loss_avg, net_state,
+                                    new_mw, G_honest, G_attack, grad_defense,
+                                    *rest, **kwargs)
+        wants.append(health_f64(G_honest, G_attack, grad_defense,
+                                state.theta, new_state.theta))
+        return new_state, metrics
+
+    engine.phase_update = recomputed
+    _, metrics = engine.train_multi_indexed(state, *engine.sample_indices(M),
+                                            lrs)
+    worst, ties = 0.0, 0
+    for i, want in enumerate(wants):
+        for key in ("Var ratio", "Weight norm", "Update norm",
+                    "Update/weight"):
+            got, exact = float(metrics[key][i]), float(want[key])
+            err = abs(got - exact) / abs(exact)
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise SystemExit(f"health_vs_f64: step {i} {key} {got} "
+                                 f"against f64 {exact} (rel {err:.3e})")
+        norms = want["norms"]
+        bins = torch.clamp(torch.floor((torch.log2(norms) - health_mod.HIST_LO)
+                                       / health_mod.HIST_WIDTH),
+                           0, health_mod.HIST_BINS - 1).long()
+        hist = torch.bincount(bins, minlength=health_mod.HIST_BINS).float()
+        if not torch.equal(hist, metrics["Norm hist"][i].float()):
+            edges = 2.0 ** (health_mod.HIST_LO + health_mod.HIST_WIDTH
+                            * torch.round((torch.log2(norms)
+                                           - health_mod.HIST_LO)
+                                          / health_mod.HIST_WIDTH))
+            if not bool((torch.abs(norms / edges - 1) <= 1e-6).any()):
+                raise SystemExit(f"health_vs_f64: step {i} histogram "
+                                 f"{metrics['Norm hist'][i].tolist()} against "
+                                 f"f64 {hist.tolist()}")
+            ties += 1
+            log(f"  health_vs_f64: step {i}: a norm within 1e-6 of a bin "
+                f"edge, the bins not compared")
+        counts = [float(metrics[key][i]) for key in (
+            "Nonfinite submitted", "Nonfinite aggregate", "Nonfinite state")]
+        want_counts = [float((~torch.isfinite(norms)).sum()),
+                       want["Nonfinite aggregate"],
+                       float(not math.isfinite(float(want["Weight norm"])))]
+        if counts != want_counts:
+            raise SystemExit(f"health_vs_f64: step {i} non-finite counts "
+                             f"{counts} against {want_counts}")
+    log(f"health_vs_f64: {len(wants)} steps of headline_health at M = {M}: "
+        f"the health floats within {worst:.3e} (relative) of f64 on the "
+        f"card, the histograms equal ({ties} near-ties), no non-finite "
+        f"count on {smi}")
+
+
+def _quiet_run(argv, env=None):
+    """`driver.run(argv)` under the environment `env`, its stdout and
+    stderr caught; returns (summary, the text it printed)."""
+    out = io.StringIO()
+    saved = {key: os.environ.get(key) for key in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            summary = driver.run(argv)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+    return summary, out.getvalue()
+
+
+def _records(resdir, name):
+    return [r.get("data") or {} for r in obs.load_records(resdir)
+            if r["name"] == name]
+
+
+def tighten_check(smi, totals):
+    """`--rollback-tighten-quorum` after the rollback at ROLLBACK_NAN: Krum
+    at f = 5 goes on at f = 6 (its launches exactly Krum's over the steps
+    run, rewound ones included), the headline's Bulyan keeps f = 5 with
+    the driver's "Quorum not tightened" line; both finish their 16 rows."""
+    nan = {"BMT_CHAOS_NAN_AT_STEP": str(ROLLBACK_NAN)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cell, line in zip(TIGHTEN_CELLS, (
+                "Rollback: declared Byzantine count tightened to f=6",
+                "Quorum not tightened: 'bulyan' cannot run with f=6")):
+            resdir = pathlib.Path(tmp) / cell.name
+            _cuda.reset_launches()
+            summary, text = _quiet_run(cell_argv(cell, cell.steps,
+                                                 str(resdir)), nan)
+            launches = {(kernel, dt): count
+                        for kernel, wrapper in WRAPPERS.items()
+                        for dt, count in wrapper.launches_by_dtype.items()
+                        if count}
+            want = {key: per * summary["steps_run"]
+                    for key, per in cell.per_step.items()}
+            rows = (resdir / "study").read_text().split(os.linesep)[1:]
+            if (line not in text or summary["rollbacks"] != 1
+                    or summary["diverged"] or launches != want
+                    or [row.split("\t")[0] for row in rows]
+                    != [str(i) for i in range(cell.steps)]):
+                raise SystemExit(f"{cell.name}: rollbacks "
+                                 f"{summary['rollbacks']}, launches "
+                                 f"{launches} (expected {want}), rows "
+                                 f"{len(rows)}, log:\n{text[-2000:]}")
+            for (kernel, dtype), count in launches.items():
+                totals[kernel, dtype, cell.family] += count
+            log(f"{cell.name}: rolled back once, {summary['steps_run']} "
+                f"steps run for {cell.steps} rows, launches exact "
+                f"{ {f'{k}[{DTYPE_NAMES[d]}]': c for (k, d), c in launches.items()} }"
+                f", the driver said {line!r} on {smi}")
+
+
+def anomaly_check(smi):
+    """ANOMALY_CELLS through the driver, each giving up (exit code 1, a
+    `divergence_giveup` blackbox) after an anomaly edge: with --health
+    the first edge comes at least 2 steps before the first non-finite
+    flag; with --rollback-on-anomaly the first edge comes before the
+    first flag, and at the factor of 10, where the state is still finite
+    when the trigger acts, every flag and rollback is an anomaly."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for cell, env in ANOMALY_CELLS:
+            resdir = pathlib.Path(tmp) / cell.name
+            summary, text = _quiet_run(cell_argv(cell, cell.steps,
+                                                 str(resdir)), env)
+            edges = [(e["channel"], e.get("rule"), e["step"])
+                     for e in _records(resdir, "health_anomaly")]
+            flags = [(e["trigger"], e["step"])
+                     for e in _records(resdir, "health_flag")]
+            rollbacks = [(e["trigger"], e["step"], e["restored"])
+                         for e in _records(resdir, "rollback")]
+            box = obs.load_blackbox(resdir)
+            report = (f"{cell.name} (x{env['BMT_CHAOS_BLOWUP_FACTOR']}): "
+                      f"anomaly edges {edges}, flags {flags}, rollbacks "
+                      f"{rollbacks}, blackbox {box and box['reason']} ring "
+                      f"{box and len(box['ring'])}, {summary['steps_run']} "
+                      f"steps run")
+            log(f"{report} on {smi}")
+            first = min((step for *_, step in edges), default=None)
+            nonfinite = [step for trigger, step in flags
+                         if trigger == "non-finite"]
+            if (not summary["diverged"] or first is None or not flags
+                    or not box or box["reason"] != "divergence_giveup"
+                    or first >= min(step for _, step in flags)):
+                raise SystemExit(f"{report}: expected a give-up after an "
+                                 f"anomaly edge\n{text[-2000:]}")
+            if "--health" in cell.argv:
+                lead = min(nonfinite) - first if nonfinite else None
+                if lead is None or lead < 2:
+                    raise SystemExit(f"{report}: the anomaly leads the "
+                                     f"non-finite flag by {lead} steps")
+                log(f"  the first anomaly edge leads the non-finite flag by "
+                    f"{lead} steps")
+            elif env["BMT_CHAOS_BLOWUP_FACTOR"] == "10" and (
+                    nonfinite or not rollbacks
+                    or any(trigger != "anomaly" for trigger, *_ in rollbacks)):
+                raise SystemExit(f"{report}: expected rollbacks on "
+                                 f"anomalies only")
+
+
+def health_children(tmp):
+    """The headline, `headline_health` and the rollback runs started in
+    child processes side by side under deterministic cuDNN
+    (`_resume_child`), on `fused_vs_single`'s train split, into `tmp`;
+    returns `{label: process}`."""
+    data = {"BMT_SYNTH_TRAIN": FUSED_TRAIN}
+    nan = {**data, "BMT_CHAOS_NAN_AT_STEP": ROLLBACK_NAN}
+    children = {"headline": (CELLS_BY_NAME["headline"], data),
+                "headline_health": (HEALTH_CELL, data),
+                "rollback_ref": (ROLLBACK_CELLS[M_DEFAULT], data),
+                **{f"rollback_m{M}": (cell, nan)
+                   for M, cell in ROLLBACK_CELLS.items()}}
+    return {label: _resume_child(tmp / label, True, extra, cell)
+            for label, (cell, extra) in children.items()}
+
+
+def health_children_verdict(tmp, procs, t0, smi):
+    """`health_children`'s runs, waited for: `headline_health`'s first 24
+    columns and eval file byte-equal to the headline's; the rollback runs
+    exit 0 with steps 0-15 once each, `Rollbacks` 0 for steps 0-3 and 1
+    after, restored from checkpoint-4, rows 0-3 byte-equal to an
+    uninterrupted run's (the same flags, no poison) and non-finite only
+    where that run's are, M = 1 and M = 8 byte-equal."""
+    _waited(procs, {label: 0 for label in procs}, t0)
+
+    def study(label):
+        return [row.split("\t") for row in
+                (tmp / label / "study").read_text().split(os.linesep)[1:]]
+
+    width = len(STUDY_COLUMNS)
+    plain, health = study("headline"), study("headline_health")
+    if ([row[:width] for row in health] != plain
+            or (tmp / "headline" / "eval").read_text()
+            != (tmp / "headline_health" / "eval").read_text()):
+        raise SystemExit("headline_health: its first 24 columns or its "
+                         "eval file differ from the headline's")
+    ref = study("rollback_ref")
+    for M in ROLLBACK_CELLS:
+        label = f"rollback_m{M}"
+        rows = study(label)
+        roll = _records(tmp / label, "rollback")
+        values = np.array([[float(v) for v in row[2:width]]
+                           for row in rows])
+        ref_nan = np.isnan(np.array([[float(v) for v in row[2:width]]
+                                     for row in ref]))
+        if ([row[0] for row in rows] != [str(i) for i in range(STEPS)]
+                or rows[:4] != ref[:4]
+                or [row[width] for row in rows] != ["0"] * 4 + ["1"] * 12
+                or [(r["step"], r["restored"]) for r in roll]
+                != [(4, "checkpoint-4")]
+                or not np.array_equal(~np.isfinite(values), ref_nan)):
+            raise SystemExit(f"{label}: rows {[row[0] for row in rows]}, "
+                             f"Rollbacks {[row[width] for row in rows]}, "
+                             f"rollbacks {roll}, rows 0-3 as the "
+                             f"uninterrupted run's: {rows[:4] == ref[:4]}")
+    same = all((tmp / "rollback_m1" / name).read_text()
+               == (tmp / f"rollback_m{M_DEFAULT}" / name).read_text()
+               for name in ("study", "eval"))
+    if not same:
+        raise SystemExit("headline_rollback: M = 1 and M = 8 wrote other "
+                         "CSVs")
+    log(f"health children (deterministic, side by side, "
+        f"{time.perf_counter() - t0:.1f} s): headline_health's first 24 "
+        f"columns and eval file byte-equal to the headline's; the "
+        f"rollback at step {ROLLBACK_NAN} restored checkpoint-4 at M = 1 "
+        f"and M = {M_DEFAULT} (byte-equal), steps 0-15 once each, "
+        f"Rollbacks 0 then 1, rows 0-3 the uninterrupted run's on {smi}")
+
+
+def health_cells(smi, totals):
+    """The `health cells` phase: the timed runs first, on a card of their
+    own (`headline_health`, the headline without telemetry, 48 steps with
+    and without a rollback budget; their launches into `totals`), the f64
+    recomputation and the chunk profile of `headline_health`; then the
+    children of `health_children`, and beside them `tighten_check` and
+    `anomaly_check`."""
+    for cell in (HEALTH_CELL, NO_TELEMETRY_CELL, *BUDGET_CELLS):
+        for (kernel, dtype), count in drive(cell, smi).items():
+            totals[kernel, dtype, cell.family] += count
+    log(f"headline_health: {RATES['headline_health']:.4f} steps/s against "
+        f"the headline's {RATES['headline']:.4f} (telemetry on); the "
+        f"headline with --no-telemetry {RATES['headline_no_telemetry']:.4f}; "
+        f"48 steps {RATES['headline_48']:.4f} without and "
+        f"{RATES['headline_48_budget']:.4f} with --rollback-budget 1 on "
+        f"{smi}")
+    health_vs_f64(smi)
+    chunk_profile(HEALTH_CELL, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        procs = health_children(tmp)
+        try:
+            tighten_check(smi, totals)
+            anomaly_check(smi)
+        except BaseException:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+            raise
+        health_children_verdict(tmp, procs, t0, smi)
 
 
 def union_busy_us(prof):
@@ -3387,6 +3795,7 @@ NO_READ_CELLS = (("headline", M_DEFAULT), ("headline_adaptive", M_DEFAULT),
                  ("headline_mixture", M_DEFAULT),
                  ("headline_mixture_per_call", M_DEFAULT),
                  ("headline_adam", M_DEFAULT), ("headline_diag", M_DEFAULT),
+                 ("headline_health", M_DEFAULT),
                  ("headline_faults", M_DEFAULT), ("adaptive_faults", M_DEFAULT),
                  ("krum_f11_faults_diag", M_DEFAULT),
                  ("mnist-alie-warmup-krum", M_DEFAULT),
@@ -3669,6 +4078,8 @@ def main():
     lap("diag cells")
     fault_cells(smi, totals)
     lap("fault cells")
+    health_cells(smi, totals)
+    lap("health cells")
     resume_check(smi)
     lap("resume")
     no_host_reads(smi)
