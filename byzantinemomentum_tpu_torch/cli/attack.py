@@ -4,9 +4,8 @@ of the training path ported so far).
 Flags keep the JAX driver's names and defaults, except `--device`, which
 defaults to `cuda`: `--device cpu` is the only way onto the CPU, and with
 no card and no such request the driver exits with an error. Flags of the
-JAX driver that the port does not have yet (`--mesh`, `--trace-dir`,
-`--attribution`, `--telemetry-mfu`, `--download`) are refused by the
-parser rather than ignored.
+JAX driver that the port does not have yet (`--mesh`, `--download`) are
+refused by the parser rather than ignored.
 
 The defense is `--gar` or a `--gars 'name[,freq[,json-args]];...'`
 mixture (the JAX `_parse_gars`, with its messages), drawn once a step
@@ -132,8 +131,34 @@ study CSV then carries the `Rollbacks`/`Restarts` columns, as under
 exit code 1. `BMT_CHAOS_NAN_AT_STEP`, `BMT_CHAOS_NAN_REPEAT`,
 `BMT_CHAOS_BLOWUP_AT_STEP` and `BMT_CHAOS_BLOWUP_FACTOR` poison the
 parameters after a chunk as the JAX driver's hooks do (`_Chaos`).
-The JAX driver's SIGINT/SIGTERM latch (its exit code 130) is not ported:
-the loop runs to its `--nb-steps`.
+
+Profiling, as in the JAX driver, on `torch.profiler` (CPU activity, and
+on the card CUDA's; the traces are `tensorboard_trace_handler`'s
+`*.pt.trace.json`), read by `obs/attrib/`: `--trace-dir DIR` traces from
+before the loop to the run's end (`profiler_trace_start`/`_stop`
+events). `--attribution` (with a result directory, else the JAX warning
+drops it) traces exactly one chunk, the first whose step count M has run
+once, into `attribution-trace/`: the device is drained before it, its
+`device_step_ms` sample is forced, and it is drained and closed on
+itself, not one chunk later with its rows; the window is attributed to
+the engine's phase ranges (`engine/program.py::scope`) into
+`attribution.json` with an `attribution` event. `--telemetry-mfu` counts
+the first chunk's FLOPs (`obs/perf.py::logical_flops`, the
+`flops_per_step` event) and adds an `mfu` gauge and heartbeat field at
+every sample where `peak_flops` knows the card. SIGUSR1 (`main`) dumps
+the health blackbox (reason `sigusr1`) and opens a one-chunk window into
+`profile-<step>/` at the next loop top, closed on that chunk, attributed
+into its own directory, with a `profiler_window` event. A window that
+fails to open, close or parse is a warning; the run goes on with its
+results unchanged. With none of these flags no profiler object exists
+and the loop issues what it issues without them.
+
+SIGINT and SIGTERM (`main`) set the JAX driver's one-time latch, read at
+each loop top: the run then ends as a finished run does (the pending
+chunk's rows written, `run_end` with status `"interrupted"`, the final
+heartbeat), and `main` returns 130 where a bounded run was cut short (0
+under `--nb-steps < 0`), so a supervisor does not take a truncated
+directory for a finished one.
 
 The `eval` and 24-column `study` CSVs have the JAX driver's headers and
 row format byte for byte ('# '-prefixed tab-separated header, rows
@@ -281,6 +306,10 @@ def process_commandline(argv=None):
              "chunk on the device (CUDA events, read once the next chunk "
              "is queued), then records steps/s, host RSS and refreshes the "
              "heartbeat")
+    add("--telemetry-mfu", action="store_true", default=False,
+        help="Also estimate MFU: count the step's logical FLOPs once "
+             "(FlopCounterMode over the first chunk dispatched) and add an "
+             "'mfu' gauge where the card's bf16 peak is known")
     add("--model", type=str, default="simples-conv", help="Model to train")
     add("--model-args", nargs="*", help="key:value args for the model")
     add("--loss", type=str, default="nll", help="Loss to use")
@@ -313,6 +342,21 @@ def process_commandline(argv=None):
     add("--optimizer", type=str, default="sgd",
         help="Optimizer applying the final update")
     add("--optimizer-args", nargs="*", help="key:value args for the optimizer")
+    add("--trace-dir", type=str, default=None,
+        help="Capture a torch.profiler trace (CPU and, on the card, CUDA "
+             "activity) from before the training loop to the run's end "
+             "into this directory (opt-in, like the reference's "
+             "TimedContext tools)")
+    add("--attribution", action="store_true", default=False,
+        help="Phase-attributed device profiling: trace exactly one fused "
+             "chunk — deterministically, the first chunk whose step count "
+             "has already run once — and attribute its device time to the "
+             "engine's named phases (honest/attack/gar/update/metrics), "
+             "op classes (GEMM/convolution vs memory-bound vs relayout "
+             "copies) and the host gap — written as 'attribution.json' in "
+             "the result directory with an 'attribution' telemetry event "
+             "(obs/attrib; needs '--result-directory'). The flag only adds "
+             "a one-chunk profiler window; the step itself is unchanged")
     add("--l1-regularize", type=float, default=None,
         help="L1 loss regularization factor")
     add("--l2-regularize", type=float, default=None,
@@ -477,6 +521,11 @@ def _postprocess(args):
     if args.telemetry and args.result_directory is None:
         utils.warning("'--telemetry' needs '--result-directory' (there is "
                       "nowhere to write the timeline); telemetry disabled")
+    if args.attribution and args.result_directory is None:
+        utils.warning("'--attribution' needs '--result-directory' (there "
+                      "is nowhere to write the trace window and "
+                      "attribution.json); attribution disabled")
+        args.attribution = False
     if args.gar_diagnostics and (args.result_directory is None
                                  or args.nb_for_study < 1):
         utils.warning("'--gar-diagnostics' needs the study pipeline "
@@ -1001,6 +1050,70 @@ class _Chaos:
                 else dataclasses.replace(state, theta=theta))
 
 
+class Signals:
+    """The driver's signal latches (the JAX driver's `main`): SIGINT and
+    SIGTERM trigger a one-time exit latch (`exit_requested()`), which the
+    loop reads at each loop top; SIGUSR1 raises `profile_request`, a
+    one-chunk profiler window opened at the next loop top. `install`
+    sets the handlers (main thread only) and returns the previous ones
+    for `restore`."""
+
+    def __init__(self):
+        self.exit_trigger, self.exit_requested = utils.onetime(None)
+        self.profile_request = False
+
+    def request_profile(self, *_):
+        self.profile_request = True
+
+    def install(self):
+        previous = {}
+        try:
+            for signum, handler in (
+                    (signal.SIGINT, lambda *_: self.exit_trigger()),
+                    (signal.SIGTERM, lambda *_: self.exit_trigger()),
+                    (signal.SIGUSR1, self.request_profile)):
+                previous[signum] = signal.signal(signum, handler)
+        except (ValueError, AttributeError):
+            pass  # not in the main thread, or a platform without SIGUSR1
+        return previous
+
+    @staticmethod
+    def restore(previous):
+        for signum, handler in previous.items():
+            signal.signal(signum, handler)
+
+
+def _start_profiler(directory, device, what):
+    """A started `torch.profiler` session tracing the CPU and, on the
+    card, CUDA into `directory` (`tensorboard_trace_handler`), or None
+    with a warning where it cannot start (another session runs)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(str(directory)))
+        prof.start()
+    except (RuntimeError, OSError) as err:
+        utils.warning(f"{what} profiler window failed to start ({err})")
+        return None
+    return prof
+
+
+def _stop_profiler(prof, what):
+    """Stop a session and write its trace; False with a warning where
+    that fails (the run outlives its profiler window)."""
+    try:
+        prof.stop()
+    except (RuntimeError, OSError) as err:
+        utils.warning(f"{what} profiler window failed to stop ({err})")
+        return False
+    return True
+
+
 @dataclasses.dataclass
 class _Chunk:
     """A dispatched chunk whose rows, key, health flag and device time are
@@ -1026,16 +1139,20 @@ class _Chunk:
         return self.flag is not None and not bool(self.flag)
 
 
-def run(argv=None):
-    """Run one experiment. Returns a summary dict: `steps`, `device`,
+def run(argv=None, signals=None):
+    """Run one experiment; `signals` gives the exit latch and the SIGUSR1
+    request (`Signals`, which `main` installs; none is ever raised
+    without it). Returns a summary dict: `steps`, `device`,
     `steps_per_s` (training steps per second over the steps run after the
     first chunk, whose time includes one-time set-up such as the kernel
     build; evaluations, checkpoints and rollbacks excluded, the steps a
     rollback rewound counted; None when the first chunk is the last),
     `steps_run` (the steps dispatched, rewound ones included),
     `rollbacks`, `diverged` (the rollback budget was spent, or a rollback
-    could not reload: the run gave up), `result_directory`, `resume_step`
-    (None on a cold start) and `counts` (the engine's counts of indexed
+    could not reload: the run gave up), `status` (`run_end`'s:
+    "completed", "interrupted" by the latch, or "diverged"), `cut_short`
+    (a bounded run the latch ended before its last step), `result_directory`,
+    `resume_step` (None on a cold start) and `counts` (the engine's counts of indexed
     steps and evaluations, of grouped and vmapped honest phases, of
     multi-step dispatches (chunks of more than one step) and of
     `--device-gar` hop steps)."""
@@ -1048,7 +1165,7 @@ def run(argv=None):
         telem = _open_telemetry(args, resume_step, restarts)
     try:
         return _train(args, device, engine, state, results, resume_step,
-                      restarts, telem)
+                      restarts, telem, signals or Signals())
     finally:
         if telem is not None:
             telem.close()
@@ -1056,9 +1173,9 @@ def run(argv=None):
 
 
 def _train(args, device, engine, state, results, resume_step, restarts,
-           telem):
+           telem, signals):
     """`run`'s loop: the chunks, the milestones, the health verdicts and
-    rollbacks, and the telemetry."""
+    rollbacks, the telemetry and the profiler windows."""
     if args.load_checkpoint is not None:
         with utils.Context("load"):
             state = _load(args, engine, state)
@@ -1091,6 +1208,12 @@ def _train(args, device, engine, state, results, resume_step, restarts,
     rate_window = obs.SlidingRate()
     step_timer = obs.StepTimer(device)
     next_sample_step = steps_host
+    # --telemetry-mfu: the logical FLOPs a step (counted over the first
+    # chunk; False once the count failed) and the card's bf16 peak
+    device_kind = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")
+    mfu_flops = None
+    mfu_peak = obs.peak_flops(device_kind) if telem is not None else None
 
     def health_hb():
         """The heartbeat's `health` block (none without --health)."""
@@ -1138,9 +1261,12 @@ def _train(args, device, engine, state, results, resume_step, restarts,
                 telem.gauge("steps_per_sec", rate, step=chunk.end)
             if rss is not None:
                 telem.gauge("host_rss_mb", rss, step=chunk.end)
+            mfu_now = obs.mfu(mfu_flops or None, rate, mfu_peak)
+            if mfu_now is not None:
+                telem.gauge("mfu", mfu_now, step=chunk.end)
             telem.heartbeat(step=chunk.end, status="running",
                             steps_per_sec=rate, device_step_ms=device_ms,
-                            rss_mb=rss, **health_hb())
+                            rss_mb=rss, mfu=mfu_now, **health_hb())
 
     def tighten_quorum():
         """`--rollback-tighten-quorum`: f + 1 where every defense's check
@@ -1256,6 +1382,48 @@ def _train(args, device, engine, state, results, resume_step, restarts,
         diverged, steps_host = True, step
         return False
 
+    def attribute_window(trace_dir, steps, out_dir):
+        """Attribute one closed trace window into `out_dir`'s
+        `attribution.json` (and an `attribution` event); a warning where
+        the trace cannot be read."""
+        try:
+            att = obs.attrib.attribute_trace(
+                trace_dir, steps, flops_per_step=mfu_flops or None,
+                peak_flops=mfu_peak, backend=device.type,
+                device_kind=device_kind)
+        except (FileNotFoundError, ValueError) as err:
+            utils.warning(f"Attribution of {str(trace_dir)!r} failed "
+                          f"({err})")
+            return None
+        path = obs.attrib.write_attribution(out_dir, att)
+        if telem is not None:
+            telem.event(
+                "attribution", path=str(path), steps=steps,
+                total_ms=att["total_ms"],
+                relayout_ms=att["op_classes"]["relayout"],
+                host_gap_fraction=att["host_gap_fraction"], mfu=att["mfu"],
+                phases={k: round(v["ms"], 5)
+                        for k, v in att["phases"].items() if v["ms"] > 0.0})
+        utils.info(f"Attribution: {att['total_ms']:.3f} ms/step over {steps} "
+                   f"traced steps -> {str(path)!r}")
+        return att
+
+    # --attribution: one traced chunk, the first whose step count M has
+    # already run once (the first chunk of each M carries its one-time
+    # costs: the kernels' build, cuDNN's plans), so the window is the same
+    # steps in every run; (session, directory, M) while it is open
+    attrib_armed = args.attribution
+    attrib_seen_m = set()
+    attrib_window = None
+    # A SIGUSR1 window: (session, directory, from step) while open
+    profile_active = None
+    trace_session = None
+    if args.trace_dir is not None:
+        trace_session = _start_profiler(pathlib.Path(args.trace_dir), device,
+                                        "--trace-dir")
+        if trace_session is not None:
+            obs.emit("profiler_trace_start", directory=str(args.trace_dir))
+
     # The last dispatched chunk, its rows, key, flag and sample still to
     # be read
     pending = None
@@ -1266,7 +1434,7 @@ def _train(args, device, engine, state, results, resume_step, restarts,
     just_loaded = args.load_checkpoint is not None
     with utils.Context("training"):
         try:
-            while True:
+            while not signals.exit_requested():
                 steps = steps_host
                 if chaos.kill is not None and steps >= chaos.kill:
                     os.kill(os.getpid(), signal.SIGKILL)
@@ -1347,6 +1515,22 @@ def _train(args, device, engine, state, results, resume_step, restarts,
                     clock[1] += time.perf_counter() - t_pause
                 if at_end:
                     break
+                if signals.profile_request and profile_active is None:
+                    # SIGUSR1: the live-debug hook, a one-chunk window
+                    signals.profile_request = False
+                    if monitor is not None:
+                        monitor.dump_blackbox(args.result_directory,
+                                              reason="sigusr1")
+                    if args.result_directory is None:
+                        utils.warning("SIGUSR1 profiling needs "
+                                      "'--result-directory'; ignored")
+                    else:
+                        pdir = args.result_directory / f"profile-{steps}"
+                        session = _start_profiler(pdir, device, "SIGUSR1")
+                        if session is not None:
+                            profile_active = (session, pdir, steps)
+                            utils.info(f"SIGUSR1: profiling one chunk into "
+                                       f"{str(pdir)!r}")
                 # The chunk runs to the next milestone boundary, at most
                 # --steps-per-program steps (the JAX driver's horizon)
                 bounds = [(steps // delta + 1) * delta
@@ -1367,14 +1551,69 @@ def _train(args, device, engine, state, results, resume_step, restarts,
                 # One draw of the chunk's batches (under --device-gar in
                 # the order of the JAX driver's host-staged batches)
                 idx, flips = engine.sample_indices(M, batchwise=hop is not None)
-                measure = telem is not None and steps_host >= next_sample_step
+                if (attrib_armed and attrib_window is None
+                        and M in attrib_seen_m and profile_active is None):
+                    # The window holds this chunk alone: the device is
+                    # drained before it opens
+                    sync()
+                    adir = args.result_directory / "attribution-trace"
+                    session = _start_profiler(adir, device, "--attribution")
+                    if session is None:
+                        attrib_armed = False
+                    else:
+                        attrib_window = (session, adir, M)
+                        utils.info(f"--attribution: tracing one {M}-step "
+                                   f"chunk into {str(adir)!r}")
+                # A telemetry sample times the chunk on the device; an
+                # attribution window forces one on the chunk it traces
+                measure = telem is not None and (
+                    steps_host >= next_sample_step
+                    or attrib_window is not None)
                 begin = step_timer.mark() if measure else None
-                state, metrics = engine.train_multi_indexed(
-                    state, idx, flips, np.asarray(lrs, np.float32), step=hop)
+                lrs = np.asarray(lrs, np.float32)
+                if (telem is not None and args.telemetry_mfu
+                        and mfu_flops is None):
+                    # The first chunk runs under the FLOP counter (it
+                    # only counts); False: tried and failed, not retried
+                    (state, metrics), flops = obs.logical_flops(
+                        engine.train_multi_indexed, state, idx, flips, lrs,
+                        step=hop)
+                    mfu_flops = flops / M if flops else False
+                    if mfu_flops:
+                        telem.event("flops_per_step", flops=mfu_flops)
+                else:
+                    state, metrics = engine.train_multi_indexed(
+                        state, idx, flips, lrs, step=hop)
                 timed = (begin, step_timer.mark()) if measure else None
                 steps_host += M
                 datapoints_host += M * increment
                 steps_run += M
+                attrib_seen_m.add(M)
+                if attrib_window is not None or profile_active is not None:
+                    # A window closes on the chunk it covers (drained),
+                    # not one chunk later with its rows; its reading is
+                    # kept off the throughput clock
+                    t_pause = time.perf_counter()
+                    sync()
+                    if attrib_window is not None:
+                        session, adir, a_steps = attrib_window
+                        attrib_window, attrib_armed = None, False
+                        if _stop_profiler(session, "--attribution"):
+                            attribute_window(adir, a_steps,
+                                             args.result_directory)
+                    if profile_active is not None:
+                        session, pdir, pstep = profile_active
+                        profile_active = None
+                        _stop_profiler(session, "SIGUSR1")
+                        if telem is not None:
+                            telem.event("profiler_window",
+                                        directory=str(pdir), from_step=pstep,
+                                        to_step=steps_host)
+                        utils.info(f"SIGUSR1: profiler window saved to "
+                                   f"{str(pdir)!r}")
+                        attribute_window(pdir, steps_host - pstep, pdir)
+                    if clock is not None:
+                        clock[1] += time.perf_counter() - t_pause
                 if telem is not None:
                     rate_window.update(steps_run)
                 if measure:
@@ -1406,6 +1645,14 @@ def _train(args, device, engine, state, results, resume_step, restarts,
             flush(pending)
             if results is not None:
                 results.close()
+            # A window an exception left open, then the --trace-dir session
+            for window, what in ((attrib_window, "--attribution"),
+                                 (profile_active, "SIGUSR1")):
+                if window is not None:
+                    _stop_profiler(window[0], what)
+            if trace_session is not None:
+                obs.emit("profiler_trace_stop", directory=str(args.trace_dir))
+                _stop_profiler(trace_session, "--trace-dir")
     sync()
     timed = 0 if timed_from is None else steps_run - timed_from
     rate = None
@@ -1413,6 +1660,9 @@ def _train(args, device, engine, state, results, resume_step, restarts,
         rate = timed / (time.perf_counter() - clock[0] - clock[1])
         utils.info(f"Throughput: {rate:.3f} steps/s over the last {timed} of "
                    f"{steps_run} steps run on {device}")
+    status = ("diverged" if diverged
+              else "interrupted" if signals.exit_requested()
+              else "completed")
     if monitor is not None and monitor.steps > 0 and not diverged:
         # Every recorded run leaves a post-mortem; a diverged one keeps
         # its divergence_giveup dump
@@ -1420,7 +1670,6 @@ def _train(args, device, engine, state, results, resume_step, restarts,
     if telem is not None:
         if tracker is not None and tracker.steps > 0:
             telem.event("forensics_summary", **tracker.summary())
-        status = "diverged" if diverged else "completed"
         if monitor is not None and monitor.steps > 0:
             telem.event("health_summary", **monitor.summary())
         telem.event("run_end", step=steps_host, status=status,
@@ -1429,19 +1678,31 @@ def _train(args, device, engine, state, results, resume_step, restarts,
                         steps_per_sec=rate_window.rate(), **health_hb())
     return {"steps": steps_host, "device": str(device), "steps_per_s": rate,
             "steps_run": steps_run, "rollbacks": rollbacks,
-            "diverged": diverged, "result_directory": args.result_directory,
+            "diverged": diverged, "status": status,
+            "cut_short": (status == "interrupted" and steps_limit is not None
+                          and steps_host < steps_limit),
+            "result_directory": args.result_directory,
             "resume_step": resume_step, "counts": dict(engine.counts)}
 
 
 def main(argv=None):
-    """Command-line entry: 0 on success, 1 on a user error or a run that
-    gave up on its divergence (its rollback budget spent)."""
+    """Command-line entry, with the signal latches (`Signals`) installed
+    for the run: 0 on success, 1 on a user error or a run that gave up on
+    its divergence (its rollback budget spent), 130 for a bounded run
+    that SIGINT or SIGTERM cut short (a supervisor must not take its
+    directory for a finished run's)."""
+    signals = Signals()
+    previous = signals.install()
     try:
-        summary = run(argv)
+        summary = run(argv, signals=signals)
     except utils.UserException as err:
         utils.error(f"Error: {err}")
         return 1
-    return 1 if summary["diverged"] else 0
+    finally:
+        Signals.restore(previous)
+    if summary["diverged"]:
+        return 1
+    return 130 if summary["cut_short"] else 0
 
 
 if __name__ == "__main__":

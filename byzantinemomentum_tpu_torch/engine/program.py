@@ -23,16 +23,41 @@ dispatches: the engine's single step (`Engine.train_step`), its fused
 M-step entry (`Engine.train_multi`), or the `--device-gar` hop step
 (`device_gar_step`), a drop-in for `Engine.train_step`. The `--mesh`
 placement (`mesh=`) raises here; `ROADMAP.md` says what it needs.
+
+Phase ranges (`scope`): the engine's phases run inside
+`torch.profiler.record_function` ranges named as the JAX package's
+`jax.named_scope`s (`honest`, `attack`, `gar`/`gar_diag`/`gar_masked`,
+`update`, `metrics`), nested as they nest there, so a profiler trace of
+the port attributes to the same phases (`obs/attrib/`). The names are
+constants, as the JAX package's (its jaxlint BMT-E08). A range is opened
+only while a profiler runs: without one the step issues exactly what it
+issues without them.
 """
+
+import contextlib
 
 import numpy as np
 import torch
 
-__all__ = ["VARIANTS", "defense_kernel", "defense_program", "mixture_index",
-           "cumulative", "select", "build_step", "device_gar_step", "tree_to"]
+__all__ = ["VARIANTS", "SCOPES", "scope", "defense_kernel", "defense_program",
+           "mixture_index", "cumulative", "select", "build_step",
+           "device_gar_step", "tree_to"]
 
 # The kernel-family axis of the JAX package
 VARIANTS = ("plain", "diag", "masked")
+
+# The phase range each variant's defense runs under (the JAX package's
+# `engine/program.py::SCOPES`)
+SCOPES = {"plain": "gar", "diag": "gar_diag", "masked": "gar_masked"}
+
+
+def scope(name):
+    """The profiler range of the engine phase `name` (a constant): a
+    `torch.profiler.record_function` while a profiler runs, else a
+    context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def defense_kernel(gar, variant, *, f, kwargs=None, dynamic=True):
@@ -101,11 +126,13 @@ def defense_program(defenses, variant, *, f, dynamic=True):
                for gar, _, kwargs in defenses]
 
     def program(G, member=None, *extra):
-        if len(kernels) == 1:
-            return kernels[0](G, *extra)
-        if isinstance(member, torch.Tensor):
-            return select([kernel(G, *extra) for kernel in kernels], member)
-        return kernels[member](G, *extra)
+        with scope(SCOPES[variant]):
+            if len(kernels) == 1:
+                return kernels[0](G, *extra)
+            if isinstance(member, torch.Tensor):
+                return select([kernel(G, *extra) for kernel in kernels],
+                              member)
+            return kernels[member](G, *extra)
 
     return program
 
@@ -147,11 +174,9 @@ def device_gar_step(engine, gar_device):
 
     def step(state, xs, ys, lr, masks=None, faults=None):
         engine.counts["device_gar_steps"] += 1
-        rng, mix_key, wkeys = engine.step_keys(state.rng)
         rng_host, member = engine.mirror_keys(state)
         batch = engine._batch_of(xs)
-        if masks is None:
-            masks = engine.draw_masks(wkeys, batch)
+        rng, mix_key, masks = engine.step_inputs(state, batch, masks)
         G_sampled, loss_avg, net_state, new_mw, G_honest = engine.phase_honest(
             state, xs, ys, lr, masks)
         G_honest, new_fb, fault = engine.phase_faults(state, G_honest, faults)

@@ -460,8 +460,13 @@ class Engine:
     def phase_honest(self, state, xs, ys, lr, masks=None):
         """Honest gradients, clipping, BN fold and momentum placement on
         the honest rows, on the dropout keep-masks `masks` (drawn from
-        the step's worker keys, `step_keys(state.rng)`, when None).
-        Returns (G_sampled, loss_avg, net_state, new_mw, G_honest)."""
+        the step's worker keys, `step_keys(state.rng)`, when None), in
+        the `honest` range (`program.scope`). Returns (G_sampled,
+        loss_avg, net_state, new_mw, G_honest)."""
+        with program.scope("honest"):
+            return self._phase_honest(state, xs, ys, lr, masks)
+
+    def _phase_honest(self, state, xs, ys, lr, masks):
         cfg = self.cfg
         S, h = cfg.nb_sampled, cfg.nb_honests
         lr = self.round_lr(lr)
@@ -516,10 +521,13 @@ class Engine:
         a schedule."""
         if self.faults is None:
             return G_honest, state.fault_buffer, None
-        if faults is None:
-            faults = self.faults.upload(state.steps, 1, G_honest.device).at(0)
-        return inject_mod.inject(faults, self.faults.has_stale, G_honest,
-                                 state.fault_buffer)
+        # The injection ends the honest phase, as in the JAX step
+        with program.scope("honest"):
+            if faults is None:
+                faults = self.faults.upload(state.steps, 1,
+                                            G_honest.device).at(0)
+            return inject_mod.inject(faults, self.faults.has_stale,
+                                     G_honest, state.fault_buffer)
 
     def defense_extras(self, out):
         """`phase_defense`'s output past its first four as `phase_update`'s
@@ -567,14 +575,17 @@ class Engine:
             return self.defense(gradients, draw(gradients))
 
         if cfg.nb_real_byz > 0:
-            kwargs = dict(f_decl=f, f_real=cfg.nb_real_byz, defense=defense,
-                          **self.attack_kwargs)
-            if self.attack.stateful:
-                G_attack, attack_state = self.attack.unchecked(
-                    G_honest, state=attack_state, **kwargs)
-            else:
-                G_attack = self.attack.unchecked(G_honest, **kwargs)
-            G_attack = G_attack.to(G_honest.dtype)
+            # The `attack` range holds the line search's defense calls:
+            # they nest `attack/.../gar` and belong to the attack
+            with program.scope("attack"):
+                kwargs = dict(f_decl=f, f_real=cfg.nb_real_byz,
+                              defense=defense, **self.attack_kwargs)
+                if self.attack.stateful:
+                    G_attack, attack_state = self.attack.unchecked(
+                        G_honest, state=attack_state, **kwargs)
+                else:
+                    G_attack = self.attack.unchecked(G_honest, **kwargs)
+                G_attack = G_attack.to(G_honest.dtype)
         else:
             G_attack = G_honest.new_zeros((0, self.d))
         G_all = torch.cat([G_honest, G_attack])
@@ -614,7 +625,12 @@ class Engine:
     def influence(self, G_honest, G_attack, member=None):
         """The attack acceptation ratio of the defense (`member` as for
         `program.defense_program`), an f32 0-d tensor, the JAX package's
-        `jnp.float32(influence)`: NaN for a GAR without one."""
+        `jnp.float32(influence)`: NaN for a GAR without one. A study
+        metric, in the `metrics` range."""
+        with program.scope("metrics"):
+            return self._influence(G_honest, G_attack, member)
+
+    def _influence(self, G_honest, G_attack, member):
         f = self.cfg.nb_decl_byz
 
         def one(gar, kwargs):
@@ -646,28 +662,35 @@ class Engine:
         rows, the aggregate and the parameters before and after the
         update (`engine/health.py`). Returns (new state, metrics)."""
         cfg = self.cfg
-        lr = self.round_lr(lr)
-        mu, one_damp = self.weak(cfg.momentum), self.weak(1.0 - cfg.dampening)
-        if cfg.momentum_at == "worker":
-            new_ms = state.momentum_server
-        elif cfg.momentum_at == "server":
-            new_ms = grad_defense
-        else:
-            new_ms = mu * state.momentum_server + one_damp * grad_defense
-        update_grad = new_ms if cfg.momentum_at == "update" else grad_defense
-        theta, opt_state = self.optimizer.update(
-            update_grad, state.opt_state, state.theta, lr)
+        with program.scope("update"):
+            lr = self.round_lr(lr)
+            mu = self.weak(cfg.momentum)
+            one_damp = self.weak(1.0 - cfg.dampening)
+            if cfg.momentum_at == "worker":
+                new_ms = state.momentum_server
+            elif cfg.momentum_at == "server":
+                new_ms = grad_defense
+            else:
+                new_ms = mu * state.momentum_server + one_damp * grad_defense
+            update_grad = (new_ms if cfg.momentum_at == "update"
+                           else grad_defense)
+            theta, opt_state = self.optimizer.update(
+                update_grad, state.opt_state, state.theta, lr)
 
         health = cfg.study and cfg.health
         sums = {} if health else None
         if cfg.study:
-            l2_origin = torch.sqrt(torch.sum((state.theta - state.origin) ** 2))
-            metrics, (pg, pn, pc) = metrics_mod.study_metrics(
-                loss_avg=loss_avg, l2_origin=l2_origin, G_sampled=G_sampled,
-                G_honest=G_honest, G_attack=G_attack,
-                grad_defense=grad_defense, accept_ratio=accept_ratio,
-                past_grads=state.past_grads, past_norms=state.past_norms,
-                past_count=state.past_count, momentum=cfg.momentum, sums=sums)
+            with program.scope("metrics"):
+                l2_origin = torch.sqrt(
+                    torch.sum((state.theta - state.origin) ** 2))
+                metrics, (pg, pn, pc) = metrics_mod.study_metrics(
+                    loss_avg=loss_avg, l2_origin=l2_origin,
+                    G_sampled=G_sampled, G_honest=G_honest,
+                    G_attack=G_attack, grad_defense=grad_defense,
+                    accept_ratio=accept_ratio, past_grads=state.past_grads,
+                    past_norms=state.past_norms,
+                    past_count=state.past_count, momentum=cfg.momentum,
+                    sums=sums)
         else:
             metrics = {}
             pg, pn, pc = state.past_grads, state.past_norms, state.past_count
@@ -678,9 +701,10 @@ class Engine:
         if health:
             # The health vector (`engine/health.py`), the study's sums of
             # squares reused
-            metrics.update(health_mod.health_metrics(
-                G_honest, G_attack, grad_defense, state.theta, theta,
-                sums=sums))
+            with program.scope("metrics"):
+                metrics.update(health_mod.health_metrics(
+                    G_honest, G_attack, grad_defense, state.theta, theta,
+                    sums=sums))
         new_state = TrainState(
             theta=theta, net_state=net_state, opt_state=opt_state,
             momentum_server=new_ms, momentum_workers=new_mw,
@@ -728,11 +752,9 @@ class Engine:
         `state.rng` (`step_keys`) and draws the dropout keep-masks from
         the worker keys (`draw_masks`), unless `masks` gives them; under
         a fault schedule `faults` gives its fault rows (`phase_faults`)."""
-        rng, mix_key, wkeys = self.step_keys(state.rng)
         rng_host, member = self.mirror_keys(state)
         batch = self._batch_of(xs)
-        if masks is None:
-            masks = self.draw_masks(wkeys, batch)
+        rng, mix_key, masks = self.step_inputs(state, batch, masks)
         G_sampled, loss_avg, net_state, new_mw, G_honest = self.phase_honest(
             state, xs, ys, lr, masks)
         G_honest, new_fb, fault = self.phase_faults(state, G_honest, faults)
@@ -743,6 +765,16 @@ class Engine:
             state, G_sampled, loss_avg, net_state, new_mw, G_honest,
             *defense[:4], lr, batch, rng=rng, rng_host=rng_host,
             **self.defense_extras(defense), fault_buffer=new_fb)
+
+    def step_inputs(self, state, batch, masks=None):
+        """The step's next key, mixture key and dropout keep-masks
+        (`step_keys`, `draw_masks`; `masks` where given), in the `honest`
+        range, where the JAX step splits its key and draws its masks."""
+        with program.scope("honest"):
+            rng, mix_key, wkeys = self.step_keys(state.rng)
+            if masks is None:
+                masks = self.draw_masks(wkeys, batch)
+        return rng, mix_key, masks
 
     def sample_indices(self, chunk=None, batchwise=False):
         """The host indices and flips of a step's batches

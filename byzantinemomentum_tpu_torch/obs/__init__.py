@@ -8,9 +8,15 @@
 * **heartbeat** (`heartbeat.py`): the atomically replaced
   `heartbeat.json`.
 * **perf** (`perf.py`): sliding-window steps/s, a chunk's device time
-  (CUDA events), host RSS.
+  (CUDA events), host RSS, and `--telemetry-mfu`'s `peak_flops`, `mfu`
+  and `logical_flops` (`FlopCounterMode` over the run's first chunk).
+* **attrib** (`attrib/`): phase attribution of a `torch.profiler`
+  window (`--attribution`, the SIGUSR1 window): `attribution.json`.
 * **report** (`report.py`, `python -m byzantinemomentum_tpu_torch.obs
-  <run_dir>`): the one-page text summary of a run directory.
+  <run_dir>`): the one-page text summary of a run directory;
+  `python -m byzantinemomentum_tpu_torch.obs --selfcheck [--device cpu]`
+  exercises the recorder, heartbeat, report, forensics, health monitor
+  and attribution (`__main__.py`).
 * **health** (`health/`): `HealthMonitor`, the online SPC over the
   `--health` vectors, its anomaly edges, the `--rollback-on-anomaly`
   trigger and the `health_blackbox.json` ring.
@@ -18,10 +24,9 @@
   diagnostics stream (`--gar-diagnostics`), emitting `suspect_worker`
   and `suspect_cleared`.
 
-Not ported yet: the profiler side (`attrib/`, `--trace-dir`,
-`--attribution`, `--telemetry-mfu`'s FLOP counting, the SIGUSR1 window,
-`--selfcheck`; `ROADMAP.md` section 1 item 4), and `trace/`, `metrics/`
-and the per-host heartbeats of the cluster (item 8).
+Not ported yet: `trace/`, `metrics/` and the per-host heartbeats of the
+cluster, with `--selfcheck`'s closed-loop and metrics parts (`ROADMAP.md`
+section 1 item 8).
 """
 
 from byzantinemomentum_tpu_torch.obs.recorder import (  # noqa: F401
@@ -44,6 +49,9 @@ from byzantinemomentum_tpu_torch.obs.perf import (  # noqa: F401
     SlidingRate,
     StepTimer,
     host_rss_mb,
+    logical_flops,
+    mfu,
+    peak_flops,
 )
 from byzantinemomentum_tpu_torch.obs.forensics import (  # noqa: F401
     COLLUSION_FRAC,
@@ -51,7 +59,7 @@ from byzantinemomentum_tpu_torch.obs.forensics import (  # noqa: F401
     SuspicionTracker,
     collusion_partners,
 )
-from byzantinemomentum_tpu_torch.obs import health  # noqa: F401
+from byzantinemomentum_tpu_torch.obs import attrib, health  # noqa: F401
 from byzantinemomentum_tpu_torch.obs.health import (  # noqa: F401
     HealthMonitor,
     load_blackbox,
@@ -60,5 +68,6 @@ from byzantinemomentum_tpu_torch.obs.health import (  # noqa: F401
 __all__ = ["TELEMETRY_NAME", "Telemetry", "activate", "active", "counter",
            "deactivate", "emit", "load_records", "span", "HEARTBEAT_NAME",
            "read_heartbeat", "write_heartbeat", "SlidingRate", "StepTimer",
-           "host_rss_mb", "SuspicionTracker", "Z_CLIP", "COLLUSION_FRAC",
+           "host_rss_mb", "peak_flops", "mfu", "logical_flops",
+           "attrib", "SuspicionTracker", "Z_CLIP", "COLLUSION_FRAC",
            "collusion_partners", "health", "HealthMonitor", "load_blackbox"]

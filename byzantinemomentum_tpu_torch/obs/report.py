@@ -13,9 +13,9 @@ bundles (`obs/trace/`) and replays a `metrics.jsonl` through the SLO
 evaluator (`obs/metrics/`); those read files of the cluster and the
 metrics plane, which the port does not have yet (`ROADMAP.md` section 1
 item 8) and which a port run directory never holds, so on a port run
-directory the JAX report and this one give the same text. The port does
-not write `attribution.json` yet either (`--attribution`, item 4); its
-section renders one where it is found.
+directory the JAX report and this one give the same text. The
+`attribution.json` of `--attribution` (`obs/attrib/`) renders as the
+"perf attribution" section.
 
 Entry point: `python -m byzantinemomentum_tpu_torch.obs <run_dir>`.
 """

@@ -1,6 +1,7 @@
-"""Logging, user errors, the `key:value` argument language and the plugin
-loader — the port's own copies of what it needs from
+"""Logging, user errors, the `key:value` argument language, the plugin
+loader and the one-time latch: the port's own copies of what it needs from
 `byzantinemomentum_tpu/utils/` (the port imports nothing of that package).
+The grid runner, `Jobs`, is `utils/jobs.py`, as in the JAX package.
 """
 
 import importlib
@@ -13,7 +14,7 @@ import numpy as np
 __all__ = ["UserException", "UnavailableException", "Context", "NamedLock",
            "trace", "info", "warning", "error", "fatal", "fatal_unavailable",
            "parse_keyval", "import_directory", "resolve_device",
-           "weak_scalar"]
+           "weak_scalar", "onetime"]
 
 
 class UserException(RuntimeError):
@@ -177,3 +178,28 @@ def import_directory(package, path):
         if child.name.startswith("_") or child.suffix != ".py":
             continue
         importlib.import_module(f"{package}.{child.stem}")
+
+
+def onetime(callback):
+    """Thread-safe one-time latch (`byzantinemomentum_tpu/utils/misc.py`):
+    returns `(trigger, is_triggered)`, where `trigger()` runs `callback`
+    (None for none) at most once; the driver's and the grid runner's
+    SIGINT/SIGTERM latch. The lock is re-entrant: a signal handler that
+    triggers runs on the main thread, which may hold it in
+    `is_triggered`."""
+    lock = threading.RLock()
+    state = {"done": False}
+
+    def trigger(*args, **kwargs):
+        with lock:
+            if state["done"]:
+                return
+            state["done"] = True
+        if callback is not None:
+            callback(*args, **kwargs)
+
+    def is_triggered():
+        with lock:
+            return state["done"]
+
+    return trigger, is_triggered

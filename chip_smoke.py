@@ -384,6 +384,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    driver's default M = 8
    (`chunk_profile`): wall and device-busy ms a step over one warm chunk
    of 8.
+6. Attribution and the grid: the headline
+   through the driver with `--attribution --telemetry-mfu` (16 steps, the
+   second chunk traced): its `attribution.json`'s phases tile `total_ms`;
+   the convolution backward kernels, launched from the autograd engine's
+   device thread, land in `honest` (the join by time); kernels 1
+   (`gram_tiled_kernel`) and 2 (`selected_median_mean_kernel`) land in
+   `gar`, as many as their wrappers' launch counters moved over the
+   window; `device_ms` within 10% of phase 5's `chunk_profile` busy time
+   of the headline, the phase sum within 15% of the traced chunk's
+   `device_step_ms` gauge, an `mfu` gauge in (0, 0.068] (f32 against the
+   bf16 peak); its steps/s beside the flag-free headline's
+   (`attribution_check`). Its child processes (`grid_children`,
+   `grid_children_verdict`), none of them timed, run earlier, beside the
+   health cells' children (phase 4, `health_cells`): `python -m
+   byzantinemomentum_tpu_torch.obs --selfcheck` on the card;
+   `reproduce.py::submit_mnist`'s Krum line at n = 51, unbounded in
+   practice, taking SIGUSR1 (an attributed `profile-<step>/` over one
+   chunk), then SIGTERM (exit 130, status `interrupted`); the same line
+   cut to 20 steps (checkpoints every 5) through the port's `Jobs`, its
+   first attempt killed at step 12 and resumed from checkpoint-10,
+   beside the same line uninterrupted, both under deterministic cuDNN
+   and cuBLAS: the study CSVs byte-equal but for the `Restarts` column,
+   the eval CSVs byte-equal.
 
 The line before the last is the `{"kernels": [...]}` record (one record
 per kernel and element type at the headline shape, launches summed over
@@ -413,6 +436,7 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -440,6 +464,7 @@ from byzantinemomentum_tpu_torch.engine import health as health_mod
 from byzantinemomentum_tpu_torch.engine.step import pin_precision
 from byzantinemomentum_tpu_torch.faults import inject, quorum, sanitize
 from byzantinemomentum_tpu_torch.models import core as core_mod
+from byzantinemomentum_tpu_torch.obs.perf import card_peaks
 from byzantinemomentum_tpu_torch.ops import (
     _common, _cuda, brute, bulyan, gar_kernels, gars, krum, mixture_kernels,
     prng_kernels, search_kernels, sort_kernels)
@@ -480,10 +505,6 @@ TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # tests/test_torch_ops.py's tolerances
 # every operation, as their plain versions do (tests/test_torch_gpu.py)
 HALF_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 DTYPE_NAMES = _cuda.DTYPE_NAMES
-# Published H100 peaks (NVIDIA data sheets): memory bytes/s, f32 FLOP/s
-# outside the tensor cores
-PEAKS = {"pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12),
-         "sxm": (3.35e12, 67e12)}
 # 32-bit integer operations a second: an SM has 64 INT32 lanes against
 # 128 FP32 lanes, and the f32 rate counts an FMA as 2 operations, so a
 # quarter of the f32 rate (16.75 T/s on the SXM part)
@@ -503,14 +524,6 @@ BEFORE_REDESIGN_MS = {"sq_gram": 0.3078, "weighted_rows_mean": 0.0888,
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_peaks(name):
-    low = name.lower()
-    for key in ("pcie", "nvl"):
-        if key in low:
-            return PEAKS[key]
-    return PEAKS["sxm"]
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -3399,13 +3412,14 @@ def health_children_verdict(tmp, procs, t0, smi):
         f"Rollbacks 0 then 1, rows 0-3 the uninterrupted run's on {smi}")
 
 
-def health_cells(smi, totals):
+def health_cells(smi, totals, grid_tmp):
     """The `health cells` phase: the timed runs first, on a card of their
     own (`headline_health`, the headline without telemetry, 48 steps with
     and without a rollback budget; their launches into `totals`), the f64
     recomputation and the chunk profile of `headline_health`; then the
-    children of `health_children`, and beside them `tighten_check` and
-    `anomaly_check`."""
+    children of `health_children` and of phase 6's `grid_children` (in
+    `grid_tmp`; none of their checks is timed), and beside them
+    `tighten_check` and `anomaly_check`."""
     for cell in (HEALTH_CELL, NO_TELEMETRY_CELL, *BUDGET_CELLS):
         for (kernel, dtype), count in drive(cell, smi).items():
             totals[kernel, dtype, cell.family] += count
@@ -3422,15 +3436,33 @@ def health_cells(smi, totals):
         tmp = pathlib.Path(tmp)
         t0 = time.perf_counter()
         procs = health_children(tmp)
+        grid = grid_children(grid_tmp)
         try:
-            tighten_check(smi, totals)
-            anomaly_check(smi)
+            try:
+                tighten_check(smi, totals)
+                anomaly_check(smi)
+            except BaseException:
+                for proc in procs.values():
+                    proc.kill()
+                    proc.wait()
+                raise
+            health_children_verdict(tmp, procs, t0, smi)
         except BaseException:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
+            grid_children_end(grid)
             raise
-        health_children_verdict(tmp, procs, t0, smi)
+        grid_children_verdict(grid_tmp, grid, smi)
+
+
+def device_work(events):
+    """The device's own events (kernels, copies, sets) among a profiler's
+    events or averages: the device-side spans of the engine's phase
+    ranges (`gpu_user_annotation`, open while a profiler runs,
+    `engine/program.py::scope`) are no device work."""
+    # A FunctionEvent has a `name`, a FunctionEventAvg a `key`
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and getattr(e, "name", getattr(e, "key", None))
+            not in obs.attrib.PHASES]
 
 
 def union_busy_us(prof):
@@ -3438,7 +3470,7 @@ def union_busy_us(prof):
     of the kernels' intervals on the device clock (kernels that overlap,
     as cuDNN's engines may, would count twice in a sum)."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in device_work(prof.events()))
     busy_us, reach = 0.0, -math.inf
     for start, end in spans:
         if end > reach:
@@ -3518,8 +3550,7 @@ def step_profile(cell, smi, steps=3, setup=None):
         for name, a, b in zip(phase_ms, marks, marks[1:]):
             phase_ms[name] += a.elapsed_time(b) / steps
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_work(prof.key_averages())
 
     def device_ms(event):
         total = getattr(event, "device_time_total", None)
@@ -4008,6 +4039,11 @@ def device_gar_cell(smi):
             f"on {smi}")
 
 
+# `chunk_profile`'s device-busy ms a step, by cell (phase 6 holds the
+# headline's attribution to it)
+CHUNK_BUSY_MS = {}
+
+
 def chunk_profile(cell, smi, M=M_DEFAULT, setup=None):
     """Phase 5 at the driver's default M: one warm chunk of `M` steps
     through `Engine.train_multi_indexed` (the index draw included) under
@@ -4025,11 +4061,291 @@ def chunk_profile(cell, smi, M=M_DEFAULT, setup=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / M
     busy_ms = union_busy_us(prof) / 1e3 / M
-    ops = sum(e.count for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA) // M
+    CHUNK_BUSY_MS[cell.name] = busy_ms
+    ops = sum(e.count for e in device_work(prof.key_averages())) // M
     log(f"{cell.name} chunk profile at M = {M} on {smi}: wall {wall_ms:.3f} "
         f"ms/step, device busy {busy_ms:.3f} ms/step "
         f"({100 * busy_ms / wall_ms:.1f}%), {ops} device ops/step")
+
+
+# Phase 6: the headline with the profiler flags through the driver
+ATTRIB_CELL = cifar_cell("headline_attribution", "bulyan", 5, EMPIRE,
+                         flags=("--attribution", "--telemetry-mfu"))
+# MFU of an f32 step against the bf16 peak stays below the f32 rate over
+# it: 67 / 989.4 TFLOP/s on the SXM part
+MFU_CEILING = 0.068
+# The grid runner's line: `reproduce.py::submit_mnist`'s Krum run at
+# n = 51, cut to GRID_STEPS steps with a checkpoint every 5; the first
+# attempt of the run named `killed` dies at GRID_KILL
+GRID_LINE = "mnist-empire-krum-f_24-lr_0.5-at_update"
+GRID_STEPS, GRID_KILL = 20, 12
+GRID_CHILD = "\n".join((
+    "import os, pathlib, sys",
+    "os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'",
+    "import torch",
+    "torch.backends.cudnn.deterministic = True",
+    "torch.use_deterministic_algorithms(True, warn_only=True)",
+    "d = pathlib.Path(sys.argv[sys.argv.index('--result-directory') + 1])",
+    "fuse = d.parent / 'fuse'",
+    "if d.name.startswith('killed') and not fuse.exists():",
+    "    fuse.write_text('blown')",
+    f"    os.environ['BMT_CHAOS_KILL_AT_STEP'] = '{GRID_KILL}'",
+    "from byzantinemomentum_tpu_torch.cli.attack import main",
+    "sys.exit(main(sys.argv[1:]))"))
+
+
+def attribution_check(smi):
+    """Phase 6, the headline with `--attribution --telemetry-mfu` in this
+    process: the traced chunk's attribution against the launch counters
+    (snapshotted as the driver opens and closes the window), the thread
+    join of the backward kernels, phase 5's busy time, the gauge, MFU."""
+    wrappers = {"sq_gram": (gar_kernels.sq_gram, "gram_tiled_kernel"),
+                "selected_median_mean": (gar_kernels.selected_median_mean,
+                                         "selected_median_mean_kernel")}
+    marks = []
+    start, stop = driver._start_profiler, driver._stop_profiler
+
+    def marked(fn):
+        def call(*args):
+            marks.append({name: wrapper.launches
+                          for name, (wrapper, _) in wrappers.items()})
+            return fn(*args)
+        return call
+
+    driver._start_profiler, driver._stop_profiler = marked(start), marked(stop)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            resdir = pathlib.Path(tmp)
+            summary, _ = _quiet_run(cell_argv(ATTRIB_CELL, STEPS, tmp))
+            att = obs.attrib.load_attribution(resdir)
+            trace = obs.attrib.kineto.load_trace(resdir / "attribution-trace")
+            records = obs.load_records(resdir)
+    finally:
+        driver._start_profiler, driver._stop_profiler = start, stop
+    name = ATTRIB_CELL.name
+    if att is None or att["steps"] != M_DEFAULT or len(marks) != 2:
+        raise SystemExit(f"{name}: no attribution of one {M_DEFAULT}-step "
+                         f"chunk ({att and att['steps']}, {len(marks)} "
+                         f"profiler calls)")
+    phase_sum = sum(p["ms"] for p in att["phases"].values())
+    if abs(phase_sum - att["total_ms"]) > 1e-9 * att["total_ms"]:
+        raise SystemExit(f"{name}: phases {phase_sum} do not tile "
+                         f"{att['total_ms']}")
+    events = obs.attrib.kineto.op_events(trace)
+    raw = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((e for e in raw if e.get("cat") in
+                     ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    launch_tid = {(e.get("args") or {}).get("correlation"): e.get("tid")
+                  for e in raw if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")}
+    dispatching = {e.get("tid") for e in raw
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") == "honest"}
+    # The kernels the autograd engine's device thread launched: the
+    # backward, outside every range of that thread
+    backward = [event for event, e in zip(events, device)
+                if launch_tid.get((e.get("args") or {}).get("correlation"),
+                                  next(iter(dispatching))) not in dispatching]
+    convs = [e for e in backward if obs.attrib.op_class_of(e.name) == "mxu"]
+    stray = {obs.attrib.phase_of(e.scope) for e in backward} - {"honest"}
+    if not convs or stray:
+        raise SystemExit(f"{name}: {len(backward)} kernels launched off the "
+                         f"dispatching thread, {len(convs)} GEMM/convolution "
+                         f"ones, phases outside honest {stray}")
+    delta = {kernel: marks[1][kernel] - marks[0][kernel] for kernel in wrappers}
+    found = {}
+    for kernel, (_, device_name) in wrappers.items():
+        hits = [e for e in events if device_name in e.name]
+        where = {obs.attrib.phase_of(e.scope) for e in hits}
+        found[kernel] = len(hits)
+        if len(hits) != delta[kernel] or not hits or where != {"gar"}:
+            raise SystemExit(f"{name}: {len(hits)} {device_name} events in "
+                             f"phases {where}, the launch counter moved "
+                             f"{delta[kernel]} over the window")
+    busy = CHUNK_BUSY_MS["headline"]
+    if abs(att["device_ms"] - busy) > 0.10 * busy:
+        raise SystemExit(f"{name}: device_ms {att['device_ms']:.3f} against "
+                         f"the headline's chunk-profile busy {busy:.3f}")
+    gauges = [r["value"] for r in records if r["kind"] == "gauge"
+              and r["name"] == "device_step_ms"
+              and (r.get("data") or {}).get("step") == STEPS]
+    if not gauges or abs(phase_sum - gauges[-1]) > 0.15 * gauges[-1]:
+        raise SystemExit(f"{name}: phase sum {phase_sum:.3f} ms against the "
+                         f"traced chunk's device_step_ms {gauges}")
+    mfus = [r["value"] for r in records if r["kind"] == "gauge"
+            and r["name"] == "mfu"]
+    flops = [r["data"]["flops"] for r in records
+             if r["name"] == "flops_per_step"]
+    if not mfus or not all(0.0 < v <= MFU_CEILING for v in mfus) or not flops:
+        raise SystemExit(f"{name}: mfu gauges {mfus}, flops {flops}")
+    RATES[name] = summary["steps_per_s"]
+    log(f"{name}: {att['total_ms']:.3f} ms a step over the traced chunk, "
+        f"device {att['device_ms']:.3f} (chunk profile's busy {busy:.3f}), "
+        f"host gap {att['host_gap_fraction']:.1%}, gauge {gauges[-1]:.3f}; "
+        f"phases (ms/step) " + ", ".join(
+            f"{k} {v['ms']:.3f} ({v['ops']} events)"
+            for k, v in att["phases"].items() if v["ms"] > 0.0)
+        + "; op classes " + ", ".join(f"{k} {v:.3f}" for k, v
+                                      in att["op_classes"].items())
+        + f"; {len(backward)} kernels from the autograd device thread in "
+        f"honest ({len(convs)} GEMM/convolution); gar: {found} as the "
+        f"counters moved; flops a step {flops[0]:.6e}, mfu {mfus}; "
+        f"{summary['steps_per_s']:.4f} steps/s against the flag-free "
+        f"headline's {RATES['headline']:.4f} on {smi}")
+
+
+def grid_children(tmp):
+    """Phase 6's child processes, started side by side: `python -m
+    byzantinemomentum_tpu_torch.obs --selfcheck` on the card, the SIGUSR1
+    run (`GRID_LINE`, unbounded in practice) and the port's `Jobs` over the
+    killed and the uninterrupted `GRID_LINE` cut to GRID_STEPS steps (its
+    worker threads started; `grid_verdict` waits for them)."""
+    from byzantinemomentum_tpu_torch import reproduce
+    from byzantinemomentum_tpu_torch.utils.jobs import Jobs
+
+    class Lines:
+        def __init__(self):
+            self.submitted = {}
+
+        def submit(self, name, command):
+            self.submitted[name] = command
+
+    lines = Lines()
+    reproduce.submit_mnist(lines)
+    line = lines.submitted[GRID_LINE][3:]  # less the launcher
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve()
+                                           .parent)}
+    tmp.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    with open(tmp / "selfcheck.out", "w") as out:
+        procs["selfcheck"] = subprocess.Popen(
+            [sys.executable, "-m", "byzantinemomentum_tpu_torch.obs",
+             "--selfcheck"], env=env, stdout=out, stderr=subprocess.STDOUT)
+    live = tmp / "live"
+    with open(f"{live}.out", "w") as out:
+        procs["sigusr1"] = subprocess.Popen(
+            [sys.executable, "-m", "byzantinemomentum_tpu_torch", *line,
+             "--device", "cuda", "--seed", "1", "--nb-steps", "100000",
+             "--result-directory", str(live)],
+            env=env, stdout=out, stderr=subprocess.STDOUT)
+    command = [sys.executable, "-c", GRID_CHILD, *line,
+               "--nb-steps", str(GRID_STEPS), "--checkpoint-delta", "5"]
+    jobs = Jobs(tmp / "grid", devices=("cuda",), supercharge=2, seeds=(1,),
+                max_retries=1, retry_backoff=0)
+    jobs.submit("killed", command)
+    jobs.submit("uninterrupted", command)
+    jobs.start()
+    procs["grid"] = jobs
+    return procs
+
+
+def sigusr1_verdict(tmp, proc, smi):
+    """The SIGUSR1 child: SIGUSR1 after its first heartbeat, SIGTERM once
+    the window is attributed; exit 130, `profile-<step>/` attributed over
+    one chunk (5 steps: the line evaluates every 5) with `honest` and
+    `gar` time, `run_end` `interrupted`."""
+    live = tmp / "live"
+    deadline = time.monotonic() + 300
+    signalled = False
+    while time.monotonic() < deadline and proc.poll() is None:
+        if not signalled and obs.read_heartbeat(live) is not None:
+            proc.send_signal(signal.SIGUSR1)
+            signalled = True
+        if signalled and _records(live, "attribution"):
+            break
+        time.sleep(0.2)
+    if proc.poll() is not None or not signalled:
+        raise SystemExit(f"SIGUSR1 run: no window before it ended "
+                         f"(rc {proc.poll()}):\n"
+                         + pathlib.Path(f"{live}.out").read_text()[-3000:])
+    proc.send_signal(signal.SIGTERM)
+    proc.wait(timeout=120)
+    windows = sorted(live.glob("profile-*"))
+    window = _records(live, "profiler_window")
+    end = _records(live, "run_end")
+    att = obs.attrib.load_attribution(windows[0]) if windows else None
+    if (proc.returncode != 130 or len(windows) != 1 or att is None
+            or att["steps"] != 5 or att["phases"]["honest"]["ms"] <= 0
+            or att["phases"]["gar"]["ms"] <= 0 or not window
+            or window[0]["to_step"] - window[0]["from_step"] != 5
+            or not end or end[-1]["status"] != "interrupted"):
+        raise SystemExit(f"SIGUSR1 run: rc {proc.returncode}, windows "
+                         f"{windows}, window {window}, run_end {end}, "
+                         f"attribution {att and att['phases']}")
+    log(f"SIGUSR1 -> SIGTERM run: window {windows[0].name} (steps "
+        f"{window[0]['from_step']}-{window[0]['to_step']}) attributed, "
+        f"{att['total_ms']:.3f} ms a step (honest "
+        f"{att['phases']['honest']['ms']:.3f}, gar "
+        f"{att['phases']['gar']['ms']:.3f}); exit 130, run_end "
+        f"'interrupted' at step {end[-1]['step']} on {smi}")
+
+
+def grid_verdict(tmp, procs, smi):
+    """The grid runner's runs, waited for: both done; the killed run's
+    first attempt died at GRID_KILL and the retry resumed from
+    checkpoint-10; its study CSV byte-equal to the uninterrupted run's
+    but for the `Restarts` column, its eval CSV byte-equal."""
+    procs["grid"].wait()
+    grid = tmp / "grid"
+    killed, ref = grid / "killed-1", grid / "uninterrupted-1"
+    if not killed.is_dir() or not ref.is_dir() or not (grid / "fuse").exists():
+        raise SystemExit(f"grid runner: {sorted(p.name for p in grid.iterdir())}")
+
+    def rows(path):
+        return [line.rsplit("\t", 1)[0] for line in
+                path.read_text().split(os.linesep)[1:]]
+
+    log_text = (killed / "stdout.log").read_text()
+    restarts = [line.rsplit("\t", 1)[1] for line in
+                (killed / "study").read_text().split(os.linesep)[1:]]
+    if ("restart #1 from checkpoint-10" not in log_text
+            or rows(killed / "study") != rows(ref / "study")
+            or len(restarts) != GRID_STEPS
+            or (killed / "eval").read_text() != (ref / "eval").read_text()):
+        raise SystemExit(f"grid runner: the resumed {GRID_LINE} differs from "
+                         f"the uninterrupted run (Restarts {restarts})")
+    log(f"grid runner: {GRID_LINE} at {GRID_STEPS} steps through Jobs, the "
+        f"first attempt killed at step {GRID_KILL}, resumed from "
+        f"checkpoint-10: study and eval byte-equal to the uninterrupted "
+        f"run's but for Restarts ({restarts[0]} .. {restarts[-1]}) under "
+        f"deterministic cuDNN on {smi}")
+
+
+def selfcheck_verdict(tmp, proc, smi):
+    """The `python -m byzantinemomentum_tpu_torch.obs --selfcheck` child,
+    on the card: rc 0, its `attribution:` line from a CUDA trace."""
+    rc = proc.wait(timeout=300)
+    out = (tmp / "selfcheck.out").read_text()
+    lines = [line for line in out.splitlines()
+             if line.startswith("attribution: ")]
+    if rc != 0 or len(lines) != 1 or "obs selfcheck: OK" not in out:
+        raise SystemExit(f"obs --selfcheck: rc {rc}:\n{out[-3000:]}")
+    data = json.loads(lines[0][len("attribution: "):])
+    if data["backend"] != "cuda":
+        raise SystemExit(f"obs --selfcheck ran on {data['backend']}")
+    log(f"obs --selfcheck on the card: {lines[0]} on {smi}")
+
+
+def grid_children_end(procs):
+    """Every child of `grid_children` ended: the unbounded ones killed,
+    the runner's waited for (its runs end by themselves)."""
+    for name in ("sigusr1", "selfcheck"):
+        if procs[name].poll() is None:
+            procs[name].kill()
+            procs[name].wait()
+    procs["grid"].wait()
+
+
+def grid_children_verdict(tmp, procs, smi):
+    """`grid_children`'s runs, each held by its verdict; every child
+    ended whatever fails."""
+    try:
+        sigusr1_verdict(tmp, procs["sigusr1"], smi)
+        selfcheck_verdict(tmp, procs["selfcheck"], smi)
+        grid_verdict(tmp, procs, smi)
+    finally:
+        grid_children_end(procs)
 
 
 def main():
@@ -4040,6 +4356,7 @@ def main():
 
     def lap(name):
         phases[name] = time.perf_counter() - t0 - sum(phases.values())
+        log(f"phase {name}: {phases[name]:.1f} s")
 
     smi = environment()
     write_fault_plans()
@@ -4078,7 +4395,8 @@ def main():
     lap("diag cells")
     fault_cells(smi, totals)
     lap("fault cells")
-    health_cells(smi, totals)
+    with tempfile.TemporaryDirectory() as grid_tmp:
+        health_cells(smi, totals, pathlib.Path(grid_tmp))
     lap("health cells")
     resume_check(smi)
     lap("resume")
@@ -4101,6 +4419,8 @@ def main():
             del setup
             torch.cuda.empty_cache()
             lap(f"profile {cell.name}")
+    attribution_check(smi)
+    lap("attribution")
     for record in records:
         record["launches"] = totals[split_record_name(record["name"])]
     log(f"seconds by phase: " + ", ".join(
